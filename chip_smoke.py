@@ -63,15 +63,14 @@ FWD_TOL, GRAD_TOL = 5e-3, 1.5e-2
 CHECK_TOL = 5e-2         # UNet output, kernel path vs plain path, relative
 OUT_DIR = Path("chiprun_out")
 
+# name -> (port source, the JAX package's entry to the TPU kernel, the Pallas
+# kernel it reaches inside jax/experimental/pallas/ops/tpu/splash_attention/)
 KERNELS = {
-    "splash_fwd": ("scal_sdt_tpu_torch/ops/csrc/splash_fwd.cu",
-                   "jax/experimental/pallas/ops/tpu/splash_attention/"
+    "splash_fwd": ("scal_sdt_tpu_torch/ops/csrc/splash_fwd.cu", "scal_sdt_tpu/ops/splash.py:88",
                    "splash_attention_kernel.py:1137"),
-    "splash_dq": ("scal_sdt_tpu_torch/ops/csrc/splash_bwd.cu",
-                  "jax/experimental/pallas/ops/tpu/splash_attention/"
+    "splash_dq": ("scal_sdt_tpu_torch/ops/csrc/splash_bwd.cu", "scal_sdt_tpu/ops/splash.py:88",
                   "splash_attention_kernel.py:1635"),
-    "splash_dkv": ("scal_sdt_tpu_torch/ops/csrc/splash_bwd.cu",
-                   "jax/experimental/pallas/ops/tpu/splash_attention/"
+    "splash_dkv": ("scal_sdt_tpu_torch/ops/csrc/splash_bwd.cu", "scal_sdt_tpu/ops/splash.py:88",
                    "splash_attention_kernel.py:2196"),
 }
 
@@ -134,7 +133,7 @@ def head_views(shape, gen: torch.Generator) -> torch.Tensor:
     return x.view(b, l, h, d).transpose(1, 2)
 
 
-def kernel_phase(shape, gen: torch.Generator, timed: bool) -> dict:
+def kernel_phase(shape, gen: torch.Generator) -> dict:
     b, h, l, d = shape
     scale = d ** -0.5
     q, k, v, do = (head_views(shape, gen) for _ in range(4))
@@ -175,27 +174,26 @@ def kernel_phase(shape, gen: torch.Generator, timed: bool) -> dict:
     check(all(res["autograd_err"][f"d{n}_rel"] <= GRAD_TOL for n in "qkv"),
           f"splash_attention gradients at {shape}: {res['autograd_err']}")
 
-    if timed:
-        res["ms"] = {
-            "splash_fwd": time_ms(lambda: splash.splash_fwd(qs, k, v)),
-            "splash_dq": time_ms(lambda: splash.splash_dq(qs, k, v, o, do, lse)),
-            "splash_dkv": time_ms(lambda: splash.splash_dkv(qs, k, v, do, lse, delta)),
-        }
-        res["plain_ms"] = {
-            "splash_fwd": time_ms(lambda: splash.splash_fwd_reference(qs, k, v), iters=3),
-            "splash_dq": time_ms(lambda: splash.splash_dq_reference(qs, k, v, o, do, lse),
-                                 iters=3),
-            "splash_dkv": time_ms(lambda: splash.splash_dkv_reference(qs, k, v, do, lse, delta),
-                                  iters=3),
-        }
-        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-        res["sdpa_fwd_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-        res["sdpa_bwd_ms"] = time_ms(
-            lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True))
-        del sdpa_out
-        res["bound"] = {n: list(v) for n, v in bounds_ms(b, h, l, l, d).items()}
+    res["ms"] = {
+        "splash_fwd": time_ms(lambda: splash.splash_fwd(qs, k, v)),
+        "splash_dq": time_ms(lambda: splash.splash_dq(qs, k, v, o, do, lse)),
+        "splash_dkv": time_ms(lambda: splash.splash_dkv(qs, k, v, do, lse, delta)),
+    }
+    res["plain_ms"] = {
+        "splash_fwd": time_ms(lambda: splash.splash_fwd_reference(qs, k, v), iters=3),
+        "splash_dq": time_ms(lambda: splash.splash_dq_reference(qs, k, v, o, do, lse),
+                             iters=3),
+        "splash_dkv": time_ms(lambda: splash.splash_dkv_reference(qs, k, v, do, lse, delta),
+                              iters=3),
+    }
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    res["sdpa_fwd_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    res["sdpa_bwd_ms"] = time_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True))
+    del sdpa_out
+    res["bound"] = {n: list(v) for n, v in bounds_ms(b, h, l, l, d).items()}
     del q, k, v, do, qs, o, lse, dq, delta, dk, dv
     torch.cuda.empty_cache()
     return res
@@ -326,8 +324,8 @@ def main(argv=None) -> int:
     log(f"build: {record['build_s']:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    record["kernels"] = [kernel_phase(s, gen, timed=True) for s in MAIN_SHAPES]
-    record["kernels_arb"] = kernel_phase(ARB_SHAPE, gen, timed=False)
+    record["kernels"] = [kernel_phase(s, gen) for s in MAIN_SHAPES]
+    record["kernels_arb"] = kernel_phase(ARB_SHAPE, gen)
     for r in record["kernels"] + [record["kernels_arb"]]:
         log(f"kernels {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
 
@@ -342,9 +340,10 @@ def main(argv=None) -> int:
 
     main_shape = record["kernels"][0]
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, pallas_kernel) in KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "pallas_kernel": pallas_kernel,
             "launches": record["train"]["launches"][name],
             "max_abs_err": max(r["err"][name] for r in record["kernels"] + [record["kernels_arb"]]),
             "ms": main_shape["ms"][name], "plain_ms": main_shape["plain_ms"][name],
@@ -355,7 +354,7 @@ def main(argv=None) -> int:
             "by_shape": [{"shape": r["shape"], "ms": r["ms"][name],
                           "plain_ms": r["plain_ms"][name], "bound_ms": r["bound"][name][0],
                           "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
-                         for r in record["kernels"]],
+                         for r in record["kernels"] + [record["kernels_arb"]]],
         })
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

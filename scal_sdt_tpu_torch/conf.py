@@ -62,23 +62,8 @@ class Config(dict):
     def get(self, key: str, default: Any = None) -> Any:
         return super().get(key, default)
 
-    def setdefault(self, key: str, default: Any = None) -> Any:
-        if key not in self:
-            self[key] = default
-        return self[key]
-
     def __deepcopy__(self, memo) -> "Config":
         return Config({k: copy.deepcopy(v, memo) for k, v in self.items()})
-
-    def to_dict(self) -> dict:
-        def unwrap(v):
-            if isinstance(v, Config):
-                return {k: unwrap(x) for k, x in v.items()}
-            if isinstance(v, list):
-                return [unwrap(x) for x in v]
-            return v
-
-        return unwrap(self)
 
 
 ConfigLike = Union[Config, dict, list]

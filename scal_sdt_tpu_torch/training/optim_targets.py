@@ -16,12 +16,7 @@ from typing import Iterable, Optional
 from ..conf import Config, merge
 
 # Checkpoint namespace of each component, as in the JAX training step.
-COMPONENT_PREFIX = {"unet": "unet", "text_encoder": "condition_model.encoder",
-                    "text_encoder_2": "condition_model.encoder_2",
-                    "text_encoder_3": "condition_model.encoder_3"}
-
-# Fixed buffers that never become trainable (the MMDiT's sincos table).
-BUFFERS = ("pos_embed.pos_embed",)
+COMPONENT_PREFIX = {"unet": "unet", "text_encoder": "condition_model.encoder"}
 
 
 @dataclasses.dataclass
@@ -67,8 +62,7 @@ def resolve_targets(component_targets: list, param_keys: Iterable[str]) -> Targe
     def leaf(prefix: str, node_config: Config):
         if node_config.get("lora") is not None:
             raise NotImplementedError(f"LoRA target {prefix}: the port does not run LoRA yet")
-        keys = [k for k in _module_param_keys(param_keys, prefix)
-                if k not in BUFFERS and not k.endswith(tuple("." + b for b in BUFFERS))]
+        keys = _module_param_keys(param_keys, prefix)
         if not keys:
             raise KeyError(f"Optim target {prefix} matches no parameters")
         result.trainable.extend(keys)
@@ -112,22 +106,17 @@ def resolve_targets(component_targets: list, param_keys: Iterable[str]) -> Targe
 
 
 def resolve_optim_target(optim_target: Config, unet_keys: Iterable[str],
-                         text_encoder_keys: Iterable[str],
-                         text_encoder_2_keys: Optional[Iterable[str]] = None,
-                         ) -> dict[str, TargetResolution]:
+                         text_encoder_keys: Iterable[str]) -> dict[str, TargetResolution]:
     """Resolve the full optim-target spec; components absent from the spec
-    get an empty resolution (frozen)."""
-    components = [("unet", unet_keys), ("text_encoder", text_encoder_keys)]
-    if text_encoder_2_keys is not None:
-        components.append(("text_encoder_2", text_encoder_2_keys))
+    get an empty resolution (frozen). SDXL's second text tower is a later
+    slice: a spec that addresses it is refused."""
+    if optim_target.get("text_encoder_2"):
+        raise NotImplementedError("optim target addresses text_encoder_2 (SDXL): not ported yet")
     out = {}
-    for name, keys in components:
+    for name, keys in (("unet", unet_keys), ("text_encoder", text_encoder_keys)):
         section = optim_target.get(name)
         out[name] = (TargetResolution(trainable=[], groups=[]) if section is None
                      else resolve_targets(section.targets, keys))
-    if text_encoder_2_keys is None and optim_target.get("text_encoder_2"):
-        raise ValueError("optim target addresses text_encoder_2 but the "
-                         "loaded model has no second text tower (not SDXL)")
     return out
 
 
