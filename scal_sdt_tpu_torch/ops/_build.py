@@ -20,17 +20,21 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("splash_fwd.cu", "splash_bwd.cu")
-HEADERS = ("splash_common.cuh",)
+SOURCES = ("splash_fwd.cu", "splash_bwd.cu", "adam8_fused.cu", "adam_bf16_fused.cu")
+HEADERS = ("splash_common.cuh", "adam_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
 # C entry points and their argument types (see the extern "C" blocks).
 _SIGNATURES = {
     "ssdt_splash_fwd": [_P] * 5 + [_I] * 5 + [_LL, _P],
     "ssdt_splash_dq": [_P] * 8 + [_I] * 5 + [_LL, _P],
     "ssdt_splash_dkv": [_P] * 8 + [_I] * 5 + [_LL, _P],
+    "ssdt_adam8_fused": [_P] * 10 + [_I] * 4 + [_F] * 7 + [_P],
+    "ssdt_adam_bf16_fused": ([_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_F] * 7
+                             + [_I, _I, ctypes.c_uint, _P]),
 }
 
 _library: ctypes.CDLL | None = None

@@ -38,11 +38,16 @@ def _murmur_mix(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def dither_seed(step: int, salt: int) -> int:
+    """The uint32 seed the counter hash adds to each index's product."""
+    return ((int(step) * 0x9E3779B9) & _U32) ^ (salt & _U32)
+
+
 def cheap_dither_u32(shape, step: int, salt: int, device) -> torch.Tensor:
     """32 hash bits per element of (element index, step, salt), as int32
     tensor holding the uint32 patterns of the JAX ``cheap_dither_u32``."""
     n = math.prod(shape) if shape else 1
-    seed = _i32(((int(step) * 0x9E3779B9) & _U32) ^ (salt & _U32))
+    seed = _i32(dither_seed(step, salt))
     i = torch.arange(max(n, 1), dtype=torch.int32, device=device)
     return _murmur_mix(i * _i32(2654435761) + seed).reshape(shape)
 

@@ -1,18 +1,24 @@
-"""Per-group AdamW over the trainable flat dict (port of the AdamW branch of
-``scal_sdt_tpu/training/optimizers.py``).
+"""Per-group optimizers over the trainable flat dict (port of the AdamW and
+AdamW8bit branches of ``scal_sdt_tpu/training/optimizers.py``).
 
-Each group runs the JAX chain in the same order and precision:
-``scale_by_adam_low_memory`` (fp32 moment math, configured moment storage,
-bf16 nu stored by stochastic rounding with the counter-hash dither), then
-decoupled weight decay as ``optax.add_decayed_weights`` computes it
-(``wd * p`` in the param dtype, added to the fp32 update), then the lr
-schedule (``-lr * schedule(count)``). This is not ``torch.optim.AdamW``,
-whose storage and rounding differ.
+Each group runs the JAX chain in the same order and precision.
 
-The state is host-side Python: one step count per group and the moment
-tensors per key. Elementwise math runs as ``torch._foreach_*`` over chunks
-of leaves, which bounds both the kernel launches and the fp32 temporaries.
-Other optimizer families and gradient accumulation are later slices.
+* AdamW: ``scale_by_adam_low_memory`` (fp32 moment math, configured moment
+  storage, bf16 nu stored by stochastic rounding with the counter-hash
+  dither), then decoupled weight decay as ``optax.add_decayed_weights``
+  computes it (``wd * p`` in the param dtype, added to the fp32 update),
+  then the lr schedule (``-lr * schedule(count)``). This is not
+  ``torch.optim.AdamW``, whose storage and rounding differ.
+* AdamW8bit: ``Adam8bit`` (``training/quantized.py``; the update in the
+  gradient's dtype), then the decay in the update's dtype
+  (``u + (wd * p).to(u.dtype)``), then the schedule with the step size cast
+  to the update's dtype first, as optax's ``scale_by_schedule`` does.
+
+The Adam step of each leaf is one launch of a fused kernel on the card
+(``ops/adam_bf16_fused.py``, ``ops/adam8_fused.py``) and the kernel's plain
+version on the CPU. The state is host-side Python (one step count per group)
+plus the moment tensors per key, which the update changes in place. Other
+optimizer families and gradient accumulation are later slices.
 """
 
 from __future__ import annotations
@@ -20,19 +26,19 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Callable, Iterator, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from ..conf import Config
-from .ema import stochastic_round_bf16_cheap
+from ..ops.adam_bf16_fused import adam_bf16_fused_update
+from .quantized import Adam8bit, Adam8bitState
 from .schedules import Schedule, build_lr_schedule
 
 _ADAMW_NAMES = {"adamw", "torch.optim.adamw", "bitsandbytes.optim.adamw"}
+_ADAMW_8BIT_NAMES = {"adamw8bit", "bitsandbytes.optim.adamw8bit"}
 _DTYPE_MAP = {"fp16": torch.float16, "fp32": torch.float32, "bf16": torch.bfloat16}
-# Elements per chunk of the foreach update (bounds the fp32 temporaries).
-_CHUNK_ELEMS = 1 << 26
 _NU_SALT = 0xE3A0003
 
 Tensors = dict[str, torch.Tensor]
@@ -87,21 +93,9 @@ class AdamState:
     nu: Tensors
 
 
-def _chunks(keys: list[str], tensors: Tensors) -> Iterator[list[str]]:
-    chunk, size = [], 0
-    for k in keys:
-        chunk.append(k)
-        size += tensors[k].numel()
-        if size >= _CHUNK_ELEMS:
-            yield chunk
-            chunk, size = [], 0
-    if chunk:
-        yield chunk
-
-
 @dataclasses.dataclass(frozen=True)
 class AdamW:
-    """One param group's transformation chain."""
+    """One param group's AdamW chain; the update comes out in fp32."""
     lr: float
     b1: float
     b2: float
@@ -121,42 +115,59 @@ class AdamW:
                ) -> tuple[Tensors, AdamState]:
         count = state.count + 1
         c = np.float32(count)
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** c)
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** c)
+        bc = (np.float32(1.0) - np.float32(self.b1) ** c,
+              np.float32(1.0) - np.float32(self.b2) ** c)
         # optax's scale_by_schedule sees the count before this update
         step_size = float(np.float32(-self.lr) * np.float32(self.schedule(state.count)))
-        b1, b2 = self.b1, self.b2
-        updates, mu_new, nu_new = {}, {}, {}
-        for keys in _chunks(sorted(grads), grads):
-            g32 = [grads[k].float() for k in keys]
-            mu32 = torch._foreach_add(torch._foreach_mul([state.mu[k].float() for k in keys], b1),
-                                      torch._foreach_mul(g32, 1.0 - b1))
-            nu32 = torch._foreach_add(torch._foreach_mul([state.nu[k].float() for k in keys], b2),
-                                      torch._foreach_mul(torch._foreach_mul(g32, g32), 1.0 - b2))
-            del g32
-            den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu32, bc2)), self.eps)
-            out = torch._foreach_div(torch._foreach_div(mu32, bc1), den)
-            del den
-            for k, o, m, n in zip(keys, out, mu32, nu32):
-                mu_new[k] = m.to(state.mu[k].dtype)
-                nu_dt = state.nu[k].dtype
-                if nu_dt.itemsize < 4:
-                    salt = zlib.crc32(k.encode()) ^ _NU_SALT
-                    nu_new[k] = stochastic_round_bf16_cheap(n, count, salt).to(nu_dt)
-                else:
-                    nu_new[k] = n.to(nu_dt)
-                if self.weight_decay:
-                    # JAX rounds the python scalar to p's dtype, then wd * p in it
-                    p = params[k]
-                    o = o + p * p.new_full((), self.weight_decay)
-                updates[k] = o.mul_(step_size)
-        return updates, AdamState(count=count, mu=mu_new, nu=nu_new)
+        updates = {}
+        for k in sorted(grads):
+            nu = state.nu[k]
+            sr = ({"sr_step": count, "sr_salt": zlib.crc32(k.encode()) ^ _NU_SALT}
+                  if nu.dtype.itemsize < 4 else {})
+            out = adam_bf16_fused_update(
+                grads[k].contiguous(), state.mu[k], nu, bc, b1=self.b1, b2=self.b2,
+                eps=self.eps, out_dtype=torch.float32, recip_bc=False, inplace=True, **sr)[0]
+            if self.weight_decay:
+                # JAX rounds the python scalar to p's dtype, then wd * p in it
+                p = params[k]
+                out = out + p * p.new_full((), self.weight_decay)
+            updates[k] = out.mul_(step_size)
+        return updates, AdamState(count=count, mu=state.mu, nu=state.nu)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW8bit:
+    """One param group's AdamW8bit chain: Adam8bit, decay and schedule, all
+    in the update's dtype (the gradient's: bf16 in mixed precision)."""
+    lr: float
+    b1: float
+    b2: float
+    eps: float
+    weight_decay: float
+    schedule: Schedule
+
+    def _adam(self) -> Adam8bit:
+        return Adam8bit(b1=self.b1, b2=self.b2, eps=self.eps)
+
+    def init(self, params: Tensors) -> Adam8bitState:
+        return self._adam().init(params)
+
+    def update(self, grads: Tensors, state: Adam8bitState, params: Tensors
+               ) -> tuple[Tensors, Adam8bitState]:
+        step_size = float(np.float32(-self.lr) * np.float32(self.schedule(state.count)))
+        updates, state = self._adam().update(grads, state)
+        for k, u in updates.items():
+            if self.weight_decay:
+                p = params[k]
+                u = u + (p * p.new_full((), self.weight_decay)).to(u.dtype)
+            updates[k] = u * u.new_full((), step_size)
+        return updates, state
 
 
 @dataclasses.dataclass(frozen=True)
 class MultiTransform:
-    """optax.multi_transform over group labels: key -> label -> AdamW."""
-    transforms: dict[str, AdamW]
+    """optax.multi_transform over group labels: key -> label -> group chain."""
+    transforms: dict[str, Union[AdamW, AdamW8bit]]
     labels: dict[str, str]
 
     def _split(self, tree: Tensors) -> dict[str, Tensors]:
@@ -165,12 +176,12 @@ class MultiTransform:
             out[self.labels[k]][k] = v
         return out
 
-    def init(self, params: Tensors) -> dict[str, AdamState]:
+    def init(self, params: Tensors) -> dict[str, object]:
         parts = self._split(params)
         return {label: tx.init(parts[label]) for label, tx in self.transforms.items()}
 
-    def update(self, grads: Tensors, state: dict[str, AdamState], params: Tensors
-               ) -> tuple[Tensors, dict[str, AdamState]]:
+    def update(self, grads: Tensors, state: dict[str, object], params: Tensors
+               ) -> tuple[Tensors, dict[str, object]]:
         g_parts, p_parts = self._split(grads), self._split(params)
         updates: Tensors = {}
         new_state = {}
@@ -186,8 +197,9 @@ def build_optimizer(config: Config, labels: dict[str, str],
     """(tx, lr_fn) for the trainable flat dict; lr_fn(step) is the first
     group's lr, for logging."""
     name = str(config.optimizer.name).lower()
-    if name not in _ADAMW_NAMES:
-        raise NotImplementedError(f"optimizer {name!r}: the port runs AdamW only so far")
+    if name not in _ADAMW_NAMES | _ADAMW_8BIT_NAMES:
+        raise NotImplementedError(
+            f"optimizer {name!r}: the port runs AdamW and AdamW8bit only so far")
     accumulate = int(config.trainer.get("accumulate_grad_batches", 1) or 1)
     if accumulate > 1:
         raise NotImplementedError("accumulate_grad_batches > 1: not ported yet")
@@ -196,16 +208,18 @@ def build_optimizer(config: Config, labels: dict[str, str],
     reduced_masters = str(config.optimizer.get("master_dtype", "fp32")) in ("bf16", "bfloat16")
     moment_dtypes = _adam_moment_dtype(config.optimizer.get("moment_dtype"), reduced_masters)
 
-    transforms: dict[str, AdamW] = {}
+    transforms: dict[str, Union[AdamW, AdamW8bit]] = {}
     first_lr_fn: Optional[Callable[[int], float]] = None
     for label in sorted(set(labels.values()) | set(group_overrides)):
         over = dict(group_overrides.get(label, {}))
         lr = float(over.get("lr", base["lr"])) * coeff
         wd = float(over.get("weight_decay", base["weight_decay"])) / coeff
         schedule = build_lr_schedule(config.optimizer, lr, steps_per_epoch)
-        transforms[label] = AdamW(lr=lr, b1=base["betas"][0], b2=base["betas"][1],
-                                  eps=float(base["eps"]), weight_decay=wd, schedule=schedule,
-                                  moment_dtypes=moment_dtypes)
+        hp = dict(lr=lr, b1=base["betas"][0], b2=base["betas"][1], eps=float(base["eps"]),
+                  weight_decay=wd, schedule=schedule)
+        # AdamW8bit stores its moments int8 whatever moment_dtype says, as in JAX
+        transforms[label] = (AdamW8bit(**hp) if name in _ADAMW_8BIT_NAMES
+                             else AdamW(**hp, moment_dtypes=moment_dtypes))
         if first_lr_fn is None:
             def first_lr_fn(step, _lr=lr, _s=schedule):
                 return float(np.float32(_lr) * np.float32(_s(step)))

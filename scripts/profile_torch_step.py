@@ -2,11 +2,12 @@
 
 Run from the repository root, on the card:
 
-    python3 -m scripts.profile_torch_step [--seed 0] [--steps 3]
+    python3 -m scripts.profile_torch_step [--seed 0] [--steps 3] [--optimizer adamw|adamw8bit]
 
 The workload is chip_smoke.py's train phase (SD1.5 at full width, 512^2,
-batch 8, cached latents/conds, bf16 masters and moments, no remat). After 3
-warm-up steps it measures:
+batch 8, cached latents/conds, bf16 masters, no remat) with bf16 moments
+(``adamw``, the default) or int8 moments (``adamw8bit``). After 3 warm-up
+steps it measures:
 
 * the step's three phases by CUDA events -- ``loss_and_grads``, the
   optimizer (``tx.update``), the master apply (``apply_updates``) -- the
@@ -16,7 +17,8 @@ warm-up steps it measures:
   the wall time the device was busy;
 * steps/s of the plain loop, and the card's clocks and power after it.
 
-Prints one summary line per item and writes chiprun_out/profile_torch_step.json.
+Prints one summary line per item and writes
+chiprun_out/profile_torch_step_<optimizer>.json.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from scal_sdt_tpu_torch.training import step as step_mod
 
 CATEGORIES = (  # first match wins; lower-case substrings of kernel names
     ("splash", ("splash",)),
+    ("optimizer_kernels", ("adam8_fused", "adam_bf16_fused")),
     ("optimizer_foreach", ("foreach", "multi_tensor")),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "matmul")),
@@ -44,6 +47,9 @@ CATEGORIES = (  # first match wins; lower-case substrings of kernel names
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "fill", "cat")),
 )
+
+
+OPTIMIZERS = {"adamw": "adamw", "adamw8bit": "bitsandbytes.optim.AdamW8bit"}
 
 
 def category(name: str) -> str:
@@ -115,16 +121,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--optimizer", choices=sorted(OPTIMIZERS), default="adamw")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA card", file=sys.stderr)
         return 2
-    setup = chip_smoke.setup_train(args.seed)
+    setup = chip_smoke.setup_train(args.seed, OPTIMIZERS[args.optimizer])
     for _ in range(3):
         setup["state"], m = setup["step_fn"](setup["state"], {}, setup["batch"])
     m["train_loss"].item()
 
-    result = {"device": torch.cuda.get_device_name(0)}
+    result = {"device": torch.cuda.get_device_name(0), "optimizer": OPTIMIZERS[args.optimizer]}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
@@ -140,7 +147,7 @@ def main(argv=None) -> int:
         print(f"{k}: {json.dumps(v)}", flush=True)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "profile_torch_step.json").write_text(json.dumps(result, indent=1))
+    (out / f"profile_torch_step_{args.optimizer}.json").write_text(json.dumps(result, indent=1))
     return 0
 
 
