@@ -257,14 +257,17 @@ def adam8_case(shape, gen: torch.Generator) -> dict:
     lead, minor = shape
     nb = -(-minor // adam8_fused.BLOCK)
     grad = lambda: (torch.randn(shape, generator=gen, device="cuda") * 1e-3).bfloat16()
-    zeros = [torch.zeros(lead, nb * adam8_fused.BLOCK, dtype=torch.int8, device="cuda"),
-             torch.zeros(lead, nb, device="cuda")] * 2
+    state = [torch.zeros(lead, nb * adam8_fused.BLOCK, dtype=torch.int8, device="cuda"),
+             torch.zeros(lead, nb, device="cuda")]
+    state += [t.clone() for t in state]
     hp = dict(b1=B1, b2=B2, eps=EPS)
     inv = lambda t: tuple(1.0 / (1.0 - b ** t) for b in (B1, B2))
-    state = adam8_fused.adam8_fused_update_reference(grad(), *zeros, *inv(1), **hp)[1:]
+    adam8_fused.adam8_fused_update_reference(grad(), *state, *inv(1), **hp)
     g = grad()
-    got = adam8_fused.adam8_fused_update(g, *state, *inv(2), **hp)
-    want = adam8_fused.adam8_fused_update_reference(g, *state, *inv(2), **hp)
+    # both sides update their own copy of the state in place
+    got = adam8_fused.adam8_fused_update(g, *(t.clone() for t in state), *inv(2), **hp)
+    want = adam8_fused.adam8_fused_update_reference(g, *(t.clone() for t in state), *inv(2),
+                                                    **hp)
     torch.cuda.synchronize()
     err = {"out": max_abs(got[0], want[0]), "out_rel": rel_err(got[0], want[0])}
     for i, name in ((1, "mu_q"), (3, "nu_q")):
@@ -278,14 +281,12 @@ def adam8_case(shape, gen: torch.Generator) -> dict:
     check(err["out_rel"] <= OPT_TOL and err["scales_rel"] <= OPT_TOL,
           f"adam8_fused disagrees at {shape}: {err}")
     del got, want
-    live = [t.clone() for t in state]   # timed in place, as the optimizer runs it
     n, nq = lead * minor, lead * nb * adam8_fused.BLOCK
     nbytes = 2 * n * g.element_size() + 2 * 2 * nq + 2 * 2 * lead * nb * 4
     return {"shape": list(shape), "err": err,
-            "ms": time_ms(lambda: adam8_fused.adam8_fused_update(g, *live, *inv(2), inplace=True,
-                                                                  **hp)),
+            "ms": time_ms(lambda: adam8_fused.adam8_fused_update(g, *state, *inv(2), **hp)),
             "plain_ms": time_ms(lambda: adam8_fused.adam8_fused_update_reference(
-                g, *live, *inv(2), inplace=True, **hp), iters=3),
+                g, *state, *inv(2), **hp), iters=3),
             "bytes": nbytes, "bound": list(bound(nbytes, ADAM8_OPS * nq)), "library_ms": None}
 
 
@@ -300,8 +301,9 @@ def adam_case(shape, m_dtype: torch.dtype, sr: bool, gen: torch.Generator) -> di
     bc = tuple(1.0 - b ** t for b in (B1, B2))
     kw = dict(b1=B1, b2=B2, eps=EPS, out_dtype=torch.float32 if sr else g.dtype,
               recip_bc=not sr, **({"sr_step": t, "sr_salt": 0x5EED} if sr else {}))
-    got = adam_bf16_fused.adam_bf16_fused_update(g, mu, nu, bc, **kw)
-    want = adam_bf16_fused.adam_bf16_fused_update_reference(g, mu, nu, bc, **kw)
+    # both sides update their own copy of the moments in place
+    got = adam_bf16_fused.adam_bf16_fused_update(g, mu.clone(), nu.clone(), bc, **kw)
+    want = adam_bf16_fused.adam_bf16_fused_update_reference(g, mu.clone(), nu.clone(), bc, **kw)
     torch.cuda.synchronize()
     err = {"out": max_abs(got[0], want[0]), "out_rel": rel_err(got[0], want[0]),
            "mu_equal": torch.equal(got[1], want[1]), "nu_equal": torch.equal(got[2], want[2])}
@@ -312,10 +314,9 @@ def adam_case(shape, m_dtype: torch.dtype, sr: bool, gen: torch.Generator) -> di
     out_size = torch.empty((), dtype=kw["out_dtype"]).element_size()
     nbytes = n * (g.element_size() + 4 * mu.element_size() + out_size)
     res = {"shape": list(shape), "moments": str(m_dtype), "sr": sr, "err": err,
-           "ms": time_ms(lambda: adam_bf16_fused.adam_bf16_fused_update(
-               g, mu, nu, bc, inplace=True, **kw)),
+           "ms": time_ms(lambda: adam_bf16_fused.adam_bf16_fused_update(g, mu, nu, bc, **kw)),
            "plain_ms": time_ms(lambda: adam_bf16_fused.adam_bf16_fused_update_reference(
-               g, mu, nu, bc, inplace=True, **kw), iters=3),
+               g, mu, nu, bc, **kw), iters=3),
            "bytes": nbytes, "bound": list(bound(nbytes, ADAM_OPS * n)), "library_ms": None}
     # nearest library call, not the same function: torch's fused AdamW over
     # bf16 param, gradient and moments of the same leaf

@@ -32,8 +32,8 @@ _SIGNATURES = {
     "ssdt_splash_fwd": [_P] * 5 + [_I] * 5 + [_LL, _P],
     "ssdt_splash_dq": [_P] * 8 + [_I] * 5 + [_LL, _P],
     "ssdt_splash_dkv": [_P] * 8 + [_I] * 5 + [_LL, _P],
-    "ssdt_adam8_fused": [_P] * 10 + [_I] * 4 + [_F] * 7 + [_P],
-    "ssdt_adam_bf16_fused": ([_P] * 6 + [ctypes.c_longlong] + [_I] * 4 + [_F] * 7
+    "ssdt_adam8_fused": [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P],
+    "ssdt_adam_bf16_fused": ([_P] * 4 + [ctypes.c_longlong] + [_I] * 4 + [_F] * 7
                              + [_I, _I, ctypes.c_uint, _P]),
 }
 

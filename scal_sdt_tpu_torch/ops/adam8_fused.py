@@ -6,7 +6,8 @@ per 256-element block of the leaf's (lead, minor) view (``training/
 quantized.py``). One kernel launch per leaf (``ops/csrc/adam8_fused.cu``)
 dequantizes both moments, runs Adam in fp32, writes
 ``mu*inv_bc1 / (sqrt(nu*inv_bc2) + eps)`` in the gradient's dtype and
-requantizes both moments, so the fp32 moments never reach device memory.
+requantizes both moments in place, so the fp32 moments never reach device
+memory.
 
 ``adam8_fused_update`` launches the kernel for CUDA tensors and runs
 ``adam8_fused_update_reference`` (the plain PyTorch version, the unfused
@@ -50,11 +51,10 @@ def dequantize_blocks(payload: torch.Tensor, scale: torch.Tensor) -> torch.Tenso
 
 def adam8_fused_update_reference(g2: torch.Tensor, mu_q: torch.Tensor, mu_s: torch.Tensor,
                                  nu_q: torch.Tensor, nu_s: torch.Tensor, inv_bc1: float,
-                                 inv_bc2: float, *, b1: float, b2: float, eps: float,
-                                 inplace: bool = False):
+                                 inv_bc2: float, *, b1: float, b2: float, eps: float):
     """Plain version: the gradient zero-padded to whole blocks, the moments
-    dequantized, updated and requantized in separate fp32 steps. Returns
-    (out, mu_q', mu_s', nu_q', nu_s') in the shapes of the inputs."""
+    dequantized, updated and requantized in separate fp32 steps, the state
+    written back in place. Returns (out, mu_q, mu_s, nu_q, nu_s)."""
     lead, minor = g2.shape
     nb = mu_s.shape[1]
     g3 = F.pad(g2.float(), (0, nb * BLOCK - minor)).view(lead, nb, BLOCK)
@@ -64,14 +64,11 @@ def adam8_fused_update_reference(g2: torch.Tensor, mu_q: torch.Tensor, mu_s: tor
     nu = nu * b2 + (g3 * g3) * (1.0 - b2)
     out = (mu * inv_bc1) / (torch.sqrt(nu * inv_bc2) + eps)
     out = out.view(lead, nb * BLOCK)[:, :minor].to(g2.dtype)
-    new = []
     for val, q_old, s_old in ((mu, mu_q, mu_s), (nu, nu_q, nu_s)):
         q, s = quantize_blocks(val)
-        q, s = q.view(lead, nb * BLOCK), s.view(lead, nb)
-        if inplace:
-            q, s = q_old.copy_(q), s_old.copy_(s)
-        new += [q, s]
-    return (out, *new)
+        q_old.copy_(q.view(lead, nb * BLOCK))
+        s_old.copy_(s.view(lead, nb))
+    return out, mu_q, mu_s, nu_q, nu_s
 
 
 def _check(g2, mu_q, mu_s, nu_q, nu_s) -> tuple[int, int, int]:
@@ -97,32 +94,30 @@ def _check(g2, mu_q, mu_s, nu_q, nu_s) -> tuple[int, int, int]:
 
 def adam8_fused_update(g2: torch.Tensor, mu_q: torch.Tensor, mu_s: torch.Tensor,
                        nu_q: torch.Tensor, nu_s: torch.Tensor, inv_bc1: float, inv_bc2: float,
-                       *, b1: float, b2: float, eps: float, inplace: bool = False):
+                       *, b1: float, b2: float, eps: float):
     """One fused Adam step over a leaf's 2-D view.
 
     g2: (lead, minor) gradient (fp32, bf16 or fp16; the update comes back in
     its dtype), the leaf with trailing dims merged and NOT padded; mu_q/nu_q:
     (lead, nb*256) int8 payloads; mu_s/nu_s: (lead, nb) fp32 scales,
     nb = ceil(minor/256); inv_bc1/inv_bc2: fp32 reciprocal bias corrections.
-    Returns (out, mu_q', mu_s', nu_q', nu_s'); with ``inplace`` the state
-    tensors are updated in place and returned."""
+    The state tensors are updated in place. Returns (out, mu_q, mu_s, nu_q,
+    nu_s)."""
     if not g2.is_cuda:
         return adam8_fused_update_reference(g2, mu_q, mu_s, nu_q, nu_s, inv_bc1, inv_bc2,
-                                            b1=b1, b2=b2, eps=eps, inplace=inplace)
+                                            b1=b1, b2=b2, eps=eps)
     lead, minor, nb = _check(g2, mu_q, mu_s, nu_q, nu_s)
     out = torch.empty_like(g2)
-    new = (mu_q, mu_s, nu_q, nu_s) if inplace else tuple(
-        torch.empty_like(t) for t in (mu_q, mu_s, nu_q, nu_s))
     if g2.numel() == 0:
-        return (out, *new)
+        return out, mu_q, mu_s, nu_q, nu_s
     f32 = ctypes.c_float
     lib = _build.load_library()
     with torch.cuda.device(g2.device):
         err = lib.ssdt_adam8_fused(
             g2.data_ptr(), mu_q.data_ptr(), mu_s.data_ptr(), nu_q.data_ptr(), nu_s.data_ptr(),
-            out.data_ptr(), *(t.data_ptr() for t in new), lead, minor, nb,
-            DTYPE_CODES[g2.dtype], f32(b1), f32(b2), f32(1.0 - b1), f32(1.0 - b2), f32(eps),
-            f32(inv_bc1), f32(inv_bc2), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), lead, minor, nb, DTYPE_CODES[g2.dtype], f32(b1), f32(b2),
+            f32(1.0 - b1), f32(1.0 - b2), f32(eps), f32(inv_bc1), f32(inv_bc2),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "adam8_fused", err)
     launches["adam8_fused"] += 1
-    return (out, *new)
+    return out, mu_q, mu_s, nu_q, nu_s

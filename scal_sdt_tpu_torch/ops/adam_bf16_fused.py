@@ -10,12 +10,12 @@ switches make one kernel compute each caller's chain exactly:
   ``bc = (1 - b1^t, 1 - b2^t)`` (the lab kernel; the int8 path's fp32-moment
   leaves), or divide by them (``scale_by_adam_low_memory``, the AdamW path);
 * ``sr_step`` / ``sr_salt``: store nu by the counter-hash stochastic rounding
-  to bf16 (``training/ema.py``) instead of rounding to nearest.
+  to bf16 (``ops/sr.py``) instead of rounding to nearest.
 
-``adam_bf16_fused_update`` launches the kernel for CUDA tensors and runs
-``adam_bf16_fused_update_reference`` (the plain PyTorch chain) for CPU
-tensors; it never falls back from one to the other. ``launches`` counts the
-kernel's launches.
+Both versions update mu and nu in place. ``adam_bf16_fused_update`` launches
+the kernel for CUDA tensors and runs ``adam_bf16_fused_update_reference``
+(the plain PyTorch chain) for CPU tensors; it never falls back from one to
+the other. ``launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..training.ema import dither_seed, stochastic_round_bf16_cheap
 from . import _build
+from .sr import dither_seed, stochastic_round_bf16_cheap
 
 # Storage dtypes the kernel reads and writes, by the code it takes.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -52,10 +52,10 @@ def adam_bf16_fused_update_reference(g: torch.Tensor, mu: torch.Tensor, nu: torc
                                      bc, *, b1: float, b2: float, eps: float,
                                      out_dtype: torch.dtype, recip_bc: bool,
                                      sr_step: Optional[int] = None,
-                                     sr_salt: Optional[int] = None, inplace: bool = False
+                                     sr_salt: Optional[int] = None
                                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version: (out, mu', nu'), every operation rounded to fp32 on
-    its own; mu' rounded to nearest, nu' by SR when ``sr_step`` is given."""
+    """Plain version: (out, mu, nu), every operation rounded to fp32 on its
+    own; mu stored rounded to nearest, nu by SR when ``sr_step`` is given."""
     c1, c2 = _factors(bc, recip_bc)
     g32 = g.float()
     m = mu.float() * b1 + g32 * (1.0 - b1)
@@ -64,14 +64,9 @@ def adam_bf16_fused_update_reference(g: torch.Tensor, mu: torch.Tensor, nu: torc
         out = (m * c1) / (torch.sqrt(v * c2) + eps)
     else:
         out = (m / c1) / (torch.sqrt(v / c2) + eps)
-    mu_new = m.to(mu.dtype)
-    if sr_step is not None:
-        nu_new = stochastic_round_bf16_cheap(v, sr_step, sr_salt).to(nu.dtype)
-    else:
-        nu_new = v.to(nu.dtype)
-    if inplace:
-        mu_new, nu_new = mu.copy_(mu_new), nu.copy_(nu_new)
-    return out.to(out_dtype), mu_new, nu_new
+    mu.copy_(m)
+    nu.copy_(v if sr_step is None else stochastic_round_bf16_cheap(v, sr_step, sr_salt))
+    return out.to(out_dtype), mu, nu
 
 
 def _check(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, out_dtype: torch.dtype) -> None:
@@ -92,25 +87,23 @@ def _check(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, out_dtype: torch
 def adam_bf16_fused_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, bc, *,
                            b1: float, b2: float, eps: float, out_dtype: torch.dtype,
                            recip_bc: bool, sr_step: Optional[int] = None,
-                           sr_salt: Optional[int] = None, inplace: bool = False
+                           sr_salt: Optional[int] = None
                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One Adam step over a leaf: (out in ``out_dtype``, mu', nu').
+    """One Adam step over a leaf: (out in ``out_dtype``, mu, nu), the
+    moments updated in place.
 
     g, mu, nu: tensors of one shape, each fp32, bf16 or fp16 (the moments in
-    their storage dtype). bc: the fp32 bias corrections (1 - b1^t, 1 - b2^t).
-    With ``inplace`` the moments are updated in place and returned."""
+    their storage dtype). bc: the fp32 bias corrections (1 - b1^t, 1 - b2^t)."""
     if (sr_step is None) != (sr_salt is None):
         raise ValueError("adam_bf16_fused: give both sr_step and sr_salt, or neither")
     if not g.is_cuda:
         return adam_bf16_fused_update_reference(
             g, mu, nu, bc, b1=b1, b2=b2, eps=eps, out_dtype=out_dtype, recip_bc=recip_bc,
-            sr_step=sr_step, sr_salt=sr_salt, inplace=inplace)
+            sr_step=sr_step, sr_salt=sr_salt)
     _check(g, mu, nu, out_dtype)
     out = torch.empty(g.shape, dtype=out_dtype, device=g.device)
-    mu_out = mu if inplace else torch.empty_like(mu)
-    nu_out = nu if inplace else torch.empty_like(nu)
     if g.numel() == 0:
-        return out, mu_out, nu_out
+        return out, mu, nu
     c1, c2 = _factors(bc, recip_bc)
     sr = sr_step is not None
     seed = dither_seed(sr_step, sr_salt) if sr else 0
@@ -118,11 +111,11 @@ def adam_bf16_fused_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, 
     lib = _build.load_library()
     with torch.cuda.device(g.device):
         err = lib.ssdt_adam_bf16_fused(
-            g.data_ptr(), mu.data_ptr(), nu.data_ptr(), out.data_ptr(), mu_out.data_ptr(),
-            nu_out.data_ptr(), g.numel(), DTYPE_CODES[g.dtype], DTYPE_CODES[mu.dtype],
+            g.data_ptr(), mu.data_ptr(), nu.data_ptr(), out.data_ptr(), g.numel(),
+            DTYPE_CODES[g.dtype], DTYPE_CODES[mu.dtype],
             DTYPE_CODES[nu.dtype], DTYPE_CODES[out_dtype], f32(b1), f32(b2), f32(1.0 - b1),
             f32(1.0 - b2), f32(eps), f32(c1), f32(c2), int(recip_bc), int(sr), seed,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "adam_bf16_fused", err)
     launches["adam_bf16_fused"] += 1
-    return out, mu_out, nu_out
+    return out, mu, nu

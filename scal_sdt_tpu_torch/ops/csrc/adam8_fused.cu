@@ -16,7 +16,7 @@
 // touches shared memory and no block waits on another. The TPU kernel's
 // lane-padded scale panels existed for the TPU's DMA and VMEM tiling and
 // have no counterpart here: each warp reads and writes its two scales
-// directly. The state may be updated in place: a warp reads its whole block
+// directly. The state is updated in place: a warp reads its whole block
 // before it writes it.
 //
 // What bounds it on an H100: bytes. Per element it reads a bf16 gradient and
@@ -35,15 +35,11 @@ constexpr int kWarpsPerCta = 8;
 
 struct Adam8Args {
   const void* g;          // (lead, minor), g_dtype
-  const int8_t* mu_q;     // (lead, nb * 256)
-  const float* mu_s;      // (lead, nb)
-  const int8_t* nu_q;
-  const float* nu_s;
+  int8_t* mu_q;           // (lead, nb * 256), updated in place
+  float* mu_s;            // (lead, nb), updated in place
+  int8_t* nu_q;
+  float* nu_s;
   void* out;              // (lead, minor), g_dtype
-  int8_t* mu_q_out;
-  float* mu_s_out;
-  int8_t* nu_q_out;
-  float* nu_s_out;
   int lead, minor, nb, g_dtype;
   float b1, b2, omb1, omb2, eps, inv_bc1, inv_bc2;
 };
@@ -94,33 +90,28 @@ __global__ void __launch_bounds__(kWarpsPerCta * 32) adam8_fused_kernel(const Ad
       store_rn(a.out, a.g_dtype, row * a.minor + col,
                adam_step(mu[k], nu[k], a.inv_bc1, a.inv_bc2, a.eps, true));
   }
-  quantize_block(mu, a.mu_q_out + qoff, a.mu_s_out + soff, lane);
-  quantize_block(nu, a.nu_q_out + qoff, a.nu_s_out + soff, lane);
+  quantize_block(mu, a.mu_q + qoff, a.mu_s + soff, lane);
+  quantize_block(nu, a.nu_q + qoff, a.nu_s + soff, lane);
 }
 
 }  // namespace ssdt
 
 extern "C" {
 
-// g_dtype: 0 fp32, 1 bf16, 2 fp16 (the output takes the same dtype).
-int ssdt_adam8_fused(const void* g, const void* mu_q, const void* mu_s, const void* nu_q,
-                     const void* nu_s, void* out, void* mu_q_out, void* mu_s_out, void* nu_q_out,
-                     void* nu_s_out, int lead, int minor, int nb, int g_dtype, float b1, float b2,
-                     float omb1, float omb2, float eps, float inv_bc1, float inv_bc2,
-                     void* stream) {
+// g_dtype: 0 fp32, 1 bf16, 2 fp16 (the output takes the same dtype). The
+// payloads and scales are updated in place.
+int ssdt_adam8_fused(const void* g, void* mu_q, void* mu_s, void* nu_q, void* nu_s, void* out,
+                     int lead, int minor, int nb, int g_dtype, float b1, float b2, float omb1,
+                     float omb2, float eps, float inv_bc1, float inv_bc2, void* stream) {
   using namespace ssdt;
   const long long warps = (long long)lead * nb;
   if (warps <= 0) return 0;
   Adam8Args a{g,
-              static_cast<const int8_t*>(mu_q),
-              static_cast<const float*>(mu_s),
-              static_cast<const int8_t*>(nu_q),
-              static_cast<const float*>(nu_s),
+              static_cast<int8_t*>(mu_q),
+              static_cast<float*>(mu_s),
+              static_cast<int8_t*>(nu_q),
+              static_cast<float*>(nu_s),
               out,
-              static_cast<int8_t*>(mu_q_out),
-              static_cast<float*>(mu_s_out),
-              static_cast<int8_t*>(nu_q_out),
-              static_cast<float*>(nu_s_out),
               lead, minor, nb, g_dtype, b1, b2, omb1, omb2, eps, inv_bc1, inv_bc2};
   const long long blocks = (warps + kWarpsPerCta - 1) / kWarpsPerCta;
   adam8_fused_kernel<<<(unsigned int)blocks, kWarpsPerCta * 32, 0,

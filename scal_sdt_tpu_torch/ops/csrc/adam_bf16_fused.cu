@@ -17,8 +17,8 @@
 // and an fp32 output) for ~15 flops, far below the ~295 flop/byte ridge.
 // This first version is a grid-stride loop, one element per thread and
 // iteration, with the dtypes read at run time (warp-uniform branches); the
-// moments may be updated in place (outputs aliasing inputs), since each
-// element is read and written by the same thread.
+// moments are updated in place, each element read and written by the same
+// thread.
 
 #include "adam_common.cuh"
 
@@ -26,11 +26,9 @@ namespace ssdt {
 
 struct AdamArgs {
   const void* g;
-  const void* mu;
-  const void* nu;
+  void* mu;
+  void* nu;
   void* out;
-  void* mu_out;
-  void* nu_out;
   long long n;
   int g_dtype, mu_dtype, nu_dtype, out_dtype;
   float b1, b2, omb1, omb2, eps, c1, c2;
@@ -45,11 +43,11 @@ __global__ void __launch_bounds__(256) adam_bf16_fused_kernel(const AdamArgs a) 
     const float m = adam_mu(load_as_float(a.mu, a.mu_dtype, i), g, a.b1, a.omb1);
     const float v = adam_nu(load_as_float(a.nu, a.nu_dtype, i), g, a.b2, a.omb2);
     store_rn(a.out, a.out_dtype, i, adam_step(m, v, a.c1, a.c2, a.eps, a.recip != 0));
-    store_rn(a.mu_out, a.mu_dtype, i, m);
+    store_rn(a.mu, a.mu_dtype, i, m);
     if (a.sr) {
-      store_sr(a.nu_out, a.nu_dtype, i, v, a.seed);
+      store_sr(a.nu, a.nu_dtype, i, v, a.seed);
     } else {
-      store_rn(a.nu_out, a.nu_dtype, i, v);
+      store_rn(a.nu, a.nu_dtype, i, v);
     }
   }
 }
@@ -60,14 +58,14 @@ extern "C" {
 
 // dtypes: 0 fp32, 1 bf16, 2 fp16. c1, c2: bias corrections (recip = 0) or
 // their fp32 reciprocals (recip = 1). seed: step * 0x9E3779B9 ^ salt (sr = 1).
-int ssdt_adam_bf16_fused(const void* g, const void* mu, const void* nu, void* out,
-                         void* mu_out, void* nu_out, long long n, int g_dtype, int mu_dtype,
-                         int nu_dtype, int out_dtype, float b1, float b2, float omb1, float omb2,
-                         float eps, float c1, float c2, int recip, int sr, unsigned int seed,
-                         void* stream) {
+// mu and nu are updated in place.
+int ssdt_adam_bf16_fused(const void* g, void* mu, void* nu, void* out, long long n, int g_dtype,
+                         int mu_dtype, int nu_dtype, int out_dtype, float b1, float b2,
+                         float omb1, float omb2, float eps, float c1, float c2, int recip, int sr,
+                         unsigned int seed, void* stream) {
   using namespace ssdt;
   if (n <= 0) return 0;
-  AdamArgs a{g, mu, nu, out, mu_out, nu_out, n, g_dtype, mu_dtype, nu_dtype, out_dtype,
+  AdamArgs a{g, mu, nu, out, n, g_dtype, mu_dtype, nu_dtype, out_dtype,
              b1, b2, omb1, omb2, eps, c1, c2, recip, sr, seed};
   constexpr int kThreadsPerBlock = 256;
   const long long want = (n + kThreadsPerBlock - 1) / kThreadsPerBlock;

@@ -11,7 +11,7 @@
 // them.
 //
 // The counter hash and the bf16 stochastic-rounding (SR) store are those of
-// scal_sdt_tpu_torch/training/ema.py (and of the JAX package's ema.py), in
+// scal_sdt_tpu_torch/ops/sr.py (and of the JAX package's ema.py), in
 // uint32 registers: h = murmur3_fmix(i * 2654435761 + seed) with
 // seed = step * 0x9E3779B9 ^ salt (computed on the host), i the element index
 // within the leaf; the high 16 bits of h are added to the fp32 pattern, which

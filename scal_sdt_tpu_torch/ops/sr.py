@@ -1,5 +1,7 @@
 """Counter-hash dither and bf16 stochastic rounding (port of the SR half of
-``scal_sdt_tpu/training/ema.py``; ``ema_update`` is a later slice).
+``scal_sdt_tpu/training/ema.py``): the plain version of the SR store that
+``ops/csrc/adam_common.cuh`` computes in the fused Adam kernel, and the SR of
+the master apply in ``training/step.py``.
 
 The bits match the JAX version exactly. torch has no general uint32
 arithmetic, so the hash runs on int32 tensors holding the uint32 bit

@@ -126,7 +126,7 @@ class AdamW:
                   if nu.dtype.itemsize < 4 else {})
             out = adam_bf16_fused_update(
                 grads[k].contiguous(), state.mu[k], nu, bc, b1=self.b1, b2=self.b2,
-                eps=self.eps, out_dtype=torch.float32, recip_bc=False, inplace=True, **sr)[0]
+                eps=self.eps, out_dtype=torch.float32, recip_bc=False, **sr)[0]
             if self.weight_decay:
                 # JAX rounds the python scalar to p's dtype, then wd * p in it
                 p = params[k]

@@ -7,9 +7,9 @@ scale per 256-element block of the leaf's (lead, minor) view: ``lead`` merges
 leading dims until the trailing product fits ``_MAX_NB`` blocks, and the
 minor is right-padded to whole blocks. The layout and shapes are the JAX
 package's, so a state carries across unchanged: payloads (lead, nb*256)
-int8, scales (lead, nb) fp32. Leaves below ``min_8bit_size`` elements
-(default: ``SSDT_INT8_FUSED_MIN`` or 2^18, the JAX package's variable) keep
-plain fp32 moments in their natural shape and have no scale entry.
+int8, scales (lead, nb) fp32. Leaves below ``SSDT_INT8_FUSED_MIN`` elements
+(default 2^18; the JAX package reads the same variable) keep plain fp32
+moments in their natural shape and have no scale entry.
 
 ``Adam8bit.update`` runs the int8 leaves through ``ops/adam8_fused.py`` and
 the fp32-moment leaves through ``ops/adam_bf16_fused.py`` (reciprocal bias
@@ -23,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Optional
 
 import numpy as np
 import torch
@@ -105,13 +104,9 @@ class Adam8bit:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
-    min_8bit_size: Optional[int] = None
-
-    def _min_size(self) -> int:
-        return _min_8bit_size() if self.min_8bit_size is None else self.min_8bit_size
 
     def init(self, params: Tensors) -> Adam8bitState:
-        min_size = self._min_size()
+        min_size = _min_8bit_size()
         mu_q, mu_s = {}, {}
         for k, p in params.items():
             if not _stores_int8(p.shape, min_size):
@@ -136,11 +131,11 @@ class Adam8bit:
             if k not in state.mu_s:
                 updates[k] = adam_bf16_fused_update(
                     g.contiguous(), state.mu_q[k], state.nu_q[k], bc, out_dtype=g.dtype,
-                    recip_bc=True, inplace=True, **hp)[0]
+                    recip_bc=True, **hp)[0]
                 continue
             lead, minor, _ = _leaf_view(g.shape)
             out = adam8_fused_update(g.reshape(lead, minor).contiguous(), state.mu_q[k],
                                      state.mu_s[k], state.nu_q[k], state.nu_s[k], inv_bc1,
-                                     inv_bc2, inplace=True, **hp)[0]
+                                     inv_bc2, **hp)[0]
             updates[k] = out.view(g.shape)
         return updates, dataclasses.replace(state, count=count)

@@ -29,7 +29,7 @@ from ..conf import Config
 from ..diffusion.schedule import NoiseSchedule
 from ..models.functional import Params
 from ..models.unet import UNetConfig, unet_apply
-from .ema import stochastic_round_bf16_cheap
+from ..ops.sr import stochastic_round_bf16_cheap
 from .optim_targets import COMPONENT_PREFIX
 
 UNET_PREFIX = COMPONENT_PREFIX["unet"]

@@ -1,18 +1,14 @@
-"""The port's fused Adam update (ops/adam_bf16_fused.py) and its AdamW8bit
-train step against the JAX package on the CPU.
+"""The port's fused Adam update (ops/adam_bf16_fused.py) against the JAX
+package on the CPU (the AdamW8bit train step that runs it is in
+tests/test_torch_step.py).
 
 * ``adam_bf16_fused_update_reference`` in the reciprocal form without SR
   against the lab kernel (``lab/micro_bf16_update.py``) in interpret mode:
   output within 1e-6 relative, moments identical (fp32) or within one bf16
   ulp (bf16);
-* the reference in the divide form with the nu SR store against
-  ``scale_by_adam_low_memory``: output within 2e-6 relative, moments within
-  one bf16 ulp;
-* one whole AdamW8bit train step on the tiny UNet against
-  ``make_train_step(..., pack_spec=None)``, with ``SSDT_INT8_FUSED_MIN``
-  lowered so tiny leaves take int8 moments: masters within one bf16 ulp of
-  the master before the step (the bf16 update may cancel most of it), int8
-  moments compared after dequantization.
+* the reference in the divide form against ``scale_by_adam_low_memory``,
+  with a bf16 nu stored by SR and with an fp32 nu: output within 2e-6
+  relative, bf16 moments within one bf16 ulp, fp32 nu within 1e-6 relative.
 """
 
 import ast
@@ -23,28 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
-from scal_sdt_tpu import conf as jconf
-from scal_sdt_tpu.models.clip import CLIPTextConfig
-from scal_sdt_tpu.models.unet import UNetConfig as JUNetConfig, unet_param_shapes
-from scal_sdt_tpu.models.vae import VAEConfig
-from scal_sdt_tpu.training import optim_targets as jtargets
 from scal_sdt_tpu.training import optimizers as jopt
-from scal_sdt_tpu.training import quantized as jq
-from scal_sdt_tpu.training import step as jstep
 
-from scal_sdt_tpu_torch import conf as tconf
-from scal_sdt_tpu_torch.convert.from_jax import opt_state_from_jax, params_from_jax
-from scal_sdt_tpu_torch.models.unet import UNetConfig as TUNetConfig
 from scal_sdt_tpu_torch.ops.adam_bf16_fused import adam_bf16_fused_update
-from scal_sdt_tpu_torch.training import optim_targets as ttargets
-from scal_sdt_tpu_torch.training import optimizers as topt
-from scal_sdt_tpu_torch.training import quantized as tq
-from scal_sdt_tpu_torch.training import step as tstep
 
-from torch_port_helpers import rand_unet_params
+from torch_port_helpers import assert_bf16_ulp, to_np as _np, to_torch as _t
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 LAB = Path(__file__).resolve().parents[1] / "lab" / "micro_bf16_update.py"
@@ -70,26 +51,6 @@ def _lab_kernel():
     ns: dict = {}
     exec(compile(ast.Module(body=keep, type_ignores=[]), str(LAB), "exec"), ns)
     return ns
-
-
-def _np(x):
-    if isinstance(x, torch.Tensor):
-        x = x.detach()
-        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
-    a = np.asarray(x)
-    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
-
-
-def _t(x):
-    return params_from_jax({"x": np.asarray(x)}, device="cpu")["x"]
-
-
-def _assert_bf16_ulp(got, want, what=""):
-    """Within one bf16 ulp: |a - b| <= 2^-7 max(|a|, |b|)."""
-    got, want = _np(got), _np(want)
-    bound = 2.0 ** -7 * np.maximum(np.abs(got), np.abs(want)) + 1e-30
-    bad = np.abs(got - want) > bound
-    assert not bad.any(), f"{what}: {bad.sum()} of {bad.size} differ by more than 1 ulp"
 
 
 def _moments(r, shape, minor, dtype):
@@ -135,13 +96,15 @@ def test_reference_matches_lab_kernel(shape, g_dtype, m_dtype):
     assert not _np(mu_o)[:, minor:].any() and not _np(nu_o)[:, minor:].any()
 
 
-@pytest.mark.parametrize("inplace", [False, True])
-def test_reference_matches_scale_by_adam_low_memory(inplace):
+@pytest.mark.parametrize("nu_dtype", [jnp.bfloat16, jnp.float32], ids=["bf16", "fp32"])
+def test_reference_matches_scale_by_adam_low_memory(nu_dtype):
     """The AdamW path's form: divide by the bias corrections, fp32 output,
-    bf16 nu stored by SR salted crc32(key) ^ 0xE3A0003."""
+    bf16 mu; a bf16 nu stored by SR salted crc32(key) ^ 0xE3A0003, an fp32
+    nu (moment_dtype "mixed") stored as it is."""
     r = np.random.RandomState(9)
     shapes = {"unet.a.weight": (48, 64), "unet.b.bias": (33,)}
-    jtx = jopt.scale_by_adam_low_memory(B1, B2, EPS, jnp.bfloat16, nu_dtype=jnp.bfloat16)
+    sr = nu_dtype == jnp.bfloat16
+    jtx = jopt.scale_by_adam_low_memory(B1, B2, EPS, jnp.bfloat16, nu_dtype=nu_dtype)
     params = {k: jnp.zeros(s, jnp.bfloat16) for k, s in shapes.items()}
     jstate = jtx.init(params)
     for count in (1, 2, 3):
@@ -155,13 +118,18 @@ def test_reference_matches_scale_by_adam_low_memory(inplace):
         for k in shapes:
             out, mu, nu = adam_bf16_fused_update(
                 _t(grads[k]), mu_in[k], nu_in[k], bc, b1=B1, b2=B2, eps=EPS,
-                out_dtype=torch.float32, recip_bc=False, sr_step=count,
-                sr_salt=zlib.crc32(k.encode()) ^ 0xE3A0003, inplace=inplace)
-            assert (mu is mu_in[k]) == inplace and (nu is nu_in[k]) == inplace
-            assert out.dtype == torch.float32 and nu.dtype == torch.bfloat16
+                out_dtype=torch.float32, recip_bc=False,
+                **({"sr_step": count, "sr_salt": zlib.crc32(k.encode()) ^ 0xE3A0003} if sr
+                   else {}))
+            assert mu is mu_in[k] and nu is nu_in[k]  # updated in place
+            assert out.dtype == torch.float32 and nu.dtype == _t(jstate.nu[k]).dtype
             np.testing.assert_allclose(_np(out), _np(ju[k]), rtol=2e-6, atol=1e-12)
-            _assert_bf16_ulp(mu, jstate.mu[k], f"mu {k} step {count}")
-            _assert_bf16_ulp(nu, jstate.nu[k], f"nu {k} step {count}")
+            assert_bf16_ulp(mu, jstate.mu[k], f"mu {k} step {count}")
+            if sr:
+                assert_bf16_ulp(nu, jstate.nu[k], f"nu {k} step {count}")
+            else:
+                np.testing.assert_allclose(_np(nu), _np(jstate.nu[k]), rtol=1e-6, atol=0,
+                                           err_msg=f"nu {k} step {count}")
 
 
 def test_sr_needs_step_and_salt():
@@ -169,99 +137,3 @@ def test_sr_needs_step_and_salt():
     with pytest.raises(ValueError, match="sr_step and sr_salt"):
         adam_bf16_fused_update(z, z, z, (0.1, 0.001), b1=B1, b2=B2, eps=EPS,
                                out_dtype=torch.float32, recip_bc=False, sr_step=1)
-
-
-def _opt_config(package):
-    return package.merge(package.default(), package.Config({
-        "batch_size": 2, "trainer": {"precision": "32"},
-        "optimizer": {"name": "bitsandbytes.optim.AdamW8bit", "master_dtype": "bf16",
-                      "params": {"lr": 1e-3, "beta1": 0.9, "beta2": 0.999,
-                                 "weight_decay": 1e-2, "eps": 1e-8},
-                      "lr_scale": {"enabled": False}}}))
-
-
-def _nchw(x):
-    return torch.from_numpy(np.array(x, np.float32).transpose(0, 3, 1, 2).copy())
-
-
-def _jax_draws(rng, spec, latents_shape):
-    """The noise and timesteps JAX's compute_loss draws from `rng` (no
-    noise offset, no multires noise)."""
-    _, _, rng_noise, rng_t, _ = jax.random.split(rng, 5)
-    noise = jax.random.normal(rng_noise, latents_shape, dtype=spec.compute_dtype)
-    t = spec.schedule.sample_timesteps(rng_t, latents_shape[0])
-    return tstep.Draws(noise=_nchw(noise), timesteps=torch.from_numpy(np.asarray(t, np.int64)))
-
-
-def test_adamw8bit_train_step_matches_jax(monkeypatch):
-    monkeypatch.setenv("SSDT_INT8_FUSED_MIN", "1024")
-    params = rand_unet_params(unet_param_shapes(JUNetConfig.tiny()), prefix="unet.")
-    r = np.random.RandomState(5)
-    batch = {"latents": r.randn(4, 8, 8, 4).astype(np.float32),
-             "conds": r.randn(4, 7, 32).astype(np.float32)}
-    cfg_j, cfg_t = _opt_config(jconf), _opt_config(tconf)
-    keys = [k[len("unet."):] for k in params]
-    labels_j = jtargets.group_labels(jtargets.resolve_optim_target(
-        jconf.load_optim_target("full_unet"), keys, []))
-    labels_t = ttargets.group_labels(ttargets.resolve_optim_target(
-        tconf.load_optim_target("full_unet"), keys, []))
-
-    jspec = jstep.StepSpec.from_config(cfg_j, JUNetConfig.tiny(), CLIPTextConfig.tiny(),
-                                       VAEConfig.tiny(), train_text_encoder=False)
-    tspec = tstep.StepSpec.from_config(cfg_t, TUNetConfig.tiny())
-    jtx, jlr = jopt.build_optimizer(cfg_j, labels_j, {}, 1000, 1)
-    ttx, tlr = topt.build_optimizer(cfg_t, labels_t, {}, 1000, 1)
-    jtrain = {k: jnp.asarray(v, jnp.bfloat16) for k, v in params.items()}
-    ttrain = params_from_jax({k: np.asarray(v) for k, v in jtrain.items()}, device="cpu")
-    rng = jax.random.PRNGKey(1)
-    jstate = jstep.init_train_state(rng, dict(jtrain), jtx, ema_enabled=False, ema_decay=0.99)
-    jfn = jstep.make_train_step(jspec, jtx, jlr, ema_enabled=False, donate=False, pack_spec=None)
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    tstate = tstep.init_train_state(ttrain, ttx, seed=0)
-    tfn = tstep.make_train_step(tspec, ttx, tlr)
-    tbatch = {"latents": _nchw(batch["latents"]), "conds": torch.from_numpy(batch["conds"])}
-
-    # the port's initial state has the JAX layout, leaf for leaf
-    init = opt_state_from_jax(jstate.opt_state, device="cpu")
-    for label, s in tstate.opt_state.items():
-        assert set(s.mu_s) == set(init[label].mu_s)
-        assert {k: v.shape for k, v in s.mu_q.items()} == {
-            k: v.shape for k, v in init[label].mu_q.items()}
-    n_int8 = sum(len(s.mu_s) for s in tstate.opt_state.values())
-    assert 10 < n_int8 < len(params) // 2
-
-    jnew, jmetrics = jfn(jstate, {}, jbatch)
-    draws = _jax_draws(jax.random.fold_in(rng, 0), jspec, batch["latents"].shape)
-    tnew, tmetrics = tfn(tstate, {}, tbatch, draws)
-
-    loss_j = float(jmetrics["train_loss"])
-    assert abs(float(tmetrics["train_loss"]) - loss_j) / loss_j < 1e-3
-    jopt_state = opt_state_from_jax(jnew.opt_state, device="cpu")
-    changed = 0
-    for k in params:
-        assert tnew.trainable[k].dtype == torch.bfloat16
-        # The update arrives in bf16 (the gradient's dtype), so where the
-        # master and its update cancel, the sum is held to one bf16 ulp of
-        # the larger operand (the old master), not of the small result
-        got, want, old = _np(tnew.trainable[k]), _np(jnew.trainable[k]), _np(ttrain[k])
-        bound = 2.0 ** -7 * np.maximum(np.maximum(np.abs(got), np.abs(want)), np.abs(old))
-        assert (np.abs(got - want) <= bound).all(), f"master {k}"
-        changed += int(not torch.equal(tnew.trainable[k], ttrain[k]))
-        got, want = tnew.opt_state[labels_t[k]], jopt_state[labels_j[k]]
-        assert got.count == want.count == 1
-        for q, s in (("mu_q", "mu_s"), ("nu_q", "nu_s")):
-            gq, wq = getattr(got, q)[k], getattr(want, q)[k]
-            if k in want.mu_s:
-                gs, ws = getattr(got, s)[k], getattr(want, s)[k]
-                lead, nb = ws.shape
-                gd = tq._dequantize_leaf(gq.view(lead, nb, -1), gs.view(lead, nb, 1))
-                wd = tq._dequantize_leaf(wq.view(lead, nb, -1), ws.view(lead, nb, 1))
-                # the gradients agree to ~1e-3, so a payload may sit one
-                # quantization step (scale) away
-                step = ws.view(lead, nb, 1).expand_as(wd)
-                assert (torch.abs(gd - wd) <= 1.01 * step + 1e-3 * wd.abs()).all(), f"{q} {k}"
-                np.testing.assert_allclose(_np(gs), _np(ws), rtol=2e-2, atol=1e-30)
-            else:
-                # fp32 moments carry the ~1e-3 gradient differences
-                assert torch.abs(gq - wq).max() <= 2e-2 * wq.abs().max() + 1e-30, f"{q} {k}"
-    assert changed > len(params) // 2

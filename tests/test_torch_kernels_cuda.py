@@ -63,16 +63,14 @@ def test_adam_bf16_fused_matches_reference_on_cuda(shape, g_dt, m_dt, out_dt, re
     kw = dict(b1=0.9, b2=0.999, eps=1e-8, out_dtype=out_dt, recip_bc=recip,
               **({"sr_step": 7, "sr_salt": 0x1234ABCD} if sr else {}))
     bc = (np.float32(1) - np.float32(0.9) ** 7, np.float32(1) - np.float32(0.999) ** 7)
-    want = AF.adam_bf16_fused_update_reference(g, mu, nu, bc, **kw)
+    want = AF.adam_bf16_fused_update_reference(g, mu.clone(), nu.clone(), bc, **kw)
     got = AF.adam_bf16_fused_update(g, mu, nu, bc, **kw)
     torch.cuda.synchronize()
     assert got[0].dtype == out_dt
     err = (got[0].float() - want[0].float()).abs().max() / want[0].float().abs().max()
     assert float(err) <= 1e-6
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-    mu2, nu2 = mu.clone(), nu.clone()
-    AF.adam_bf16_fused_update(g, mu2, nu2, bc, inplace=True, **kw)
-    assert torch.equal(mu2, want[1]) and torch.equal(nu2, want[2])
+    assert got[1] is mu and got[2] is nu  # updated in place
+    assert torch.equal(mu, want[1]) and torch.equal(nu, want[2])
 
 
 @pytest.mark.cuda
@@ -89,7 +87,8 @@ def test_adam8_fused_matches_reference_on_cuda(shape, zero):
     g = torch.from_numpy(r.randn(*shape).astype(np.float32)).cuda().bfloat16()
     if zero:
         state = [torch.zeros(lead, nb * A8.BLOCK, dtype=torch.int8, device="cuda"),
-                 torch.zeros(lead, nb, device="cuda")] * 2
+                 torch.zeros(lead, nb, device="cuda")]
+        state += [t.clone() for t in state]
     else:
         state = []
         for s in (0.1, 0.01):
@@ -97,9 +96,11 @@ def test_adam8_fused_matches_reference_on_cuda(shape, zero):
             q, sc = A8.quantize_blocks(m.cuda().view(lead, nb, A8.BLOCK))
             state += [q.view(lead, -1).contiguous(), sc.view(lead, nb).contiguous()]
     inv = (1 / (1 - 0.9 ** 7), 1 / (1 - 0.999 ** 7))
-    want = A8.adam8_fused_update_reference(g, *state, *inv, b1=0.9, b2=0.999, eps=1e-8)
+    want = A8.adam8_fused_update_reference(g, *(t.clone() for t in state), *inv, b1=0.9,
+                                           b2=0.999, eps=1e-8)
     got = A8.adam8_fused_update(g, *state, *inv, b1=0.9, b2=0.999, eps=1e-8)
     torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(got[1:], state))  # updated in place
     for name, a, b in zip(("out", "mu_q", "mu_s", "nu_q", "nu_s"), got, want):
         if name.endswith("_q"):
             d = (a.int() - b.int()).abs()

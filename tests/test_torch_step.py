@@ -8,8 +8,11 @@ Five checks, each on the same inputs in both packages:
 * compute_loss and its gradients, with the JAX draws injected, loss and
   gradients within 1e-3 relative;
 * one whole train step against ``make_train_step(..., pack_spec=None)``
-  (the port does not pack leaves into slabs): masters within 1 bf16 ulp,
-  moments within 1 bf16 ulp of each tensor's largest entry.
+  (the port does not pack leaves into slabs), with AdamW (bf16 moments):
+  masters within 1 bf16 ulp, moments within 1 bf16 ulp of each tensor's
+  largest entry; and with AdamW8bit (``SSDT_INT8_FUSED_MIN`` lowered so
+  tiny leaves take int8 moments): masters within 1 bf16 ulp plus 1 ulp of
+  the bf16 update, int8 moments compared after dequantization.
 JAX cannot hand its random stream to torch, so the port receives the JAX
 draws (noise, timesteps, offset, octaves) through ``Draws``.
 """
@@ -34,15 +37,16 @@ from scal_sdt_tpu.training import optimizers as jopt
 from scal_sdt_tpu.training import step as jstep
 
 from scal_sdt_tpu_torch import conf as tconf
-from scal_sdt_tpu_torch.convert.from_jax import params_from_jax
+from scal_sdt_tpu_torch.convert.from_jax import opt_state_from_jax, params_from_jax
 from scal_sdt_tpu_torch.diffusion.schedule import NoiseSchedule as TSchedule
 from scal_sdt_tpu_torch.models.unet import UNetConfig as TUNetConfig
-from scal_sdt_tpu_torch.training import ema as tema
+from scal_sdt_tpu_torch.ops import sr as tema
 from scal_sdt_tpu_torch.training import optim_targets as ttargets
 from scal_sdt_tpu_torch.training import optimizers as topt
+from scal_sdt_tpu_torch.training import quantized as tq
 from scal_sdt_tpu_torch.training import step as tstep
 
-from torch_port_helpers import rand_unet_params
+from torch_port_helpers import assert_bf16_ulp, bf16_ulp, rand_unet_params, to_np
 
 
 def _nchw(x):
@@ -54,14 +58,6 @@ def _f32(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
-
-
-def _assert_bf16_ulp(got, want, what=""):
-    """Within one bf16 ulp: |a - b| <= 2^-7 max(|a|, |b|)."""
-    got, want = _f32(got), _f32(want)
-    bound = 2.0 ** -7 * np.maximum(np.abs(got), np.abs(want)) + 1e-30
-    bad = np.abs(got - want) > bound
-    assert not bad.any(), f"{what}: {bad.sum()} of {bad.size} differ by more than 1 ulp"
 
 
 def _rel(a, b):
@@ -160,8 +156,8 @@ def test_adam_update_with_bf16_moments_matches_jax():
         for k in shapes:
             np.testing.assert_allclose(_f32(tu[k]), _f32(ju[k]), rtol=2e-6, atol=1e-12)
             assert tstate["g0"].mu[k].dtype == torch.bfloat16
-            _assert_bf16_ulp(tstate["g0"].mu[k], jmu[k], f"mu {k} step {i}")
-            _assert_bf16_ulp(tstate["g0"].nu[k], jnu[k], f"nu {k} step {i}")
+            assert_bf16_ulp(tstate["g0"].mu[k], jmu[k], f"mu {k} step {i}")
+            assert_bf16_ulp(tstate["g0"].nu[k], jnu[k], f"nu {k} step {i}")
         # carry identical state forward so each update is compared alone
         tstate["g0"].mu.update(params_from_jax({k: np.asarray(v) for k, v in jmu.items()},
                                                device="cpu"))
@@ -253,9 +249,55 @@ def test_compute_loss_and_grads_match_jax(tiny_unet):
 
 # --- 5. one whole step ----------------------------------------------------------
 
-def test_train_step_matches_jax(tiny_unet):
+def _check_adamw_state(tnew, jnew, ttrain, params, labels):
+    jmu, jnu = _jax_moments(jnew.opt_state, "mu"), _jax_moments(jnew.opt_state, "nu")
+    for k in params:
+        assert_bf16_ulp(tnew.trainable[k], jnew.trainable[k], f"master {k}")
+        group = tnew.opt_state[labels[k]]
+        assert _rel(group.mu[k], jmu[k]) <= 2.0 ** -7, f"mu {k}"
+        # moments carry the bf16 gradient, whose fp32 sums ran in another
+        # order before the bf16 store: near-zero entries differ by many of
+        # their own ulps, so moments are held to one ulp of the tensor's scale
+        assert _rel(group.nu[k], jnu[k]) <= 2.0 ** -7, f"nu {k}"
+
+
+def _check_adamw8bit_state(tnew, jnew, ttrain, params, labels):
+    jstate = opt_state_from_jax(jnew.opt_state, device="cpu")
+    for k in params:
+        # The update arrives in bf16 (the gradient's dtype) and the two
+        # packages' gradients differ by ~1e-3, so the updates may be one bf16
+        # ulp apart: the masters are held to one ulp of the new value plus
+        # one ulp of the update (new - old)
+        got, want, old = (to_np(x) for x in (tnew.trainable[k], jnew.trainable[k], ttrain[k]))
+        slack = bf16_ulp(np.maximum(np.abs(got - old), np.abs(want - old)))
+        assert_bf16_ulp(got, want, f"master {k}", slack=slack)
+        got, want = tnew.opt_state[labels[k]], jstate[labels[k]]
+        assert got.count == want.count == 1
+        for q, s in (("mu_q", "mu_s"), ("nu_q", "nu_s")):
+            gq, wq = getattr(got, q)[k], getattr(want, q)[k]
+            if k in want.mu_s:
+                gs, ws = getattr(got, s)[k], getattr(want, s)[k]
+                lead, nb = ws.shape
+                gd = tq._dequantize_leaf(gq.view(lead, nb, -1), gs.view(lead, nb, 1))
+                wd = tq._dequantize_leaf(wq.view(lead, nb, -1), ws.view(lead, nb, 1))
+                # the gradients agree to ~1e-3, so a payload may sit one
+                # quantization step (scale) away
+                step = ws.view(lead, nb, 1).expand_as(wd)
+                assert (torch.abs(gd - wd) <= 1.01 * step + 1e-3 * wd.abs()).all(), f"{q} {k}"
+                np.testing.assert_allclose(to_np(gs), to_np(ws), rtol=2e-2, atol=1e-30)
+            else:
+                # fp32 moments carry the ~1e-3 gradient differences
+                assert torch.abs(gq - wq).max() <= 2e-2 * wq.abs().max() + 1e-30, f"{q} {k}"
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "bitsandbytes.optim.AdamW8bit"])
+def test_train_step_matches_jax(tiny_unet, optimizer, monkeypatch):
     params, batch = tiny_unet
-    cfg_j, cfg_t = _opt_config(jconf), _opt_config(tconf)
+    int8 = optimizer != "adamw"
+    if int8:
+        # leaves of 1024 elements and more take int8 moments, in both packages
+        monkeypatch.setenv("SSDT_INT8_FUSED_MIN", "1024")
+    cfg_j, cfg_t = _opt_config(jconf, name=optimizer), _opt_config(tconf, name=optimizer)
     keys = [k[len("unet."):] for k in params]
     labels_j = jtargets.group_labels(jtargets.resolve_optim_target(
         jconf.load_optim_target("full_unet"), keys, []))
@@ -263,7 +305,7 @@ def test_train_step_matches_jax(tiny_unet):
         tconf.load_optim_target("full_unet"), keys, []))
     assert labels_t == labels_j
 
-    # JAX: bf16 masters, bf16 moments, fp32 compute, no slab packing
+    # JAX: bf16 masters, bf16 (or int8) moments, fp32 compute, no slab packing
     jspec, tspec = _specs({})
     jtx, jlr = jopt.build_optimizer(cfg_j, labels_j, {}, 1000, 1)
     jtrain = {k: jnp.asarray(v, jnp.bfloat16) for k, v in params.items()}
@@ -273,10 +315,20 @@ def test_train_step_matches_jax(tiny_unet):
     jstate = jstep.init_train_state(rng, dict(jtrain), jtx, ema_enabled=False, ema_decay=0.99)
     jfn = jstep.make_train_step(jspec, jtx, jlr, ema_enabled=False, donate=False, pack_spec=None)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jnew, jmetrics = jfn(jstate, {}, jbatch)
 
     ttx, tlr = topt.build_optimizer(cfg_t, labels_t, {}, 1000, 1)
     tstate = tstep.init_train_state(ttrain, ttx, seed=0)
+    if int8:
+        # the port's initial state has the JAX layout, leaf for leaf
+        init = opt_state_from_jax(jstate.opt_state, device="cpu")
+        for label, s in tstate.opt_state.items():
+            assert set(s.mu_s) == set(init[label].mu_s)
+            assert {k: v.shape for k, v in s.mu_q.items()} == {
+                k: v.shape for k, v in init[label].mu_q.items()}
+        n_int8 = sum(len(s.mu_s) for s in tstate.opt_state.values())
+        assert 10 < n_int8 < len(params) // 2
+    jnew, jmetrics = jfn(jstate, {}, jbatch)
+
     tfn = tstep.make_train_step(tspec, ttx, tlr)
     tbatch = {"latents": _nchw(batch["latents"]), "conds": torch.from_numpy(batch["conds"])}
     draws = _jax_draws(jax.random.fold_in(rng, 0), jspec, batch["latents"].shape)
@@ -286,16 +338,8 @@ def test_train_step_matches_jax(tiny_unet):
     loss_j = float(jmetrics["train_loss"])
     assert abs(float(tmetrics["train_loss"]) - loss_j) / loss_j < 1e-3
     assert tmetrics["lr"] == pytest.approx(float(jmetrics["lr"]), rel=1e-6)
-    jmu, jnu = _jax_moments(jnew.opt_state, "mu"), _jax_moments(jnew.opt_state, "nu")
-    changed = 0
-    for k in params:
-        assert tnew.trainable[k].dtype == torch.bfloat16
-        _assert_bf16_ulp(tnew.trainable[k], jnew.trainable[k], f"master {k}")
-        group = tnew.opt_state[labels_t[k]]
-        assert _rel(group.mu[k], jmu[k]) <= 2.0 ** -7, f"mu {k}"
-        # moments carry the bf16 gradient, whose fp32 sums ran in another
-        # order before the bf16 store: near-zero entries differ by many of
-        # their own ulps, so moments are held to one ulp of the tensor's scale
-        assert _rel(group.nu[k], jnu[k]) <= 2.0 ** -7, f"nu {k}"
-        changed += int(not torch.equal(tnew.trainable[k], ttrain[k]))
+    assert all(tnew.trainable[k].dtype == torch.bfloat16 for k in params)
+    check = _check_adamw8bit_state if int8 else _check_adamw_state
+    check(tnew, jnew, ttrain, params, labels_t)
+    changed = sum(int(not torch.equal(tnew.trainable[k], ttrain[k])) for k in params)
     assert changed > len(params) // 2
