@@ -19,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
               of splash_attention_reference. Bounds: forward 5e-3 max-abs,
               dq/dk/dv 1.5e-2 relative (those of the JAX splash tests). Times of
               the kernel, its plain version and torch's SDPA, and the least
-              time the card could take.
+              time the card could take (HBM bytes, tensor-core flops, or
+              exponentials on the exponential unit at the card's SM count
+              and maximum SM clock, whichever is largest).
 3. optim   -- the optimizer kernels against their plain versions at SD1.5 leaf
               shapes: adam8_fused at (1280, 23040) and the ragged (320, 2880),
               from a state quantized by one plain step (payloads at most 1
@@ -76,6 +78,7 @@ from scal_sdt_tpu_torch.training.step import StepSpec, init_train_state, make_tr
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+EXP_PER_CLOCK_PER_SM = 16  # MUFU.EX2 results per clock per SM (sm_90)
 MAIN_SHAPES = [(8, 8, 4096, 40), (8, 8, 1024, 80)]
 ARB_SHAPE = (1, 8, 1344, 40)
 CALLS_PER_STEP = 10      # 5 self-attentions at L=4096 + 5 at L=1024
@@ -151,23 +154,45 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return max_abs(a, b) / float(b.detach().float().abs().max())
 
 
-def bounds_ms(b: int, h: int, lq: int, lk: int, d: int) -> dict[str, tuple[float, str]]:
-    """Least time per kernel: max(bytes / HBM rate, flops / bf16 peak), with
-    each input read once and each output written once. Flops count the
-    matrix products each kernel must do: fwd q k^T and P v; dq also
-    recomputes S and forms dP and dS k; dkv S^T, dP^T, P^T dO, dS^T q."""
+def splash_work(b: int, h: int, lq: int, lk: int, d: int) -> dict[str, tuple[int, int, int]]:
+    """(tensor-core flops, bytes, exponentials) each splash kernel must spend.
+    Flops count the matrix products: fwd q k^T and P v; dq also recomputes S
+    and forms dP and dS k; dkv S^T, dP^T, P^T dO, dS^T q. Bytes read each
+    input once and write each output once. Each kernel takes one exponential
+    per score: B*H*Lq*Lk."""
     bh, e = b * h, 2  # bf16 bytes
     tq, tk, row = bh * lq * d * e, bh * lk * d * e, bh * lq * 4  # q-like, k-like, fp32 row
-    work = {
-        "splash_fwd": (4 * bh * lq * lk * d, tq + 2 * tk + tq + row),          # q k v -> o lse
-        "splash_dq": (6 * bh * lq * lk * d, 3 * tq + 2 * tk + row + row + tq),  # q o dO k v lse -> delta dq
-        "splash_dkv": (8 * bh * lq * lk * d, 2 * tq + 2 * tk + 2 * row + 2 * tk),  # q dO k v lse delta -> dk dv
+    exps = bh * lq * lk
+    return {
+        "splash_fwd": (4 * bh * lq * lk * d, tq + 2 * tk + tq + row, exps),          # q k v -> o lse
+        "splash_dq": (6 * bh * lq * lk * d, 3 * tq + 2 * tk + row + row + tq, exps),  # q o dO k v lse -> delta dq
+        "splash_dkv": (8 * bh * lq * lk * d, 2 * tq + 2 * tk + 2 * row + 2 * tk, exps),  # q dO k v lse delta -> dk dv
     }
+
+
+def bounds_ms(b: int, h: int, lq: int, lk: int, d: int, sms: int,
+              sm_clock_hz: float) -> dict[str, tuple[float, str]]:
+    """Least time per splash kernel, and what sets it: the largest of bytes
+    over the HBM rate, flops over the bf16 tensor-core peak, and
+    exponentials over the exponential unit's rate (EXP_PER_CLOCK_PER_SM on
+    each of ``sms`` SMs at ``sm_clock_hz``)."""
     out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES_PER_S * 1e3
-        out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    for name, (flops, nbytes, exps) in splash_work(b, h, lq, lk, d).items():
+        times = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+                 "bytes": nbytes / PEAK_HBM_BYTES_PER_S * 1e3,
+                 "exp": exps / (sms * EXP_PER_CLOCK_PER_SM * sm_clock_hz) * 1e3}
+        by = max(times, key=times.get)
+        out[name] = (times[by], by)
     return out
+
+
+def exp_rate() -> tuple[int, float]:
+    """The card's SM count and its maximum SM clock in Hz (nvidia-smi)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return sms, float(mhz.split()[0]) * 1e6
 
 
 def head_views(shape, gen: torch.Generator) -> torch.Tensor:
@@ -178,7 +203,7 @@ def head_views(shape, gen: torch.Generator) -> torch.Tensor:
     return x.view(b, l, h, d).transpose(1, 2)
 
 
-def kernel_phase(shape, gen: torch.Generator) -> dict:
+def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     b, h, l, d = shape
     scale = d ** -0.5
     q, k, v, do = (head_views(shape, gen) for _ in range(4))
@@ -238,7 +263,7 @@ def kernel_phase(shape, gen: torch.Generator) -> dict:
     res["sdpa_bwd_ms"] = time_ms(
         lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True))
     del sdpa_out
-    res["bound"] = {n: list(v) for n, v in bounds_ms(b, h, l, l, d).items()}
+    res["bound"] = {n: list(v) for n, v in bounds_ms(b, h, l, l, d, *rate).items()}
     del q, k, v, do, qs, o, lse, dq, delta, dk, dv
     torch.cuda.empty_cache()
     return res
@@ -474,15 +499,18 @@ def main(argv=None) -> int:
     _build.load_library()
     record["build_s"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "kernels_build.log").write_text(_build.build_log)
+    if _build.build_log:  # empty when an earlier process of this checkout built the library
+        (OUT_DIR / "kernels_build.log").write_text(_build.build_log)
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(line.strip())
     log(f"build: {record['build_s']:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    record["kernels"] = [kernel_phase(s, gen) for s in MAIN_SHAPES]
-    record["kernels_arb"] = kernel_phase(ARB_SHAPE, gen)
+    rate = exp_rate()
+    record["sms"], record["sm_clock_max_hz"] = rate
+    record["kernels"] = [kernel_phase(s, gen, rate) for s in MAIN_SHAPES]
+    record["kernels_arb"] = kernel_phase(ARB_SHAPE, gen, rate)
     for r in record["kernels"] + [record["kernels_arb"]]:
         log(f"kernels {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
 
@@ -526,7 +554,10 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["err"][name] for r in record["kernels"] + [record["kernels_arb"]]),
             "ms": main_shape["ms"][name], "plain_ms": main_shape["plain_ms"][name],
             "bound_ms": main_shape["bound"][name][0],
-            "bound_by": main_shape["bound"][name][1],
+            # the exponential unit's term counts as operations (of their
+            # type, at its rate); bound_term names which term it was
+            "bound_by": "bytes" if main_shape["bound"][name][1] == "bytes" else "operations",
+            "bound_term": main_shape["bound"][name][1],
             "library_ms": main_shape["sdpa_fwd_ms"] if name == "splash_fwd" else None,
             "at": main_shape["shape"],
             "by_shape": [{"shape": r["shape"], "ms": r["ms"][name],
