@@ -17,11 +17,16 @@ Phases (any failure raises and the script exits non-zero):
               splash kernel (fwd, dq, dkv) against its plain PyTorch version
               on the same inputs, then the autograd Function against autograd
               of splash_attention_reference. Bounds: forward 5e-3 max-abs,
-              dq/dk/dv 1.5e-2 relative (those of the JAX splash tests). Times of
-              the kernel, its plain version and torch's SDPA, and the least
-              time the card could take (HBM bytes, tensor-core flops, or
-              exponentials on the exponential unit at the card's SM count
-              and maximum SM clock, whichever is largest).
+              dq/dk/dv 1.5e-2 relative (those of the JAX splash tests), the
+              delta dq writes for dkv 1e-5 of its largest entry. Times of the
+              kernel, its plain version, torch's SDPA forward and backward
+              (the backward computes dq, dk and dv together; its calls are
+              timed queued behind a spin kernel, so that the host's time to
+              issue them does not count; beside it the time of the pair
+              dq + dkv), and the least time the card could take (HBM bytes,
+              tensor-core flops, or exponentials on the exponential unit at
+              the card's SM count and maximum SM clock, whichever is
+              largest).
 3. optim   -- the optimizer kernels against their plain versions at SD1.5 leaf
               shapes: adam8_fused at (1280, 23040) and the ragged (320, 2880),
               from a state quantized by one plain step (payloads at most 1
@@ -93,6 +98,9 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 PAYLOAD_FLIPS = 1e-3     # int8 payloads: at most 1 apart in under this share
 OPT_TOL = 1e-6           # optimizer step, scales: relative to the tensor's largest
 FWD_TOL, GRAD_TOL = 5e-3, 1.5e-2
+DELTA_TOL = 1e-5         # delta = rowsum(dO * O), relative to its largest entry
+SDPA_BWD = ("SDPA backward (torch.autograd.grad of F.scaled_dot_product_attention): "
+            "dq, dk and dv together")
 CHECK_TOL = 5e-2         # UNet output, kernel path vs plain path, relative
 OUT_DIR = Path("chiprun_out")
 
@@ -138,6 +146,23 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, hold_cycles: int = 200_000_000) -> float:
+    """Mean device time of fn() over `iters` calls, by CUDA events, with the
+    calls queued behind a spin kernel (~0.1 s at 2 GHz): the device then runs
+    them back to back, so the host's time to issue them does not count."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(hold_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -218,7 +243,7 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     torch.cuda.synchronize()
     res = {"shape": list(shape),
            "err": {"splash_fwd": max_abs(o, o_ref), "lse": max_abs(lse, lse_ref),
-                   "delta": max_abs(delta, delta_ref),
+                   "delta": max_abs(delta, delta_ref), "delta_rel": rel_err(delta, delta_ref),
                    "splash_dq": max_abs(dq, dq_ref), "splash_dq_rel": rel_err(dq, dq_ref),
                    "splash_dkv": max(max_abs(dk, dk_ref), max_abs(dv, dv_ref)),
                    "splash_dkv_rel": max(rel_err(dk, dk_ref), rel_err(dv, dv_ref))}}
@@ -226,6 +251,7 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     e = res["err"]
     check(e["splash_fwd"] <= FWD_TOL, f"splash_fwd disagrees at {shape}: {e['splash_fwd']}")
     check(e["splash_dq_rel"] <= GRAD_TOL, f"splash_dq disagrees at {shape}: {e['splash_dq_rel']}")
+    check(e["delta_rel"] <= DELTA_TOL, f"splash_dq delta disagrees at {shape}: {e['delta_rel']}")
     check(e["splash_dkv_rel"] <= GRAD_TOL,
           f"splash_dkv disagrees at {shape}: {e['splash_dkv_rel']}")
 
@@ -260,9 +286,16 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     res["sdpa_fwd_ms"] = time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-    res["sdpa_bwd_ms"] = time_ms(
+    # at L = 1024 the host work of one autograd.grad call outlasts its
+    # kernels, so plain CUDA events would time the host
+    res["sdpa_bwd_ms"] = device_ms(
         lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True))
     del sdpa_out
+
+    def bwd_pair():
+        splash.splash_dkv(qs, k, v, do, lse, splash.splash_dq(qs, k, v, o, do, lse)[1])
+
+    res["bwd_pair_ms"] = time_ms(bwd_pair, iters=50, warmup=5)
     res["bound"] = {n: list(v) for n, v in bounds_ms(b, h, l, l, d, *rate).items()}
     del q, k, v, do, qs, o, lse, dq, delta, dk, dv
     torch.cuda.empty_cache()
@@ -558,11 +591,15 @@ def main(argv=None) -> int:
             # type, at its rate); bound_term names which term it was
             "bound_by": "bytes" if main_shape["bound"][name][1] == "bytes" else "operations",
             "bound_term": main_shape["bound"][name][1],
-            "library_ms": main_shape["sdpa_fwd_ms"] if name == "splash_fwd" else None,
+            "library_ms": main_shape["sdpa_fwd_ms" if name == "splash_fwd" else "sdpa_bwd_ms"],
+            "library": "SDPA forward (F.scaled_dot_product_attention)" if name == "splash_fwd"
+                       else SDPA_BWD,
             "at": main_shape["shape"],
+            **({} if name == "splash_fwd" else {"bwd_pair_ms": main_shape["bwd_pair_ms"]}),
             "by_shape": [{"shape": r["shape"], "ms": r["ms"][name],
                           "plain_ms": r["plain_ms"][name], "bound_ms": r["bound"][name][0],
-                          "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
+                          "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"],
+                          "bwd_pair_ms": r["bwd_pair_ms"]}
                          for r in record["kernels"] + [record["kernels_arb"]]],
         })
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -60,16 +60,18 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path) -> str:
+def _compile(out: Path, csrc: Path = CSRC, sources: tuple[str, ...] = SOURCES) -> str:
+    """Compile ``sources`` of ``csrc`` into the shared library ``out``;
+    returns nvcc's output."""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / (Path(s).stem + ".o") for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(csrc / s), "-o", str(o)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(SOURCES, objs)]
+                 for s, o in zip(sources, objs)]
         logs = []
-        for src, proc in zip(SOURCES, procs):
+        for src, proc in zip(sources, procs):
             text, _ = proc.communicate()
             logs.append(f"== {src}\n{text}")
             if proc.returncode != 0:
@@ -85,6 +87,19 @@ def _compile(out: Path) -> str:
     return "\n".join(logs)
 
 
+def bind(path: Path, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """Load a built library and declare its C entry points ``names`` (and
+    ``ssdt_error_string``, which every library holds)."""
+    lib = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    lib.ssdt_error_string.argtypes = [ctypes.c_int]
+    lib.ssdt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on the first call of the process."""
     global _library, build_log
@@ -92,14 +107,7 @@ def load_library() -> ctypes.CDLL:
         out = BUILD_DIR / f"libssdt_kernels_{_key()}.so"
         if not out.exists():
             build_log = _compile(out)
-        lib = ctypes.CDLL(str(out))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.ssdt_error_string.argtypes = [ctypes.c_int]
-        lib.ssdt_error_string.restype = ctypes.c_char_p
-        _library = lib
+        _library = bind(out)
     return _library
 
 

@@ -1,234 +1,220 @@
 // Splash-attention backward for Hopper, as two kernels with no atomics,
 // matching the split (non-fused) backward of the TPU version
-// (scal_sdt_tpu/ops/splash.py sets use_fused_bwd_kernel=False):
+// (scal_sdt_tpu/ops/splash.py sets use_fused_bwd_kernel=False). Both are on
+// the register-tile design of splash_common.cuh: a CTA holds rows of one
+// operand, 16 per warp, and walks the other through cp.async buffers.
 //
-// * dq  replaces `_splash_attention_bwd_dq`: one CTA per (head, 64 query
-//   rows) walks every KV tile: S = q k^T, P = exp(S - lse), dP = dO v^T,
-//   dS = P * (dP - delta), dq += dS k (accumulated in registers). It also
-//   computes delta = rowsum(dO * O) for its rows and stores it for dkv.
-//   Still the first design (splash_common.cuh): WMMA fragments through
-//   shared memory, synchronous tile loads.
-// * dkv replaces `_splash_attention_bwd_dkv`, on the register-tile design
-//   (splash_common.cuh): one CTA per (head, 64 or 128 key rows), 16 key rows
-//   per warp (DkvShape). A warp keeps its k and v rows as A fragments in
-//   registers (up to DP = 96; wider instances reload them from the warp's own
-//   shared rows per step, so that dK / dV fit). q / dO tiles of 64 queries,
-//   with their lse and delta, come by cp.async double buffering. Per step of
-//   32 (or 16) queries: S^T = k q^T and dP^T = v dO^T (mma.sync, q and dO by
-//   ldmatrix), P^T = exp2(S^T log2 e - lse log2 e) and dS^T = P^T (dP^T -
-//   delta) in registers, rounded to bf16 in registers as the A operands of
-//   dV += P^T dO and dK += dS^T q (dO, q by ldmatrix.trans). dK and dV stay
-//   fp32 in registers and are written once. Only the last query tile masks
-//   queries past Lq.
+// * dq replaces `_splash_attention_bwd_dq` (`_flash_attention_dq_kernel`):
+//   one CTA per (head, DqShape::rows query rows). A warp first sums delta =
+//   rowsum(dO * O) of its rows (dO from shared memory, O by 16-byte loads)
+//   and stores it for dkv; then it keeps its q and dO rows as A fragments
+//   and its lse and delta in registers. K / V tiles (DqShape::keys keys)
+//   stream through a cp.async ring. Per tile: S = q k^T (mma.sync, k by
+//   ldmatrix) and P = exp2(S log2 e - lse log2 e) over the whole tile; then
+//   per 16 keys dP = dO v^T (v by ldmatrix) and dS = P (dP - delta) in
+//   registers, rounded to bf16 in registers as the A operand of dq += dS k
+//   (k by ldmatrix.trans from the same shared tile). Only P lives across
+//   the tile, so at D = 40 a 64-key tile fits beside the fragments in the
+//   registers of 16 warps per SM. dq stays fp32 in registers and is written
+//   once. Only the last KV tile masks keys past Lk.
+// * dkv replaces `_splash_attention_bwd_dkv`: one CTA per (head, 64 or 128
+//   key rows), 16 key rows per warp (DkvShape). A warp keeps its k and v rows
+//   as A fragments in registers (up to DP = 96; wider instances reload them
+//   from the warp's own shared rows per step, so that dK / dV fit). q / dO
+//   tiles of 64 queries, with their lse and delta, come by cp.async double
+//   buffering. Per step of 32 (or 16) queries: S^T = k q^T and dP^T = v dO^T
+//   (q and dO by ldmatrix), P^T = exp2(S^T log2 e - lse log2 e) and dS^T =
+//   P^T (dP^T - delta) in registers, rounded to bf16 in registers as the A
+//   operands of dV += P^T dO and dK += dS^T q (dO, q by ldmatrix.trans). dK
+//   and dV stay fp32 in registers and are written once. Only the last query
+//   tile masks queries past Lq.
 //
-//   What bounds it: 8 D tensor-core flops per exponential put its floor on
-//   the tensor cores, but it runs far above it, bound by the latency of its
-//   dependent mma chains: measured on an H100, its time falls with every warp
-//   more per SM, so the shapes trade tile rows for CTAs per SM within the
-//   registers; every warp also reads each q / dO tile from shared memory
-//   twice (plain and transposed).
+// What bounds them: 6 D (dq) and 8 D (dkv) tensor-core flops per
+// exponential put their floor on the tensor cores, but they run far above
+// it, bound by the latency of their dependent mma chains: measured on an
+// H100, their time falls with every warp more per SM, so the shapes trade
+// tile rows for CTAs per SM within the registers. Every warp also reads each
+// walked tile from shared memory twice (plain and transposed).
 //
 // dkv reads the delta that dq wrote, so the two launch in that order on one
 // stream. Gradients are with respect to the pre-scaled q the forward saw;
 // the caller's autograd applies the scale's chain rule.
-
-#include <mma.h>
 
 #include "splash_common.cuh"
 
 namespace ssdt {
 
 // ---------------------------------------------------------------------------
-// dq: WMMA tiles through shared memory
+// dq: register tiles
 
-namespace wmma = nvcuda::wmma;
-
-constexpr int kRows = 64;         // rows of the tile a CTA owns
-constexpr int kInner = 64;        // rows of each tile the inner loop walks
-constexpr int kThreads = 128;     // 4 warps x 16 rows
-constexpr int kLdS = kInner + 4;  // fp32 score tiles (ldm multiple of 4)
-constexpr int kLdP = kInner + 8;  // bf16 probability tiles (ldm multiple of 8)
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
+// Launch shape of each instance, chosen on an H100 by time and by the ptxas
+// report (no spill up to DP = 160; scripts/sweep_dq_shapes.py): warps per
+// CTA (16 query rows each), keys per KV tile, keys per dP / dS step, stages
+// of the KV ring and the CTAs per SM the registers must allow. The kernel is
+// latency-bound, so warps per SM matter most: up to DP = 64, 16 warps in
+// 128 registers each; at DP = 48 only 16-key steps keep a 64-key tile in
+// them. At DP = 80 such CTAs spill, so 3 CTAs of 4 warps.
 template <int DP>
-struct Dims {
-  static_assert(DP % 16 == 0, "padded head dim must be a multiple of 16");
-  static constexpr int ld = DP + 8;    // bf16 tile row stride
-  static constexpr int ldo = DP + 4;   // fp32 staging row stride
-  static constexpr int frags = DP / 16;
-  static constexpr int chunks = DP / 8;  // 16-byte chunks per row
+struct DqShape {
+  static constexpr int warps = DP <= 64 ? 8 : 4;
+  static constexpr int keys = DP <= 48 ? 64 : 32;
+  static constexpr int step = 16;
+  static constexpr int stages = 3;
+  static constexpr int min_blocks = DP <= 64 ? 2 : (DP <= 80 ? 3 : (DP <= 96 ? 2 : 1));
+  static constexpr int threads = warps * 32, rows = warps * kWarpRows;
 };
-
-// Stage rows [row0, row0 + kRows) of one head into shared memory, zero-filling
-// rows >= nrows and columns >= D (D % 8 == 0, checked by the caller).
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long sl,
-                                          int row0, int nrows, int D) {
-  constexpr int LD = Dims<DP>::ld, CH = Dims<DP>::chunks;
-  for (int i = threadIdx.x; i < kRows * CH; i += kThreads) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows && c < D)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * sl + c));
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// One warp: C[16 x 64] (fp32) = A[16 x DP] * B^T, with A and B[64 x DP] both
-// row-major bf16 tiles in shared memory.
-template <int DP>
-__device__ __forceinline__ void warp_abt(float* C, int ldc, const bf16* A, const bf16* B) {
-  constexpr int LD = Dims<DP>::ld;
-  FragC acc[kInner / 16];
-#pragma unroll
-  for (int n = 0; n < kInner / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + kk * 16, LD);
-#pragma unroll
-    for (int n = 0; n < kInner / 16; ++n) {
-      FragBT b;
-      wmma::load_matrix_sync(b, B + n * 16 * LD + kk * 16, LD);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < kInner / 16; ++n)
-    wmma::store_matrix_sync(C + n * 16, acc[n], ldc, wmma::mem_row_major);
-}
-
-// One warp: acc[16 x DP] += A[16 x 64] * B[64 x DP]; A is a bf16 tile with
-// row stride kLdP, B a row-major bf16 tile with row stride Dims<DP>::ld.
-template <int DP>
-__device__ __forceinline__ void warp_ab_acc(FragC (&acc)[DP / 16], const bf16* A, const bf16* B) {
-  constexpr int LD = Dims<DP>::ld;
-#pragma unroll
-  for (int kk = 0; kk < kInner / 16; ++kk) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + kk * 16, kLdP);
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-      FragB b;
-      wmma::load_matrix_sync(b, B + kk * 16 * LD + n * 16, LD);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-}
-
-// One warp: stage its register accumulators (16 x DP) in shared memory and
-// write them as bf16 rows of a (B, H, L, D) view.
-template <int DP>
-__device__ __forceinline__ void warp_store_acc(float* stage, FragC (&acc)[DP / 16], bf16* dst,
-                                               long long sl, int row0, int nrows, int D) {
-  constexpr int LDO = Dims<DP>::ldo, CH = Dims<DP>::chunks;
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n)
-    wmma::store_matrix_sync(stage + n * 16, acc[n], LDO, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    if (row0 + r >= nrows || c >= D) continue;
-    __align__(16) bf16 vals[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) vals[j] = __float2bfloat16(stage[r * LDO + c + j]);
-    *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * sl + c) =
-        *reinterpret_cast<const uint4*>(vals);
-  }
-  __syncwarp();
-}
 
 template <int DP>
 constexpr size_t dq_smem_bytes() {
-  const size_t tiles = (size_t)(4 * kRows * Dims<DP>::ld + kRows * kLdP) * sizeof(bf16) +
-                       (size_t)(2 * kRows * kLdS + 2 * kRows) * sizeof(float);
-  const size_t stage = (size_t)kRows * Dims<DP>::ldo * sizeof(float);
-  return tiles > stage ? tiles : stage;
+  using Shape = DqShape<DP>;
+  // q and dO rows of the CTA, then the ring: stage s holds K at 2s, V at 2s + 1
+  return (size_t)(2 * Shape::rows + Shape::stages * 2 * Shape::keys) * Tile<DP>::ld *
+         sizeof(bf16);
+}
+
+// acc + x . y over 8 bf16 pairs, in order (each product is exact in fp32).
+__device__ __forceinline__ float dot8_bf16(uint4 x, uint4 y, float acc) {
+  const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = __bfloat1622float2(xs[i]), b = __bfloat1622float2(ys[i]);
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+  }
+  return acc;
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads) splash_dq_kernel(Args a) {
-  constexpr int LD = Dims<DP>::ld;
+__global__ void __launch_bounds__(DqShape<DP>::threads, DqShape<DP>::min_blocks)
+    splash_dq_kernel(Args a) {
+  using Shape = DqShape<DP>;
+  constexpr int kThreads = Shape::threads, kRows = Shape::rows, kKeys = Shape::keys;
+  constexpr int kStages = Shape::stages, kStep = Shape::step;
+  constexpr int LD = Tile<DP>::ld, NT = DP / 8, SN = kKeys / 8;
+  constexpr int kTileElems = kKeys * LD;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sDO = sQ + kRows * LD;
-  bf16* sK = sDO + kRows * LD;
-  bf16* sV = sK + kRows * LD;
-  bf16* sDS = sV + kRows * LD;
-  float* sS = reinterpret_cast<float*>(sDS + kRows * kLdP);
-  float* sDP = sS + kRows * kLdS;
-  float* sLse = sDP + kRows * kLdS;
-  float* sDelta = sLse + kRows;
+  bf16* sKV = sDO + kRows * LD;  // stage s: K at 2s, V at 2s + 1
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int q0 = blockIdx.x * kRows;
+  const int D = a.D, Lq = a.Lq, Lk = a.Lk;
   const bf16* k = head_ptr(a.k, a.sk, b, h);
   const bf16* v = head_ptr(a.v, a.sv, b, h);
-  const bf16* o = head_ptr(a.o, a.so, b, h);
+  const int ntiles = (Lk + kKeys - 1) / kKeys;
 
-  load_rows<DP>(sQ, head_ptr(a.q, a.sq, b, h), a.sq.l, q0, a.Lq, a.D);
-  load_rows<DP>(sDO, head_ptr(a.dout, a.sdo, b, h), a.sdo.l, q0, a.Lq, a.D);
-  __syncthreads();
+  auto load_kv = [&](int j) {
+    bf16* dst = sKV + (j % kStages) * 2 * kTileElems;
+    load_tile_async<kKeys, DP, kThreads>(dst, k, a.sk.l, j * kKeys, Lk, D);
+    load_tile_async<kKeys, DP, kThreads>(dst + kTileElems, v, a.sv.l, j * kKeys, Lk, D);
+  };
+  load_tile_async<kRows, DP, kThreads>(sQ, head_ptr(a.q, a.sq, b, h), a.sq.l, q0, Lq, D);
+  load_tile_async<kRows, DP, kThreads>(sDO, head_ptr(a.dout, a.sdo, b, h), a.sdo.l, q0, Lq, D);
+  load_kv(0);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < kStages - 1; ++s) {
+    if (s < ntiles) load_kv(s);
+    cp_async_commit();
+  }
 
-  const int r0 = warp * 16;
-  const int row = r0 + (lane >> 1), half = lane & 1;
-  const int grow = q0 + row;
+  const int r0 = q0 + warp * kWarpRows;  // the warp's first query row
+  bf16* myQ = sQ + warp * kWarpRows * LD;
+  const bf16* myDO = sDO + warp * kWarpRows * LD;
+  // Rows g and g + 8 of the warp's 16: -lse log2 e and delta. Rows past Lq
+  // hold q = dO = 0 and lse = delta = 0, so their dS is 0.
+  const float* lse = a.lse + (long long)bh * Lq;
+  const float nl0 = r0 + g < Lq ? -lse[r0 + g] * kLog2e : 0.f;
+  const float nl1 = r0 + g + 8 < Lq ? -lse[r0 + g + 8] * kLog2e : 0.f;
+
+  cp_async_wait<kStages - 2>();  // q and dO (and KV tile 0) landed for this thread
+  __syncthreads();               // ... for all
+  float dl0, dl1;
   {
-    // delta = rowsum(dO * O) in fp32 over the bf16 values, as the TPU kernel.
+    // delta = rowsum(dO * O) in fp32 over the bf16 values: lanes 2r and
+    // 2r + 1 take row r, each summing its 8-element chunks (c = its parity,
+    // c + 2, ...) in order; then the pair adds its two sums.
+    const int row = lane >> 1, half = lane & 1, grow = r0 + row;
     float d = 0.f;
-    if (grow < a.Lq) {
-      const bf16* orow = o + (long long)grow * a.so.l;
-      for (int c = half; c < a.D; c += 2)
-        d += __bfloat162float(sDO[row * LD + c]) * __bfloat162float(orow[c]);
+    if (grow < Lq) {
+      const bf16* orow = head_ptr(a.o, a.so, b, h) + (long long)grow * a.so.l;
+      for (int c = half; c < (D >> 3); c += 2)
+        d = dot8_bf16(*reinterpret_cast<const uint4*>(orow + c * 8),
+                      *reinterpret_cast<const uint4*>(myDO + row * LD + c * 8), d);
     }
     d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (half == 0) {
-      sDelta[row] = d;
-      sLse[row] = grow < a.Lq ? a.lse[(long long)bh * a.Lq + grow] : 0.f;
-      if (grow < a.Lq) a.delta[(long long)bh * a.Lq + grow] = d;
-    }
+    if (half == 0 && grow < Lq) a.delta[(long long)bh * Lq + grow] = d;
+    dl0 = __shfl_sync(0xffffffffu, d, 2 * g);
+    dl1 = __shfl_sync(0xffffffffu, d, 2 * g + 16);
   }
-  __syncwarp();
-  const float lse = sLse[row], delta = sDelta[row];
+  uint32_t qf[DP / 16][4], df[DP / 16][4];
+  load_a_frags<DP>(qf, myQ, D);
+  load_a_frags<DP>(df, myDO, D);
 
-  FragC acc[Dims<DP>::frags];
+  float dq[NT][4];
 #pragma unroll
-  for (int n = 0; n < Dims<DP>::frags; ++n) wmma::fill_fragment(acc[n], 0.f);
+  for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
-  for (int k0 = 0; k0 < a.Lk; k0 += kInner) {
-    __syncthreads();
-    load_rows<DP>(sK, k, a.sk.l, k0, a.Lk, a.D);
-    load_rows<DP>(sV, v, a.sv.l, k0, a.Lk, a.D);
-    __syncthreads();
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<kStages - 2>();  // tile j landed for this thread
+    __syncthreads();               // ... for all; tile j - 1's slot is free
+    if (j + kStages - 1 < ntiles) load_kv(j + kStages - 1);
+    cp_async_commit();
 
-    warp_abt<DP>(sS + r0 * kLdS, kLdS, sQ + r0 * LD, sK);
-    warp_abt<DP>(sDP + r0 * kLdS, kLdS, sDO + r0 * LD, sV);
-    __syncwarp();
+    const bf16* sK = sKV + (j % kStages) * 2 * kTileElems;
+    const bf16* sV = sK + kTileElems;
+    // P over the whole tile: query rows g, g + 8 of the warp's 16 x keys
+    // 8 n + 2t, +1.
+    float p[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+    mma_abt<DP, SN>(p, qf, sK, D);
 
-    // Rows past Lq hold q = dO = 0 and lse = delta = 0, so their dS is 0.
-    const float* srow = sS + row * kLdS + half * 32;
-    const float* dprow = sDP + row * kLdS + half * 32;
-    bf16* dsrow = sDS + row * kLdP + half * 32;
-    const int valid = a.Lk - k0 - half * 32;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      float ds = 0.f;
-      if (c < valid) ds = __expf(srow[c] - lse) * (dprow[c] - delta);
-      dsrow[c] = __float2bfloat16(ds);
+    const int k0 = j * kKeys;
+    if (k0 + kKeys > Lk) {  // the last tile: keys past Lk get P = 0
+#pragma unroll
+      for (int n = 0; n < SN; ++n) {
+        const int col = k0 + n * 8 + 2 * t;
+        if (col >= Lk) p[n][0] = p[n][2] = -INFINITY;
+        if (col + 1 >= Lk) p[n][1] = p[n][3] = -INFINITY;
+      }
     }
-    __syncwarp();
-    warp_ab_acc<DP>(acc, sDS + r0 * kLdP, sK);
+#pragma unroll
+    for (int n = 0; n < SN; ++n) {
+      p[n][0] = exp2_approx(fmaf(p[n][0], kLog2e, nl0));
+      p[n][1] = exp2_approx(fmaf(p[n][1], kLog2e, nl0));
+      p[n][2] = exp2_approx(fmaf(p[n][2], kLog2e, nl1));
+      p[n][3] = exp2_approx(fmaf(p[n][3], kLog2e, nl1));
+    }
+
+    // dP, dS and dq += dS k one step of kStep keys at a time, so that only
+    // P stays live over the whole tile.
+#pragma unroll
+    for (int c = 0; c < kKeys; c += kStep) {
+      float dp[kStep / 8][4] = {};
+      mma_abt<DP, kStep / 8>(dp, df, sV + c * LD, D);
+      uint32_t ds[kStep / 16][4];  // dS as k16 A fragments over the step's keys
+#pragma unroll
+      for (int n = 0; n < kStep / 8; ++n) {
+        const float(&pn)[4] = p[c / 8 + n];
+        // n8 tile n: the low (n even) or high half of k16 step n / 2.
+        ds[n / 2][(n & 1) * 2] = pack_bf16(pn[0] * (dp[n][0] - dl0), pn[1] * (dp[n][1] - dl0));
+        ds[n / 2][(n & 1) * 2 + 1] =
+            pack_bf16(pn[2] * (dp[n][2] - dl1), pn[3] * (dp[n][3] - dl1));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk)
+        mma_pw<DP>(dq, ds[kk], sK + (c + kk * 16) * LD, D);
+    }
   }
 
-  __syncthreads();  // all warps are done with the tiles; reuse smem as staging
-  float* stage = reinterpret_cast<float*>(smem) + r0 * Dims<DP>::ldo;
-  warp_store_acc<DP>(stage, acc, head_ptr(a.out, a.sout, b, h), a.sout.l, q0 + r0, a.Lq, a.D);
+  // Query rows past Lq are never written; the warp's own q rows stage dq.
+  __syncwarp();
+  warp_store_rows<DP>(dq, 1.f, 1.f, myQ, head_ptr(a.out, a.sout, b, h), a.sout.l, r0, Lq, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -408,9 +394,10 @@ int ssdt_splash_dq(const void* q, const void* k, const void* v, const void* o, c
   a.sout = {strides[15], strides[16], strides[17]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ssdt_padded_dim(D)) {
-#define SSDT_CASE(DP) \
-  case DP:            \
-    return launch_kernel(splash_dq_kernel<DP>, dq_smem_bytes<DP>(), Lq, kRows, kThreads, a, s);
+#define SSDT_CASE(DP)                                                                          \
+  case DP:                                                                                     \
+    return launch_kernel(splash_dq_kernel<DP>, dq_smem_bytes<DP>(), Lq, DqShape<DP>::rows, \
+                         DqShape<DP>::threads, a, s);
     SSDT_FOR_EACH_DP(SSDT_CASE)
 #undef SSDT_CASE
     default:

@@ -6,24 +6,18 @@
 // over (B, H, L, D) bf16 views, q already scaled by D^-0.5 and rounded to
 // bf16 by the caller, fp32 running max/sum, logsumexp saved for the backward.
 //
-// Two designs:
-//
-// * forward and dkv (splash_fwd.cu, splash_bwd.cu `splash_dkv_kernel`):
-//   register-resident tiles. Every product is `mma.sync.m16n8k16` (bf16 in,
-//   fp32 accumulate; one `m16n8k8` step where D % 16 == 8, so D = 40 runs
-//   unpadded) with operands read from shared memory by `ldmatrix` (`.trans`
-//   where the operand is K-major). Scores, probabilities and the output
-//   accumulators stay in registers; the accumulators of two adjacent n8
-//   tiles of m16n8k16 are laid out as one k16 A fragment of the next
-//   product, so P (or dS) goes from registers straight into it. Tiles of the
-//   walked operand come in by 16-byte `cp.async` copies into a ring of
-//   stages, so the next tile's load overlaps this tile's products. A warp
-//   owns 16 rows; a CTA 128 rows (forward) or 64-128 (dkv): the more rows,
-//   the fewer L2 reads of the walked operand, the fewer CTAs fit on an SM.
-// * dq (splash_bwd.cu `splash_dq_kernel`): the first, simple version, kept
-//   until its own redesign: WMMA 16x16x16 fragments that go through shared
-//   memory (its helpers live in splash_bwd.cu), synchronous tile loads,
-//   64-row tiles of 4 warps.
+// One design, register-resident tiles (splash_fwd.cu, splash_bwd.cu). Every
+// product is `mma.sync.m16n8k16` (bf16 in, fp32 accumulate; one `m16n8k8`
+// step where D % 16 == 8, so D = 40 runs unpadded) with operands read from
+// shared memory by `ldmatrix` (`.trans` where the operand is K-major).
+// Scores, probabilities and the output accumulators stay in registers; the
+// accumulators of two adjacent n8 tiles of m16n8k16 are laid out as one k16
+// A fragment of the next product, so P (or dS) goes from registers straight
+// into it. Tiles of the walked operand come in by 16-byte `cp.async` copies
+// into a ring of stages, so the next tile's load overlaps this tile's
+// products. A warp owns 16 rows; a CTA 128 rows (forward) or 64-128 (dq,
+// dkv): the more rows, the fewer L2 reads of the walked operand, the fewer
+// CTAs fit on an SM.
 //
 // What bounds them on an H100: at L = 4096 all three are far above the
 // 295 flop/byte ridge, so HBM is not the limit. At D = 40 the forward does
@@ -40,11 +34,11 @@
 // strides in elements with a unit stride over D, so the head-split views of
 // ops/attention.py need no copy. A compiled instance DP (a multiple of 16)
 // serves every D in (DP - 16, DP] (and D = 104..112, 136..144 on 128, 160).
-// The register-tile kernels keep D unpadded: in shared memory a row holds
-// DP/8 16-byte chunks, padded to an odd count, so the 8 rows one `ldmatrix`
-// reads fall in 8 different bank groups, and chunks past D are neither
-// loaded nor read (dq zero-fills its tiles to DP). Rows past L are
-// zero-filled on load, masked in the softmax and never written.
+// The kernels keep D unpadded: in shared memory a row holds DP/8 16-byte
+// chunks, padded to an odd count, so the 8 rows one `ldmatrix` reads fall in
+// 8 different bank groups, and chunks past D are neither loaded nor read.
+// Rows past L are zero-filled on load, masked in the softmax and never
+// written.
 
 #pragma once
 
@@ -89,7 +83,7 @@ __device__ __forceinline__ bf16* head_ptr(bf16* p, Strides s, int b, int h) {
 }
 
 // ---------------------------------------------------------------------------
-// Register-tile kernels (forward, dkv)
+// Register tiles
 
 constexpr int kWarpRows = 16;  // rows each warp owns (one m16 tile)
 constexpr int kWalk = 64;      // rows of each walked tile

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-splash attention, the fused Adam update and the int8 Adam update.
+splash attention (end to end, and the dq kernel alone), the fused Adam
+update and the int8 Adam update.
 
 Skips without a CUDA card. Imports no JAX, so it also runs where JAX is not
 installed; there, skip the repository's conftest (which imports JAX):
@@ -59,6 +60,39 @@ def test_kernels_match_reference_on_cuda(shape, layout):
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("the kernels run on a CUDA card only")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "heads"])
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 96, 120, 160])
+def test_splash_dq_matches_reference_on_cuda(d, layout):
+    """splash_dq against its plain version, one head dim per compiled
+    instance (DP 16-160), at ragged lengths Lq != Lk that no 64-row tile
+    divides: dq within 1.5e-2 relative, delta within 1e-5 of its largest
+    entry; a second call gives the same bits (one CTA owns its dq rows, no
+    atomics)."""
+    _need_card()
+    r = np.random.RandomState(d)
+    b, h, lq, lk = 2, 3, 300, 217
+
+    def make(length):
+        shape = (b, h, length, d)
+        base = shape if layout == "contiguous" else (b, length, h * d)
+        t = torch.from_numpy(r.randn(*base).astype(np.float32)).cuda().bfloat16()
+        return _heads(t, shape, layout)
+
+    qs = S._prescale(make(lq), d ** -0.5)
+    k, v, do = make(lk), make(lk), make(lq)
+    o, lse = S.splash_fwd(qs, k, v)
+    want_dq, want_delta = S.splash_dq_reference(qs, k, v, o, do, lse)
+    dq, delta = S.splash_dq(qs, k, v, o, do, lse)
+    again = S.splash_dq(qs, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert dq.shape == qs.shape and delta.shape == (b, h, lq)
+    err = (dq.float() - want_dq.float()).abs().max() / want_dq.float().abs().max()
+    assert float(err) < 1.5e-2
+    assert float((delta - want_delta).abs().max()) <= 1e-5 * float(want_delta.abs().max())
+    assert torch.equal(dq, again[0]) and torch.equal(delta, again[1])
 
 
 @pytest.mark.cuda
