@@ -27,29 +27,41 @@ Phases (any failure raises and the script exits non-zero):
               tensor-core flops, or exponentials on the exponential unit at
               the card's SM count and maximum SM clock, whichever is
               largest).
-3. optim   -- the optimizer kernels against their plain versions at SD1.5 leaf
-              shapes: adam8_fused at (1280, 23040) and the ragged (320, 2880),
-              from a state quantized by one plain step (payloads at most 1
-              apart in under 1e-3 of them, scales and step within 1e-6
-              relative); adam_bf16_fused at (1280, 23040) with bf16 moments
-              and the nu SR store (AdamW's form) and at (320,) with fp32
-              moments (the int8 path's small leaves): moments bit for bit,
-              step within 1e-6 relative. Times of kernel and plain version,
-              the bytes bound, and for adam_bf16_fused torch._fused_adamw_ on
-              the same leaf (the nearest library call, not the same function).
+3. optim   -- the optimizer kernels against their plain versions, in both
+              forms. Update-only, one leaf at SD1.5 leaf shapes: adam8_fused
+              at (1280, 23040) and the ragged (320, 2880), from a state
+              quantized by one plain step (payloads at most 1 apart in under
+              1e-3 of them, scales and step within 1e-6 relative);
+              adam_bf16_fused at (1280, 23040) with bf16 moments and the nu
+              SR store (AdamW's form) and at (320,) with fp32 moments (the
+              int8 path's small leaves): moments bit for bit, step within
+              1e-6 relative. Grouped (Adam, decay, schedule and the master
+              apply in one launch over a leaf table), over all 686 SD1.5
+              leaves with bf16 masters: AdamW's adam_bf16_fused (bf16
+              moments) with masters and moments bit for bit; AdamW8bit's
+              adam8_fused over its 227 int8 leaves (payloads and scales as
+              above, masters at most one bf16 ulp apart in under 1e-3 of
+              them) and adam_bf16_fused over its 459 fp32-moment leaves (bit
+              for bit). Times of kernel and plain version, the bytes bound,
+              and for adam_bf16_fused torch._fused_adamw_ over the same leaf
+              or the same 686 bf16 lists (the nearest library call, not the
+              same function).
 4. train   -- the SD1.5 full fine-tune step at full width: 512^2 (64^2 latents),
               batch 8, cached random latents/conds from --seed, bf16 masters,
               bf16 moments, EMA off, no remat. 3 warm-up steps, then --steps
               timed steps with the launch counts reset just before: each
               splash kernel must launch 10 times per step and adam_bf16_fused
-              686 times (once per leaf); loss finite, params moved.
+              once per param group (the update and master apply of all its
+              leaves: 7 launches for the 7 groups of the full_unet target);
+              loss finite, params moved.
 5. check   -- one sample through the UNet with the kernels and with the plain
               attention path: the outputs must agree.
 6. int8    -- the same workload with optimizer bitsandbytes.optim.AdamW8bit
               (int8 moments): 3 warm-up and --steps timed steps; per step
-              adam8_fused launches 227 times (the int8 leaves),
-              adam_bf16_fused 459 times (the fp32-moment leaves) and each
-              splash kernel 10 times; loss finite, params moved.
+              adam8_fused launches once per param group with int8 leaves (4
+              of the 7 hold the 227), adam_bf16_fused once per group with
+              fp32-moment leaves (all 7 hold the 459), each splash kernel 10
+              times; loss finite, params moved.
 
 Output: the build's register/spill report, one line per phase, then (before
 the last line) a {"kernels": [...]} JSON line and the card's name and power
@@ -61,6 +73,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -72,10 +85,12 @@ import torch
 import torch.nn.functional as F
 
 from scal_sdt_tpu_torch.conf import Config, default, load_optim_target, merge
-from scal_sdt_tpu_torch.models.unet import UNetConfig, init_unet_params, unet_apply
+from scal_sdt_tpu_torch.models.unet import (UNetConfig, init_unet_params, unet_apply,
+                                            unet_param_shapes)
 from scal_sdt_tpu_torch.ops import _build, adam8_fused, adam_bf16_fused, attention, splash
 from scal_sdt_tpu_torch.training.optim_targets import group_labels, resolve_optim_target
 from scal_sdt_tpu_torch.training.optimizers import build_optimizer
+from scal_sdt_tpu_torch.training.quantized import Adam8bit, bias_corrections
 from scal_sdt_tpu_torch.training.step import StepSpec, init_train_state, make_train_step
 
 # H100 SXM data-sheet peaks (dense bf16 tensor cores, fp32 on the CUDA
@@ -92,9 +107,12 @@ INT8_SHAPES = [(1280, 23040), (320, 2880)]    # (1280,2560,3,3) and (320,320,3,3
 ADAM_CASES = [  # (shape, moment dtype, nu SR): AdamW's largest leaf; an int8-path small leaf
     ((1280, 23040), torch.bfloat16, True), ((320,), torch.float32, False)]
 # fp32 operations per element (dequantize 2, moments 7, step 5, requantize
-# 2 x 6; fused Adam: moments 7, step 5) against the CUDA-core fp32 peak
-ADAM8_OPS, ADAM_OPS = 26, 12
+# 2 x 6; fused Adam: moments 7, step 5; the grouped epilogue: decay multiply
+# and add, schedule multiply, master add) against the CUDA-core fp32 peak
+ADAM8_OPS, ADAM_OPS, EPILOGUE_OPS = 26, 12, 4
 B1, B2, EPS = 0.9, 0.999, 1e-8
+GROUP_WD, GROUP_STEP_SIZE = 1e-2, -2e-6    # the grouped cases' decay and -lr * schedule
+MASTER_FLIPS = 1e-3      # int8 grouped masters: one bf16 ulp apart in under this share
 PAYLOAD_FLIPS = 1e-3     # int8 payloads: at most 1 apart in under this share
 OPT_TOL = 1e-6           # optimizer step, scales: relative to the tensor's largest
 FWD_TOL, GRAD_TOL = 5e-3, 1.5e-2
@@ -169,6 +187,27 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, hold_cycles: int = 200_000_0
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, kernel: str, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time per call of fn() of the CUDA kernels whose names
+    contain ``kernel``, from a torch.profiler trace of ``iters`` calls: the
+    host's time around a launch (the gradient addresses' upload) does not
+    count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    # the trace may miss a launch now and then: the mean is over those it holds
+    check(2 * len(us) >= iters, f"{len(us)} {kernel} kernels traced in {iters} calls")
+    return sum(us) / len(us) / 1e3
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -387,9 +426,184 @@ def adam_case(shape, m_dtype: torch.dtype, sr: bool, gen: torch.Generator) -> di
     return res
 
 
+def sd15_leaves() -> tuple[list[str], list[tuple[int, ...]]]:
+    """The 686 SD1.5 UNet leaves: keys (as the trainer names them) and shapes."""
+    shapes = unet_param_shapes(UNetConfig.sd15())
+    keys = sorted(shapes)
+    check(len(keys) == SD15_LEAVES, f"{len(keys)} SD1.5 leaves")
+    return [f"unet.{k}" for k in keys], [tuple(shapes[k]) for k in keys]
+
+
+def rand(shape, gen: torch.Generator, scale: float, dtype=torch.bfloat16,
+         positive: bool = False) -> torch.Tensor:
+    x = (torch.rand if positive else torch.randn)(shape, generator=gen, device="cuda")
+    return (x * scale).to(dtype)
+
+
+def clones(ts):
+    return [t.clone() for t in ts]
+
+
+def group_bytes(table, g_size: int = 2) -> int:
+    """Bytes the grouped launch over ``table`` must move: the gradient read,
+    each moment (payloads and scales) and master read and written."""
+    if isinstance(table, adam8_fused.Adam8Table):
+        per_leaf = [p.numel() * (g_size + 2 * p.element_size()) + 2 * sum(
+            t.numel() * t.element_size() for t in st) for p, st in zip(table.params, table.state)]
+    else:
+        per_leaf = [p.numel() * (g_size + 2 * (p.element_size() + m.element_size()
+                                               + v.element_size()))
+                    for p, m, v in zip(table.params, table.mu, table.nu)]
+    return sum(per_leaf)
+
+
+def group_record(got, want, run, plain, kernel: str, ops: int, err: dict) -> dict:
+    """Times, bytes and bound of a grouped launch ``run()`` over ``got``
+    (device time of ``kernel``; beside it the call's time by CUDA events,
+    which holds the host's upload of the gradient addresses), its plain
+    chain ``plain()`` over ``want``."""
+    n = sum(p.numel() for p in got.params)
+    nbytes = group_bytes(got)
+    return {"leaves": len(got.keys), "elements": n, "chunks": len(got.chunks), "err": err,
+            "ms": kernel_device_ms(run, kernel), "call_ms": time_ms(run),
+            "plain_ms": time_ms(plain, iters=1, warmup=0),
+            "bytes": nbytes, "bound": list(bound(nbytes, ops * n)), "library_ms": None}
+
+
+def master_flips(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(largest difference in ulps of the larger magnitude, share of elements
+    that differ) of two bf16 masters."""
+    a, b = got.float(), want.float()
+    ulp = torch.finfo(got.dtype).eps * torch.maximum(a.abs(), b.abs()).clamp_min(1e-38)
+    d = (a - b).abs()
+    return float((d / ulp).max()), float((d > 0).float().mean())
+
+
+def adamw_group_case(gen: torch.Generator, keys, shapes) -> dict:
+    """AdamW's grouped adam_bf16_fused over every SD1.5 leaf (bf16 masters
+    and moments, nu by SR, decay and schedule, master SR) against its plain
+    chain leaf by leaf: masters and moments bit for bit."""
+    params = [rand(s, gen, 2e-2) for s in shapes]
+    mu = [rand(s, gen, 1e-4) for s in shapes]
+    nu = [rand(s, gen, 1e-7, positive=True) for s in shapes]
+    grads = [rand(s, gen, 1e-3) for s in shapes]
+    count = 3
+    bc = bias_corrections(B1, B2, count)
+    kw = dict(b1=B1, b2=B2, eps=EPS, recip_bc=False, count=count, step=count - 1,
+              weight_decay=GROUP_WD, step_size=GROUP_STEP_SIZE, update_dtype=torch.float32)
+    got = adam_bf16_fused.build_adam_table(keys, clones(params), clones(mu), clones(nu))
+    adam_bf16_fused.adam_bf16_fused_apply(got, grads, bc, **kw)
+    want = adam_bf16_fused.build_adam_table(keys, params, mu, nu)  # updated in place
+    adam_bf16_fused.adam_bf16_fused_apply_reference(want, grads, bc, **kw)
+    torch.cuda.synchronize()
+    err = {what: all(torch.equal(a, b) for a, b in zip(getattr(got, what), getattr(want, what)))
+           for what in ("params", "mu", "nu")}
+    err["out"] = max(max_abs(a, b) for a, b in zip(got.params, want.params))
+    check(err["params"] and err["mu"] and err["nu"],
+          f"grouped adam_bf16_fused (AdamW) disagrees with its plain chain: {err}")
+    res = group_record(got, want, lambda: adam_bf16_fused.adam_bf16_fused_apply(got, grads, bc, **kw),
+                       lambda: adam_bf16_fused.adam_bf16_fused_apply_reference(want, grads, bc, **kw),
+                       "adam_bf16_group", ADAM_OPS + EPILOGUE_OPS, err)
+    # nearest library call, not the same function: torch's fused AdamW over
+    # the same 686 bf16 params, gradients and moments
+    steps = [torch.tensor(float(count), device="cuda") for _ in keys]
+    res["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+        want.params, grads, want.mu, want.nu, [], steps, lr=1e-6, beta1=B1, beta2=B2,
+        weight_decay=GROUP_WD, eps=EPS, amsgrad=False, maximize=False))
+    res["library"] = ("torch._fused_adamw_ over the same 686 bf16 lists (nearest call, not "
+                      "the same function)")
+    return res
+
+
+def adamw8bit_group_case(gen: torch.Generator, keys, shapes) -> dict:
+    """AdamW8bit's two grouped launches over every SD1.5 leaf (bf16 masters):
+    adam8_fused over the int8 leaves (payloads at most 1 apart in under 1e-3
+    of them, scales within 1e-6 relative, masters at most one ulp apart in
+    under 1e-3 of them) and adam_bf16_fused over the fp32-moment leaves (bit
+    for bit), from a state that one plain step has filled."""
+    params = {k: rand(s, gen, 2e-2) for k, s in zip(keys, shapes)}
+    state = Adam8bit(B1, B2, EPS).init(params)
+    k8 = [k for k in keys if k in state.mu_s]
+    k32 = [k for k in keys if k not in state.mu_s]
+    check(len(k8) == SD15_INT8_LEAVES, f"{len(k8)} int8 leaves")
+
+    def tables(ps, st):
+        return (adam8_fused.build_adam8_table(
+                    k8, [ps[k] for k in k8],
+                    [(st.mu_q[k], st.mu_s[k], st.nu_q[k], st.nu_s[k]) for k in k8]),
+                adam_bf16_fused.build_adam_table(k32, [ps[k] for k in k32],
+                                                 [st.mu_q[k] for k in k32],
+                                                 [st.nu_q[k] for k in k32]))
+
+    def step_fns(t8, t32, grads, count, plain):
+        bc = bias_corrections(B1, B2, count)
+        inv = [float(1 / b) for b in bc]
+        hp = dict(b1=B1, b2=B2, eps=EPS, step=count - 1, weight_decay=GROUP_WD,
+                  step_size=GROUP_STEP_SIZE)
+        f8 = adam8_fused.adam8_fused_apply_reference if plain else adam8_fused.adam8_fused_apply
+        f32 = (adam_bf16_fused.adam_bf16_fused_apply_reference if plain
+               else adam_bf16_fused.adam_bf16_fused_apply)
+        g8, g32 = [grads[k] for k in t8.keys], [grads[k] for k in t32.keys]
+        return (lambda: f8(t8, g8, *inv, **hp),
+                lambda: f32(t32, g32, bc, recip_bc=True, count=count, **hp))
+
+    want8, want32 = tables(params, state)
+    for fn in step_fns(want8, want32, {k: rand(s, gen, 1e-3) for k, s in zip(keys, shapes)},
+                       1, plain=True):
+        fn()
+    kparams = {k: v.clone() for k, v in params.items()}
+    kstate = dataclasses.replace(state, **{f: {k: v.clone() for k, v in getattr(state, f).items()}
+                                           for f in ("mu_q", "mu_s", "nu_q", "nu_s")})
+    got8, got32 = tables(kparams, kstate)
+    grads = {k: rand(s, gen, 1e-3) for k, s in zip(keys, shapes)}
+    run8, run32 = step_fns(got8, got32, grads, 2, plain=False)
+    plain8, plain32 = step_fns(want8, want32, grads, 2, plain=True)
+    run8(), run32(), plain8(), plain32()
+    torch.cuda.synchronize()
+
+    err8 = {"mu_q_max": 0, "nu_q_max": 0, "mu_q_share": 0.0, "nu_q_share": 0.0,
+            "scales_rel": 0.0, "master_ulps": 0.0, "master_share": 0.0}
+    for i, (lead, minor) in enumerate(got8.views):
+        for j, name in ((0, "mu_q"), (2, "nu_q")):
+            d = (got8.state[i][j].int() - want8.state[i][j].int()).abs()
+            err8[name + "_max"] = max(err8[name + "_max"], int(d.max()))
+            err8[name + "_share"] = max(err8[name + "_share"], float((d > 0).float().mean()))
+            check(not got8.state[i][j][:, minor:].any(),
+                  f"adam8_fused {name} padded tail not zero in {got8.keys[i]}")
+        for j in (1, 3):
+            err8["scales_rel"] = max(err8["scales_rel"],
+                                     rel_err(got8.state[i][j], want8.state[i][j]))
+        ulps, share = master_flips(got8.params[i], want8.params[i])
+        err8["master_ulps"] = max(err8["master_ulps"], ulps)
+        err8["master_share"] = max(err8["master_share"], share)
+    err8["out"] = max(max_abs(a, b) for a, b in zip(got8.params, want8.params))
+    check(err8["mu_q_max"] <= 1 and err8["nu_q_max"] <= 1
+          and max(err8["mu_q_share"], err8["nu_q_share"]) < PAYLOAD_FLIPS
+          and err8["scales_rel"] <= OPT_TOL and err8["master_ulps"] <= 1.0
+          and err8["master_share"] < MASTER_FLIPS,
+          f"grouped adam8_fused disagrees with its plain chain: {err8}")
+    err32 = {what: all(torch.equal(a, b) for a, b in zip(getattr(got32, what),
+                                                          getattr(want32, what)))
+             for what in ("params", "mu", "nu")}
+    err32["out"] = max(max_abs(a, b) for a, b in zip(got32.params, want32.params))
+    check(err32["params"] and err32["mu"] and err32["nu"],
+          f"grouped adam_bf16_fused (AdamW8bit's fp32-moment leaves) disagrees: {err32}")
+    return {"adam8_fused": group_record(got8, want8, run8, plain8, "adam8_group",
+                                        ADAM8_OPS + EPILOGUE_OPS, err8),
+            "adam_bf16_fused_fp32_leaves": group_record(got32, want32, run32, plain32,
+                                                        "adam_bf16_group",
+                                                        ADAM_OPS + EPILOGUE_OPS, err32)}
+
+
 def optim_phase(gen: torch.Generator) -> dict:
-    return {"adam8_fused": [adam8_case(s, gen) for s in INT8_SHAPES],
-            "adam_bf16_fused": [adam_case(s, dt, sr, gen) for s, dt, sr in ADAM_CASES]}
+    res = {"adam8_fused": [adam8_case(s, gen) for s in INT8_SHAPES],
+           "adam_bf16_fused": [adam_case(s, dt, sr, gen) for s, dt, sr in ADAM_CASES]}
+    keys, shapes = sd15_leaves()
+    res["grouped"] = {"adam_bf16_fused": adamw_group_case(gen, keys, shapes)}
+    torch.cuda.empty_cache()
+    res["grouped_int8"] = adamw8bit_group_case(gen, keys, shapes)
+    torch.cuda.empty_cache()
+    return res
 
 
 def setup_train(seed: int, optimizer: str = "adamw"):
@@ -428,13 +642,32 @@ def setup_train(seed: int, optimizer: str = "adamw"):
             "unet_config": unet_config}
 
 
+def optimizer_launches(opt_state: dict) -> dict[str, int]:
+    """Launches per step of each optimizer kernel: one per param group that
+    holds leaves of its kind (AdamW: adam_bf16_fused over every leaf;
+    AdamW8bit: adam8_fused over the int8 leaves, adam_bf16_fused over the
+    fp32-moment leaves)."""
+    out = {"adam8_fused": 0, "adam_bf16_fused": 0}
+    for s in opt_state.values():
+        if hasattr(s, "mu_s"):
+            out["adam8_fused"] += bool(s.mu_s)
+            out["adam_bf16_fused"] += len(s.mu_q) > len(s.mu_s)
+        else:
+            out["adam_bf16_fused"] += bool(s.mu)
+    return out
+
+
 def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
                 warmup: int = 3) -> dict:
     """Warm-up, then ``steps`` timed steps; ``per_step`` gives the launches
-    per step each counted kernel must make in the timed steps."""
+    per step each splash kernel must make in the timed steps, and each
+    optimizer kernel must launch once per param group that holds its
+    leaves."""
     setup = setup_train(seed, optimizer)
     state, step_fn, batch, unet_config = (setup[k] for k in ("state", "step_fn", "batch",
                                                                "unet_config"))
+    groups = len(setup["tx"].transforms)
+    per_step = {**per_step, **optimizer_launches(state.opt_state)}
     del setup
     probe = [k for k in sorted(state.trainable) if "attn1.to_q" in k][:3] + ["unet.conv_in.weight"]
     before = {k: state.trainable[k].clone() for k in probe}
@@ -465,6 +698,7 @@ def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
     moved = [k for k in probe if not torch.equal(before[k], state.trainable[k])]
     check(len(moved) == len(probe), f"parameters did not change: {set(probe) - set(moved)}")
     return {"steps": steps, "warmup_s": warm_s, "timed_s": dt, "steps_per_s": steps / dt,
+            "param_groups": groups, "optimizer_launches_per_step": per_step,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "losses": losses, "launches": launches, "state": state, "batch": batch,
             "unet_config": unet_config}
@@ -494,20 +728,31 @@ def check_phase(train: dict) -> dict:
 
 def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                 record: dict) -> dict:
-    """The {"kernels": [...]} entry of an optimizer kernel: numbers at the
-    largest SD1.5 leaf; launches from the phase whose main path it serves
-    (adam8_fused: the int8 phase; adam_bf16_fused: the main train phase)."""
+    """The {"kernels": [...]} entry of an optimizer kernel: the numbers of its
+    grouped launch over the SD1.5 leaves, the form the main path runs
+    (adam8_fused: AdamW8bit's int8 leaves; adam_bf16_fused: AdamW's 686
+    leaves), beside the update-only form at single leaves; launches from the
+    phase whose main path it serves (adam8_fused: the int8 phase;
+    adam_bf16_fused: the main train phase)."""
     cases = record["optim"][name]
-    main = cases[0]
+    grouped = (record["optim"]["grouped_int8"]["adam8_fused"] if name == "adam8_fused"
+               else record["optim"]["grouped"]["adam_bf16_fused"])
+    others = ({} if name == "adam8_fused" else
+              {"grouped_int8_fp32_leaves": record["optim"]["grouped_int8"][
+                  "adam_bf16_fused_fp32_leaves"]})
     phase = "train_int8" if name == "adam8_fused" else "train"
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "pallas_kernel": pallas_kernel,
             "launches": record[phase]["launches"][name],
             "launches_by_phase": {p: record[p]["launches"][name] for p in ("train", "train_int8")},
-            "max_abs_err": max(r["err"]["out"] for r in cases),
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound"][0],
-            "bound_by": main["bound"][1], "library_ms": main["library_ms"],
-            "at": main["shape"],
+            "max_abs_err": max([r["err"]["out"] for r in cases] + [grouped["err"]["out"]]),
+            "ms": grouped["ms"], "plain_ms": grouped["plain_ms"],
+            "bound_ms": grouped["bound"][0], "bound_by": grouped["bound"][1],
+            "library_ms": grouped["library_ms"],
+            "at": f"grouped: {grouped['leaves']} SD1.5 leaves, {grouped['elements']} elements",
+            **{k: v for k, v in grouped.items() if k == "library"},
+            **{k: {f: v[f] for f in ("leaves", "ms", "plain_ms", "bound", "library_ms")}
+               for k, v in others.items()},
             "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound", "library_ms")}
                          for r in cases]}
 
@@ -548,14 +793,16 @@ def main(argv=None) -> int:
         log(f"kernels {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
 
     record["optim"] = optim_phase(gen)
-    for name, cases in record["optim"].items():
-        for r in cases:
+    for name in ("adam8_fused", "adam_bf16_fused"):
+        for r in record["optim"][name]:
             log(f"optim {name} {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
+    for form in ("grouped", "grouped_int8"):
+        for name, r in record["optim"][form].items():
+            log(f"optim {form} {name}: {json.dumps(r)}")
     torch.cuda.empty_cache()
 
     splash_per_step = {name: CALLS_PER_STEP for name in SPLASH}
-    train = train_phase(args.seed, args.steps, "adamw",
-                        {**splash_per_step, "adam_bf16_fused": SD15_LEAVES, "adam8_fused": 0})
+    train = train_phase(args.seed, args.steps, "adamw", splash_per_step)
     log(f"train: {train['steps_per_s']:.4f} steps/s, peak {train['peak_mem_gib']:.2f} GiB, "
         f"losses {train['losses']}, launches {train['launches']}")
     record["check"] = check_phase(train)
@@ -565,9 +812,7 @@ def main(argv=None) -> int:
     del train
     torch.cuda.empty_cache()
 
-    int8 = train_phase(args.seed, args.steps, "bitsandbytes.optim.AdamW8bit",
-                       {**splash_per_step, "adam8_fused": SD15_INT8_LEAVES,
-                        "adam_bf16_fused": SD15_LEAVES - SD15_INT8_LEAVES})
+    int8 = train_phase(args.seed, args.steps, "bitsandbytes.optim.AdamW8bit", splash_per_step)
     log(f"int8: {int8['steps_per_s']:.4f} steps/s, peak {int8['peak_mem_gib']:.2f} GiB, "
         f"losses {int8['losses']}, launches {int8['launches']}")
     record["train_int8"] = {k: v for k, v in int8.items()

@@ -1,10 +1,9 @@
 """Fused Adam update over stored moments, on Hopper: the port of the TPU
 kernel in ``lab/micro_bf16_update.py`` (``adam_bf16_fused_update``).
 
-One launch per leaf reads the gradient and both moments in their storage
-dtypes, runs Adam in fp32 and writes the bias-corrected step in
-``out_dtype`` and the moments back (``ops/csrc/adam_bf16_fused.cu``). Two
-switches make one kernel compute each caller's chain exactly:
+The kernel (``ops/csrc/adam_bf16_fused.cu``) reads the gradient and both
+moments in their storage dtypes, runs Adam in fp32 and stores the moments
+back in place. Two switches make it compute each caller's chain exactly:
 
 * ``recip_bc``: multiply by the fp32 reciprocals of the bias corrections
   ``bc = (1 - b1^t, 1 - b2^t)`` (the lab kernel; the int8 path's fp32-moment
@@ -12,25 +11,42 @@ switches make one kernel compute each caller's chain exactly:
 * ``sr_step`` / ``sr_salt``: store nu by the counter-hash stochastic rounding
   to bf16 (``ops/sr.py``) instead of rounding to nearest.
 
-Both versions update mu and nu in place. ``adam_bf16_fused_update`` launches
-the kernel for CUDA tensors and runs ``adam_bf16_fused_update_reference``
-(the plain PyTorch chain) for CPU tensors; it never falls back from one to
-the other. ``launches`` counts the kernel's launches.
+Two entry points:
+
+* ``adam_bf16_fused_update``: one leaf, returns the bias-corrected step in
+  ``out_dtype`` (what the TPU kernel computes);
+* ``adam_bf16_fused_apply``: every leaf of a param group in one launch, over
+  an ``AdamTable`` (``build_adam_table``): Adam, then the decoupled weight
+  decay and the schedule, then the master apply, the masters updated in
+  place (bf16 masters by SR salted ``crc32(key) ^ MASTER_SALT`` at the train
+  step). Nothing but the moments and masters reaches device memory.
+
+Each launches the kernel for CUDA tensors and runs its plain PyTorch version
+(``*_reference``: the grouped one is the optimizer's chain leaf by leaf) for
+CPU tensors; neither falls back from one to the other. ``launches`` counts
+the kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import _build
-from .sr import dither_seed, stochastic_round_bf16_cheap
+from .sr import (MASTER_SALT, NU_SALT, apply_update_reference, dither_seed, leaf_salt,
+                 stochastic_round_bf16_cheap)
 
 # Storage dtypes the kernel reads and writes, by the code it takes.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# Elements per CTA of the grouped launch (a multiple of 8): the largest SD1.5
+# leaf (29.5M elements) spreads over every SM, a 320-element leaf takes one.
+# 2048-32768 ran within 1% of each other on an H100 (scripts/sweep_adam_chunks.py).
+CHUNK = 4096
 
 launches = {"adam_bf16_fused": 0}
 
@@ -63,7 +79,9 @@ def adam_bf16_fused_update_reference(g: torch.Tensor, mu: torch.Tensor, nu: torc
     if recip_bc:
         out = (m * c1) / (torch.sqrt(v * c2) + eps)
     else:
-        out = (m / c1) / (torch.sqrt(v / c2) + eps)
+        # by 0-dim tensors: torch on CUDA multiplies by the reciprocal of a
+        # python divisor, which is not the division the kernel computes
+        out = (m / m.new_full((), c1)) / (torch.sqrt(v / v.new_full((), c2)) + eps)
     mu.copy_(m)
     nu.copy_(v if sr_step is None else stochastic_round_bf16_cheap(v, sr_step, sr_salt))
     return out.to(out_dtype), mu, nu
@@ -119,3 +137,197 @@ def adam_bf16_fused_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, 
     _build.check(lib, "adam_bf16_fused", err)
     launches["adam_bf16_fused"] += 1
     return out, mu, nu
+
+
+# ---- the grouped entry ----------------------------------------------------------
+
+def decay_and_schedule_reference(u: torch.Tensor, p: torch.Tensor, weight_decay: float,
+                                 step_size: float) -> torch.Tensor:
+    """The decoupled weight decay and the schedule of one leaf's update, as
+    the optimizers' chains round them: ``wd * p`` in the master's dtype (the
+    python scalar rounded to it first, as JAX does), added in the update's
+    dtype, then times the step size rounded to the update's dtype."""
+    if weight_decay:
+        u = u + (p * p.new_full((), weight_decay)).to(u.dtype)
+    return u * u.new_full((), step_size)
+
+
+def chunk_map(counts: Sequence[int]) -> np.ndarray:
+    """(sum(counts), 2) int32 (leaf, chunk) pairs: ``counts[i]`` chunks of
+    leaf i, one CTA each, in leaf order."""
+    counts = np.asarray(counts, dtype=np.int64)
+    leaf = np.repeat(np.arange(len(counts)), counts)
+    first = np.repeat(np.cumsum(counts) - counts, counts)
+    return np.stack([leaf, np.arange(int(counts.sum())) - first], axis=1).astype(np.int32)
+
+
+class GradPointers:
+    """The device array of a group's gradient addresses. Autograd returns new
+    gradient tensors every step, so the addresses are written to a pinned
+    host buffer and copied on the compute stream before each launch; an
+    event keeps the host from rewriting the buffer while its last copy may
+    still be in flight."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.host = torch.empty(n, dtype=torch.int64, pin_memory=True)
+        self.dev = torch.empty(n, dtype=torch.int64, device=device)
+        self.copied = torch.cuda.Event()
+
+    def upload(self, grads: Sequence[torch.Tensor]) -> int:
+        """Stage the addresses of ``grads``; returns the device array's."""
+        self.copied.synchronize()
+        self.host.numpy()[:] = [g.data_ptr() for g in grads]
+        self.dev.copy_(self.host, non_blocking=True)
+        self.copied.record()
+        return self.dev.data_ptr()
+
+
+def check_grads(name: str, grads: Sequence[torch.Tensor], numels: Sequence[int],
+                device: torch.device) -> tuple[list[torch.Tensor], torch.dtype]:
+    """The gradients as the kernel takes them, contiguous and of one dtype,
+    and that dtype; raises on a gradient that does not fit its leaf."""
+    if len(grads) != len(numels):
+        raise ValueError(f"{name}: {len(grads)} gradients for {len(numels)} leaves")
+    dtype = grads[0].dtype if grads else torch.float32
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: gradient dtype {dtype} is not supported")
+    out = []
+    for i, (g, n) in enumerate(zip(grads, numels)):
+        if g.dtype != dtype or g.numel() != n or g.device != device:
+            raise ValueError(f"{name}: gradient {i} is {g.dtype} of {g.numel()} elements on "
+                             f"{g.device}; the group takes {dtype}, {n} elements, {device}")
+        out.append(g if g.is_contiguous() else g.contiguous())
+    return out, dtype
+
+
+def same_tensors(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+# AdamLeaf of ops/csrc/adam_bf16_fused.cu
+_LEAF = np.dtype([("p", "<u8"), ("mu", "<u8"), ("nu", "<u8"), ("n", "<i8"),
+                  ("nu_salt", "<u4"), ("master_salt", "<u4")])
+assert _LEAF.itemsize == 40
+
+
+@dataclasses.dataclass(eq=False)
+class AdamTable:
+    """The leaf table of a param group: its leaves' masters and moments (the
+    tensors the launch updates in place), their two salts, the packed
+    records and the chunk map; on a card also their device copies and the
+    gradient-address array. Built once, reused while ``holds`` the state."""
+    keys: tuple[str, ...]
+    params: list[torch.Tensor]
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+    nu_salts: list[int]
+    master_salts: list[int]
+    records: np.ndarray        # _LEAF per leaf
+    chunks: np.ndarray         # (n_chunks, 2) int32 (leaf, chunk)
+    device: torch.device
+    dev_records: Optional[torch.Tensor] = None
+    dev_chunks: Optional[torch.Tensor] = None
+    grads: Optional[GradPointers] = None
+
+    def holds(self, keys: Sequence[str], params: Sequence[torch.Tensor],
+              mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor]) -> bool:
+        """Whether the table is of exactly these leaves and tensors."""
+        return (tuple(keys) == self.keys and same_tensors(params, self.params)
+                and same_tensors(mu, self.mu) and same_tensors(nu, self.nu))
+
+
+def build_adam_table(keys: Sequence[str], params: Sequence[torch.Tensor],
+                     mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor]) -> AdamTable:
+    """The leaf table of leaves ``keys`` (masters ``params``, moments ``mu``
+    and ``nu`` in their storage dtypes, each of its master's size). On a
+    card every tensor must be contiguous, and each kind of one dtype."""
+    keys, params, mu, nu = tuple(keys), list(params), list(mu), list(nu)
+    device = params[0].device if params else torch.device("cpu")
+    for what, ts in (("master", params), ("mu", mu), ("nu", nu)):
+        for k, t, p in zip(keys, ts, params):
+            if t.numel() != p.numel() or t.device != device:
+                raise ValueError(f"adam_bf16_fused: {what} of {k} is {tuple(t.shape)} on "
+                                 f"{t.device}, its master {tuple(p.shape)} on {device}")
+            if device.type == "cuda" and (not t.is_contiguous() or t.dtype not in DTYPE_CODES
+                                          or t.dtype != ts[0].dtype):
+                raise ValueError(f"adam_bf16_fused: the {what} tensors of a group must be "
+                                 f"contiguous and of one dtype; {k} is {t.dtype}")
+    rec = np.zeros(len(keys), _LEAF)
+    rec["p"] = [t.data_ptr() for t in params]
+    rec["mu"] = [t.data_ptr() for t in mu]
+    rec["nu"] = [t.data_ptr() for t in nu]
+    rec["n"] = [t.numel() for t in params]
+    rec["nu_salt"] = [leaf_salt(k, NU_SALT) for k in keys]
+    rec["master_salt"] = [leaf_salt(k, MASTER_SALT) for k in keys]
+    table = AdamTable(keys, params, mu, nu, rec["nu_salt"].tolist(), rec["master_salt"].tolist(),
+                      rec, chunk_map([max(1, -(-int(n) // CHUNK)) for n in rec["n"]]), device)
+    if device.type == "cuda" and keys:
+        table.dev_records = torch.from_numpy(rec.view(np.uint8)).to(device)
+        table.dev_chunks = torch.from_numpy(table.chunks).to(device)
+        table.grads = GradPointers(len(keys), device)
+    return table
+
+
+def adam_bf16_fused_apply_reference(table: AdamTable, grads: Sequence[torch.Tensor], bc, *,
+                                    b1: float, b2: float, eps: float, recip_bc: bool,
+                                    count: int, step: int, weight_decay: float,
+                                    step_size: float,
+                                    update_dtype: Optional[torch.dtype] = None) -> None:
+    """Plain version: the optimizer's chain leaf by leaf -- Adam (nu stored
+    by SR at ``count`` where it is narrower than fp32), the update in
+    ``update_dtype`` (None: the gradient's), decay and schedule, then the
+    master apply at ``step`` -- with the masters and moments updated in
+    place."""
+    for i, g in enumerate(grads):
+        p, nu = table.params[i], table.nu[i]
+        sr = ({"sr_step": count, "sr_salt": table.nu_salts[i]} if nu.dtype.itemsize < 4
+              else {})
+        out = adam_bf16_fused_update_reference(
+            g.contiguous(), table.mu[i], nu, bc, b1=b1, b2=b2, eps=eps,
+            out_dtype=update_dtype or g.dtype, recip_bc=recip_bc, **sr)[0]
+        u = decay_and_schedule_reference(out, p, weight_decay, step_size)
+        p.copy_(apply_update_reference(p, u, step, table.master_salts[i]))
+
+
+def adam_bf16_fused_apply(table: AdamTable, grads: Sequence[torch.Tensor], bc, *, b1: float,
+                          b2: float, eps: float, recip_bc: bool, count: int, step: int,
+                          weight_decay: float, step_size: float,
+                          update_dtype: Optional[torch.dtype] = None) -> None:
+    """One Adam step and master apply over every leaf of ``table``, in one
+    launch on a card; masters and moments are updated in place.
+
+    grads: one per leaf, in the table's order. bc: the fp32 bias corrections
+    at ``count`` (the optimizer's count after this update); ``step``: the
+    train step (the master SR's seed); step_size: ``-lr * schedule``;
+    update_dtype: the update's dtype before the apply (None: the
+    gradients')."""
+    kw = dict(b1=b1, b2=b2, eps=eps, recip_bc=recip_bc, count=count, step=step,
+              weight_decay=weight_decay, step_size=step_size, update_dtype=update_dtype)
+    if table.device.type != "cuda":
+        adam_bf16_fused_apply_reference(table, grads, bc, **kw)
+        return
+    if not table.keys:
+        return
+    gs, g_dtype = check_grads("adam_bf16_fused", grads, table.records["n"].tolist(),
+                              table.device)
+    u_dtype = update_dtype or g_dtype
+    p_dtype, mu_dtype, nu_dtype = (ts[0].dtype for ts in (table.params, table.mu, table.nu))
+    if u_dtype not in DTYPE_CODES:
+        raise TypeError(f"adam_bf16_fused: update dtype {u_dtype} is not supported")
+    c1, c2 = _factors(bc, recip_bc)
+    # the scalars rounded as the chain's new_full rounds them
+    wd_p = torch.full((), weight_decay, dtype=p_dtype).item()
+    step_u = torch.full((), step_size, dtype=u_dtype).item()
+    f32 = ctypes.c_float
+    lib = _build.load_library()
+    with torch.cuda.device(table.device):
+        err = lib.ssdt_adam_bf16_group(
+            table.dev_records.data_ptr(), table.grads.upload(gs), table.dev_chunks.data_ptr(),
+            len(table.chunks), CHUNK, DTYPE_CODES[g_dtype], DTYPE_CODES[mu_dtype],
+            DTYPE_CODES[nu_dtype], DTYPE_CODES[p_dtype], DTYPE_CODES[u_dtype], f32(b1), f32(b2),
+            f32(1.0 - b1), f32(1.0 - b2), f32(eps), f32(c1), f32(c2), int(recip_bc),
+            int(nu_dtype.itemsize < 4), dither_seed(count, 0), int(bool(weight_decay)),
+            f32(wd_p), f32(step_u), dither_seed(step, 0),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "adam_bf16_fused", err)
+    launches["adam_bf16_fused"] += 1

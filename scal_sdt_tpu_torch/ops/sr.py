@@ -1,7 +1,11 @@
 """Counter-hash dither and bf16 stochastic rounding (port of the SR half of
-``scal_sdt_tpu/training/ema.py``): the plain version of the SR store that
-``ops/csrc/adam_common.cuh`` computes in the fused Adam kernel, and the SR of
-the master apply in ``training/step.py``.
+``scal_sdt_tpu/training/ema.py``): the plain version of the SR stores that
+``ops/csrc/adam_common.cuh`` computes in the optimizer kernels (nu, and the
+master apply of the grouped entries), and of the master apply in
+``training/step.py``. Each leaf's two salts live here, as ops and training
+both need them: ``crc32(key) ^ NU_SALT`` for the bf16 nu store (dithered at
+the optimizer's count) and ``crc32(key) ^ MASTER_SALT`` for the bf16 master
+store (dithered at the train step).
 
 The bits match the JAX version exactly. torch has no general uint32
 arithmetic, so the hash runs on int32 tensors holding the uint32 bit
@@ -13,10 +17,18 @@ acts as a logical one.
 from __future__ import annotations
 
 import math
+import zlib
 
 import torch
 
 _U32 = 0xFFFFFFFF
+NU_SALT = 0xE3A0003
+MASTER_SALT = 0xE3A0001
+
+
+def leaf_salt(key: str, base: int) -> int:
+    """A leaf's salt: ``crc32(key) ^ base`` (``base`` NU_SALT or MASTER_SALT)."""
+    return zlib.crc32(key.encode()) ^ base
 
 
 def _i32(v: int) -> int:
@@ -72,3 +84,13 @@ def stochastic_round_bf16_cheap(x: torch.Tensor, step: int, salt: int) -> torch.
     """fp32 -> bf16 stochastic rounding with the counter-hash dither,
     deterministic in (step, salt)."""
     return stochastic_round_bf16_bits(x, cheap_dither_u16(x.shape, step, salt, x.device))
+
+
+def apply_update_reference(p: torch.Tensor, u: torch.Tensor, step: int, salt: int
+                           ) -> torch.Tensor:
+    """A master plus its update, as a new tensor: bf16 masters add in fp32
+    and round stochastically (dithered at ``step`` with ``salt``), other
+    masters add the update cast to their dtype."""
+    if p.dtype == torch.bfloat16:
+        return stochastic_round_bf16_cheap(p.float() + u.float(), step, salt)
+    return p + u.to(p.dtype)

@@ -14,32 +14,42 @@ Each group runs the JAX chain in the same order and precision.
   (``u + (wd * p).to(u.dtype)``), then the schedule with the step size cast
   to the update's dtype first, as optax's ``scale_by_schedule`` does.
 
-The Adam step of each leaf is one launch of a fused kernel on the card
-(``ops/adam_bf16_fused.py``, ``ops/adam8_fused.py``) and the kernel's plain
-version on the CPU. The state is host-side Python (one step count per group)
-plus the moment tensors per key, which the update changes in place. Other
-optimizer families and gradient accumulation are later slices.
+Two ways to run a group:
+
+* ``update`` returns the updates (optax's ``tx.update``), one kernel launch
+  per leaf on the card (``ops/adam_bf16_fused.py``, ``ops/adam8_fused.py``);
+  ``training/step.py``'s ``apply_updates`` then applies them;
+* ``update_and_apply`` (the train step's) runs Adam, decay, schedule and the
+  master apply of every leaf in one launch per kernel over the group's leaf
+  table, built on first use and cached on the transform while the state
+  holds the same tensors; the masters are updated in place. Its numbers are
+  those of ``update`` then ``apply_updates``, bit for bit.
+
+On the CPU both run the kernels' plain versions. The state is host-side
+Python (one step count per group) plus the moment tensors per key, which
+both change in place. Other optimizer families and gradient accumulation
+are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import zlib
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from ..conf import Config
-from ..ops.adam_bf16_fused import adam_bf16_fused_update
-from .quantized import Adam8bit, Adam8bitState
+from ..ops.adam_bf16_fused import (adam_bf16_fused_apply, adam_bf16_fused_update,
+                                   build_adam_table, decay_and_schedule_reference)
+from ..ops.sr import NU_SALT, leaf_salt
+from .quantized import Adam8bit, Adam8bitState, bias_corrections
 from .schedules import Schedule, build_lr_schedule
 
 _ADAMW_NAMES = {"adamw", "torch.optim.adamw", "bitsandbytes.optim.adamw"}
 _ADAMW_8BIT_NAMES = {"adamw8bit", "bitsandbytes.optim.adamw8bit"}
 _DTYPE_MAP = {"fp16": torch.float16, "fp32": torch.float32, "bf16": torch.bfloat16}
-_NU_SALT = 0xE3A0003
 
 Tensors = dict[str, torch.Tensor]
 
@@ -93,6 +103,16 @@ class AdamState:
     nu: Tensors
 
 
+def _step_size(lr: float, schedule: Schedule, count: int) -> float:
+    """-lr * schedule(count) in fp32; optax's scale_by_schedule sees the
+    count before the update."""
+    return float(np.float32(-lr) * np.float32(schedule(count)))
+
+
+def _cache_field() -> dict:
+    return dataclasses.field(default_factory=dict, compare=False, repr=False, hash=False)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """One param group's AdamW chain; the update comes out in fp32."""
@@ -103,6 +123,7 @@ class AdamW:
     weight_decay: float
     schedule: Schedule
     moment_dtypes: Optional[tuple[torch.dtype, torch.dtype]] = None
+    _tables: dict = _cache_field()   # the group's leaf table, built on first use
 
     def init(self, params: Tensors) -> AdamState:
         def zeros(i):
@@ -114,25 +135,37 @@ class AdamW:
     def update(self, grads: Tensors, state: AdamState, params: Tensors
                ) -> tuple[Tensors, AdamState]:
         count = state.count + 1
-        c = np.float32(count)
-        bc = (np.float32(1.0) - np.float32(self.b1) ** c,
-              np.float32(1.0) - np.float32(self.b2) ** c)
-        # optax's scale_by_schedule sees the count before this update
-        step_size = float(np.float32(-self.lr) * np.float32(self.schedule(state.count)))
+        bc = bias_corrections(self.b1, self.b2, count)
+        step_size = _step_size(self.lr, self.schedule, state.count)
         updates = {}
         for k in sorted(grads):
             nu = state.nu[k]
-            sr = ({"sr_step": count, "sr_salt": zlib.crc32(k.encode()) ^ _NU_SALT}
+            sr = ({"sr_step": count, "sr_salt": leaf_salt(k, NU_SALT)}
                   if nu.dtype.itemsize < 4 else {})
             out = adam_bf16_fused_update(
                 grads[k].contiguous(), state.mu[k], nu, bc, b1=self.b1, b2=self.b2,
                 eps=self.eps, out_dtype=torch.float32, recip_bc=False, **sr)[0]
-            if self.weight_decay:
-                # JAX rounds the python scalar to p's dtype, then wd * p in it
-                p = params[k]
-                out = out + p * p.new_full((), self.weight_decay)
-            updates[k] = out.mul_(step_size)
+            updates[k] = decay_and_schedule_reference(out, params[k], self.weight_decay,
+                                                      step_size)
         return updates, AdamState(count=count, mu=state.mu, nu=state.nu)
+
+    def update_and_apply(self, grads: Tensors, state: AdamState, params: Tensors,
+                         step: int) -> AdamState:
+        """``update`` then the master apply at train step ``step``, the
+        masters in ``params`` updated in place: one launch on the card."""
+        keys = sorted(params)
+        ps, mu, nu = ([d[k] for k in keys] for d in (params, state.mu, state.nu))
+        table = self._tables.get("adam")
+        if table is None or not table.holds(keys, ps, mu, nu):
+            table = self._tables["adam"] = build_adam_table(keys, ps, mu, nu)
+        count = state.count + 1
+        adam_bf16_fused_apply(
+            table, [grads[k] for k in keys], bias_corrections(self.b1, self.b2, count),
+            b1=self.b1, b2=self.b2, eps=self.eps, recip_bc=False, count=count, step=step,
+            weight_decay=self.weight_decay,
+            step_size=_step_size(self.lr, self.schedule, state.count),
+            update_dtype=torch.float32)
+        return AdamState(count=count, mu=state.mu, nu=state.nu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +178,7 @@ class AdamW8bit:
     eps: float
     weight_decay: float
     schedule: Schedule
+    _tables: dict = _cache_field()   # the group's two leaf tables, built on first use
 
     def _adam(self) -> Adam8bit:
         return Adam8bit(b1=self.b1, b2=self.b2, eps=self.eps)
@@ -154,14 +188,21 @@ class AdamW8bit:
 
     def update(self, grads: Tensors, state: Adam8bitState, params: Tensors
                ) -> tuple[Tensors, Adam8bitState]:
-        step_size = float(np.float32(-self.lr) * np.float32(self.schedule(state.count)))
+        step_size = _step_size(self.lr, self.schedule, state.count)
         updates, state = self._adam().update(grads, state)
         for k, u in updates.items():
-            if self.weight_decay:
-                p = params[k]
-                u = u + (p * p.new_full((), self.weight_decay)).to(u.dtype)
-            updates[k] = u * u.new_full((), step_size)
+            updates[k] = decay_and_schedule_reference(u, params[k], self.weight_decay,
+                                                      step_size)
         return updates, state
+
+    def update_and_apply(self, grads: Tensors, state: Adam8bitState, params: Tensors,
+                         step: int) -> Adam8bitState:
+        """``update`` then the master apply at train step ``step``, the
+        masters in ``params`` updated in place: on the card one launch for
+        the int8 leaves and one for the fp32-moment leaves."""
+        return self._adam().update_and_apply(
+            grads, state, params, step=step, weight_decay=self.weight_decay,
+            step_size=_step_size(self.lr, self.schedule, state.count), tables=self._tables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +230,14 @@ class MultiTransform:
             u, new_state[label] = tx.update(g_parts[label], state[label], p_parts[label])
             updates.update(u)
         return updates, new_state
+
+    def update_and_apply(self, grads: Tensors, state: dict[str, object], params: Tensors,
+                         step: int) -> dict[str, object]:
+        """Each group's ``update_and_apply``: the masters in ``params`` are
+        updated in place; returns the new state."""
+        g_parts, p_parts = self._split(grads), self._split(params)
+        return {label: tx.update_and_apply(g_parts[label], state[label], p_parts[label], step)
+                for label, tx in self.transforms.items()}
 
 
 def build_optimizer(config: Config, labels: dict[str, str],

@@ -5,9 +5,13 @@ branch).
 offset and multires noise), UNet, MSE against the schedule target in fp32,
 optional min-SNR weighting and prior preservation. ``make_train_step`` takes
 gradients with respect to a compute-dtype copy of the trainable dict (bf16
-gradients, as in the JAX step), runs the optimizer, and applies the update to
-the masters; bf16 masters take the fp32 add and a stochastically rounded
-store salted ``crc32(key) ^ 0xE3A0001``, bit for bit the JAX dither.
+gradients, as in the JAX step), then runs the optimizer and applies the
+update to the masters in one fused call per group
+(``tx.update_and_apply``): bf16 masters take the fp32 add and a
+stochastically rounded store salted ``crc32(key) ^ 0xE3A0001``, bit for bit
+the JAX dither. The masters are updated in place, as the JAX step donates
+them. ``apply_updates`` is that apply as a plain chain over the updates of
+``tx.update``.
 
 The JAX step draws noise and timesteps from ``fold_in(rng, step)``; torch
 cannot reproduce that stream, so the port draws from an explicit
@@ -19,7 +23,6 @@ cannot reproduce that stream, so the port draws from an explicit
 from __future__ import annotations
 
 import dataclasses
-import zlib
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -29,11 +32,10 @@ from ..conf import Config
 from ..diffusion.schedule import NoiseSchedule
 from ..models.functional import Params
 from ..models.unet import UNetConfig, unet_apply
-from ..ops.sr import stochastic_round_bf16_cheap
+from ..ops.sr import MASTER_SALT, apply_update_reference, leaf_salt
 from .optim_targets import COMPONENT_PREFIX
 
 UNET_PREFIX = COMPONENT_PREFIX["unet"]
-_MASTER_SALT = 0xE3A0001
 
 
 class TrainState(NamedTuple):
@@ -186,16 +188,11 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
 
 
 def apply_updates(trainable: Params, updates: Params, step: int) -> Params:
-    """Masters + updates; bf16 masters add in fp32 and round stochastically."""
-    new = {}
-    for k in sorted(trainable):
-        p, u = trainable[k], updates[k]
-        if p.dtype == torch.bfloat16:
-            new[k] = stochastic_round_bf16_cheap(p.float() + u.float(), step,
-                                                 zlib.crc32(k.encode()) ^ _MASTER_SALT)
-        else:
-            new[k] = p + u.to(p.dtype)
-    return new
+    """Masters + updates, as new tensors; bf16 masters add in fp32 and round
+    stochastically."""
+    return {k: apply_update_reference(trainable[k], updates[k], step,
+                                      leaf_salt(k, MASTER_SALT))
+            for k in sorted(trainable)}
 
 
 def loss_and_grads(spec: StepSpec, trainable: Params, frozen: Params, batch: dict,
@@ -218,7 +215,8 @@ def loss_and_grads(spec: StepSpec, trainable: Params, frozen: Params, batch: dic
 def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
                     ema_enabled: bool = False):
     """Build ``train_step(state, frozen, batch, draws=None) -> (state, metrics)``:
-    ``loss_and_grads``, then ``tx.update``, then ``apply_updates``."""
+    ``loss_and_grads``, then ``tx.update_and_apply``, which updates the
+    masters of ``state.trainable`` in place."""
     if ema_enabled:
         raise NotImplementedError("EMA: the port does not run ema_update yet")
 
@@ -227,11 +225,10 @@ def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
         loss, grads = loss_and_grads(spec, state.trainable, frozen, batch, state.generator,
                                      draws)
         with torch.no_grad():
-            updates, opt_state = tx.update(grads, state.opt_state, state.trainable)
+            opt_state = tx.update_and_apply(grads, state.opt_state, state.trainable, state.step)
             del grads
-            trainable = apply_updates(state.trainable, updates, state.step)
         metrics = {"train_loss": loss, "lr": lr_fn(state.step)}
-        return TrainState(state.step + 1, trainable, opt_state, state.generator), metrics
+        return TrainState(state.step + 1, state.trainable, opt_state, state.generator), metrics
 
     return train_step
 

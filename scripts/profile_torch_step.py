@@ -9,9 +9,12 @@ batch 8, cached latents/conds, bf16 masters, no remat) with bf16 moments
 (``adamw``, the default) or int8 moments (``adamw8bit``). After 3 warm-up
 steps it measures:
 
-* the step's three phases by CUDA events -- ``loss_and_grads``, the
-  optimizer (``tx.update``), the master apply (``apply_updates``) -- the
-  functions ``make_train_step`` chains, called one after the other;
+* the step's two phases -- ``loss_and_grads`` and the fused optimizer and
+  master apply (``tx.update_and_apply``), the functions ``make_train_step``
+  chains, called one after the other -- by CUDA events and by the host's
+  clock (each phase ends in a synchronize, so the two clocks agree up to
+  the launch of the first kernel), with the optimizer kernels' launches
+  per step;
 * a ``torch.profiler`` trace of ``--steps`` whole steps: device time by kernel
   category and the top kernels, kernel launches per step, and the share of
   the wall time the device was busy;
@@ -38,7 +41,7 @@ from scal_sdt_tpu_torch.training import step as step_mod
 
 CATEGORIES = (  # first match wins; lower-case substrings of kernel names
     ("splash", ("splash",)),
-    ("optimizer_kernels", ("adam8_fused", "adam_bf16_fused")),
+    ("optimizer_kernels", ("adam8_", "adam_bf16_")),
     ("optimizer_foreach", ("foreach", "multi_tensor")),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas", "matmul")),
@@ -61,26 +64,36 @@ def category(name: str) -> str:
 
 
 def phase_times(setup: dict, steps: int) -> dict:
-    """ms per phase, the phases of make_train_step run one after another."""
+    """ms per phase (device clock by CUDA events, host clock), the phases of
+    make_train_step run one after another, and the optimizer kernels'
+    launches per step."""
     state, spec, tx, batch = (setup[k] for k in ("state", "spec", "tx", "batch"))
     out = collections.defaultdict(float)
+    chip_smoke.reset_launches()
     for _ in range(steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ev[0].record()
         _, grads = step_mod.loss_and_grads(spec, state.trainable, {}, batch, state.generator)
         ev[1].record()
-        with torch.no_grad():
-            updates, opt_state = tx.update(grads, state.opt_state, state.trainable)
-            del grads
-            ev[2].record()
-            trainable = step_mod.apply_updates(state.trainable, updates, state.step)
-            del updates
-        ev[3].record()
-        state = step_mod.TrainState(state.step + 1, trainable, opt_state, state.generator)
         torch.cuda.synchronize()
-        for name, a, b in (("loss_and_grad", 0, 1), ("optimizer", 1, 2), ("apply", 2, 3)):
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            opt_state = tx.update_and_apply(grads, state.opt_state, state.trainable, state.step)
+            del grads
+        ev[2].record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state = step_mod.TrainState(state.step + 1, state.trainable, opt_state, state.generator)
+        for name, a, b, ta, tb in (("loss_and_grad", 0, 1, t0, t1),
+                                   ("optimizer_and_apply", 1, 2, t1, t2)):
             out[name] += ev[a].elapsed_time(ev[b]) / steps
+            out[name + "_host"] += (tb - ta) * 1e3 / steps
     setup["state"] = state
+    launches = chip_smoke.read_launches()
+    out["optimizer_launches_per_step"] = {k: launches[k] / steps
+                                          for k in ("adam8_fused", "adam_bf16_fused")}
     return dict(out)
 
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 splash attention (end to end, and the dq kernel alone), the fused Adam
-update and the int8 Adam update.
+update and the int8 Adam update, each in its single-leaf update-only form
+and its grouped form (Adam, decay, schedule and master apply over a leaf
+table in one launch).
 
 Skips without a CUDA card. Imports no JAX, so it also runs where JAX is not
 installed; there, skip the repository's conftest (which imports JAX):
@@ -158,3 +160,140 @@ def test_adam8_fused_matches_reference_on_cuda(shape, zero):
         else:
             err = (a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)
             assert float(err) <= 1e-6, name
+
+
+def _views(sizes, dtype, offsets, r, scale=1e-2):
+    """Seeded CUDA tensors of ``sizes`` elements (|values| for a negative
+    scale), leaf i a view ``offsets[i]`` elements into a larger buffer (an
+    address off 16 bytes when the offset times the element size is not a
+    multiple of 16)."""
+    out = []
+    for n, off in zip(sizes, offsets):
+        x = r.randn(n + off).astype(np.float32)
+        x = np.abs(x) * -scale if scale < 0 else x * scale
+        out.append(torch.from_numpy(x).cuda().to(dtype)[off:])
+    return out
+
+
+def _copies(ts):
+    """Copies at the same offsets into new buffers (so as far off 16 bytes)."""
+    out = []
+    for t in ts:
+        off = t.storage_offset()
+        buf = torch.empty(off + t.numel(), dtype=t.dtype, device=t.device)
+        out.append(buf[off:].view(t.shape).copy_(t))
+    return out
+
+
+# Leaf sizes of a group, and per tensor the offsets of the leaves' views: the
+# sixth leaf's tensors are off 16 bytes by different amounts (no element at
+# which all are aligned: it runs one element at a time); the seventh's by
+# 4 elements each (8 bytes for 2-byte dtypes, 16 for fp32: the vectors start
+# at element 4 after a scalar head).
+GROUP_SIZES = [1, 7, 320, 2880 * 320, 8192 + 9, 1000, 5000]
+
+
+def _offsets(last: int) -> list[int]:
+    return [0, 0, 0, 0, 0, last, 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 1e-2], ids=["wd0", "wd"])
+@pytest.mark.parametrize("form", ["adamw", "int8_path"])
+@pytest.mark.parametrize("p_dt", [torch.bfloat16, torch.float32], ids=["bf16_master", "fp32_master"])
+@pytest.mark.parametrize("m_dt", [torch.bfloat16, torch.float32], ids=["bf16_moments", "fp32_moments"])
+def test_adam_bf16_group_matches_reference_on_cuda(m_dt, p_dt, form, wd):
+    """The grouped adam_bf16_fused (Adam, decay, schedule, master apply in
+    one launch) against its plain chain leaf by leaf on a ragged leaf set:
+    masters and moments bit for bit; a second launch from the same state
+    gives the same bits. ``form``: AdamW's (divide, fp32 update, nu by SR
+    where it is bf16) or the int8 path's fp32-moment leaves' (reciprocal,
+    update in the gradient's dtype)."""
+    _need_card()
+    r = np.random.RandomState(3)
+    keys = [f"unet.l{i}.weight" for i in range(len(GROUP_SIZES))]
+    params = _views(GROUP_SIZES, p_dt, _offsets(3), r)
+    mu = _views(GROUP_SIZES, m_dt, _offsets(1), r, scale=1e-4)
+    nu = _views(GROUP_SIZES, m_dt, _offsets(3), r, scale=-1e-7)
+    grads = _views(GROUP_SIZES, torch.bfloat16, _offsets(5), r, scale=1e-3)
+    bc = (np.float32(1) - np.float32(0.9) ** 4, np.float32(1) - np.float32(0.999) ** 4)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, recip_bc=form != "adamw", count=4, step=9,
+              weight_decay=wd, step_size=-1e-3 * 0.7,
+              update_dtype=torch.float32 if form == "adamw" else None)
+    results = []
+    for _ in range(2):
+        t = AF.build_adam_table(keys, _copies(params), _copies(mu), _copies(nu))
+        before = AF.launches["adam_bf16_fused"]
+        AF.adam_bf16_fused_apply(t, grads, bc, **kw)
+        assert AF.launches["adam_bf16_fused"] == before + 1
+        results.append(t)
+    want = AF.build_adam_table(keys, _copies(params), _copies(mu), _copies(nu))
+    AF.adam_bf16_fused_apply_reference(want, grads, bc, **kw)
+    torch.cuda.synchronize()
+    got, again = results
+    for i, k in enumerate(keys):
+        for what in ("params", "mu", "nu"):
+            a, b, c = (getattr(t, what)[i] for t in (got, again, want))
+            assert torch.equal(a, b), f"{what} {k}: two launches differ"
+            assert torch.equal(a, c), f"{what} {k}"
+        assert not torch.equal(got.params[i], params[i]) or GROUP_SIZES[i] < 8, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 1e-2], ids=["wd0", "wd"])
+@pytest.mark.parametrize("p_dt", [torch.bfloat16, torch.float32], ids=["bf16_master", "fp32_master"])
+def test_adam8_group_matches_reference_on_cuda(p_dt, wd):
+    """The grouped adam8_fused (int8 Adam, decay, schedule, master apply in
+    one launch) against its plain chain leaf by leaf, on ragged minors (300,
+    2880), rows off 16 bytes (minor 301) and a master off 16 bytes: payloads
+    at most 1 apart in under 1e-3 of them, scales within 1e-6 relative,
+    masters at most one ulp apart in under 1e-3 of them, padded payload
+    columns zero; a second launch from the same state gives the same bits."""
+    _need_card()
+    r = np.random.RandomState(11)
+    shapes = [(64, 300), (320, 2880), (3, 256), (33, 301), (40, 432)]
+    keys = [f"unet.q{i}.weight" for i in range(len(shapes))]
+    offsets = [0, 0, 0, 0, 7]
+    params = [t.view(s) for t, s in zip(
+        _views([a * b for a, b in shapes], p_dt, offsets, r), shapes)]
+    grads = [torch.from_numpy(r.randn(*s).astype(np.float32) * 1e-3).cuda().bfloat16()
+             for s in shapes]
+    state = []
+    for lead, minor in shapes:
+        nb = -(-minor // A8.BLOCK)
+        leaf = []
+        for sc in (1e-3, 1e-7):
+            m = torch.from_numpy(np.abs(r.randn(lead, nb * A8.BLOCK)).astype(np.float32) * sc)
+            m.view(lead, nb * A8.BLOCK)[:, minor:] = 0
+            q, s = A8.quantize_blocks(m.cuda().view(lead, nb, A8.BLOCK))
+            leaf += [q.view(lead, -1).contiguous(), s.view(lead, nb).contiguous()]
+        state.append(tuple(leaf))
+    inv = (float(1 / (1 - np.float32(0.9) ** 3)), float(1 / (1 - np.float32(0.999) ** 3)))
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, step=5, weight_decay=wd, step_size=-1e-3)
+
+    def table():
+        return A8.build_adam8_table(keys, _copies(params), [_copies(s) for s in state])
+
+    got, again, want = table(), table(), table()
+    for t in (got, again):
+        before = A8.launches["adam8_fused"]
+        A8.adam8_fused_apply(t, grads, *inv, **kw)
+        assert A8.launches["adam8_fused"] == before + 1
+    A8.adam8_fused_apply_reference(want, grads, *inv, **kw)
+    torch.cuda.synchronize()
+    for i, (k, (lead, minor)) in enumerate(zip(keys, shapes)):
+        assert torch.equal(got.params[i], again.params[i]), f"master {k}: launches differ"
+        assert all(torch.equal(a, b) for a, b in zip(got.state[i], again.state[i])), k
+        for j, name in ((0, "mu_q"), (2, "nu_q")):
+            d = (got.state[i][j].int() - want.state[i][j].int()).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 1e-3, f"{name} {k}"
+            assert not got.state[i][j][:, minor:].any(), f"{name} {k} padded tail"
+        for j in (1, 3):
+            a, b = got.state[i][j], want.state[i][j]
+            assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max()), f"scale {k}"
+        a, b = got.params[i].float(), want.params[i].float()
+        ulp = torch.finfo(p_dt).eps * torch.maximum(a.abs(), b.abs())
+        off = (a - b).abs() > 0
+        assert bool(((a - b).abs() <= ulp).all()), f"master {k}"
+        assert float(off.float().mean()) < 1e-3, f"master {k}"
+        assert not torch.equal(got.params[i], params[i]), k

@@ -332,6 +332,8 @@ def test_train_step_matches_jax(tiny_unet, optimizer, monkeypatch):
     tfn = tstep.make_train_step(tspec, ttx, tlr)
     tbatch = {"latents": _nchw(batch["latents"]), "conds": torch.from_numpy(batch["conds"])}
     draws = _jax_draws(jax.random.fold_in(rng, 0), jspec, batch["latents"].shape)
+    # the step updates the masters in place: keep the old ones
+    ttrain = {k: v.clone() for k, v in ttrain.items()}
     tnew, tmetrics = tfn(tstate, {}, tbatch, draws)
 
     assert tnew.step == int(jnew.step) == 1
