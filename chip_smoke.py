@@ -62,6 +62,28 @@ Phases (any failure raises and the script exits non-zero):
               of the 7 hold the 227), adam_bf16_fused once per group with
               fp32-moment leaves (all 7 hold the 459), each splash kernel 10
               times; loss finite, params moved.
+7. uncached -- the uncached SD1.5 fine-tune at full width: the UNet as in
+              train, VAEConfig.sd15() and CLIPTextConfig.vit_l() with random
+              weights from --seed (frozen, bf16), batches of 8 at 512^2 from
+              the port's DataPipeline over 24 PNG files (720x576 and
+              576x720, so resize and crop run) with .txt captions,
+              tokenized by CLIPBPETokenizer on a synthetic vocab written
+              here, CFG dropout uncond {enabled, p 0.1, cond zeros}. 3
+              warm-up and --steps timed steps: each splash kernel 10
+              launches per step (the VAE's D = 512 and CLIP's causal
+              attention take the math path, as on the TPU), adam_bf16_fused
+              7; loss finite, params moved. Prints steps/s, peak memory and
+              the device ms of the VAE encode and of CLIP per step (calls
+              queued behind a spin kernel). Consistency: on one batch with
+              fixed draws (the CFG drop on, then off) the uncached
+              compute_loss equals, bit for bit, compute_loss on latents and
+              conds computed apart from the public functions.
+8. cache   -- the port's cache builder (build_local_shard, assemble_cache,
+              save_state_dict) on the same images with the same VAE and
+              CLIP held in memory: images/s of the encode, decoding
+              included; the file read back through LatentCache,
+              DataPipeline and to_device; 2 cached train steps from it, loss
+              finite.
 
 Output: the build's register/spill report, one line per phase, then (before
 the last line) a {"kernels": [...]} JSON line and the card's name and power
@@ -78,20 +100,32 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scal_sdt_tpu_torch.cli.cache import assemble_cache, build_local_shard
 from scal_sdt_tpu_torch.conf import Config, default, load_optim_target, merge
+from scal_sdt_tpu_torch.convert.loader import LoadedModels
+from scal_sdt_tpu_torch.data.datasets import LatentCache
+from scal_sdt_tpu_torch.data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
+from scal_sdt_tpu_torch.models.clip import CLIPTextConfig, clip_text_apply, init_clip_params
 from scal_sdt_tpu_torch.models.unet import (UNetConfig, init_unet_params, unet_apply,
                                             unet_param_shapes)
+from scal_sdt_tpu_torch.models.vae import (VAEConfig, encoder_apply, init_vae_params,
+                                           sample_latents)
 from scal_sdt_tpu_torch.ops import _build, adam8_fused, adam_bf16_fused, attention, splash
+from scal_sdt_tpu_torch.text.bpe import CLIPBPETokenizer, bytes_to_unicode
 from scal_sdt_tpu_torch.training.optim_targets import group_labels, resolve_optim_target
 from scal_sdt_tpu_torch.training.optimizers import build_optimizer
 from scal_sdt_tpu_torch.training.quantized import Adam8bit, bias_corrections
-from scal_sdt_tpu_torch.training.step import StepSpec, init_train_state, make_train_step
+from scal_sdt_tpu_torch.training.step import (StepSpec, compute_loss, draw, init_train_state,
+                                              make_train_step)
+from scal_sdt_tpu_torch.utils.state import save_json_metadata, save_state_dict
 
 # H100 SXM data-sheet peaks (dense bf16 tensor cores, fp32 on the CUDA
 # cores, HBM3), at 700 W.
@@ -121,6 +155,13 @@ SDPA_BWD = ("SDPA backward (torch.autograd.grad of F.scaled_dot_product_attentio
             "dq, dk and dv together")
 CHECK_TOL = 5e-2         # UNet output, kernel path vs plain path, relative
 OUT_DIR = Path("chiprun_out")
+DEVICE = "cuda"           # of the uncached and cache phases
+RESOLUTION = 512         # the uncached and cache phases' image size
+UNCACHED_IMAGES = 24     # PNG files of the uncached and cache phases
+IMAGE_SIZES = [(720, 576), (576, 720)]   # (w, h): resized and cropped to 512^2
+NUM_WORKERS = 6          # the DataPipeline's decode threads (the card's host has 8 cores)
+VOCAB_MERGES = [("t", "h"), ("th", "e</w>"), ("a", "n"), ("o", "f</w>"), ("p", "h"),
+                ("ph", "o"), ("pho", "t"), ("phot", "o</w>"), ("c", "at</w>"), ("n", "u")]
 
 # name -> (port source, the JAX package's entry to the TPU kernel, the Pallas
 # kernel it reaches inside jax/experimental/pallas/ops/tpu/splash_attention/)
@@ -137,6 +178,7 @@ KERNELS = {
                         "lab/micro_bf16_update.py:62", "lab/micro_bf16_update.py:86"),
 }
 SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
+PHASES = ("train", "train_int8", "uncached", "cache")   # the phases that train
 COUNTERS = (splash, adam8_fused, adam_bf16_fused)
 
 
@@ -606,12 +648,15 @@ def optim_phase(gen: torch.Generator) -> dict:
     return res
 
 
-def setup_train(seed: int, optimizer: str = "adamw"):
+def setup_train(seed: int, optimizer: str = "adamw", extra: dict | None = None,
+                device: str = "cuda", **spec_kw):
     """The bench.py default workload on the port: SD1.5 at full width, 512^2
     (64^2 latents), batch 8, cached random latents/conds, bf16 masters, bf16
     moments (int8 with ``optimizer="bitsandbytes.optim.AdamW8bit"``), EMA off,
-    no remat. Returns a dict with the train state, the step function and the
-    pieces it closes over (spec, tx), the batch and the UNet config."""
+    no remat. ``extra`` is merged over the config, ``spec_kw`` go to
+    ``StepSpec.from_config``. Returns a dict with the config, the train state,
+    the step function and the pieces it closes over (spec, tx), the batch and
+    the UNet config."""
     batch_size, latent = 8, 64
     config = merge(default(), Config({
         "batch_size": batch_size,
@@ -622,24 +667,24 @@ def setup_train(seed: int, optimizer: str = "adamw"):
                       "params": {"lr": 2e-6, "beta1": 0.9, "beta2": 0.999,
                                  "weight_decay": 1e-2, "eps": 1e-8},
                       "lr_scale": {"enabled": False}},
-    }))
+    }), Config(extra or {}))
     unet_config = UNetConfig.sd15()
-    params = init_unet_params(unet_config, seed=seed, device="cuda")
+    params = init_unet_params(unet_config, seed=seed, device=device)
     resolutions = resolve_optim_target(load_optim_target("full_unet"), params.keys(), [])
     labels = group_labels(resolutions)
     overrides = {f"g{i}": g.optimizer for i, g in enumerate(resolutions["unet"].groups)}
     trainable = {f"unet.{k}": v.to(torch.bfloat16) for k, v in params.items()}
     del params
     tx, lr_fn = build_optimizer(config, labels, overrides, steps_per_epoch=1000, num_processes=1)
-    spec = StepSpec.from_config(config, unet_config)
+    spec = StepSpec.from_config(config, unet_config, **spec_kw)
     state = init_train_state(trainable, tx, seed=seed)
     step_fn = make_train_step(spec, tx, lr_fn)
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    batch = {"latents": torch.randn(batch_size, 4, latent, latent, generator=gen, device="cuda"),
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    batch = {"latents": torch.randn(batch_size, 4, latent, latent, generator=gen, device=device),
              "conds": torch.randn(batch_size, 77, unet_config.cross_attention_dim,
-                                  generator=gen, device="cuda")}
-    return {"state": state, "step_fn": step_fn, "spec": spec, "tx": tx, "batch": batch,
-            "unet_config": unet_config}
+                                  generator=gen, device=device)}
+    return {"config": config, "state": state, "step_fn": step_fn, "spec": spec, "tx": tx,
+            "batch": batch, "unet_config": unet_config}
 
 
 def optimizer_launches(opt_state: dict) -> dict[str, int]:
@@ -669,12 +714,23 @@ def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
     groups = len(setup["tx"].transforms)
     per_step = {**per_step, **optimizer_launches(state.opt_state)}
     del setup
+    res = run_steps(state, step_fn, {}, lambda: batch, steps, warmup, per_step)
+    return {**res, "param_groups": groups, "batch": batch, "unet_config": unet_config}
+
+
+def run_steps(state, step_fn, frozen: dict, next_batch, steps: int, warmup: int,
+              per_step: dict[str, int]) -> dict:
+    """``warmup`` steps, then ``steps`` timed steps on ``next_batch()``'s
+    batches, the launch counts reset just before them: each kernel in
+    ``per_step`` must launch that many times per timed step, the losses be
+    finite and the params move. Host clock around the timed steps, ending in
+    a synchronize; peak memory over them."""
     probe = [k for k in sorted(state.trainable) if "attn1.to_q" in k][:3] + ["unet.conv_in.weight"]
     before = {k: state.trainable[k].clone() for k in probe}
 
     t0 = time.perf_counter()
     for _ in range(warmup):
-        state, metrics = step_fn(state, {}, batch)
+        state, metrics = step_fn(state, frozen, next_batch())
         check(math.isfinite(metrics["train_loss"].item()), "non-finite loss in warm-up")
     warm_s = time.perf_counter() - t0
 
@@ -684,7 +740,7 @@ def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
     t0 = time.perf_counter()
     losses = []
     for _ in range(steps):
-        state, metrics = step_fn(state, {}, batch)
+        state, metrics = step_fn(state, frozen, next_batch())
         losses.append(metrics["train_loss"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -698,10 +754,9 @@ def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
     moved = [k for k in probe if not torch.equal(before[k], state.trainable[k])]
     check(len(moved) == len(probe), f"parameters did not change: {set(probe) - set(moved)}")
     return {"steps": steps, "warmup_s": warm_s, "timed_s": dt, "steps_per_s": steps / dt,
-            "param_groups": groups, "optimizer_launches_per_step": per_step,
+            "optimizer_launches_per_step": per_step,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "losses": losses, "launches": launches, "state": state, "batch": batch,
-            "unet_config": unet_config}
+            "losses": losses, "launches": launches, "state": state}
 
 
 @torch.no_grad()
@@ -726,6 +781,224 @@ def check_phase(train: dict) -> dict:
     return {"unet_rel_err": err}
 
 
+def write_images(root: Path, n: int, seed: int) -> Path:
+    """``n`` PNG files of random pixels from ``seed``, non-square
+    (IMAGE_SIZES in turn) so the pipeline's resize and crop run, each with a
+    .txt caption."""
+    from PIL import Image
+
+    d = root / "images"
+    d.mkdir(parents=True)
+    r = np.random.RandomState(seed)
+    for i in range(n):
+        w, h = IMAGE_SIZES[i % len(IMAGE_SIZES)]
+        Image.fromarray(r.randint(0, 256, (h, w, 3), np.uint8)).save(d / f"img_{i:03d}.png")
+        (d / f"img_{i:03d}.txt").write_text(f"a photo of the cat number {i}, tag {i % 4}")
+    return d
+
+
+def write_vocab(d: Path) -> Path:
+    """A synthetic CLIP vocab: every byte symbol, its end-of-word form, a few
+    merges, BOS and EOS (537 ids, all inside CLIP's 49408)."""
+    d.mkdir(parents=True)
+    symbols = list(bytes_to_unicode().values())
+    vocab = {}
+    for sym in symbols + [sym + "</w>" for sym in symbols] + [a + b for a, b in VOCAB_MERGES]:
+        vocab[sym] = len(vocab)
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    (d / "vocab.json").write_text(json.dumps(vocab), encoding="utf-8")
+    (d / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in VOCAB_MERGES), encoding="utf-8")
+    return d
+
+
+def epochs(pipeline: DataPipeline):
+    """The pipeline's batches, epoch after epoch, moved to the card."""
+    check(len(pipeline) > 0, "the pipeline makes no whole batch")
+    while True:
+        for batch in pipeline:
+            yield to_device(batch, DEVICE)
+
+
+def latent_shape(spec, batch_size: int) -> tuple[int, int, int, int]:
+    """(B, C, h, w) of the latents of RESOLUTION^2 images."""
+    vae = spec.vae_config
+    side = RESOLUTION // 2 ** (len(vae.block_out_channels) - 1)
+    return batch_size, vae.latent_channels, side, side
+
+
+def component(params: dict, prefix: str) -> dict:
+    """The params under ``prefix.``, the prefix stripped."""
+    return {k[len(prefix) + 1:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+
+
+@torch.no_grad()
+def vae_latents(frozen: dict, spec, images: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Latents of ``images``: the VAE moments and a sample of their Gaussian
+    with ``noise``, in the compute dtype."""
+    vae, dt = spec.vae_config, spec.compute_dtype
+    params = {k: v.to(dt) for k, v in component(frozen, "vae").items()}
+    moments = encoder_apply(params, images.to(dt), vae)
+    return sample_latents(moments, noise, vae.scaling_factor, vae.shift_factor)
+
+
+@torch.no_grad()
+def clip_conds(frozen: dict, spec, input_ids: torch.Tensor) -> torch.Tensor:
+    params = {k: v.to(spec.compute_dtype)
+              for k, v in component(frozen, "condition_model.encoder").items()}
+    return clip_text_apply(params, input_ids, spec.clip_config, spec.clip_stop_at_layer)
+
+
+def encode_apart(frozen: dict, spec, batch: dict, noise: torch.Tensor,
+                 u: torch.Tensor) -> dict:
+    """The cached batch that the uncached step computes inside itself, here
+    from the public functions: latents from the VAE and ``noise``, CLIP
+    conds dropped to zeros when ``u < p``."""
+    conds = clip_conds(frozen, spec, batch["input_ids"])
+    return {"latents": vae_latents(frozen, spec, batch["images"], noise),
+            "conds": torch.where(u < spec.uncond_p, torch.zeros_like(conds), conds)}
+
+
+@torch.no_grad()
+def consistency_check(state, frozen: dict, spec, batch: dict, seed: int) -> dict:
+    """On one batch with fixed draws (once with the CFG drop, once without):
+    the uncached ``compute_loss`` against ``compute_loss`` on the latents and
+    conds computed apart (``encode_apart``) with the same draws. The same
+    kernels run on the same inputs in the same order, so the losses must be
+    equal bit for bit."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    res = {}
+    for u in (0.05, 0.5):
+        u = torch.tensor(u, device=DEVICE)
+        noise = torch.randn(latent_shape(spec, batch["images"].shape[0]), generator=gen,
+                            dtype=spec.compute_dtype, device=DEVICE)
+        apart = encode_apart(frozen, spec, batch, noise, u)
+        draws = draw(gen, spec, apart["latents"], noise, u)
+        got = compute_loss(state.trainable, frozen, batch, None, spec, draws)[0]
+        want = compute_loss(state.trainable, frozen, apart, None, spec, draws)[0]
+        res[f"u={float(u)}"] = {"uncached": float(got), "apart": float(want),
+                                "equal": torch.equal(got, want)}
+        check(torch.equal(got, want) and math.isfinite(float(got)),
+              f"uncached loss {float(got)!r} != loss on latents/conds computed apart "
+              f"{float(want)!r} (u = {float(u)})")
+    return res
+
+
+def setup_uncached(seed: int, workdir: Path) -> dict:
+    """The uncached SD1.5 fine-tune at full width: ``setup_train``'s UNet and
+    optimizer, VAE and CLIP ViT-L with random weights from ``seed`` (frozen,
+    in bf16), and the port's DataPipeline (batches of 8 at 512^2) over PNG
+    files written under ``workdir``, tokenized with CLIP-BPE on a synthetic
+    vocab, CFG dropout ('zeros', p = 0.1). Returns setup_train's dict with
+    ``frozen``, ``tokenizer`` and ``pipeline`` added."""
+    data = write_images(workdir, UNCACHED_IMAGES, seed)
+    tokenizer = CLIPBPETokenizer.from_dir(write_vocab(workdir / "tokenizer"))
+    check(int(tokenizer([""]).max()) < CLIPTextConfig.vit_l().vocab_size, "ids out of range")
+    vae_config, clip_config = VAEConfig.sd15(), CLIPTextConfig.vit_l()
+    setup = setup_train(seed, "adamw", {
+        "seed": seed, "num_workers": NUM_WORKERS,
+        "uncond": {"enabled": True, "p": 0.1, "cond": "zeros"},
+        "data": {"resolution": RESOLUTION, "concepts": [
+            {"instance_set": {"path": str(data), "prompt": "{TXT_PROMPT}"}}]},
+    }, device=DEVICE, vae_config=vae_config, clip_config=clip_config)
+    config = setup["config"]
+    setup["frozen"] = {
+        **{f"vae.{k}": v.bfloat16()
+           for k, v in init_vae_params(vae_config, seed + 2, DEVICE).items()},
+        **{f"condition_model.encoder.{k}": v.bfloat16()
+           for k, v in init_clip_params(clip_config, seed + 3, DEVICE).items()}}
+    dataset = get_dataset(config, use_cache=False)
+    setup["pipeline"] = DataPipeline(dataset, get_sampler(dataset, config, 1, 0),
+                                     config.batch_size, tokenizer, num_workers=NUM_WORKERS)
+    setup["tokenizer"] = tokenizer
+    return setup
+
+
+def uncached_phase(seed: int, steps: int, workdir: Path, per_step: dict[str, int],
+                   warmup: int = 3) -> dict:
+    """``setup_uncached``'s step, warmed up, then ``steps`` timed steps: each
+    splash kernel and the optimizer kernels launch as in the cached step
+    (the VAE's and CLIP's attention take the math path); then the device
+    time of the VAE encode and of CLIP per step, and the consistency
+    check."""
+    setup = setup_uncached(seed, workdir)
+    config, state, step_fn, spec, frozen = (setup[k] for k in ("config", "state", "step_fn",
+                                                               "spec", "frozen"))
+    per_step = {**per_step, **optimizer_launches(state.opt_state)}
+    batches = epochs(setup["pipeline"])
+    res = run_steps(state, step_fn, frozen, lambda: next(batches), steps, warmup, per_step)
+    state = res["state"]
+
+    batch = next(batches)
+    batches.close()
+    b = config.batch_size
+    check(tuple(batch["images"].shape) == (b, 3, RESOLUTION, RESOLUTION),
+          f"images {tuple(batch['images'].shape)}")
+    res["consistency"] = consistency_check(state, frozen, spec, batch, seed)
+    noise = torch.randn(latent_shape(spec, b), device=DEVICE, dtype=spec.compute_dtype)
+    # a 1 s spin, so the host has queued every call before it ends, even
+    # with the pipeline's threads still decoding beside it
+    res["vae_ms"] = device_ms(lambda: vae_latents(frozen, spec, batch["images"], noise),
+                              iters=5, warmup=1, hold_cycles=2_000_000_000)
+    res["clip_ms"] = device_ms(lambda: clip_conds(frozen, spec, batch["input_ids"]),
+                               iters=5, warmup=1, hold_cycles=2_000_000_000)
+    res["vae_images_per_s"] = b * 1e3 / res["vae_ms"]
+    res.update(images=UNCACHED_IMAGES, image_sizes=IMAGE_SIZES, config=config, frozen=frozen,
+               tokenizer=setup["tokenizer"], spec=spec, step_fn=step_fn, state=state,
+               per_step=per_step)
+    return res
+
+
+def cache_phase(uncached: dict, workdir: Path, per_step: dict[str, int],
+                steps: int = 2) -> dict:
+    """The port's cache builder on the uncached phase's images, VAE and CLIP
+    (held in memory, bf16): build_local_shard, assemble_cache,
+    save_state_dict; then the file read back through LatentCache,
+    DataPipeline and to_device, and ``steps`` cached train steps from it."""
+    config, frozen, spec = uncached["config"], uncached["frozen"], uncached["spec"]
+    models = LoadedModels(unet={}, unet_config=spec.unet_config, vae=component(frozen, "vae"),
+                          vae_config=spec.vae_config,
+                          clip=component(frozen, "condition_model.encoder"),
+                          clip_config=spec.clip_config, schedule=spec.schedule)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shard = build_local_shard(config, models, uncached["tokenizer"], no_conds=False,
+                              aug_group_size=1, batch_size=config.batch_size, device=DEVICE)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    cache, metadata = assemble_cache(shard)
+    path = workdir / "cache.safetensors"
+    save_state_dict(cache, path, metadata=save_json_metadata(metadata))
+    n = uncached["images"]
+    check(metadata["total_entries"] == n and metadata["aug_group_size"] == 1,
+          f"cache metadata {metadata['total_entries']} entries")
+    b, c, h, w = latent_shape(spec, config.batch_size)
+    cond = (spec.clip_config.max_position_embeddings, spec.clip_config.hidden_size)
+    check(all(size == [h, w, c] for size in metadata["sizes"].values()), "latent sizes")
+    check(tuple(cache["0.cond"].shape) == cond and cache["0.latent.0"].dtype == torch.bfloat16,
+          f"cond {tuple(cache['0.cond'].shape)}, latent {cache['0.latent.0'].dtype}")
+    check(all(bool(torch.isfinite(t).all()) for t in cache.values()), "non-finite cache entry")
+
+    cached = merge(config, Config({"data": {"cache": str(path)}}))
+    dataset = get_dataset(cached)
+    check(isinstance(dataset.cache, LatentCache) and len(dataset) == n, "cache not read back")
+    pipeline = DataPipeline(dataset, get_sampler(dataset, cached, 1, 0), config.batch_size,
+                            num_workers=NUM_WORKERS)
+    batches = epochs(pipeline)
+    first = next(batches)
+    check(tuple(first["latents"].shape) == (b, c, h, w)
+          and tuple(first["conds"].shape) == (b, *cond), "cached batch shapes")
+    res = run_steps(uncached["state"], uncached["step_fn"], frozen, lambda: next(batches),
+                    steps, 0, per_step)
+    batches.close()
+    return {"images": n, "encoded": len(shard["ids"]), "encode_s": encode_s,
+            "images_per_s": len(shard["ids"]) / encode_s,
+            "file_mib": path.stat().st_size / 2 ** 20,
+            **{k: res[k] for k in ("steps", "timed_s", "steps_per_s", "peak_mem_gib",
+                                   "losses", "launches")}}
+
+
 def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                 record: dict) -> dict:
     """The {"kernels": [...]} entry of an optimizer kernel: the numbers of its
@@ -744,7 +1017,7 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "pallas_kernel": pallas_kernel,
             "launches": record[phase]["launches"][name],
-            "launches_by_phase": {p: record[p]["launches"][name] for p in ("train", "train_int8")},
+            "launches_by_phase": {p: record[p]["launches"][name] for p in PHASES},
             "max_abs_err": max([r["err"]["out"] for r in cases] + [grouped["err"]["out"]]),
             "ms": grouped["ms"], "plain_ms": grouped["plain_ms"],
             "bound_ms": grouped["bound"][0], "bound_by": grouped["bound"][1],
@@ -818,6 +1091,25 @@ def main(argv=None) -> int:
     record["train_int8"] = {k: v for k, v in int8.items()
                             if k not in ("state", "batch", "unet_config")}
     del int8
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        uncached = uncached_phase(args.seed, args.steps, Path(tmp), splash_per_step)
+        log(f"uncached: {uncached['steps_per_s']:.4f} steps/s, peak "
+            f"{uncached['peak_mem_gib']:.2f} GiB, VAE encode {uncached['vae_ms']:.3f} ms, "
+            f"CLIP {uncached['clip_ms']:.3f} ms per step (device), losses "
+            f"{uncached['losses']}, launches {uncached['launches']}, consistency "
+            f"{uncached['consistency']}")
+        cache = cache_phase(uncached, Path(tmp), uncached["per_step"])
+        log(f"cache: {cache['encoded']} images encoded in {cache['encode_s']:.3f} s "
+            f"({cache['images_per_s']:.2f} images/s, decode included; device-only VAE encode "
+            f"{uncached['vae_images_per_s']:.2f} images/s), {cache['file_mib']:.2f} MiB; cached "
+            f"steps: losses {cache['losses']}, {cache['steps_per_s']:.4f} steps/s")
+        record["uncached"] = {k: v for k, v in uncached.items()
+                              if k not in ("config", "frozen", "tokenizer", "spec", "step_fn",
+                                           "state")}
+        record["cache"] = cache
+        del uncached
 
     main_shape = record["kernels"][0]
     kernels = []
@@ -829,6 +1121,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "pallas_kernel": pallas_kernel,
             "launches": record["train"]["launches"][name],
+            "launches_by_phase": {p: record[p]["launches"][name] for p in PHASES},
             "max_abs_err": max(r["err"][name] for r in record["kernels"] + [record["kernels_arb"]]),
             "ms": main_shape["ms"][name], "plain_ms": main_shape["plain_ms"][name],
             "bound_ms": main_shape["bound"][name][0],

@@ -117,6 +117,11 @@ def default() -> Config:
     return load(DEFAULT_PATH)
 
 
+def load_with_defaults(config: Union[str, PathLike, IO]) -> Config:
+    """User YAML merged over the reserved defaults (reference: modules/configs.py:28-29)."""
+    return merge(default(), load(config))
+
+
 def load_optim_target(target: Union[str, Config]) -> Config:
     """Resolve an optim-target spec: by name from configs/optim_targets, or inline."""
     if isinstance(target, str):

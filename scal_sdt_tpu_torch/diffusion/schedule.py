@@ -58,6 +58,19 @@ class NoiseSchedule:
             acp = np.square(s)
         return acp.astype(np.float32)
 
+    @classmethod
+    def from_diffusers_scheduler_config(cls, config: dict) -> "NoiseSchedule":
+        """The training fields of a diffusers ``scheduler_config.json``
+        (the sampling fields, such as ``steps_offset``, come with DDIM)."""
+        return cls(
+            num_train_timesteps=int(config.get("num_train_timesteps", 1000)),
+            beta_start=float(config.get("beta_start", 0.00085)),
+            beta_end=float(config.get("beta_end", 0.012)),
+            beta_schedule=config.get("beta_schedule", "scaled_linear"),
+            prediction_type=config.get("prediction_type", "epsilon"),
+            rescale_zero_terminal_snr=bool(config.get("rescale_betas_zero_snr", False)),
+        )
+
     def _table(self, name: str, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
         key = (name, str(device), dtype)
         if key not in self._tables:

@@ -18,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
+
 Params = dict[str, torch.Tensor]
 
 
@@ -64,6 +66,23 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(scaled(x, 1.702))
+
+
+def scaled(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x * s with the python scalar rounded to x's dtype first, as JAX does
+    (weak-typed python scalars take the array's dtype)."""
+    return x * x.new_full((), s)
+
+
+def sub_params(p: Params, prefix: str) -> Params:
+    """View of a flat param dict under ``prefix.`` with the prefix stripped."""
+    cut = len(prefix) + 1
+    return {k[cut:]: v for k, v in p.items() if k.startswith(prefix + ".")}
+
+
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        flip_sin_to_cos: bool = True,
                        downscale_freq_shift: float = 0.0,
@@ -81,3 +100,22 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb.to(dtype)
+
+
+def init_params(shapes: dict[str, tuple[int, ...]], seed: int = 0, device="cuda",
+                dtype: torch.dtype = torch.float32) -> Params:
+    """Random init of a shape template (fan-in scaled normal weights, unit
+    norm scales, zero biases) from a seeded ``torch.Generator`` on
+    ``device``; real runs load pretrained weights."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Params = {}
+    for name, shape in sorted(shapes.items()):
+        if name.endswith(".bias"):
+            params[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        elif len(shape) == 1:
+            params[name] = torch.ones(shape, dtype=dtype, device=dev)
+        else:
+            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+            params[name] = (w / math.sqrt(max(math.prod(shape[1:]), 1))).to(dtype)
+    return params

@@ -16,17 +16,15 @@ for it is refused.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
 from ..ops.attention import multi_head_attention
-from .functional import (Params, conv2d, gelu, group_norm, layer_norm, linear, silu,
-                         timestep_embedding)
+from .functional import (Params, conv2d, gelu, group_norm, init_params, layer_norm, linear,
+                         silu, timestep_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +40,10 @@ class UNetConfig:
     cross_attention_dim: int = 768
     transformer_layers_per_block: int | tuple[int, ...] = 1
     addition_embed_type: Optional[str] = None
+    # SDXL's text_time fields, read from a diffusers config (the branch that
+    # uses them comes with the SDXL slice)
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: Optional[int] = None
     down_block_types: tuple[str, ...] = (
         "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "DownBlock2D",
     )
@@ -49,6 +51,7 @@ class UNetConfig:
         "UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
     )
     norm_num_groups: int = 32
+    sample_size: int = 64
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
 
@@ -351,20 +354,7 @@ def unet_param_shapes(config: UNetConfig) -> dict[str, tuple[int, ...]]:
 
 def init_unet_params(config: UNetConfig, seed: int = 0, device="cuda",
                      dtype: torch.dtype = torch.float32) -> Params:
-    """Random init (fan-in scaled normal weights, unit norm scales, zero
-    biases) from a seeded ``torch.Generator`` on ``device``; real runs import
-    pretrained weights. Draws differ from the JAX package's (different
-    generators): tests convert the JAX params instead."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params: Params = {}
-    for name, shape in sorted(unet_param_shapes(config).items()):
-        if name.endswith(".bias"):
-            params[name] = torch.zeros(shape, dtype=dtype, device=dev)
-        elif len(shape) == 1:
-            params[name] = torch.ones(shape, dtype=dtype, device=dev)
-        else:
-            fan_in = math.prod(shape[1:])
-            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-            params[name] = (w / math.sqrt(max(fan_in, 1))).to(dtype)
-    return params
+    """Random init from a seeded ``torch.Generator`` (``init_params``); real
+    runs import pretrained weights. Draws differ from the JAX package's
+    (different generators): tests convert the JAX params instead."""
+    return init_params(unet_param_shapes(config), seed, device, dtype)

@@ -7,9 +7,14 @@ Two paths, chosen by ``_dispatch`` with the JAX package's gate:
   (Lk = 77), the low-resolution levels, causal masks and every CPU tensor
   take it.
 * the splash kernels (``ops/splash.py``) for long non-causal self-attention
-  on CUDA: both lengths >= 1024 and D <= 256, as on the TPU. The kernels
-  bound ragged tails themselves, so the ARB lengths that no block divides
-  (the TPU version's padded branch) take them too.
+  on CUDA: both lengths >= 1024, as on the TPU, and a call the kernels take
+  (``splash.kernel_accepts``: bf16, D a multiple of 8 and at most 160, B*H
+  within the grid). The TPU gate admits D <= 256; here a head dim the
+  kernels refuse (161-256, or not a multiple of 8) takes the math path
+  instead of raising. The kernels bound ragged tails themselves, so the ARB
+  lengths that no block divides (the TPU version's padded branch) take them
+  too. CLIP's causal attention and the VAE's single-head D = 512 attention
+  take the math path, as they take XLA's on the TPU.
 
 The multi-device ``shard_map`` wrapper of the JAX version has no counterpart
 yet: multi-GPU is a later slice.
@@ -19,12 +24,10 @@ from __future__ import annotations
 
 import torch
 
-from .splash import splash_attention
+from .splash import kernel_accepts, splash_attention
 
 # Both lengths at least this long take the kernels (the TPU gate's default).
 KERNEL_MIN_LEN = 1024
-# Head dims above this stay on the math path (the frozen VAE's D=512).
-KERNEL_MAX_HEAD_DIM = 256
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -54,14 +57,17 @@ def _causal_mask(lq: int, lk: int, device: torch.device) -> torch.Tensor:
     return torch.where(keep, zero, float("-inf"))[None, None]
 
 
+def use_kernel(q_shape, k_shape, dtype: torch.dtype, causal: bool, is_cuda: bool) -> bool:
+    """The gate: (B, H, Lq, D) queries and (B, H, Lk, D) keys of ``dtype``
+    go to the splash kernels, or to ``_attention_math``."""
+    return (is_cuda and not causal
+            and q_shape[2] >= KERNEL_MIN_LEN and k_shape[2] >= KERNEL_MIN_LEN
+            and kernel_accepts(q_shape, dtype))
+
+
 def _dispatch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, scale: float,
               causal: bool) -> torch.Tensor:
-    use_kernel = (not causal
-                  and qh.shape[2] >= KERNEL_MIN_LEN
-                  and kh.shape[2] >= KERNEL_MIN_LEN
-                  and qh.shape[3] <= KERNEL_MAX_HEAD_DIM
-                  and qh.is_cuda)
-    if use_kernel:
+    if use_kernel(qh.shape, kh.shape, qh.dtype, causal, qh.is_cuda):
         return splash_attention(qh, kh, vh, scale)
     mask = _causal_mask(qh.shape[2], kh.shape[2], qh.device) if causal else None
     return _attention_math(qh, kh, vh, scale, mask)

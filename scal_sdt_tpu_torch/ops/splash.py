@@ -29,6 +29,17 @@ import torch
 from . import _build
 
 MAX_HEAD_DIM = 160
+MAX_GRID_Y = 65535   # B*H runs on the grid's y dimension
+
+
+def kernel_accepts(shape, dtype: torch.dtype) -> bool:
+    """Whether the kernels take (B, H, L, D) inputs of ``dtype``: bf16, D a
+    multiple of 8 and at most ``MAX_HEAD_DIM``, B*H within the grid. The
+    attention gate asks this before it sends a call here."""
+    b, h, _, d = shape
+    return (dtype == torch.bfloat16 and d % 8 == 0 and d <= MAX_HEAD_DIM
+            and b * h <= MAX_GRID_Y)
+
 
 # Launch counts per kernel wrapper; a caller resets them to 0 before the run
 # it wants to count.
@@ -117,11 +128,10 @@ def _check_inputs(q, k, v) -> tuple[int, int, int, int, int]:
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
         raise ValueError(f"splash kernel: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
-    if d % 8 or d > MAX_HEAD_DIM:
+    if not kernel_accepts(q.shape, q.dtype):
         raise NotImplementedError(
-            f"splash kernel: head dim {d} (needs a multiple of 8, at most {MAX_HEAD_DIM})")
-    if b * h > 65535:
-        raise NotImplementedError(f"splash kernel: B*H = {b * h} exceeds the grid")
+            f"splash kernel: head dim {d} (needs a multiple of 8, at most {MAX_HEAD_DIM}) "
+            f"or B*H = {b * h} (at most {MAX_GRID_Y})")
     return b, h, lq, lk, d
 
 

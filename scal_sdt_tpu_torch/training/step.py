@@ -1,23 +1,28 @@
-"""The training step (port of ``scal_sdt_tpu/training/step.py``, cached
-branch).
+"""The training step (port of ``scal_sdt_tpu/training/step.py``, SD1.x/2.x
+branches).
 
-``compute_loss`` is the cached-latent body: q-sample (with the optional noise
-offset and multires noise), UNet, MSE against the schedule target in fp32,
-optional min-SNR weighting and prior preservation. ``make_train_step`` takes
-gradients with respect to a compute-dtype copy of the trainable dict (bf16
-gradients, as in the JAX step), then runs the optimizer and applies the
-update to the masters in one fused call per group
+``compute_loss`` takes latents from the batch (cached) or from the VAE
+encoder and a sample of its Gaussian (``images``), conditionings from the
+batch (cached) or from CLIP (``input_ids``) with CFG dropout (``uncond``:
+one draw per batch drops the whole batch, to the empty prompt's ids in mode
+'eos' or to zero conds in mode 'zeros'); then q-sample (with the optional
+noise offset and multires noise), UNet, MSE against the schedule target in
+fp32, optional min-SNR weighting and prior preservation. ``make_train_step``
+takes gradients with respect to a compute-dtype copy of the trainable dict
+(bf16 gradients, as in the JAX step), then runs the optimizer and applies
+the update to the masters in one fused call per group
 (``tx.update_and_apply``): bf16 masters take the fp32 add and a
 stochastically rounded store salted ``crc32(key) ^ 0xE3A0001``, bit for bit
 the JAX dither. The masters are updated in place, as the JAX step donates
 them. ``apply_updates`` is that apply as a plain chain over the updates of
 ``tx.update``.
 
-The JAX step draws noise and timesteps from ``fold_in(rng, step)``; torch
-cannot reproduce that stream, so the port draws from an explicit
-``torch.Generator`` and accepts the draws from the caller instead
-(``Draws``), which is how the tests feed both the same numbers. The uncached
-(VAE/CLIP), SDXL and SD3 branches and the EMA are later slices.
+The JAX step draws from ``fold_in(rng, step)``; torch cannot reproduce that
+stream, so the port draws from an explicit ``torch.Generator`` and accepts
+the draws from the caller instead (``Draws``), which is how the tests feed
+both the same numbers. The generator's order: the latent noise (after the
+encode), the CFG-dropout scalar, then noise, timesteps, offset and octaves.
+The SDXL and SD3 branches, LoRA dropout and the EMA are later slices.
 """
 
 from __future__ import annotations
@@ -30,12 +35,17 @@ import torch.nn.functional as F
 
 from ..conf import Config
 from ..diffusion.schedule import NoiseSchedule
-from ..models.functional import Params
+from ..models.clip import CLIPTextConfig, clip_text_apply
+from ..models.functional import Params, scaled
 from ..models.unet import UNetConfig, unet_apply
+from ..models.vae import VAEConfig, encoder_apply, latent_noise, sample_latents
 from ..ops.sr import MASTER_SALT, apply_update_reference, leaf_salt
 from .optim_targets import COMPONENT_PREFIX
 
 UNET_PREFIX = COMPONENT_PREFIX["unet"]
+TE_PREFIX = COMPONENT_PREFIX["text_encoder"]
+VAE_PREFIX = "vae"
+UNCOND_MODES = ("zeros", "eos")
 
 
 class TrainState(NamedTuple):
@@ -58,13 +68,31 @@ class StepSpec:
     noise_offset: float = 0.0
     multires_noise_iterations: int = 0
     multires_noise_discount: float = 0.25
+    # the uncached branch: the VAE that encodes 'images', the text encoder
+    # that encodes 'input_ids' (None: a cached run needs neither)
+    vae_config: Optional[VAEConfig] = None
+    clip_config: Optional[CLIPTextConfig] = None
+    clip_stop_at_layer: int = 1
+    uncond_enabled: bool = False
+    uncond_p: float = 0.1
+    uncond_mode: str = "zeros"        # 'zeros' | 'eos'
+    train_text_encoder: bool = False
+
+    def __post_init__(self):
+        if self.uncond_mode not in UNCOND_MODES:
+            raise ValueError(f"uncond.cond must be one of {UNCOND_MODES}, "
+                             f"got {self.uncond_mode!r}")
 
     @classmethod
     def from_config(cls, config: Config, unet_config: UNetConfig,
-                    schedule: Optional[NoiseSchedule] = None) -> "StepSpec":
+                    schedule: Optional[NoiseSchedule] = None, *,
+                    vae_config: Optional[VAEConfig] = None,
+                    clip_config: Optional[CLIPTextConfig] = None,
+                    train_text_encoder: bool = False) -> "StepSpec":
         precision = config.trainer.get("precision", "bf16")
         loss = config.get("loss") or {}
         gc = config.get("gradient_checkpointing", False)
+        uncond = config.get("uncond") or {}
         return cls(
             unet_config=unet_config,
             schedule=schedule if schedule is not None else NoiseSchedule(),
@@ -77,6 +105,13 @@ class StepSpec:
             noise_offset=float(loss.get("noise_offset") or 0.0),
             multires_noise_iterations=int(loss.get("multires_noise_iterations") or 0),
             multires_noise_discount=float(loss.get("multires_noise_discount") or 0.25),
+            vae_config=vae_config,
+            clip_config=clip_config,
+            clip_stop_at_layer=int(config.get("clip_stop_at_layer", 1)),
+            uncond_enabled=bool(uncond.get("enabled", False)),
+            uncond_p=float(uncond.get("p", 0.1)),
+            uncond_mode=uncond.get("cond", "zeros"),
+            train_text_encoder=train_text_encoder,
         )
 
 
@@ -87,6 +122,8 @@ class Draws:
     timesteps: torch.Tensor                  # (B,) integer
     offset: Optional[torch.Tensor] = None    # (B, C, 1, 1), with noise_offset
     octaves: tuple[torch.Tensor, ...] = ()   # multires octaves, coarsest last
+    latent_noise: Optional[torch.Tensor] = None  # (B, C, h, w), with 'images'
+    uncond_u: Optional[torch.Tensor] = None  # 0-dim uniform, with uncond on
 
 
 def _octave_sizes(h: int, w: int, iterations: int) -> list[tuple[int, int]]:
@@ -99,8 +136,11 @@ def _octave_sizes(h: int, w: int, iterations: int) -> list[tuple[int, int]]:
     return sizes
 
 
-def draw(generator: torch.Generator, spec: StepSpec, latents: torch.Tensor) -> Draws:
-    """Fresh draws for one step from ``generator``."""
+def draw(generator: torch.Generator, spec: StepSpec, latents: torch.Tensor,
+         latent_noise: Optional[torch.Tensor] = None,
+         uncond_u: Optional[torch.Tensor] = None) -> Draws:
+    """Fresh draws for one step from ``generator`` (the uncached branch's
+    latent noise and CFG-dropout scalar, drawn before, are handed in)."""
     b, c, h, w = latents.shape
     dt, dev = spec.compute_dtype, latents.device
 
@@ -113,12 +153,9 @@ def draw(generator: torch.Generator, spec: StepSpec, latents: torch.Tensor) -> D
         offset=normal(b, c, 1, 1) if spec.noise_offset else None,
         octaves=tuple(normal(b, c, hi, wi) for hi, wi in
                       _octave_sizes(h, w, spec.multires_noise_iterations)),
+        latent_noise=latent_noise,
+        uncond_u=uncond_u,
     )
-
-
-def _scaled(x: torch.Tensor, s: float) -> torch.Tensor:
-    """x * s with the python scalar rounded to x's dtype first, as JAX does."""
-    return x * x.new_full((), s)
 
 
 def _multires_noise(noise: torch.Tensor, octaves, discount: float) -> torch.Tensor:
@@ -127,7 +164,7 @@ def _multires_noise(noise: torch.Tensor, octaves, discount: float) -> torch.Tens
     total = noise
     for i, octave in enumerate(octaves, start=1):
         up = F.interpolate(octave, size=noise.shape[2:], mode="bilinear", align_corners=False)
-        total = total + _scaled(up, discount ** i)
+        total = total + scaled(up, discount ** i)
     std = total.float().std(dim=(1, 2, 3), keepdim=True, correction=0)
     return total / torch.clamp(std, min=1e-8).to(noise.dtype)
 
@@ -143,26 +180,69 @@ def _merged_component(trainable: Params, frozen: Params, prefix: str, dtype) -> 
     return out
 
 
+def _encode_latents(trainable: Params, frozen: Params, images: torch.Tensor,
+                    spec: StepSpec, generator, draws: Optional[Draws]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(latents, the latent noise they took): VAE moments of ``images``,
+    then a sample of their Gaussian."""
+    if spec.vae_config is None:
+        raise ValueError("a batch of images needs StepSpec.vae_config")
+    dt = spec.compute_dtype
+    vae_params = _merged_component(trainable, frozen, VAE_PREFIX, dt)
+    moments = encoder_apply(vae_params, images.to(dt), spec.vae_config)
+    noise = draws.latent_noise if draws is not None else latent_noise(moments, generator)
+    return sample_latents(moments, noise, spec.vae_config.scaling_factor,
+                          spec.vae_config.shift_factor), noise
+
+
+def _encode_conds(trainable: Params, frozen: Params, batch: dict, spec: StepSpec,
+                  uncond_u: Optional[torch.Tensor]) -> torch.Tensor:
+    """CLIP conditionings of ``input_ids`` with CFG dropout: when
+    ``uncond_u < p`` the whole batch is dropped, to the empty prompt's ids
+    ('eos') or to zero conds ('zeros')."""
+    if spec.clip_config is None:
+        raise ValueError("a batch of input_ids needs StepSpec.clip_config")
+    te_params = _merged_component(trainable, frozen, TE_PREFIX, spec.compute_dtype)
+    input_ids = batch["input_ids"]
+    drop = uncond_u < spec.uncond_p if spec.uncond_enabled else None
+    if drop is not None and spec.uncond_mode == "eos":
+        input_ids = torch.where(drop, batch["uncond_ids"].expand_as(input_ids), input_ids)
+    conds = clip_text_apply(te_params, input_ids, spec.clip_config, spec.clip_stop_at_layer)
+    if drop is not None and spec.uncond_mode == "zeros":
+        conds = torch.where(drop, torch.zeros_like(conds), conds)
+    return conds
+
+
 def compute_loss(trainable: Params, frozen: Params, batch: dict,
                  generator: Optional[torch.Generator], spec: StepSpec,
                  draws: Optional[Draws] = None) -> tuple[torch.Tensor, dict]:
-    """The training loss on a cached batch.
+    """The training loss of one batch.
 
-    batch: 'latents' (B, 4, h, w) pre-scaled, 'conds' (B, L, D). ``draws``
-    replaces the generator's draws when given."""
-    if "latents" not in batch or "conds" not in batch:
-        raise NotImplementedError(
-            "the port trains on cached latents and conds only so far "
-            "(batch needs 'latents' and 'conds')")
+    batch: 'latents' (B, 4, h, w) pre-scaled or 'images' (B, 3, H, W) in
+    [-1, 1]; 'conds' (B, L, D) or 'input_ids' (B, L) integer, with
+    'uncond_ids' (1, L) (the empty prompt's ids) for uncond mode 'eos'.
+    ``draws`` replaces the generator's draws when given."""
     dt = spec.compute_dtype
-    latents = batch["latents"].to(dt)
-    conds = batch["conds"].to(dt)
+    latent_noise_ = uncond_u = None
+    if "latents" in batch:
+        latents = batch["latents"].to(dt)
+    else:
+        latents, latent_noise_ = _encode_latents(trainable, frozen, batch["images"], spec,
+                                                 generator, draws)
+    if draws is not None:
+        uncond_u = draws.uncond_u
+    elif spec.uncond_enabled and "conds" not in batch:
+        uncond_u = torch.rand((), generator=generator, device=latents.device)
+    if "conds" in batch:
+        conds = batch["conds"].to(dt)
+    else:
+        conds = _encode_conds(trainable, frozen, batch, spec, uncond_u)
     if draws is None:
-        draws = draw(generator, spec, latents)
+        draws = draw(generator, spec, latents, latent_noise_, uncond_u)
 
     noise = draws.noise.to(dt)
     if spec.noise_offset:
-        noise = noise + _scaled(draws.offset.to(dt), spec.noise_offset)
+        noise = noise + scaled(draws.offset.to(dt), spec.noise_offset)
     if spec.multires_noise_iterations > 0:
         noise = _multires_noise(noise, [o.to(dt) for o in draws.octaves],
                                 spec.multires_noise_discount)

@@ -3,11 +3,15 @@
 Run from the repository root, on the card:
 
     python3 -m scripts.profile_torch_step [--seed 0] [--steps 3] [--optimizer adamw|adamw8bit]
+                                          [--uncached]
 
 The workload is chip_smoke.py's train phase (SD1.5 at full width, 512^2,
 batch 8, cached latents/conds, bf16 masters, no remat) with bf16 moments
-(``adamw``, the default) or int8 moments (``adamw8bit``). After 3 warm-up
-steps it measures:
+(``adamw``, the default) or int8 moments (``adamw8bit``); with
+``--uncached``, its uncached phase's step (VAE encode and CLIP inside the
+step, CFG dropout; bf16 moments) on one batch of its pipeline, held fixed so
+that image decoding stays out of the numbers. After 3 warm-up steps it
+measures:
 
 * the step's two phases -- ``loss_and_grads`` and the fused optimizer and
   master apply (``tx.update_and_apply``), the functions ``make_train_step``
@@ -21,7 +25,8 @@ steps it measures:
 * steps/s of the plain loop, and the card's clocks and power after it.
 
 Prints one summary line per item and writes
-chiprun_out/profile_torch_step_<optimizer>.json.
+profile_torch_step_<optimizer>[_uncached].json into chip_smoke.py's output
+directory (``chip_smoke.OUT_DIR``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import collections
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -67,7 +73,8 @@ def phase_times(setup: dict, steps: int) -> dict:
     """ms per phase (device clock by CUDA events, host clock), the phases of
     make_train_step run one after another, and the optimizer kernels'
     launches per step."""
-    state, spec, tx, batch = (setup[k] for k in ("state", "spec", "tx", "batch"))
+    state, spec, tx, batch, frozen = (setup[k] for k in ("state", "spec", "tx", "batch",
+                                                          "frozen"))
     out = collections.defaultdict(float)
     chip_smoke.reset_launches()
     for _ in range(steps):
@@ -75,7 +82,8 @@ def phase_times(setup: dict, steps: int) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev[0].record()
-        _, grads = step_mod.loss_and_grads(spec, state.trainable, {}, batch, state.generator)
+        _, grads = step_mod.loss_and_grads(spec, state.trainable, frozen, batch,
+                                           state.generator)
         ev[1].record()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -100,13 +108,13 @@ def phase_times(setup: dict, steps: int) -> dict:
 def profile_steps(setup: dict, steps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    step_fn, batch = setup["step_fn"], setup["batch"]
+    step_fn, batch, frozen = setup["step_fn"], setup["batch"], setup["frozen"]
     state = setup["state"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step_fn(state, {}, batch)
+            state, _ = step_fn(state, frozen, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     setup["state"] = state
@@ -135,20 +143,31 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--optimizer", choices=sorted(OPTIMIZERS), default="adamw")
+    parser.add_argument("--uncached", action="store_true",
+                        help="profile the uncached step (VAE and CLIP inside it)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA card", file=sys.stderr)
         return 2
-    setup = chip_smoke.setup_train(args.seed, OPTIMIZERS[args.optimizer])
+    if args.uncached and args.optimizer != "adamw":
+        parser.error("--uncached runs with the adamw optimizer only")
+    with tempfile.TemporaryDirectory(prefix="profile_torch_step_") as tmp:
+        if args.uncached:
+            setup = chip_smoke.setup_uncached(args.seed, Path(tmp))
+            setup["batch"] = next(chip_smoke.epochs(setup.pop("pipeline")))
+        else:
+            setup = chip_smoke.setup_train(args.seed, OPTIMIZERS[args.optimizer])
+            setup["frozen"] = {}
     for _ in range(3):
-        setup["state"], m = setup["step_fn"](setup["state"], {}, setup["batch"])
+        setup["state"], m = setup["step_fn"](setup["state"], setup["frozen"], setup["batch"])
     m["train_loss"].item()
 
-    result = {"device": torch.cuda.get_device_name(0), "optimizer": OPTIMIZERS[args.optimizer]}
+    result = {"device": torch.cuda.get_device_name(0), "optimizer": OPTIMIZERS[args.optimizer],
+              "uncached": args.uncached}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        setup["state"], m = setup["step_fn"](setup["state"], {}, setup["batch"])
+        setup["state"], m = setup["step_fn"](setup["state"], setup["frozen"], setup["batch"])
     torch.cuda.synchronize()
     result["steps_per_s"] = args.steps / (time.perf_counter() - t0)
     result["smi_after_loop"] = subprocess.run(
@@ -158,9 +177,10 @@ def main(argv=None) -> int:
     result["profile"] = profile_steps(setup, args.steps)
     for k, v in result.items():
         print(f"{k}: {json.dumps(v)}", flush=True)
-    out = Path("chiprun_out")
+    out = chip_smoke.OUT_DIR
     out.mkdir(exist_ok=True)
-    (out / f"profile_torch_step_{args.optimizer}.json").write_text(json.dumps(result, indent=1))
+    name = f"profile_torch_step_{args.optimizer}{'_uncached' if args.uncached else ''}.json"
+    (out / name).write_text(json.dumps(result, indent=1))
     return 0
 
 

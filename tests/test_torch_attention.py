@@ -122,6 +122,36 @@ def test_dispatch_on_cpu_takes_no_kernel(lq, lk, causal):
     assert S.launches == before
 
 
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("q_shape,k_shape,dtype,causal,is_cuda,want", [
+    ((8, 8, 4096, 40), (8, 8, 4096, 40), BF16, False, True, True),      # SD1.5, level 0
+    ((8, 8, 4096, 160), (8, 8, 4096, 160), BF16, False, True, True),    # the widest kernel D
+    ((1, 2, 4096, 168), (1, 2, 4096, 168), BF16, False, True, False),   # 161-256: math path
+    ((1, 2, 4096, 200), (1, 2, 4096, 200), BF16, False, True, False),
+    ((1, 2, 4096, 256), (1, 2, 4096, 256), BF16, False, True, False),
+    ((1, 2, 4096, 44), (1, 2, 4096, 44), BF16, False, True, False),     # D % 8 != 0
+    ((4096, 16, 1024, 40), (4096, 16, 1024, 40), BF16, False, True, False),  # B*H = 65536
+    ((4095, 16, 1024, 40), (4095, 16, 1024, 40), BF16, False, True, True),   # B*H = 65520
+    ((8, 1, 4096, 512), (8, 1, 4096, 512), BF16, False, True, False),   # VAE mid-block
+    ((8, 12, 77, 64), (8, 12, 77, 64), BF16, True, True, False),        # CLIP, causal
+    ((8, 8, 4096, 40), (8, 8, 77, 40), BF16, False, True, False),       # cross-attention
+    ((8, 8, 4096, 40), (8, 8, 4096, 40), torch.float32, False, True, False),  # fp32 compute
+    ((8, 8, 4096, 40), (8, 8, 4096, 40), BF16, False, False, False),    # CPU tensors
+])
+def test_gate_sends_the_kernels_only_what_they_take(q_shape, k_shape, dtype, causal, is_cuda,
+                                                    want):
+    """The gate as a pure function of (shapes, dtype, causal, is_cuda): every
+    call it opens for, the kernels' own check accepts; a head dim of 161-256
+    or one that is not a multiple of 8, a grid past 65535 rows, fp32 and
+    causal calls take the math path instead of raising."""
+    assert A.use_kernel(q_shape, k_shape, dtype, causal, is_cuda) is want
+    assert S.kernel_accepts(q_shape, dtype) is (q_shape[3] % 8 == 0 and q_shape[3] <= 160
+                                                and q_shape[0] * q_shape[1] <= 65535
+                                                and dtype == BF16)
+
+
 def test_causal_math_matches_jax():
     q, k, v, _ = _inputs((1, 2, 16, 8), seed=3)
     lq = lk = 16

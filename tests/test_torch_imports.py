@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15
+    assert int(proc.stdout.split()[0]) >= 30
 
 
 def test_sources_name_no_jax():
@@ -44,18 +44,25 @@ def test_sources_name_no_jax():
     assert not hits
 
 
-@pytest.mark.parametrize("entry", ["resolve_device", "init_unet_params", "params_from_jax"])
+@pytest.mark.parametrize("entry", ["resolve_device", "init_unet_params", "params_from_jax",
+                                   "init_vae_params", "init_clip_params", "to_device"])
 def test_default_device_needs_cuda(entry):
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
     from scal_sdt_tpu_torch.convert.from_jax import params_from_jax
+    from scal_sdt_tpu_torch.data.pipeline import to_device
+    from scal_sdt_tpu_torch.models.clip import CLIPTextConfig, init_clip_params
     from scal_sdt_tpu_torch.models.unet import UNetConfig, init_unet_params
+    from scal_sdt_tpu_torch.models.vae import VAEConfig, init_vae_params
 
     calls = {"resolve_device": lambda: scal_sdt_tpu_torch.resolve_device(),
              "init_unet_params": lambda: init_unet_params(UNetConfig.tiny()),
-             "params_from_jax": lambda: params_from_jax({})}
+             "params_from_jax": lambda: params_from_jax({}),
+             "init_vae_params": lambda: init_vae_params(VAEConfig.tiny()),
+             "init_clip_params": lambda: init_clip_params(CLIPTextConfig.tiny()),
+             "to_device": lambda: to_device({})}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
 

@@ -65,6 +65,28 @@ def _need_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [168, 192, 256, 44])
+def test_head_dims_the_kernels_refuse_take_the_math_path_on_cuda(d):
+    """A bf16 self-attention at (1, 2, 1024, D) on the card whose head dim
+    the kernels refuse (above 160, or not a multiple of 8) runs through
+    multi_head_attention on the math path: no kernel launch, and the result
+    equals _attention_math on the same head views."""
+    from scal_sdt_tpu_torch.ops import attention as A
+
+    _need_card()
+    r = np.random.RandomState(d)
+    q, k, v = (torch.from_numpy(r.randn(1, 1024, 2 * d).astype(np.float32)).cuda().bfloat16()
+               for _ in range(3))
+    S.reset_launches()
+    out = A.multi_head_attention(q, k, v, 2)
+    torch.cuda.synchronize()
+    assert sum(S.launches.values()) == 0
+    want = A._merge_heads(A._attention_math(*(A._split_heads(t, 2) for t in (q, k, v)),
+                                            d ** -0.5))
+    assert out.shape == (1, 1024, 2 * d) and torch.equal(out, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["contiguous", "heads"])
 @pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 96, 120, 160])
 def test_splash_dq_matches_reference_on_cuda(d, layout):

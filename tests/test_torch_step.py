@@ -247,6 +247,130 @@ def test_compute_loss_and_grads_match_jax(tiny_unet):
         assert _rel(ttrain[k].grad, jgrads[k]) < 1e-3, k
 
 
+# --- 4b. the uncached branch: VAE encode and CLIP with CFG dropout --------------
+
+UNCACHED_CASES = {
+    # (uncond section, trainable components): the drop forced with p = 1
+    "eos-drop": ({"enabled": True, "p": 1.0, "cond": "eos"}, ("unet", "text_encoder")),
+    "zeros-drop": ({"enabled": True, "p": 1.0, "cond": "zeros"}, ("unet",)),
+}
+
+
+@pytest.fixture(scope="module")
+def tiny_uncached():
+    """Tiny UNet, VAE and CLIP params (prefixed as the trainer keys them) and
+    a batch of images, prompt ids and the empty prompt's ids."""
+    from scal_sdt_tpu.models.clip import clip_param_shapes
+    from scal_sdt_tpu.models.vae import vae_param_shapes
+
+    params = {**rand_unet_params(unet_param_shapes(JUNetConfig.tiny()), 0, "unet."),
+              **rand_unet_params(vae_param_shapes(VAEConfig.tiny()), 1, "vae."),
+              **rand_unet_params(clip_param_shapes(CLIPTextConfig.tiny()), 2,
+                                 "condition_model.encoder.")}
+    r = np.random.RandomState(6)
+    ids = r.randint(0, 1000, (2, 77)).astype(np.int32)
+    uncond = np.full((1, 77), 999, np.int32)
+    uncond[0, 0] = 998
+    batch = {"images": r.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32),
+             "input_ids": ids, "uncond_ids": uncond}
+    return params, batch
+
+
+@pytest.mark.parametrize("case", list(UNCACHED_CASES))
+def test_uncached_compute_loss_and_grads_match_jax(tiny_uncached, case):
+    """Images through the VAE and a sample of its Gaussian, ids through CLIP
+    (stop_at_layer 2) with CFG dropout forced in modes 'eos' and 'zeros' and
+    off, JAX's draws injected (latent noise and the dropout scalar too): loss
+    and gradients within 1e-3 relative, as the cached branch is held; CLIP
+    is trainable where its gradients are not zero by construction. The key
+    biases' gradients are zero in exact arithmetic (softmax does not see a
+    shift shared by all keys): both packages' are rounding noise, held to
+    1e-6 of the largest gradient instead."""
+    params, batch = tiny_uncached
+    uncond, trained = UNCACHED_CASES[case]
+    prefixes = tuple(jstep.component_prefix(c) + "." for c in trained)
+    train = {k: v for k, v in params.items() if k.startswith(prefixes)}
+    frozen = {k: v for k, v in params.items() if k not in train}
+    cfg = {"trainer": {"precision": "32"}, "clip_stop_at_layer": 2, "uncond": uncond}
+    jcfg = jconf.merge(jconf.default(), jconf.Config(cfg))
+    tcfg = tconf.merge(tconf.default(), tconf.Config(cfg))
+    jspec = jstep.StepSpec.from_config(jcfg, JUNetConfig.tiny(), CLIPTextConfig.tiny(),
+                                       VAEConfig.tiny(), train_text_encoder=len(trained) > 1)
+    from scal_sdt_tpu_torch.models.clip import CLIPTextConfig as TCLIPConfig
+    from scal_sdt_tpu_torch.models.vae import VAEConfig as TVAEConfig
+
+    tspec = tstep.StepSpec.from_config(tcfg, TUNetConfig.tiny(), vae_config=TVAEConfig.tiny(),
+                                       clip_config=TCLIPConfig.tiny(),
+                                       train_text_encoder=len(trained) > 1)
+    assert (tspec.uncond_enabled, tspec.uncond_p, tspec.uncond_mode, tspec.clip_stop_at_layer
+            ) == (jspec.uncond_enabled, jspec.uncond_p, jspec.uncond_mode, 2)
+
+    rng = jax.random.PRNGKey(21)
+    jnp_ = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
+    loss_fn = jax.value_and_grad(jstep.compute_loss, has_aux=True)
+    (jloss, _), jgrads = jax.jit(lambda p, f, b, r: loss_fn(p, f, b, r, jspec))(
+        jnp_(train), jnp_(frozen), jnp_(batch), rng)
+
+    rng_latent, rng_uncond = jax.random.split(rng, 5)[:2]
+    latents_shape = (2, 8, 8, 4)
+    draws = _jax_draws(rng, jspec, latents_shape)
+    draws.latent_noise = _nchw(jax.random.normal(rng_latent, latents_shape, jnp.float32))
+    draws.uncond_u = torch.tensor(float(jax.random.uniform(rng_uncond)))
+    ttrain = {k: v.requires_grad_(True) for k, v in params_from_jax(train, device="cpu").items()}
+    tbatch = {"images": _nchw(batch["images"]),
+              **{k: torch.from_numpy(batch[k]) for k in ("input_ids", "uncond_ids")}}
+    tloss, _ = tstep.compute_loss(ttrain, params_from_jax(frozen, device="cpu"), tbatch, None,
+                                  tspec, draws)
+    tloss.backward()
+
+    assert abs(tloss.item() - float(jloss)) / abs(float(jloss)) < 1e-3
+    scale = max(np.abs(_f32(g)).max() for g in jgrads.values())
+    for k in train:
+        if ttrain[k].grad is None:   # CLIP's last layer, dropped by stop_at_layer 2
+            assert ".layers.1." in k and not np.any(_f32(jgrads[k])), k
+            continue
+        if k.endswith("k_proj.bias"):
+            assert max(np.abs(_f32(ttrain[k].grad)).max(), np.abs(_f32(jgrads[k])).max()
+                       ) <= 1e-6 * scale, k
+            continue
+        assert _rel(ttrain[k].grad, jgrads[k]) < 1e-3, k
+    te = [k for k in train if k.startswith("condition_model.")]
+    assert bool(te) == (case == "eos-drop")
+
+
+def test_uncached_step_draws_from_the_generator(tiny_uncached):
+    """Without injected draws the uncached step draws the latent noise and the
+    dropout scalar from the state's generator: one seed gives one loss, and
+    the draws it made replay it exactly."""
+    params, batch = tiny_uncached
+    cfg = tconf.merge(tconf.default(), tconf.Config({
+        "trainer": {"precision": "32"}, "uncond": {"enabled": True, "p": 0.5, "cond": "eos"}}))
+    from scal_sdt_tpu_torch.models.clip import CLIPTextConfig as TCLIPConfig
+    from scal_sdt_tpu_torch.models.vae import VAEConfig as TVAEConfig
+
+    spec = tstep.StepSpec.from_config(cfg, TUNetConfig.tiny(), vae_config=TVAEConfig.tiny(),
+                                      clip_config=TCLIPConfig.tiny())
+    tparams = params_from_jax(params, device="cpu")
+    train = {k: v for k, v in tparams.items() if k.startswith("unet.")}
+    frozen = {k: v for k, v in tparams.items() if k not in train}
+    tbatch = {"images": _nchw(batch["images"]),
+              **{k: torch.from_numpy(batch[k]) for k in ("input_ids", "uncond_ids")}}
+    losses = [tstep.compute_loss(train, frozen, tbatch, torch.Generator().manual_seed(4),
+                                 spec)[0] for _ in range(2)]
+    assert torch.equal(losses[0], losses[1])
+    gen = torch.Generator().manual_seed(4)
+    from scal_sdt_tpu_torch.models.vae import latent_noise
+
+    moments_shape = torch.empty(2, 8, 8, 8)
+    noise = latent_noise(moments_shape, gen)
+    u = torch.rand((), generator=gen)
+    draws = tstep.draw(gen, spec, torch.empty(2, 4, 8, 8), noise, u)
+    replay, _ = tstep.compute_loss(train, frozen, tbatch, None, spec, draws)
+    assert torch.equal(replay, losses[0])
+    with pytest.raises(ValueError, match="uncond.cond"):
+        tstep.StepSpec(TUNetConfig.tiny(), TSchedule(), torch.float32, uncond_mode="ones")
+
+
 # --- 5. one whole step ----------------------------------------------------------
 
 def _check_adamw_state(tnew, jnew, ttrain, params, labels):

@@ -52,3 +52,27 @@ def assert_bf16_ulp(got, want, what: str = "", slack=0.0) -> None:
     bound = bf16_ulp(np.maximum(np.abs(got), np.abs(want))) + slack
     bad = np.abs(got - want) > bound
     assert not bad.any(), f"{what}: {bad.sum()} of {bad.size} differ by more than 1 ulp"
+
+
+def tiny_model_dir(path, vocab_size: int = 640, seed: int = 0, scheduler_overrides=None):
+    """A tiny SD1.x diffusers directory (tests/helpers.py
+    ``write_diffusers_dir``) with seeded numpy weights from
+    ``rand_unet_params``, which is much faster than initialising the models
+    through JAX. The CLIP tower has ``vocab_size`` rows."""
+    from scal_sdt_tpu.convert.loader import LoadedModels
+    from scal_sdt_tpu.diffusion.schedule import NoiseSchedule
+    from scal_sdt_tpu.models.clip import CLIPTextConfig, clip_param_shapes
+    from scal_sdt_tpu.models.unet import UNetConfig, unet_param_shapes
+    from scal_sdt_tpu.models.vae import VAEConfig, vae_param_shapes
+
+    from helpers import write_diffusers_dir
+
+    unet, vae = UNetConfig.tiny(), VAEConfig.tiny()
+    clip = CLIPTextConfig(vocab_size=vocab_size, hidden_size=32, intermediate_size=64,
+                          num_hidden_layers=2, num_attention_heads=2)
+    models = LoadedModels(
+        unet=rand_unet_params(unet_param_shapes(unet), seed), unet_config=unet,
+        vae=rand_unet_params(vae_param_shapes(vae), seed + 1), vae_config=vae,
+        clip=rand_unet_params(clip_param_shapes(clip), seed + 2), clip_config=clip,
+        schedule=NoiseSchedule())
+    return write_diffusers_dir(models, path, scheduler_overrides)
