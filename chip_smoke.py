@@ -84,6 +84,26 @@ Phases (any failure raises and the script exits non-zero):
               included; the file read back through LatentCache,
               DataPipeline and to_device; 2 cached train steps from it, loss
               finite.
+9. trainer -- the Trainer through the train CLI on that cache file: a
+              diffusers directory of SD1.5 at full width in bf16 (a random
+              UNet from --seed, the phases' VAE and CLIP, the SD1.5
+              scheduler, the synthetic vocab); run 1 (--config) trains 6
+              steps of batch 8 (3 per epoch), AdamW with bf16 masters and
+              moments, checkpoints at step 4 (mid-epoch) and step 6; run 2
+              (--resume from step 4) ends on a checkpoint and sidecar equal
+              to run 1's bit for bit (file digests) and run 1's losses. Each
+              splash kernel 10 launches per step, adam_bf16_fused one per
+              param group. Then a Trainer with accumulate_grad_batches 2
+              over 4 micro-steps: the masters move on micro-steps 2 and 4
+              only, the optimizer kernels launch on those alone (with the
+              fp32 mean of the gradients). Prints the trainer's own steps/s
+              beside the train phase's (and the train phase's with a host
+              sync per step, as the trainer's logging makes), time to the
+              first step, checkpoint write and read seconds and size, peak
+              memory, launches per step.
+
+The optim phase also runs both grouped kernels with fp32 gradients, the mean
+that gradient accumulation hands them, at the same bounds.
 
 Output: the build's register/spill report, one line per phase, then (before
 the last line) a {"kernels": [...]} JSON line and the card's name and power
@@ -96,6 +116,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
+import hashlib
 import json
 import math
 import subprocess
@@ -108,8 +130,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scal_sdt_tpu_torch.cli import train as train_cli
 from scal_sdt_tpu_torch.cli.cache import assemble_cache, build_local_shard
-from scal_sdt_tpu_torch.conf import Config, default, load_optim_target, merge
+from scal_sdt_tpu_torch.conf import Config, default, load_optim_target, load_with_defaults, merge
 from scal_sdt_tpu_torch.convert.loader import LoadedModels
 from scal_sdt_tpu_torch.data.datasets import LatentCache
 from scal_sdt_tpu_torch.data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
@@ -120,11 +143,13 @@ from scal_sdt_tpu_torch.models.vae import (VAEConfig, encoder_apply, init_vae_pa
                                            sample_latents)
 from scal_sdt_tpu_torch.ops import _build, adam8_fused, adam_bf16_fused, attention, splash
 from scal_sdt_tpu_torch.text.bpe import CLIPBPETokenizer, bytes_to_unicode
+from scal_sdt_tpu_torch.training.checkpoint import CheckpointManager
 from scal_sdt_tpu_torch.training.optim_targets import group_labels, resolve_optim_target
 from scal_sdt_tpu_torch.training.optimizers import build_optimizer
 from scal_sdt_tpu_torch.training.quantized import Adam8bit, bias_corrections
 from scal_sdt_tpu_torch.training.step import (StepSpec, compute_loss, draw, init_train_state,
                                               make_train_step)
+from scal_sdt_tpu_torch.training.trainer import Trainer
 from scal_sdt_tpu_torch.utils.state import save_json_metadata, save_state_dict
 
 # H100 SXM data-sheet peaks (dense bf16 tensor cores, fp32 on the CUDA
@@ -178,7 +203,7 @@ KERNELS = {
                         "lab/micro_bf16_update.py:62", "lab/micro_bf16_update.py:86"),
 }
 SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
-PHASES = ("train", "train_int8", "uncached", "cache")   # the phases that train
+PHASES = ("train", "train_int8", "uncached", "cache", "trainer")   # the phases that train
 COUNTERS = (splash, adam8_fused, adam_bf16_fused)
 
 
@@ -499,13 +524,14 @@ def group_bytes(table, g_size: int = 2) -> int:
     return sum(per_leaf)
 
 
-def group_record(got, want, run, plain, kernel: str, ops: int, err: dict) -> dict:
+def group_record(got, want, run, plain, kernel: str, ops: int, err: dict,
+                 g_size: int = 2) -> dict:
     """Times, bytes and bound of a grouped launch ``run()`` over ``got``
     (device time of ``kernel``; beside it the call's time by CUDA events,
     which holds the host's upload of the gradient addresses), its plain
-    chain ``plain()`` over ``want``."""
+    chain ``plain()`` over ``want``; ``g_size``: bytes per gradient element."""
     n = sum(p.numel() for p in got.params)
-    nbytes = group_bytes(got)
+    nbytes = group_bytes(got, g_size)
     return {"leaves": len(got.keys), "elements": n, "chunks": len(got.chunks), "err": err,
             "ms": kernel_device_ms(run, kernel), "call_ms": time_ms(run),
             "plain_ms": time_ms(plain, iters=1, warmup=0),
@@ -521,14 +547,16 @@ def master_flips(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return float((d / ulp).max()), float((d > 0).float().mean())
 
 
-def adamw_group_case(gen: torch.Generator, keys, shapes) -> dict:
+def adamw_group_case(gen: torch.Generator, keys, shapes,
+                     g_dtype: torch.dtype = torch.bfloat16) -> dict:
     """AdamW's grouped adam_bf16_fused over every SD1.5 leaf (bf16 masters
     and moments, nu by SR, decay and schedule, master SR) against its plain
-    chain leaf by leaf: masters and moments bit for bit."""
+    chain leaf by leaf: masters and moments bit for bit. ``g_dtype``: the
+    gradients' (fp32: gradient accumulation's mean)."""
     params = [rand(s, gen, 2e-2) for s in shapes]
     mu = [rand(s, gen, 1e-4) for s in shapes]
     nu = [rand(s, gen, 1e-7, positive=True) for s in shapes]
-    grads = [rand(s, gen, 1e-3) for s in shapes]
+    grads = [rand(s, gen, 1e-3, g_dtype) for s in shapes]
     count = 3
     bc = bias_corrections(B1, B2, count)
     kw = dict(b1=B1, b2=B2, eps=EPS, recip_bc=False, count=count, step=count - 1,
@@ -545,7 +573,9 @@ def adamw_group_case(gen: torch.Generator, keys, shapes) -> dict:
           f"grouped adam_bf16_fused (AdamW) disagrees with its plain chain: {err}")
     res = group_record(got, want, lambda: adam_bf16_fused.adam_bf16_fused_apply(got, grads, bc, **kw),
                        lambda: adam_bf16_fused.adam_bf16_fused_apply_reference(want, grads, bc, **kw),
-                       "adam_bf16_group", ADAM_OPS + EPILOGUE_OPS, err)
+                       "adam_bf16_group", ADAM_OPS + EPILOGUE_OPS, err, grads[0].element_size())
+    if g_dtype != torch.bfloat16:   # torch's fused AdamW takes gradients of the params' dtype
+        return res
     # nearest library call, not the same function: torch's fused AdamW over
     # the same 686 bf16 params, gradients and moments
     steps = [torch.tensor(float(count), device="cuda") for _ in keys]
@@ -557,12 +587,14 @@ def adamw_group_case(gen: torch.Generator, keys, shapes) -> dict:
     return res
 
 
-def adamw8bit_group_case(gen: torch.Generator, keys, shapes) -> dict:
+def adamw8bit_group_case(gen: torch.Generator, keys, shapes,
+                         g_dtype: torch.dtype = torch.bfloat16) -> dict:
     """AdamW8bit's two grouped launches over every SD1.5 leaf (bf16 masters):
     adam8_fused over the int8 leaves (payloads at most 1 apart in under 1e-3
     of them, scales within 1e-6 relative, masters at most one ulp apart in
     under 1e-3 of them) and adam_bf16_fused over the fp32-moment leaves (bit
-    for bit), from a state that one plain step has filled."""
+    for bit), from a state that one plain step has filled; gradients of
+    ``g_dtype`` (fp32: gradient accumulation's mean, the update fp32 too)."""
     params = {k: rand(s, gen, 2e-2) for k, s in zip(keys, shapes)}
     state = Adam8bit(B1, B2, EPS).init(params)
     k8 = [k for k in keys if k in state.mu_s]
@@ -590,14 +622,14 @@ def adamw8bit_group_case(gen: torch.Generator, keys, shapes) -> dict:
                 lambda: f32(t32, g32, bc, recip_bc=True, count=count, **hp))
 
     want8, want32 = tables(params, state)
-    for fn in step_fns(want8, want32, {k: rand(s, gen, 1e-3) for k, s in zip(keys, shapes)},
-                       1, plain=True):
+    for fn in step_fns(want8, want32, {k: rand(s, gen, 1e-3, g_dtype)
+                                       for k, s in zip(keys, shapes)}, 1, plain=True):
         fn()
     kparams = {k: v.clone() for k, v in params.items()}
     kstate = dataclasses.replace(state, **{f: {k: v.clone() for k, v in getattr(state, f).items()}
                                            for f in ("mu_q", "mu_s", "nu_q", "nu_s")})
     got8, got32 = tables(kparams, kstate)
-    grads = {k: rand(s, gen, 1e-3) for k, s in zip(keys, shapes)}
+    grads = {k: rand(s, gen, 1e-3, g_dtype) for k, s in zip(keys, shapes)}
     run8, run32 = step_fns(got8, got32, grads, 2, plain=False)
     plain8, plain32 = step_fns(want8, want32, grads, 2, plain=True)
     run8(), run32(), plain8(), plain32()
@@ -630,11 +662,12 @@ def adamw8bit_group_case(gen: torch.Generator, keys, shapes) -> dict:
     err32["out"] = max(max_abs(a, b) for a, b in zip(got32.params, want32.params))
     check(err32["params"] and err32["mu"] and err32["nu"],
           f"grouped adam_bf16_fused (AdamW8bit's fp32-moment leaves) disagrees: {err32}")
+    g_size = torch.empty((), dtype=g_dtype).element_size()
     return {"adam8_fused": group_record(got8, want8, run8, plain8, "adam8_group",
-                                        ADAM8_OPS + EPILOGUE_OPS, err8),
+                                        ADAM8_OPS + EPILOGUE_OPS, err8, g_size),
             "adam_bf16_fused_fp32_leaves": group_record(got32, want32, run32, plain32,
                                                         "adam_bf16_group",
-                                                        ADAM_OPS + EPILOGUE_OPS, err32)}
+                                                        ADAM_OPS + EPILOGUE_OPS, err32, g_size)}
 
 
 def optim_phase(gen: torch.Generator) -> dict:
@@ -644,6 +677,12 @@ def optim_phase(gen: torch.Generator) -> dict:
     res["grouped"] = {"adam_bf16_fused": adamw_group_case(gen, keys, shapes)}
     torch.cuda.empty_cache()
     res["grouped_int8"] = adamw8bit_group_case(gen, keys, shapes)
+    torch.cuda.empty_cache()
+    # fp32 gradients, as gradient accumulation hands both kernels their mean
+    res["grouped_fp32_grads"] = {
+        "adam_bf16_fused": adamw_group_case(gen, keys, shapes, torch.float32)}
+    torch.cuda.empty_cache()
+    res["grouped_int8_fp32_grads"] = adamw8bit_group_case(gen, keys, shapes, torch.float32)
     torch.cuda.empty_cache()
     return res
 
@@ -715,6 +754,16 @@ def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
     per_step = {**per_step, **optimizer_launches(state.opt_state)}
     del setup
     res = run_steps(state, step_fn, {}, lambda: batch, steps, warmup, per_step)
+    # the same steps with the loss fetched after each, as the trainer's
+    # logging does: what the host sync costs
+    state = res["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step_fn(state, {}, batch)
+        float(metrics["train_loss"])
+    res["synced_steps_per_s"] = steps / (time.perf_counter() - t0)
+    res["state"] = state
     return {**res, "param_groups": groups, "batch": batch, "unet_config": unet_config}
 
 
@@ -999,6 +1048,220 @@ def cache_phase(uncached: dict, workdir: Path, per_step: dict[str, int],
                                    "losses", "launches")}}
 
 
+TRAINER_STEPS = 6        # run 1 of the trainer phase; 3 steps per epoch of the cache
+TRAINER_SAVE_EVERY = 4   # its mid-epoch checkpoint (epoch 1, batch 1), which run 2 resumes
+ACCUM_K, ACCUM_MICRO_STEPS = 2, 4
+SD15_SCHEDULER = {"num_train_timesteps": 1000, "beta_start": 0.00085, "beta_end": 0.012,
+                  "beta_schedule": "scaled_linear", "prediction_type": "epsilon",
+                  "steps_offset": 1, "clip_sample": False, "set_alpha_to_one": False}
+
+
+def write_model_dir(root: Path, seed: int, frozen: dict) -> Path:
+    """A diffusers directory of SD1.5 at full width in bf16: a UNet with
+    random weights from ``seed``, the VAE and CLIP ViT-L of ``frozen``, the
+    SD1.5 scheduler config and the synthetic CLIP vocab."""
+    d = root / "model"
+    unet = {k: v.bfloat16() for k, v in
+            init_unet_params(UNetConfig.sd15(), seed=seed + 4, device=DEVICE).items()}
+    parts = {"unet": (unet, UNetConfig.sd15()),
+             "vae": (component(frozen, "vae"), VAEConfig.sd15()),
+             "text_encoder": (component(frozen, "condition_model.encoder"),
+                              CLIPTextConfig.vit_l())}
+    for name, (params, cfg) in parts.items():
+        (d / name).mkdir(parents=True)
+        save_state_dict(params, d / name / "diffusion_pytorch_model.safetensors")
+        (d / name / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+    del unet
+    (d / "scheduler").mkdir()
+    (d / "scheduler" / "scheduler_config.json").write_text(json.dumps(SD15_SCHEDULER))
+    write_vocab(d / "tokenizer")
+    return d
+
+
+class TrainerProbe:
+    """What Trainer runs do, read at their public methods while the probe is
+    open: each logged step's metrics and host time since the probe opened,
+    and the seconds of each checkpoint save and resume."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.steps: list[tuple[int, dict, float]] = []
+        self.saves: list[tuple[str, float]] = []
+        self.resumes: list[float] = []
+
+    def __enter__(self):
+        self._real = (Trainer._log, CheckpointManager.save, Trainer.resume)
+        log, save, resume = self._real
+        probe = self
+
+        def _log(tr, metrics, step):
+            probe.steps.append((step, dict(metrics), time.perf_counter() - probe.t0))
+            return log(tr, metrics, step)
+
+        def _save(mgr, *args, **kwargs):
+            t0 = time.perf_counter()
+            path = save(mgr, *args, **kwargs)
+            probe.saves.append((path.name, time.perf_counter() - t0))
+            return path
+
+        def _resume(tr, path):
+            t0 = time.perf_counter()
+            resume(tr, path)
+            probe.resumes.append(time.perf_counter() - t0)
+
+        Trainer._log, CheckpointManager.save, Trainer.resume = _log, _save, _resume
+        return self
+
+    def __exit__(self, *exc):
+        Trainer._log, CheckpointManager.save, Trainer.resume = self._real
+
+    def losses(self) -> dict[int, float]:
+        return {step: m["train_loss"] for step, m, _ in self.steps}
+
+
+def file_digests(paths) -> dict[str, str]:
+    out = {}
+    for p in paths:
+        h = hashlib.sha256()
+        with open(p, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 24), b""):
+                h.update(chunk)
+        out[p.name] = h.hexdigest()
+    return out
+
+
+def checkpoint_files(run: Path, stem: str) -> list[Path]:
+    return [run / f"{stem}.safetensors", run / f"{stem}.safetensors.torchstate"]
+
+
+def leaf_digests(trainer) -> torch.Tensor:
+    """One int64 per master: the sum of its bf16 bit patterns, which moves
+    when any of its elements does (almost surely)."""
+    return torch.stack([p.view(torch.int16).sum(dtype=torch.int64)
+                        for p in trainer.state.trainable.values()])
+
+
+def trainer_phase(seed: int, workdir: Path, cache_path: Path, frozen: dict,
+                  per_step: dict[str, int], train_rate: float) -> dict:
+    """The trainer, the train CLI and checkpoints at full width, from the
+    cache phase's file: run 1 (``--config``) trains TRAINER_STEPS steps with
+    a checkpoint at step TRAINER_SAVE_EVERY (mid-epoch) and at the end; run 2
+    (``--resume`` from that checkpoint) trains to the same end, and its final
+    checkpoint and sidecar must equal run 1's bit for bit, its losses run
+    1's. Then a Trainer with accumulate_grad_batches ACCUM_K over
+    ACCUM_MICRO_STEPS micro-steps moves the masters on emit steps only."""
+    t0 = time.perf_counter()
+    model = write_model_dir(workdir, seed, frozen)
+    write_s = time.perf_counter() - t0
+    runs = workdir / "runs"
+    config = {"model": str(model), "output_dir": str(runs), "project": "smoke",
+              "batch_size": 8, "seed": seed, "num_workers": NUM_WORKERS,
+              "data": {"resolution": RESOLUTION, "cache": str(cache_path)},
+              "trainer": {"precision": "bf16", "max_epochs": 2, "max_steps": TRAINER_STEPS,
+                          "log_every_n_steps": 1},
+              "ema": {"enabled": False},
+              "optimizer": {"name": "adamw", "master_dtype": "bf16", "moment_dtype": "bf16",
+                            "params": {"lr": 2e-6, "weight_decay": 1e-2},
+                            "lr_scale": {"enabled": False}},
+              "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
+                             "every_n_train_steps": TRAINER_SAVE_EVERY}}
+    cfg_path = workdir / "trainer.yaml"
+    cfg_path.write_text(json.dumps(config))
+    # AdamW over bf16 moments: one adam_bf16_fused launch per param group
+    groups = len(resolve_optim_target(load_optim_target("full_unet"),
+                                      unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
+    per_step = {**per_step, "adam_bf16_fused": groups, "adam8_fused": 0}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with TrainerProbe() as run1:
+        train_cli.main(["--config", str(cfg_path), "--run-id", "run1", "--device", DEVICE],
+                       standalone_mode=False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    check([s for s, _, _ in run1.steps] == list(range(1, TRAINER_STEPS + 1)),
+          f"run 1 logged steps {[s for s, _, _ in run1.steps]}")
+    check(all(math.isfinite(x) for x in run1.losses().values()), f"losses {run1.losses()}")
+    for name, n in per_step.items():
+        check(launches[name] == n * TRAINER_STEPS,
+              f"{name} launched {launches[name]} times in {TRAINER_STEPS} trainer steps, "
+              f"expected {n} per step")
+    dir1 = runs / "smoke" / "run1"
+    mid, last = (f"epoch=1-step={n}" for n in (TRAINER_SAVE_EVERY, TRAINER_STEPS))
+    check(sorted(p.name for p in dir1.glob("*.safetensors")) == [mid + ".safetensors",
+                                                                  last + ".safetensors"],
+          f"run 1 wrote {sorted(p.name for p in dir1.iterdir())}")
+    ckpt_bytes = sum(p.stat().st_size for p in checkpoint_files(dir1, mid))
+    want = file_digests(checkpoint_files(dir1, last))
+    for p in checkpoint_files(dir1, last):   # at most two checkpoints on disk
+        p.unlink()
+
+    with TrainerProbe() as run2:
+        train_cli.main(["--resume", str(dir1 / f"{mid}.safetensors"), "--run-id", "run2",
+                        "--device", DEVICE], standalone_mode=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dir2 = runs / "smoke" / "run2"
+    check([s for s, _, _ in run2.steps] == list(range(TRAINER_SAVE_EVERY + 1,
+                                                      TRAINER_STEPS + 1)),
+          f"run 2 logged steps {[s for s, _, _ in run2.steps]}")
+    got = file_digests(checkpoint_files(dir2, last))
+    check(got == want, f"the resumed run's final checkpoint differs from run 1's: {got} {want}")
+    l1, l2 = run1.losses(), run2.losses()
+    check(all(l2[s] == l1[s] for s in l2), f"resumed losses {l2} != run 1's {l1}")
+    for p in checkpoint_files(dir1, mid) + checkpoint_files(dir2, last):
+        p.unlink()
+
+    # gradient accumulation: fp32 mean into the kernels on emit steps only
+    acc_cfg = merge(load_with_defaults(cfg_path), Config({
+        "trainer": {"accumulate_grad_batches": ACCUM_K, "max_steps": ACCUM_MICRO_STEPS},
+        "checkpoint": {"every_n_train_steps": None}}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trainer = Trainer(acc_cfg, runs / "accum", device=DEVICE)
+    digests = [leaf_digests(trainer)]
+    trainer.fit(sample_callback=lambda tr, step: digests.append(leaf_digests(tr)),
+                final_save=False)
+    torch.cuda.synchronize()
+    acc_launches = read_launches()
+    acc_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    acc_groups = optimizer_launches(trainer.state.opt_state.inner)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    moved = [int((a != b).sum()) for a, b in zip(digests, digests[1:])]
+    n_leaves = len(digests[0])
+    for i, m in enumerate(moved, start=1):
+        emit = i % ACCUM_K == 0
+        check(m > n_leaves // 2 if emit else m == 0,
+              f"accumulation micro-step {i}: {m} of {n_leaves} masters moved")
+    emits = ACCUM_MICRO_STEPS // ACCUM_K
+    for name, n in acc_groups.items():
+        check(acc_launches[name] == n * emits,
+              f"{name} launched {acc_launches[name]} times in {emits} emits, expected {n} each")
+
+    steady = [m["steps_per_sec"] for s, m, _ in run1.steps if s not in (1, TRAINER_SAVE_EVERY + 1)]
+    return {"model_write_s": write_s, "steps": TRAINER_STEPS,
+            "losses": [run1.losses()[s] for s in sorted(run1.losses())],
+            "resumed_losses": [l2[s] for s in sorted(l2)],
+            "steps_per_sec": [m["steps_per_sec"] for _, m, _ in run1.steps],
+            "steady_steps_per_s": float(np.median(steady)), "train_phase_steps_per_s": train_rate,
+            "first_step_s": run1.steps[0][2], "resume_first_step_s": run2.steps[0][2],
+            "save_s": run1.saves + run2.saves, "resume_s": run2.resumes,
+            "checkpoint_gib": ckpt_bytes / 2 ** 30, "peak_mem_gib": peak,
+            "launches": launches,
+            "launches_per_step": {k: v / TRAINER_STEPS for k, v in launches.items()},
+            "resume_bit_equal": True,
+            "accumulation": {"k": ACCUM_K, "micro_steps": ACCUM_MICRO_STEPS,
+                             "masters_moved": moved, "of": n_leaves,
+                             "launches": acc_launches, "peak_mem_gib": acc_peak}}
+
+
 def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                 record: dict) -> dict:
     """The {"kernels": [...]} entry of an optimizer kernel: the numbers of its
@@ -1010,9 +1273,13 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
     cases = record["optim"][name]
     grouped = (record["optim"]["grouped_int8"]["adam8_fused"] if name == "adam8_fused"
                else record["optim"]["grouped"]["adam_bf16_fused"])
-    others = ({} if name == "adam8_fused" else
-              {"grouped_int8_fp32_leaves": record["optim"]["grouped_int8"][
-                  "adam_bf16_fused_fp32_leaves"]})
+    opt = record["optim"]
+    others = ({"grouped_fp32_grads": opt["grouped_int8_fp32_grads"]["adam8_fused"]}
+              if name == "adam8_fused" else
+              {"grouped_int8_fp32_leaves": opt["grouped_int8"]["adam_bf16_fused_fp32_leaves"],
+               "grouped_fp32_grads": opt["grouped_fp32_grads"]["adam_bf16_fused"],
+               "grouped_int8_fp32_leaves_fp32_grads":
+                   opt["grouped_int8_fp32_grads"]["adam_bf16_fused_fp32_leaves"]})
     phase = "train_int8" if name == "adam8_fused" else "train"
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "pallas_kernel": pallas_kernel,
@@ -1069,7 +1336,7 @@ def main(argv=None) -> int:
     for name in ("adam8_fused", "adam_bf16_fused"):
         for r in record["optim"][name]:
             log(f"optim {name} {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
-    for form in ("grouped", "grouped_int8"):
+    for form in ("grouped", "grouped_int8", "grouped_fp32_grads", "grouped_int8_fp32_grads"):
         for name, r in record["optim"][form].items():
             log(f"optim {form} {name}: {json.dumps(r)}")
     torch.cuda.empty_cache()
@@ -1109,7 +1376,28 @@ def main(argv=None) -> int:
                               if k not in ("config", "frozen", "tokenizer", "spec", "step_fn",
                                            "state")}
         record["cache"] = cache
+        frozen = uncached["frozen"]
         del uncached
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        trainer = trainer_phase(args.seed, Path(tmp), Path(tmp) / "cache.safetensors", frozen,
+                                splash_per_step, record["train"]["steps_per_s"])
+        del frozen
+        acc = trainer["accumulation"]
+        log(f"trainer: {trainer['steady_steps_per_s']:.4f} steps/s (the trainer's own, host sync "
+            f"per step; train phase {trainer['train_phase_steps_per_s']:.4f}, with a sync per "
+            f"step {record['train']['synced_steps_per_s']:.4f}), first step after "
+            f"{trainer['first_step_s']:.2f} s (resumed: {trainer['resume_first_step_s']:.2f} s), "
+            f"checkpoint {trainer['checkpoint_gib']:.2f} GiB written in "
+            f"{[round(t, 3) for _, t in trainer['save_s']]} s, read in "
+            f"{[round(t, 3) for t in trainer['resume_s']]} s, peak {trainer['peak_mem_gib']:.2f} "
+            f"GiB, launches per step {trainer['launches_per_step']}, losses {trainer['losses']}, "
+            f"resumed {trainer['resumed_losses']} (bit-equal checkpoint)")
+        log(f"trainer accumulation: k {acc['k']}, masters moved per micro-step "
+            f"{acc['masters_moved']} of {acc['of']}, launches {acc['launches']}, peak "
+            f"{acc['peak_mem_gib']:.2f} GiB")
+        record["trainer"] = trainer
 
     main_shape = record["kernels"][0]
     kernels = []

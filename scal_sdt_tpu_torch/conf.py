@@ -113,6 +113,23 @@ def load(source: Union[str, PathLike, IO]) -> Any:
     return Config._wrap(data)
 
 
+def _plain(value: Any) -> Any:
+    """Config -> plain dicts and lists, for the YAML dumper."""
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_plain(v) for v in value]
+    return value
+
+
+def save(config: ConfigLike, path: Union[str, PathLike, IO]) -> None:
+    text = yaml.safe_dump(_plain(config), sort_keys=False)
+    if isinstance(path, (str, PathLike)):
+        Path(path).write_text(text)
+    else:
+        path.write(text)
+
+
 def default() -> Config:
     return load(DEFAULT_PATH)
 

@@ -141,9 +141,11 @@ def _clip_config_from_df(cfg: dict) -> CLIPTextConfig:
 def load_diffusers_dir(path: Path, vae_override: Optional[str] = None) -> LoadedModels:
     path = Path(path)
     if (path / "transformer").is_dir() and not (path / "unet").is_dir():
-        raise NotImplementedError(f"{path}: the SD3 layout (transformer/) is not ported yet")
+        raise NotImplementedError(f"{path}: the SD3 layout (transformer/) is not ported yet "
+                                  "(ROADMAP 1.16)")
     if (path / "text_encoder_2").is_dir():
-        raise NotImplementedError(f"{path}: the SDXL layout (text_encoder_2/) is not ported yet")
+        raise NotImplementedError(f"{path}: the SDXL layout (text_encoder_2/) is not ported yet "
+                                  "(ROADMAP 1.15)")
 
     unet_dir = path / "unet"
     unet_config = _unet_config_from_df(_load_df_component_config(unet_dir))

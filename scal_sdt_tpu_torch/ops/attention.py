@@ -16,6 +16,11 @@ Two paths, chosen by ``_dispatch`` with the JAX package's gate:
   too. CLIP's causal attention and the VAE's single-head D = 512 attention
   take the math path, as they take XLA's on the TPU.
 
+``FORCE_MATH`` closes the gate: every call takes ``_attention_math``. The
+trainer sets it from the config's ``xformers: false``, as the JAX trainer sets
+``FORCE_XLA`` (``scal_sdt_tpu/ops/attention.py``) to keep calls off the
+Pallas kernels.
+
 The multi-device ``shard_map`` wrapper of the JAX version has no counterpart
 yet: multi-GPU is a later slice.
 """
@@ -28,6 +33,9 @@ from .splash import kernel_accepts, splash_attention
 
 # Both lengths at least this long take the kernels (the TPU gate's default).
 KERNEL_MIN_LEN = 1024
+
+# Every call takes the math path when set (the config's `xformers: false`).
+FORCE_MATH = False
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -60,7 +68,7 @@ def _causal_mask(lq: int, lk: int, device: torch.device) -> torch.Tensor:
 def use_kernel(q_shape, k_shape, dtype: torch.dtype, causal: bool, is_cuda: bool) -> bool:
     """The gate: (B, H, Lq, D) queries and (B, H, Lk, D) keys of ``dtype``
     go to the splash kernels, or to ``_attention_math``."""
-    return (is_cuda and not causal
+    return (is_cuda and not causal and not FORCE_MATH
             and q_shape[2] >= KERNEL_MIN_LEN and k_shape[2] >= KERNEL_MIN_LEN
             and kernel_accepts(q_shape, dtype))
 

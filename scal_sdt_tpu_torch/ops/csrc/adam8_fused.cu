@@ -292,6 +292,8 @@ int ssdt_adam8_group(const void* leaves, const void* grads, const void* chunks, 
   auto kernel = adam8_group_kernel<kAny, kAny, kAny>;
   if (g_dtype == kBF16 && p_dtype == kBF16 && u_dtype == kBF16)
     kernel = adam8_group_kernel<kBF16, kBF16, kBF16>;  // AdamW8bit, bf16 masters
+  else if (g_dtype == kF32 && p_dtype == kBF16 && u_dtype == kF32)
+    kernel = adam8_group_kernel<kF32, kBF16, kF32>;  // the same under gradient accumulation
   kernel<<<(unsigned int)nchunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Adam8Leaf*>(leaves), static_cast<const char* const*>(grads),
       static_cast<const Chunk*>(chunks), steps, h, a);

@@ -205,6 +205,13 @@ int ssdt_adam_bf16_group(const void* leaves, const void* grads, const void* chun
   else if (g_dtype == kBF16 && mu_dtype == kF32 && nu_dtype == kF32 && p_dtype == kBF16 &&
            u_dtype == kBF16)
     kernel = adam_bf16_group_kernel<kBF16, kF32, kF32, kBF16, kBF16>;  // AdamW8bit
+  // under gradient accumulation the groups take the fp32 mean of the gradients
+  else if (g_dtype == kF32 && mu_dtype == kBF16 && nu_dtype == kBF16 && p_dtype == kBF16 &&
+           u_dtype == kF32)
+    kernel = adam_bf16_group_kernel<kF32, kBF16, kBF16, kBF16, kF32>;  // AdamW
+  else if (g_dtype == kF32 && mu_dtype == kF32 && nu_dtype == kF32 && p_dtype == kBF16 &&
+           u_dtype == kF32)
+    kernel = adam_bf16_group_kernel<kF32, kF32, kF32, kBF16, kF32>;  // AdamW8bit
   kernel<<<(unsigned int)nchunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const AdamLeaf*>(leaves), static_cast<const char* const*>(grads),
       static_cast<const Chunk*>(chunks), chunk, nu_mix, h, a);

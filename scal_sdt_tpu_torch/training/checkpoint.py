@@ -1,0 +1,253 @@
+"""Checkpoint save/load and retention (port of ``scal_sdt_tpu/training/checkpoint.py``).
+
+Two files per checkpoint:
+
+* ``<name>.safetensors``: the file both packages read and write, with the same
+  keys, dtypes and metadata. Trainable tensors under their natural names
+  (``unet.*``, ``condition_model.encoder.*``) in the masters' dtype, stored
+  LoRA alphas from the frozen dict, and metadata ``{"json": {"step", "epoch",
+  "batch_in_epoch", ...}}``; an EMA shadow would go under
+  ``unet_ema.shadow_params.*``.
+* ``<name>.safetensors.torchstate``: the port's exact-resume sidecar, itself
+  a safetensors file: the optimizer state (per group: Adam's moments, or
+  Adam8bit's payloads and scales, plus the accumulation sum under gradient
+  accumulation) under dotted paths, the generator's state as a uint8 tensor,
+  and the step counts in the JSON metadata. Only tensors and plain numbers,
+  no pickled objects. The JAX package's sidecar is ``.trainstate`` (flax
+  msgpack of its optimizer state), which the port does not read: from a JAX
+  checkpoint it restores the parameters and the loop state and warns that
+  the optimizer state starts fresh.
+
+Restores copy into the template state's tensors in place, so the optimizer's
+cached leaf tables (``training/optimizers.py``) stay valid after a resume.
+
+Retention mirrors the reference's ModelCheckpoint knobs: every_n_epochs /
+every_n_train_steps / save_top_k / monitor / mode, with ``{epoch}`` /
+``{step}`` / metric templating in file names.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import re
+from pathlib import Path
+from typing import Any, Optional
+
+import torch
+
+from ..utils.logging import is_main_process
+from ..utils.state import load_metadata, load_state_dict, save_state_dict
+from .step import UNET_PREFIX, TrainState
+
+logger = logging.getLogger("checkpoint")
+
+EMA_PREFIX = "unet_ema.shadow_params."
+SIDECAR_SUFFIX = ".torchstate"      # the port's exact-resume file
+JAX_SIDECAR_SUFFIX = ".trainstate"  # the JAX package's
+GENERATOR_KEY = "generator"
+
+
+def sidecar_path(path: Path) -> Path:
+    return Path(str(path) + SIDECAR_SUFFIX)
+
+
+def checkpoint_state_dict(state: TrainState, frozen: dict) -> tuple[dict, dict]:
+    """(flat tensors, metadata) of the checkpoint file: the trainable
+    tensors in their dtype, and the stored LoRA alphas from ``frozen``."""
+    tensors = {k: v.detach() for k, v in state.trainable.items()}
+    for k, v in frozen.items():
+        if k.endswith(".lora_alpha"):
+            tensors[k] = v
+    return tensors, {"step": int(state.step)}
+
+
+def _flatten(obj: Any, prefix: str, tensors: dict, numbers: dict) -> None:
+    """Optimizer state -> tensors and numbers under dotted paths: dataclass
+    fields and dict keys extend the path."""
+    if isinstance(obj, torch.Tensor):
+        tensors[prefix] = obj.detach()
+        return
+    if isinstance(obj, int) and not isinstance(obj, bool):
+        numbers[prefix] = obj
+        return
+    if isinstance(obj, dict):
+        items = obj.items()
+    elif dataclasses.is_dataclass(obj):
+        items = ((f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    else:
+        raise TypeError(f"{prefix}: cannot store {type(obj).__name__} in a checkpoint")
+    for k, v in items:
+        _flatten(v, f"{prefix}.{k}", tensors, numbers)
+
+
+def _restore(template: Any, prefix: str, tensors: dict, numbers: dict) -> Any:
+    """The inverse of ``_flatten`` over ``template``: tensors copied into the
+    template's in place, numbers replaced; returns the restored object."""
+    if isinstance(template, torch.Tensor):
+        src = tensors[prefix]
+        if src.shape != template.shape or src.dtype != template.dtype:
+            raise ValueError(f"{prefix}: {tuple(src.shape)} {src.dtype} in the file, "
+                             f"{tuple(template.shape)} {template.dtype} in the state")
+        template.copy_(src)
+        return template
+    if isinstance(template, int):
+        return int(numbers[prefix])
+    if isinstance(template, dict):
+        return {k: _restore(v, f"{prefix}.{k}", tensors, numbers)
+                for k, v in template.items()}
+    return dataclasses.replace(template, **{
+        f.name: _restore(getattr(template, f.name), f"{prefix}.{f.name}", tensors, numbers)
+        for f in dataclasses.fields(template)})
+
+
+def train_state_dict(state: TrainState) -> tuple[dict, dict]:
+    """(tensors, numbers) of the exact-resume sidecar."""
+    tensors: dict = {}
+    numbers: dict = {"step": int(state.step)}
+    _flatten(state.opt_state, "opt_state", tensors, numbers)
+    tensors[GENERATOR_KEY] = state.generator.get_state()
+    return tensors, numbers
+
+
+def save_checkpoint(path: Path, state: TrainState, frozen: dict,
+                    loop_state: Optional[dict] = None) -> None:
+    """Write the checkpoint file and its sidecar (rank 0 only).
+    ``loop_state`` ({epoch, batch_in_epoch}) rides in the metadata, so a
+    resume can fast-forward the data pipeline mid-epoch."""
+    if not is_main_process():
+        return
+    path = Path(path)
+    tensors, meta = checkpoint_state_dict(state, frozen)
+    if loop_state:
+        meta.update({k: int(v) for k, v in loop_state.items()})
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_state_dict(tensors, path, metadata={"json": json.dumps(meta)})
+    side, numbers = train_state_dict(state)
+    save_state_dict(side, sidecar_path(path), "safetensors",
+                    metadata={"json": json.dumps(numbers)})
+
+
+def load_checkpoint_tensors(path: Path) -> tuple[dict, dict]:
+    tensors = load_state_dict(path)
+    md = load_metadata(path) or {}
+    return tensors, json.loads(md.get("json", "{}"))
+
+
+def load_loop_state(path: Path) -> dict:
+    """{epoch, batch_in_epoch} from the checkpoint metadata (None where the
+    checkpoint predates loop-state persistence)."""
+    md = load_metadata(path) or {}
+    meta = json.loads(md.get("json", "{}"))
+    return {"epoch": meta.get("epoch"), "batch_in_epoch": meta.get("batch_in_epoch")}
+
+
+def split_checkpoint(tensors: dict, meta: dict) -> tuple[dict, Optional[dict]]:
+    """-> (trainable params, EMA state dict or None)."""
+    trainable = {k: v for k, v in tensors.items() if not k.startswith("unet_ema.")}
+    shadow = {UNET_PREFIX + "." + k[len(EMA_PREFIX):]: v
+              for k, v in tensors.items() if k.startswith(EMA_PREFIX)}
+    ema = None
+    if shadow:
+        ema = {"decay": meta.get("ema_decay", 0.995),
+               "num_updates": meta.get("ema_num_updates", 0),
+               "shadow_params": shadow}
+    return trainable, ema
+
+
+@torch.no_grad()
+def restore_train_state(path: Path, template_state: TrainState) -> TrainState:
+    """Exact resume: the parameters from the checkpoint, and the optimizer
+    state, step and generator from the port's sidecar, each copied into the
+    template state's tensors in place (cast to the template's dtype: a
+    bf16-master state takes bf16 whatever the file holds). The EMA half of
+    the file is ignored, as EMA is off. Without the port's sidecar the
+    optimizer state and generator stay the template's and the step is the
+    file's; a JAX sidecar next to the file is not read, with a warning."""
+    path = Path(path)
+    tensors, meta = load_checkpoint_tensors(path)
+    trainable_file, _ = split_checkpoint(tensors, meta)
+    loaded = 0
+    for k, v in template_state.trainable.items():
+        if k in trainable_file:
+            v.copy_(trainable_file[k].to(v.dtype))
+            loaded += 1
+    logger.info(f"Restored {loaded}/{len(template_state.trainable)} trainable params "
+                f"({len(trainable_file)} tensors on disk)")
+
+    side = sidecar_path(path)
+    if not side.exists():
+        if Path(str(path) + JAX_SIDECAR_SUFFIX).exists():
+            logger.warning(f"{path}: the optimizer state was not restored (a JAX "
+                           f"{JAX_SIDECAR_SUFFIX} file, which the port does not read); "
+                           "the moments start fresh")
+        return template_state._replace(step=int(meta.get("step", template_state.step)))
+    side_tensors = load_state_dict(side, "safetensors")
+    numbers = json.loads((load_metadata(side) or {}).get("json", "{}"))
+    opt_state = _restore(template_state.opt_state, "opt_state", side_tensors, numbers)
+    template_state.generator.set_state(side_tensors[GENERATOR_KEY])
+    logger.info(f"Restored optimizer state at step {numbers['step']}")
+    return template_state._replace(step=int(numbers["step"]), opt_state=opt_state)
+
+
+class CheckpointManager:
+    """File-name templating and retention (the reference's ModelCheckpoint
+    knobs). Best-k retention state is kept in ``run_dir/retention.json``, so
+    a resumed run goes on pruning the checkpoints from before."""
+
+    def __init__(self, run_dir: Path, config):
+        self.run_dir = Path(run_dir)
+        self.filename = config.get("filename", "{epoch}-{train_loss:.2f}")
+        self.auto_insert_metric_name = config.get("auto_insert_metric_name", True)
+        self.every_n_epochs = config.get("every_n_epochs")
+        self.every_n_train_steps = config.get("every_n_train_steps")
+        self.save_top_k = config.get("save_top_k", -1)
+        self.monitor = config.get("monitor")
+        self.mode = config.get("mode", "min")
+        self._saved: list[tuple[float, Path]] = self._load_retention()
+
+    @property
+    def _retention_path(self) -> Path:
+        return self.run_dir / "retention.json"
+
+    def _load_retention(self) -> list[tuple[float, Path]]:
+        try:
+            entries = json.loads(self._retention_path.read_text())
+        except (FileNotFoundError, json.JSONDecodeError):
+            return []
+        # drop entries whose files were removed out of band
+        return [(float(s), Path(p)) for s, p in entries if Path(p).exists()]
+
+    def _store_retention(self) -> None:
+        self._retention_path.parent.mkdir(parents=True, exist_ok=True)
+        self._retention_path.write_text(json.dumps([[s, str(p)] for s, p in self._saved]))
+
+    def _format_name(self, metrics: dict) -> str:
+        def repl(m):
+            key, fmt = m.group(1), m.group(2) or ""
+            value = metrics.get(key, 0)
+            prefix = f"{key}=" if self.auto_insert_metric_name else ""
+            return prefix + format(value, fmt.lstrip(":")) if fmt else f"{prefix}{value}"
+
+        return re.sub(r"\{([\w.]+)(:[^}]*)?\}", repl, self.filename)
+
+    def save(self, state: TrainState, frozen: dict, metrics: dict,
+             loop_state: Optional[dict] = None) -> Path:
+        """Write the checkpoint, then prune to ``save_top_k`` by ``monitor``
+        (rank 0 only)."""
+        path = self.run_dir / (self._format_name(metrics) + ".safetensors")
+        save_checkpoint(path, state, frozen, loop_state=loop_state)
+        if not is_main_process():
+            return path
+        logger.info(f"Saved checkpoint {path}")
+        if self.monitor and self.save_top_k and self.save_top_k > 0:
+            self._saved.append((float(metrics.get(self.monitor, 0.0)), path))
+            self._saved.sort(key=lambda t: t[0], reverse=self.mode == "max")
+            while len(self._saved) > self.save_top_k:
+                _, victim = self._saved.pop()
+                victim.unlink(missing_ok=True)
+                sidecar_path(victim).unlink(missing_ok=True)
+                logger.info(f"Retention: removed {victim}")
+            self._store_retention()
+        return path

@@ -27,8 +27,12 @@ Two ways to run a group:
 
 On the CPU both run the kernels' plain versions. The state is host-side
 Python (one step count per group) plus the moment tensors per key, which
-both change in place. Other optimizer families and gradient accumulation
-are later slices.
+both change in place.
+
+``GradientAccumulation`` (``trainer.accumulate_grad_batches`` > 1) wraps the
+groups: an fp32 running sum of the micro-steps' gradients, and every k-th
+micro-step the groups' update of their mean. Other optimizer families are a
+later slice.
 """
 
 from __future__ import annotations
@@ -240,18 +244,69 @@ class MultiTransform:
                 for label, tx in self.transforms.items()}
 
 
+@dataclasses.dataclass
+class AccumulationState:
+    mini: int         # micro-steps accumulated since the last emit
+    inner: dict       # the groups' state (MultiTransform's)
+    acc: Tensors      # fp32 running sum of the gradients, per key
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientAccumulation:
+    """Port of the JAX package's ``gradient_accumulation``: every micro-step
+    adds its gradients to an fp32 running sum; every ``k``-th one (the emit)
+    hands their mean to ``inner`` and clears the sum. The other micro-steps
+    leave the masters, the moments and ``inner``'s counts alone, so the
+    schedule and the bias corrections count optimizer steps. The mean
+    divides by ``k`` as a 0-dim fp32 tensor on the sum's device: a true
+    division on the CPU and on a card alike."""
+    inner: MultiTransform
+    k: int
+
+    def init(self, params: Tensors) -> AccumulationState:
+        return AccumulationState(0, self.inner.init(params),
+                                 {k: torch.zeros_like(p, dtype=torch.float32)
+                                  for k, p in params.items()})
+
+    def _accumulate(self, grads: Tensors, state: AccumulationState) -> bool:
+        """Adds ``grads`` to the sum in place; whether this micro-step emits."""
+        for key, g in grads.items():
+            state.acc[key].add_(g)
+        return state.mini == self.k - 1
+
+    def _mean(self, acc: Tensors) -> None:
+        for a in acc.values():
+            a.div_(a.new_full((), self.k))
+
+    def update_and_apply(self, grads: Tensors, state: AccumulationState, params: Tensors,
+                         step: int) -> AccumulationState:
+        """Accumulates; at an emit, the groups' ``update_and_apply`` of the
+        mean (fp32 gradients) at train step ``step``, the global micro-step,
+        which seeds the master SR as the JAX step's apply does. No optimizer
+        launch on the other micro-steps."""
+        mini = (state.mini + 1) % self.k
+        if not self._accumulate(grads, state):
+            return AccumulationState(mini, state.inner, state.acc)
+        self._mean(state.acc)
+        inner = self.inner.update_and_apply(state.acc, state.inner, params, step)
+        for a in state.acc.values():
+            a.zero_()
+        return AccumulationState(mini, inner, state.acc)
+
+
 def build_optimizer(config: Config, labels: dict[str, str],
                     group_overrides: dict[str, dict], steps_per_epoch: int,
-                    num_processes: int) -> tuple[MultiTransform, Callable[[int], float]]:
+                    num_processes: int
+                    ) -> tuple[Union[MultiTransform, GradientAccumulation],
+                               Callable[[int], float]]:
     """(tx, lr_fn) for the trainable flat dict; lr_fn(step) is the first
-    group's lr, for logging."""
+    group's lr, for logging. With ``trainer.accumulate_grad_batches`` k > 1
+    the groups run under ``GradientAccumulation`` and lr_fn reports the
+    schedule at optimizer step ``step // k``."""
     name = str(config.optimizer.name).lower()
     if name not in _ADAMW_NAMES | _ADAMW_8BIT_NAMES:
         raise NotImplementedError(
             f"optimizer {name!r}: the port runs AdamW and AdamW8bit only so far")
-    accumulate = int(config.trainer.get("accumulate_grad_batches", 1) or 1)
-    if accumulate > 1:
-        raise NotImplementedError("accumulate_grad_batches > 1: not ported yet")
     base = _base_hparams(config)
     coeff = lr_scale_coeff(config, num_processes)
     reduced_masters = str(config.optimizer.get("master_dtype", "fp32")) in ("bf16", "bfloat16")
@@ -273,4 +328,13 @@ def build_optimizer(config: Config, labels: dict[str, str],
             def first_lr_fn(step, _lr=lr, _s=schedule):
                 return float(np.float32(_lr) * np.float32(_s(step)))
 
-    return MultiTransform(transforms, dict(labels)), (first_lr_fn or (lambda step: 0.0))
+    tx: Union[MultiTransform, GradientAccumulation] = MultiTransform(transforms, dict(labels))
+    lr_fn = first_lr_fn or (lambda step: 0.0)
+    accumulate = int(config.trainer.get("accumulate_grad_batches", 1) or 1)
+    if accumulate > 1:
+        tx = GradientAccumulation(tx, accumulate)
+
+        def lr_fn(step, _f=lr_fn, _k=accumulate):
+            return _f(step // _k)
+
+    return tx, lr_fn

@@ -1,0 +1,389 @@
+"""The training loop (port of ``scal_sdt_tpu/training/trainer.py``).
+
+``Trainer`` owns a run: it loads the models, resolves the tokenizer and the
+optim target, splits the parameters into trainable masters (fp32, or bf16
+under ``optimizer.master_dtype: bf16``) and frozen weights (bf16 under bf16
+compute unless ``trainer.frozen_dtype: fp32``) on its device, builds the
+data pipeline, the per-group optimizer (with gradient accumulation) and the
+train step, and runs the epoch loop with logging, checkpoints, mid-epoch
+resume, the NaN tripwire, the SIGTERM autosave and the profiler.
+
+What the port has no counterpart for yet is refused when the trainer is
+built, naming its ROADMAP item (``refuse_later_slices``): EMA, LoRA, textual
+inversion and custom embeddings (1.12), in-training sampling (1.13), SDXL
+and SD3 models (1.15, 1.16; the loader refuses their layouts) and more than
+one device (1.17). The trainer keys of the JAX package that steer XLA
+(compile caches, bucket warm-up, buffer donation, slab packing) are accepted
+and do nothing in eager PyTorch; the trainer says so once.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import random
+import signal
+import time
+from pathlib import Path
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..conf import Config, load_optim_target
+from ..data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
+from ..device import resolve_device
+from ..ops import attention as attention_ops
+from ..text.tokenizer import resolve_tokenizer
+from ..utils.logging import is_main_process, world_size
+from .checkpoint import CheckpointManager, load_loop_state, restore_train_state
+from .optim_targets import COMPONENT_PREFIX, group_labels, resolve_optim_target
+from .optimizers import build_optimizer
+from .step import (TE_PREFIX, UNET_PREFIX, VAE_PREFIX, Draws, StepSpec, init_train_state,
+                   make_train_step)
+
+logger = logging.getLogger("trainer")
+
+# trainer keys of the JAX package with nothing to steer in eager PyTorch
+INERT_TRAINER_KEYS = ("compilation_cache", "compilation_cache_dir", "aot_bucket_warmup",
+                      "donate_state", "param_packing", "pack_stacks", "pack_min_size")
+_BF16_NAMES = ("16", "bf16", "bfloat16")
+
+
+def _mentions(node, key: str) -> bool:
+    """Whether a nested config holds ``key`` with a value anywhere."""
+    if isinstance(node, dict):
+        return any((k == key and v is not None) or _mentions(v, key) for k, v in node.items())
+    if isinstance(node, list):
+        return any(_mentions(v, key) for v in node)
+    return False
+
+
+def refuse_later_slices(config: Config) -> None:
+    """Raise for a config that needs a part of the trainer the port does not
+    have yet, naming the ROADMAP item that brings it."""
+    def refuse(what: str, item: str):
+        raise NotImplementedError(f"{what}: not ported yet (ROADMAP {item})")
+
+    if (config.get("ema") or {}).get("enabled", False):
+        refuse("ema.enabled", "1.12")
+    embeddings = config.get("custom_embeddings") or {}
+    if embeddings.get("enabled", False):
+        refuse("custom_embeddings", "1.12")
+    if (embeddings.get("train") or {}).get("enabled", False):
+        refuse("custom_embeddings.train (textual inversion)", "1.12")
+    if _mentions(load_optim_target(config.optim_target), "lora"):
+        refuse(f"LoRA in optim target {config.optim_target!r}", "1.12")
+    if (config.get("sampling") or {}).get("concepts"):
+        refuse("sampling.concepts (in-training sampling)", "1.13")
+    mesh = config.trainer.get("mesh") or {}
+    if any(int(mesh.get(axis) or 1) > 1 for axis in ("data", "fsdp", "tensor")):
+        refuse(f"trainer.mesh {dict(mesh)} (more than one device)", "1.17")
+    if world_size() > 1:
+        refuse(f"WORLD_SIZE={world_size()} (more than one process)", "1.17")
+
+
+def _prefixed(params: dict, prefix: str) -> dict:
+    return {f"{prefix}.{k}": v for k, v in params.items()}
+
+
+class Trainer:
+    def __init__(self, config: Config, run_dir: Path, models=None, tokenizer=None,
+                 device="cuda"):
+        """``models``: optional pre-loaded ``LoadedModels`` (the CLI loads
+        ``config.model``); ``device``: where the run trains (a card unless
+        the caller asks for the CPU)."""
+        self.config = config
+        self.run_dir = Path(run_dir)
+        self.device = resolve_device(device)
+        refuse_later_slices(config)
+        inert = [k for k in INERT_TRAINER_KEYS if k in config.trainer]
+        if inert:
+            logger.info(f"trainer keys {inert} steer XLA in the JAX package; they do nothing "
+                        "here")
+
+        # the reference's seed_everything: data-path randomness is seeded per
+        # item, stray global draws get determinism too
+        seed = int(config.get("seed") or 0)
+        random.seed(seed)
+        np.random.seed(seed % (2 ** 32 - 1))
+
+        if models is None:
+            from ..convert.loader import load_components
+
+            models = load_components(config)
+        self.models = models
+        # cache-backed runs never consume prompt ids: the hash stand-in is harmless
+        self.tokenizer = (tokenizer if tokenizer is not None
+                          else resolve_tokenizer(config, allow_hash=bool(config.data.get("cache"))))
+
+        # `xformers: false` in the reference turns memory-efficient attention
+        # off; here it keeps every call off the splash kernels
+        attention_ops.FORCE_MATH = not bool(config.get("xformers", True))
+
+        self.resolutions = resolve_optim_target(load_optim_target(config.optim_target),
+                                                models.unet.keys(), models.clip.keys())
+        self.train_text_encoder = bool(self.resolutions["text_encoder"].trainable)
+
+        # -- trainable / frozen partition, on the device -----------------------
+        trainable_keys = {f"{COMPONENT_PREFIX[comp]}.{k}"
+                          for comp, res in self.resolutions.items() for k in res.trainable}
+        master_bf16 = str(config.optimizer.get("master_dtype", "fp32")) in ("bf16", "bfloat16")
+        compute_bf16 = str(config.trainer.get("precision", "bf16")) in _BF16_NAMES
+        # frozen weights are cast to the compute dtype at every use, so bf16
+        # storage under bf16 compute gives the same numbers at half the memory
+        dtypes = {True: torch.bfloat16 if master_bf16 else torch.float32,
+                  False: torch.bfloat16 if compute_bf16 and str(
+                      config.trainer.get("frozen_dtype", "compute")) != "fp32"
+                  else torch.float32}
+        trainable: dict = {}
+        frozen: dict = {}
+        for k, v in {**_prefixed(models.unet, UNET_PREFIX), **_prefixed(models.clip, TE_PREFIX),
+                     **_prefixed(models.vae, VAE_PREFIX)}.items():
+            is_trainable = k in trainable_keys
+            dtype = dtypes[is_trainable] if v.is_floating_point() else v.dtype
+            # a copy: the masters change in place, the loaded models stay
+            (trainable if is_trainable else frozen)[k] = v.to(self.device, dtype, copy=True)
+        if not trainable:
+            raise ValueError("Optim target selects no trainable parameters")
+        logger.info(f"Trainable tensors: {len(trainable)}, frozen: {len(frozen)}")
+        self.frozen = frozen
+
+        # -- data ----------------------------------------------------------------
+        dataset = get_dataset(config, use_cache=True)
+        sampler = get_sampler(dataset, config, 1, 0)
+        num_workers = config.get("num_workers")
+        self.pipeline = DataPipeline(dataset, sampler, config.batch_size, self.tokenizer,
+                                     num_workers=num_workers if num_workers is not None else 4)
+        self.steps_per_epoch = max(len(self.pipeline), 1)
+
+        # -- optimizer and step ----------------------------------------------------
+        labels = group_labels(self.resolutions)
+        groups = [group for res in self.resolutions.values() for group in res.groups]
+        overrides = {f"g{i}": group.optimizer for i, group in enumerate(groups)}
+        self.tx, self.lr_fn = build_optimizer(config, labels, overrides, self.steps_per_epoch, 1)
+        self.spec = StepSpec.from_config(config, models.unet_config, models.schedule,
+                                         vae_config=models.vae_config,
+                                         clip_config=models.clip_config,
+                                         train_text_encoder=self.train_text_encoder)
+        self.train_step = make_train_step(self.spec, self.tx, self.lr_fn)
+        self.state = init_train_state(trainable, self.tx, seed=seed)
+        del trainable
+
+        self.ckpt = CheckpointManager(self.run_dir, config.checkpoint)
+        self._writers = self._build_loggers()
+        self.global_step = 0
+        # the epoch cursor of a mid-epoch resume: {epoch, batch_in_epoch} ride
+        # in the checkpoint, and the pipeline skips the consumed batches
+        self.epoch_cursor = 0
+        self.batch_in_epoch = 0
+
+    # ------------------------------------------------------------------ io
+
+    def _build_loggers(self) -> list:
+        writers = []
+        loggers_conf = self.config.get("loggers", {}) or {}
+        if is_main_process() and loggers_conf.get("tensorboard") is not None:
+            try:
+                from tensorboardX import SummaryWriter
+
+                writers.append(("tb", SummaryWriter(str(self.run_dir / "tb"))))
+            except ImportError:
+                logger.warning("tensorboardX unavailable; tensorboard logging off")
+        if is_main_process() and loggers_conf.get("wandb") is not None:
+            try:
+                import wandb
+
+                wandb.init(project=self.config.project, dir=str(self.run_dir))
+                writers.append(("wandb", wandb))
+            except ImportError:
+                logger.warning("wandb unavailable; wandb logging off")
+        return writers
+
+    def _log(self, metrics: dict, step: int) -> None:
+        for kind, w in self._writers:
+            if kind == "tb":
+                for k, v in metrics.items():
+                    w.add_scalar(k, float(v), step)
+            else:
+                w.log(metrics, step=step)
+
+    # ---------------------------------------------------------------- loop
+
+    def resume(self, ckpt_path: Path) -> None:
+        self.state = restore_train_state(Path(ckpt_path), self.state)
+        self.global_step = int(self.state.step)
+        loop = load_loop_state(Path(ckpt_path))
+        if loop.get("epoch") is not None:
+            self.epoch_cursor = int(loop["epoch"])
+            self.batch_in_epoch = int(loop.get("batch_in_epoch") or 0)
+        else:  # a checkpoint without loop state: the epoch boundary before it
+            self.epoch_cursor = self.global_step // max(self.steps_per_epoch, 1)
+            self.batch_in_epoch = 0
+        logger.info(f"Resumed at step {self.global_step} "
+                    f"(epoch {self.epoch_cursor}, batch {self.batch_in_epoch})")
+
+    def _device_batch(self, batch: dict) -> dict:
+        return to_device({k: v for k, v in batch.items() if k not in ("ids", "prompts")},
+                         self.device)
+
+    def fit(self, sample_callback=None, max_steps_override: Optional[int] = None,
+            final_save: bool = True,
+            draws_fn: Optional[Callable[[int], Draws]] = None) -> dict:
+        """Train until ``trainer.max_epochs`` or ``trainer.max_steps`` (or
+        ``max_steps_override``); returns the last logged metrics.
+        ``draws_fn(step)`` replaces the step's draws from the generator
+        (tests feed the JAX package's through it). A SIGTERM saves a
+        checkpoint after the step in flight and returns."""
+        preempted = {"flag": False}
+
+        def _on_sigterm(signum, frame):
+            preempted["flag"] = True
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:  # not in the main thread
+            prev_handler = None
+        try:
+            return self._run(sample_callback, max_steps_override, final_save, draws_fn,
+                             preempted)
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+
+    def _run(self, sample_callback, max_steps_override, final_save, draws_fn,
+             preempted: dict) -> dict:
+        cfg_t = self.config.trainer
+        max_epochs = int(cfg_t.get("max_epochs", 1) or 1)
+        max_steps = (max_steps_override if max_steps_override is not None
+                     else int(cfg_t.get("max_steps", -1) or -1))
+        log_every = int(cfg_t.get("log_every_n_steps", 1) or 1)
+        profiler = _StepProfiler(self.config.get("profiler") or {}, self.run_dir, self.device)
+
+        # SSDT_STEP_TIMINGS=<path>: one JSON line per logged step {step, shape,
+        # dt}, the shape in the JAX package's (B, H, W, C) order
+        timings_path = os.environ.get("SSDT_STEP_TIMINGS")
+        if timings_path and is_main_process():
+            Path(timings_path).write_text("")
+
+        epoch = self.epoch_cursor
+        last_metrics: dict = {}
+        t0 = time.perf_counter()
+        try:
+            while epoch < max_epochs:
+                self.epoch_cursor = epoch
+                # mid-epoch resume: replay the epoch and skip the batches the
+                # checkpointed run consumed
+                self.pipeline.set_epoch(epoch, skip_batches=self.batch_in_epoch)
+                for batch in self.pipeline:
+                    profiler.before_step(self.global_step)
+                    dev_batch = self._device_batch(batch)
+                    draws = draws_fn(self.global_step) if draws_fn is not None else None
+                    self.state, metrics = self.train_step(self.state, self.frozen, dev_batch,
+                                                          draws)
+                    self.global_step += 1
+                    self.batch_in_epoch += 1
+                    profiler.after_step(self.global_step)
+
+                    if self.global_step % log_every == 0:
+                        # float() of the loss waits for the step: the timing barrier
+                        host = {k: float(v) for k, v in metrics.items()}
+                        dt = time.perf_counter() - t0
+                        t0 = time.perf_counter()
+                        host["steps_per_sec"] = 1.0 / max(dt, 1e-9)
+                        last_metrics = host
+                        if timings_path and is_main_process():
+                            s = next((tuple(v.shape) for k, v in dev_batch.items()
+                                      if k in ("images", "latents")), None)
+                            with open(timings_path, "a") as f:
+                                f.write(json.dumps({
+                                    "step": self.global_step,
+                                    "shape": s and (s[0], s[2], s[3], s[1]),
+                                    "dt": round(dt, 5)}) + "\n")
+                        self._log(host, self.global_step)
+                        if self.global_step % max(log_every * 10, 10) == 0:
+                            logger.info(f"step {self.global_step}: "
+                                        f"loss={host.get('train_loss', float('nan')):.4f} "
+                                        f"lr={host.get('lr', 0):.2e} "
+                                        f"{host.get('steps_per_sec', 0):.2f} steps/s")
+                        if not np.isfinite(host.get("train_loss", 0.0)):
+                            raise FloatingPointError(f"NaN loss at step {self.global_step}")
+
+                    if sample_callback is not None:
+                        sample_callback(self, self.global_step)
+
+                    if preempted["flag"]:
+                        logger.warning(f"SIGTERM received: autosaving at step "
+                                       f"{self.global_step}")
+                        self._save(epoch, last_metrics)
+                        return last_metrics
+
+                    if (self.ckpt.every_n_train_steps
+                            and self.global_step % int(self.ckpt.every_n_train_steps) == 0):
+                        self._save(epoch, last_metrics)
+
+                    if 0 < max_steps <= self.global_step:
+                        if final_save:
+                            self._save(epoch, last_metrics)
+                        return last_metrics
+
+                epoch += 1
+                self.batch_in_epoch = 0
+                self.epoch_cursor = epoch
+                if self.ckpt.every_n_epochs and epoch % int(self.ckpt.every_n_epochs) == 0:
+                    self._save(epoch, last_metrics)
+            return last_metrics
+        finally:
+            profiler.close()
+
+    def _save(self, epoch: int, metrics: dict) -> None:
+        self.ckpt.save(self.state, self.frozen, {"epoch": epoch, "step": self.global_step,
+                                                 **metrics},
+                       loop_state={"epoch": epoch, "batch_in_epoch": self.batch_in_epoch})
+
+    def natural_trainable(self) -> dict:
+        """The trainable masters under their natural names (the port packs
+        no leaves into slabs, so this is the state's own dict)."""
+        return dict(self.state.trainable)
+
+
+class _StepProfiler:
+    """The config's ``profiler: {enabled, start_step, num_steps, dir}``: a
+    ``torch.profiler`` trace of steps [start_step, start_step + num_steps),
+    written as a Chrome trace under ``dir`` (default ``<run_dir>/profile``)."""
+
+    def __init__(self, conf: dict, run_dir: Path, device: torch.device):
+        self.enabled = bool(conf.get("enabled", False)) and is_main_process()
+        self.start = int(conf.get("start_step", 10))
+        self.steps = int(conf.get("num_steps", 5))
+        self.dir = Path(conf.get("dir") or (run_dir / "profile"))
+        self.device = device
+        self._prof = None
+
+    def before_step(self, step: int) -> None:
+        if self.enabled and self._prof is None and step == self.start:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+
+    def after_step(self, step: int) -> None:
+        if self._prof is not None and step >= self.start + self.steps:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        path = self.dir / f"trace_step{self.start}.json"
+        self._prof.export_chrome_trace(str(path))
+        self._prof = None
+        self.enabled = False
+        logger.info(f"Wrote profiler trace to {path}")

@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 30
+    assert int(proc.stdout.split()[0]) >= 44
 
 
 def test_sources_name_no_jax():
@@ -45,12 +45,17 @@ def test_sources_name_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "init_unet_params", "params_from_jax",
-                                   "init_vae_params", "init_clip_params", "to_device"])
-def test_default_device_needs_cuda(entry):
+                                   "init_vae_params", "init_clip_params", "to_device",
+                                   "Trainer", "train_cli"])
+def test_default_device_needs_cuda(entry, tmp_path):
     import torch
+    from click.testing import CliRunner
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
+    from scal_sdt_tpu_torch.cli import train as train_cli
+    from scal_sdt_tpu_torch.conf import default
+    from scal_sdt_tpu_torch.training.trainer import Trainer
     from scal_sdt_tpu_torch.convert.from_jax import params_from_jax
     from scal_sdt_tpu_torch.data.pipeline import to_device
     from scal_sdt_tpu_torch.models.clip import CLIPTextConfig, init_clip_params
@@ -62,7 +67,10 @@ def test_default_device_needs_cuda(entry):
              "params_from_jax": lambda: params_from_jax({}),
              "init_vae_params": lambda: init_vae_params(VAEConfig.tiny()),
              "init_clip_params": lambda: init_clip_params(CLIPTextConfig.tiny()),
-             "to_device": lambda: to_device({})}
+             "to_device": lambda: to_device({}),
+             "Trainer": lambda: Trainer(default(), tmp_path),
+             "train_cli": lambda: CliRunner().invoke(train_cli.main, [],
+                                                     catch_exceptions=False)}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
 

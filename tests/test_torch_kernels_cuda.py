@@ -2,7 +2,9 @@
 splash attention (end to end, and the dq kernel alone), the fused Adam
 update and the int8 Adam update, each in its single-leaf update-only form
 and its grouped form (Adam, decay, schedule and master apply over a leaf
-table in one launch).
+table in one launch; with bf16 gradients, and with the fp32 gradients of
+gradient accumulation); and the attention gate: `FORCE_MATH` keeps a
+full-width UNet off the splash kernels.
 
 Skips without a CUDA card. Imports no JAX, so it also runs where JAX is not
 installed; there, skip the repository's conftest (which imports JAX):
@@ -231,13 +233,27 @@ def test_adam_bf16_group_matches_reference_on_cuda(m_dt, p_dt, form, wd):
     gives the same bits. ``form``: AdamW's (divide, fp32 update, nu by SR
     where it is bf16) or the int8 path's fp32-moment leaves' (reciprocal,
     update in the gradient's dtype)."""
+    _adam_bf16_group_case(m_dt, p_dt, form, wd, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,m_dt", [("adamw", torch.bfloat16), ("int8_path", torch.float32)],
+                         ids=["adamw", "int8_path"])
+def test_adam_bf16_group_takes_fp32_gradients_on_cuda(form, m_dt):
+    """The same with fp32 gradients, as gradient accumulation hands the
+    groups their mean, on bf16 masters: AdamW's group (bf16 moments) and the
+    int8 path's fp32-moment leaves (whose update is then fp32 too)."""
+    _adam_bf16_group_case(m_dt, torch.bfloat16, form, 1e-2, torch.float32)
+
+
+def _adam_bf16_group_case(m_dt, p_dt, form, wd, g_dt):
     _need_card()
     r = np.random.RandomState(3)
     keys = [f"unet.l{i}.weight" for i in range(len(GROUP_SIZES))]
     params = _views(GROUP_SIZES, p_dt, _offsets(3), r)
     mu = _views(GROUP_SIZES, m_dt, _offsets(1), r, scale=1e-4)
     nu = _views(GROUP_SIZES, m_dt, _offsets(3), r, scale=-1e-7)
-    grads = _views(GROUP_SIZES, torch.bfloat16, _offsets(5), r, scale=1e-3)
+    grads = _views(GROUP_SIZES, g_dt, _offsets(5), r, scale=1e-3)
     bc = (np.float32(1) - np.float32(0.9) ** 4, np.float32(1) - np.float32(0.999) ** 4)
     kw = dict(b1=0.9, b2=0.999, eps=1e-8, recip_bc=form != "adamw", count=4, step=9,
               weight_decay=wd, step_size=-1e-3 * 0.7,
@@ -271,6 +287,17 @@ def test_adam8_group_matches_reference_on_cuda(p_dt, wd):
     at most 1 apart in under 1e-3 of them, scales within 1e-6 relative,
     masters at most one ulp apart in under 1e-3 of them, padded payload
     columns zero; a second launch from the same state gives the same bits."""
+    _adam8_group_case(p_dt, wd, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_adam8_group_takes_fp32_gradients_on_cuda():
+    """The same with fp32 gradients (gradient accumulation's mean) on bf16
+    masters: the update is fp32 too."""
+    _adam8_group_case(torch.bfloat16, 1e-2, torch.float32)
+
+
+def _adam8_group_case(p_dt, wd, g_dt):
     _need_card()
     r = np.random.RandomState(11)
     shapes = [(64, 300), (320, 2880), (3, 256), (33, 301), (40, 432)]
@@ -278,7 +305,7 @@ def test_adam8_group_matches_reference_on_cuda(p_dt, wd):
     offsets = [0, 0, 0, 0, 7]
     params = [t.view(s) for t, s in zip(
         _views([a * b for a, b in shapes], p_dt, offsets, r), shapes)]
-    grads = [torch.from_numpy(r.randn(*s).astype(np.float32) * 1e-3).cuda().bfloat16()
+    grads = [torch.from_numpy(r.randn(*s).astype(np.float32) * 1e-3).cuda().to(g_dt)
              for s in shapes]
     state = []
     for lead, minor in shapes:
@@ -319,3 +346,36 @@ def test_adam8_group_matches_reference_on_cuda(p_dt, wd):
         assert bool(((a - b).abs() <= ulp).all()), f"master {k}"
         assert float(off.float().mean()) < 1e-3, f"master {k}"
         assert not torch.equal(got.params[i], params[i]), k
+
+
+@pytest.mark.cuda
+def test_force_math_keeps_the_unet_off_the_splash_kernels_on_cuda():
+    """With ``FORCE_MATH`` set (the config's ``xformers: false``) a
+    full-width SD1.5 UNet forward and backward at 512^2 (64^2 latents, bf16)
+    launches no splash kernel; with it clear, the same call launches each
+    splash kernel once per self-attention at L >= 1024 (5 at 4096, 5 at
+    1024)."""
+    from scal_sdt_tpu_torch.models.unet import UNetConfig, init_unet_params, unet_apply
+    from scal_sdt_tpu_torch.ops import attention as A
+
+    _need_card()
+    cfg = UNetConfig.sd15()
+    params = {k: v.bfloat16().requires_grad_(True)
+              for k, v in init_unet_params(cfg, seed=0, device="cuda").items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1, 4, 64, 64, generator=gen, device="cuda").bfloat16()
+    ctx = torch.randn(1, 77, cfg.cross_attention_dim, generator=gen, device="cuda").bfloat16()
+    t = torch.tensor([500], device="cuda")
+    counts = {}
+    try:
+        for force in (True, False):
+            A.FORCE_MATH = force
+            S.reset_launches()
+            out = unet_apply(params, x, t, ctx, cfg)
+            out.float().square().mean().backward()
+            torch.cuda.synchronize()
+            counts[force] = dict(S.launches)
+    finally:
+        A.FORCE_MATH = False
+    assert sum(counts[True].values()) == 0, counts
+    assert all(n == 10 for n in counts[False].values()), counts

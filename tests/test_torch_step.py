@@ -46,11 +46,8 @@ from scal_sdt_tpu_torch.training import optimizers as topt
 from scal_sdt_tpu_torch.training import quantized as tq
 from scal_sdt_tpu_torch.training import step as tstep
 
-from torch_port_helpers import assert_bf16_ulp, bf16_ulp, rand_unet_params, to_np
-
-
-def _nchw(x):
-    return torch.from_numpy(np.array(x, np.float32).transpose(0, 3, 1, 2).copy())
+from torch_port_helpers import (assert_bf16_ulp, bf16_ulp, jax_draws, nchw, rand_unet_params,
+                                to_np)
 
 
 def _f32(x):
@@ -80,10 +77,10 @@ def test_noise_schedule_matches_jax(pred, ztsnr):
     tt = torch.from_numpy(t.astype(np.int64))
     tol = dict(rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(
-        _f32(ts.add_noise(_nchw(x0), _nchw(eps), tt)).transpose(0, 2, 3, 1),
+        _f32(ts.add_noise(nchw(x0), nchw(eps), tt)).transpose(0, 2, 3, 1),
         _f32(js.add_noise(jnp.asarray(x0), jnp.asarray(eps), jnp.asarray(t))), **tol)
     np.testing.assert_allclose(
-        _f32(ts.training_target(_nchw(x0), _nchw(eps), tt)).transpose(0, 2, 3, 1),
+        _f32(ts.training_target(nchw(x0), nchw(eps), tt)).transpose(0, 2, 3, 1),
         _f32(js.training_target(jnp.asarray(x0), jnp.asarray(eps), jnp.asarray(t))), **tol)
     if not ztsnr:  # min-SNR divides by SNR, which is 0 at the ZTSNR terminal step
         np.testing.assert_allclose(_f32(ts.min_snr_weight(tt, 5.0)),
@@ -192,30 +189,6 @@ def _specs(extra: dict, pred="epsilon"):
     return jspec, tspec
 
 
-def _jax_draws(rng, spec, latents_shape):
-    """The draws JAX's compute_loss makes from `rng`, NCHW for the port."""
-    b, h, w, c = latents_shape
-    dt = spec.compute_dtype
-    _, _, rng_noise, rng_t, _ = jax.random.split(rng, 5)
-    noise = jax.random.normal(rng_noise, latents_shape, dtype=dt)
-    offset, octaves = None, []
-    if spec.noise_offset:
-        rng_noise, rng_off = jax.random.split(rng_noise)
-        offset = jax.random.normal(rng_off, (b, 1, 1, c), dtype=dt)
-    if spec.multires_noise_iterations:
-        rng_noise, rng_mn = jax.random.split(rng_noise)
-        for i in range(1, spec.multires_noise_iterations + 1):
-            hi, wi = max(1, h // 2 ** i), max(1, w // 2 ** i)
-            rng_mn, k = jax.random.split(rng_mn)
-            octaves.append(jax.random.normal(k, (b, hi, wi, c), dt))
-            if hi == 1 and wi == 1:
-                break
-    t = spec.schedule.sample_timesteps(rng_t, b)
-    return tstep.Draws(noise=_nchw(noise), timesteps=torch.from_numpy(np.asarray(t, np.int64)),
-                       offset=None if offset is None else _nchw(offset),
-                       octaves=tuple(_nchw(o) for o in octaves))
-
-
 @pytest.fixture(scope="module")
 def tiny_unet():
     params = rand_unet_params(unet_param_shapes(JUNetConfig.tiny()), prefix="unet.")
@@ -237,8 +210,8 @@ def test_compute_loss_and_grads_match_jax(tiny_unet):
     (jloss, _), jgrads = jax.jit(lambda p, b, r: loss_fn(p, {}, b, r, jspec))(jtrain, jbatch, rng)
 
     ttrain = {k: v.requires_grad_(True) for k, v in params_from_jax(params, device="cpu").items()}
-    tbatch = {"latents": _nchw(batch["latents"]), "conds": torch.from_numpy(batch["conds"])}
-    draws = _jax_draws(rng, jspec, batch["latents"].shape)
+    tbatch = {"latents": nchw(batch["latents"]), "conds": torch.from_numpy(batch["conds"])}
+    draws = jax_draws(rng, jspec, batch["latents"].shape)
     tloss, _ = tstep.compute_loss(ttrain, {}, tbatch, None, tspec, draws)
     tloss.backward()
 
@@ -313,11 +286,11 @@ def test_uncached_compute_loss_and_grads_match_jax(tiny_uncached, case):
 
     rng_latent, rng_uncond = jax.random.split(rng, 5)[:2]
     latents_shape = (2, 8, 8, 4)
-    draws = _jax_draws(rng, jspec, latents_shape)
-    draws.latent_noise = _nchw(jax.random.normal(rng_latent, latents_shape, jnp.float32))
+    draws = jax_draws(rng, jspec, latents_shape)
+    draws.latent_noise = nchw(jax.random.normal(rng_latent, latents_shape, jnp.float32))
     draws.uncond_u = torch.tensor(float(jax.random.uniform(rng_uncond)))
     ttrain = {k: v.requires_grad_(True) for k, v in params_from_jax(train, device="cpu").items()}
-    tbatch = {"images": _nchw(batch["images"]),
+    tbatch = {"images": nchw(batch["images"]),
               **{k: torch.from_numpy(batch[k]) for k in ("input_ids", "uncond_ids")}}
     tloss, _ = tstep.compute_loss(ttrain, params_from_jax(frozen, device="cpu"), tbatch, None,
                                   tspec, draws)
@@ -353,7 +326,7 @@ def test_uncached_step_draws_from_the_generator(tiny_uncached):
     tparams = params_from_jax(params, device="cpu")
     train = {k: v for k, v in tparams.items() if k.startswith("unet.")}
     frozen = {k: v for k, v in tparams.items() if k not in train}
-    tbatch = {"images": _nchw(batch["images"]),
+    tbatch = {"images": nchw(batch["images"]),
               **{k: torch.from_numpy(batch[k]) for k in ("input_ids", "uncond_ids")}}
     losses = [tstep.compute_loss(train, frozen, tbatch, torch.Generator().manual_seed(4),
                                  spec)[0] for _ in range(2)]
@@ -454,8 +427,8 @@ def test_train_step_matches_jax(tiny_unet, optimizer, monkeypatch):
     jnew, jmetrics = jfn(jstate, {}, jbatch)
 
     tfn = tstep.make_train_step(tspec, ttx, tlr)
-    tbatch = {"latents": _nchw(batch["latents"]), "conds": torch.from_numpy(batch["conds"])}
-    draws = _jax_draws(jax.random.fold_in(rng, 0), jspec, batch["latents"].shape)
+    tbatch = {"latents": nchw(batch["latents"]), "conds": torch.from_numpy(batch["conds"])}
+    draws = jax_draws(jax.random.fold_in(rng, 0), jspec, batch["latents"].shape)
     # the step updates the masters in place: keep the old ones
     ttrain = {k: v.clone() for k, v in ttrain.items()}
     tnew, tmetrics = tfn(tstate, {}, tbatch, draws)

@@ -38,6 +38,40 @@ def to_torch(x) -> torch.Tensor:
     return params_from_jax({"x": np.asarray(x)}, device="cpu")["x"]
 
 
+def nchw(x) -> torch.Tensor:
+    """An fp32 CPU tensor of an (N, H, W, C) JAX or numpy array, as (N, C, H, W)."""
+    return torch.from_numpy(np.array(x, np.float32).transpose(0, 3, 1, 2).copy())
+
+
+def jax_draws(rng, spec, latents_shape):
+    """The draws the JAX package's compute_loss makes from `rng` for cached
+    latents of (B, h, w, C) ``latents_shape``, NCHW for the port."""
+    import jax
+
+    from scal_sdt_tpu_torch.training.step import Draws
+
+    b, h, w, c = latents_shape
+    dt = spec.compute_dtype
+    _, _, rng_noise, rng_t, _ = jax.random.split(rng, 5)
+    noise = jax.random.normal(rng_noise, latents_shape, dtype=dt)
+    offset, octaves = None, []
+    if spec.noise_offset:
+        rng_noise, rng_off = jax.random.split(rng_noise)
+        offset = jax.random.normal(rng_off, (b, 1, 1, c), dtype=dt)
+    if spec.multires_noise_iterations:
+        rng_noise, rng_mn = jax.random.split(rng_noise)
+        for i in range(1, spec.multires_noise_iterations + 1):
+            hi, wi = max(1, h // 2 ** i), max(1, w // 2 ** i)
+            rng_mn, k = jax.random.split(rng_mn)
+            octaves.append(jax.random.normal(k, (b, hi, wi, c), dt))
+            if hi == 1 and wi == 1:
+                break
+    t = spec.schedule.sample_timesteps(rng_t, b)
+    return Draws(noise=nchw(noise), timesteps=torch.from_numpy(np.asarray(t, np.int64)),
+                 offset=None if offset is None else nchw(offset),
+                 octaves=tuple(nchw(o) for o in octaves))
+
+
 def bf16_ulp(x) -> np.ndarray:
     """The bf16 spacing at |x|: 2^(e-7) for |x| in [2^e, 2^(e+1)), and the
     subnormal spacing 2^-133 below 2^-126."""
