@@ -102,6 +102,41 @@ Phases (any failure raises and the script exits non-zero):
               first step, checkpoint write and read seconds and size, peak
               memory, launches per step.
 
+10. ema   -- the port's own EMA kernel (ema_fused: JAX computes the EMA in
+              XLA) in one launch over the 686 SD1.5 leaves, with fp32 and
+              with bf16 shadows of bf16 masters, bit for bit against its
+              plain version, timed beside its bytes bound and
+              torch._foreach_lerp_ over fp32 lists; then the train phase's
+              step with EMA on, an fp32 shadow and then a bf16 one, 3 warm-up
+              and --steps timed steps each: ema_fused once per param group
+              per step (7) beside the train phase's launches, the shadows
+              moving; then 4 micro-steps at accumulate_grad_batches 2 from
+              the bf16 run's state: the EMA moves on all four, the masters on
+              2 and 4 only. Prints the EMA kernel's ms against its bound,
+              steps/s beside the train phase's, peak memory, launches.
+11. lora   -- the port's configs/lora.yaml (UNet and CLIP LoRA, rank 16, remat,
+              ARB, batch 4) through the train CLI on the trainer phase's
+              diffusers directory and the uncached phase's PNGs (720x576 and
+              576x720: non-square buckets), sampling.concepts empty (not
+              ported): 6 steps with a mid-epoch checkpoint at step 4, a run
+              resumed from it that must end on the same checkpoint bytes,
+              then 2 steps with LoRA dropout 0.1 and a bf16 EMA shadow. Each
+              step's splash launches must match the gate at its bucket's
+              lengths (forward twice under remat), adam_bf16_fused one launch
+              per LoRA module, ema_fused one per UNet module. Prints steps/s
+              (steps over the wall time between their logs, the first step
+              and the one after a checkpoint write left out), buckets,
+              trainable counts, launches per step (the kernels line counts
+              all three runs), checkpoint size, peak memory. Then the kernels
+              in the lora phase's forms: each splash kernel at the attention
+              shapes its buckets gave (as in phase 2, same bounds), and over
+              lora.yaml's 264 groups of two fp32 LoRA factors at SD1.5 width,
+              adam_bf16_fused (fp32 masters and moments, bf16 gradients, one
+              launch per group) and ema_fused over the 192 UNet groups'
+              updated masters (fp32 and bf16 shadows), bit for bit against
+              their plain versions; one step's launches timed beside the
+              bytes bound, torch._fused_adamw_ and torch._foreach_lerp_.
+
 The optim phase also runs both grouped kernels with fp32 gradients, the mean
 that gradient accumulation hands them, at the same bounds.
 
@@ -115,11 +150,13 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import gc
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -132,25 +169,31 @@ import torch.nn.functional as F
 
 from scal_sdt_tpu_torch.cli import train as train_cli
 from scal_sdt_tpu_torch.cli.cache import assemble_cache, build_local_shard
-from scal_sdt_tpu_torch.conf import Config, default, load_optim_target, load_with_defaults, merge
+from scal_sdt_tpu_torch.conf import (CONFIGS_DIR, Config, default, load_optim_target,
+                                     load_with_defaults, merge)
 from scal_sdt_tpu_torch.convert.loader import LoadedModels
 from scal_sdt_tpu_torch.data.datasets import LatentCache
 from scal_sdt_tpu_torch.data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
-from scal_sdt_tpu_torch.models.clip import CLIPTextConfig, clip_text_apply, init_clip_params
+from scal_sdt_tpu_torch.models.clip import (CLIPTextConfig, clip_param_shapes, clip_text_apply,
+                                            init_clip_params)
 from scal_sdt_tpu_torch.models.unet import (UNetConfig, init_unet_params, unet_apply,
                                             unet_param_shapes)
 from scal_sdt_tpu_torch.models.vae import (VAEConfig, encoder_apply, init_vae_params,
                                            sample_latents)
-from scal_sdt_tpu_torch.ops import _build, adam8_fused, adam_bf16_fused, attention, splash
+from scal_sdt_tpu_torch.ops import _build, adam8_fused, adam_bf16_fused, attention, ema_fused, splash
 from scal_sdt_tpu_torch.text.bpe import CLIPBPETokenizer, bytes_to_unicode
 from scal_sdt_tpu_torch.training.checkpoint import CheckpointManager
-from scal_sdt_tpu_torch.training.optim_targets import group_labels, resolve_optim_target
-from scal_sdt_tpu_torch.training.optimizers import build_optimizer
+from scal_sdt_tpu_torch.training.ema import one_minus_decay
+from scal_sdt_tpu_torch.training.lora import lora_factor_shapes
+from scal_sdt_tpu_torch.training.optim_targets import (COMPONENT_PREFIX, group_labels,
+                                                       resolve_optim_target)
+from scal_sdt_tpu_torch.training.optimizers import AccumulationState, GradientAccumulation, build_optimizer
 from scal_sdt_tpu_torch.training.quantized import Adam8bit, bias_corrections
 from scal_sdt_tpu_torch.training.step import (StepSpec, compute_loss, draw, init_train_state,
                                               make_train_step)
 from scal_sdt_tpu_torch.training.trainer import Trainer
-from scal_sdt_tpu_torch.utils.state import save_json_metadata, save_state_dict
+from scal_sdt_tpu_torch.utils.state import (load_metadata, load_state_dict, save_json_metadata,
+                                           save_state_dict)
 
 # H100 SXM data-sheet peaks (dense bf16 tensor cores, fp32 on the CUDA
 # cores, HBM3), at 700 W.
@@ -201,10 +244,14 @@ KERNELS = {
                     "scal_sdt_tpu/ops/adam8_fused.py:92", "scal_sdt_tpu/ops/adam8_fused.py:127"),
     "adam_bf16_fused": ("scal_sdt_tpu_torch/ops/csrc/adam_bf16_fused.cu",
                         "lab/micro_bf16_update.py:62", "lab/micro_bf16_update.py:86"),
+    # the port's own kernel: JAX computes the EMA in XLA, no Pallas kernel
+    "ema_fused": ("scal_sdt_tpu_torch/ops/csrc/ema_fused.cu",
+                  "scal_sdt_tpu/training/ema.py:141", "none (ema_update runs in XLA)"),
 }
 SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
-PHASES = ("train", "train_int8", "uncached", "cache", "trainer")   # the phases that train
-COUNTERS = (splash, adam8_fused, adam_bf16_fused)
+PHASES = ("train", "train_int8", "uncached", "cache", "trainer", "ema",
+          "lora")   # the phases that train
+COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
 
 def reset_launches() -> None:
@@ -716,14 +763,17 @@ def setup_train(seed: int, optimizer: str = "adamw", extra: dict | None = None,
     del params
     tx, lr_fn = build_optimizer(config, labels, overrides, steps_per_epoch=1000, num_processes=1)
     spec = StepSpec.from_config(config, unet_config, **spec_kw)
-    state = init_train_state(trainable, tx, seed=seed)
-    step_fn = make_train_step(spec, tx, lr_fn)
+    ema = config.ema
+    state = init_train_state(trainable, tx, seed=seed, ema_enabled=bool(ema.enabled),
+                             ema_decay=float(ema.decay),
+                             ema_dtype=torch.bfloat16 if ema.dtype == "bf16" else torch.float32)
+    step_fn = make_train_step(spec, tx, lr_fn, ema_enabled=bool(ema.enabled))
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     batch = {"latents": torch.randn(batch_size, 4, latent, latent, generator=gen, device=device),
              "conds": torch.randn(batch_size, 77, unet_config.cross_attention_dim,
                                   generator=gen, device=device)}
     return {"config": config, "state": state, "step_fn": step_fn, "spec": spec, "tx": tx,
-            "batch": batch, "unet_config": unet_config}
+            "lr_fn": lr_fn, "batch": batch, "unet_config": unet_config}
 
 
 def optimizer_launches(opt_state: dict) -> dict[str, int]:
@@ -751,7 +801,7 @@ def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
     state, step_fn, batch, unet_config = (setup[k] for k in ("state", "step_fn", "batch",
                                                                "unet_config"))
     groups = len(setup["tx"].transforms)
-    per_step = {**per_step, **optimizer_launches(state.opt_state)}
+    per_step = {**per_step, **optimizer_launches(state.opt_state), "ema_fused": 0}
     del setup
     res = run_steps(state, step_fn, {}, lambda: batch, steps, warmup, per_step)
     # the same steps with the loss fetched after each, as the trainer's
@@ -1262,6 +1312,475 @@ def trainer_phase(seed: int, workdir: Path, cache_path: Path, frozen: dict,
                              "launches": acc_launches, "peak_mem_gib": acc_peak}}
 
 
+def tensor_digests(tensors) -> torch.Tensor:
+    """One int64 per tensor: the sum of its bit patterns (as int16 or int32),
+    which moves when any of its elements does (almost surely)."""
+    return torch.stack([t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+                        .sum(dtype=torch.int64) for t in tensors])
+
+
+EMA_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}   # the EMA phase's shadows
+EMA_DECAY = 0.995
+EMA_OPS = 3              # fp32 operations per element: subtract, multiply, subtract
+
+
+def ema_bytes(table) -> int:
+    """Bytes one EMA launch over ``table`` must move: each shadow read and
+    written, each master read."""
+    return sum(s.numel() * (2 * s.element_size() + m.element_size())
+               for s, m in zip(table.shadows, table.masters))
+
+
+def ema_kernel_case(gen: torch.Generator, keys, shapes, s_dtype: torch.dtype) -> dict:
+    """The grouped EMA kernel in one launch over all 686 SD1.5 leaves (bf16
+    masters, shadows of ``s_dtype`` off the masters) against
+    ema_fused_apply_reference, bit for bit; the times of both, the bytes
+    bound, and torch._foreach_lerp_ over fp32 shadows and fp32 copies of the
+    masters (the same function for fp32 masters) as the yardstick."""
+    masters = [rand(s, gen, 2e-2) for s in shapes]
+    shadows = [(m.float() + rand(s, gen, 1e-3, torch.float32)).to(s_dtype)
+               for m, s in zip(masters, shapes)]
+    one_minus, step = one_minus_decay(EMA_DECAY, 9), 8
+    got = ema_fused.build_ema_table(keys, clones(shadows), masters)
+    want = ema_fused.build_ema_table(keys, clones(shadows), masters)
+    ema_fused.ema_fused_apply(got, one_minus, step)
+    ema_fused.ema_fused_apply_reference(want, one_minus, step)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got.shadows, want.shadows))
+    err = max(max_abs(a, b) for a, b in zip(got.shadows, want.shadows))
+    check(equal, f"ema_fused ({s_dtype} shadows) disagrees with its plain version: {err}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(got.shadows, shadows))
+    check(moved == len(keys), f"ema_fused moved {moved} of {len(keys)} shadows")
+    n = sum(t.numel() for t in shadows)
+    nbytes = ema_bytes(got)
+    res = {"shadow": str(s_dtype), "leaves": len(keys), "elements": n, "bit_equal": equal,
+           "max_abs_err": err,
+           "ms": kernel_device_ms(lambda: ema_fused.ema_fused_apply(got, one_minus, step),
+                                  "ema_group"),
+           "call_ms": time_ms(lambda: ema_fused.ema_fused_apply(got, one_minus, step)),
+           "plain_ms": time_ms(lambda: ema_fused.ema_fused_apply_reference(want, one_minus, step),
+                               iters=1, warmup=0),
+           "bytes": nbytes, "bound": list(bound(nbytes, EMA_OPS * n))}
+    del got, want, shadows
+    torch.cuda.empty_cache()
+    s32 = [rand(s, gen, 2e-2, torch.float32) for s in shapes]
+    m32 = [m.float() for m in masters]
+    res["library_ms"] = device_ms(lambda: torch._foreach_lerp_(s32, m32, one_minus), iters=10,
+                                  warmup=2)
+    res["library"] = ("torch._foreach_lerp_ over fp32 shadows and fp32 copies of the masters "
+                      "(the same function for fp32 masters)")
+    return res
+
+
+def ema_phase(seed: int, steps: int, per_step: dict[str, int], train_rate: float,
+              warmup: int = 3) -> dict:
+    """The EMA kernel over the SD1.5 leaves (both shadow dtypes), then the
+    cached SD1.5 full fine-tune (the train phase's step) with EMA on, an fp32
+    shadow and then a bf16 one: ``warmup`` and ``steps`` timed steps each,
+    ema_fused once per param group per step beside the train phase's
+    launches, the shadows moving. Then 4 micro-steps at
+    accumulate_grad_batches 2 from the bf16 run's state: the EMA runs and
+    moves on all four, the masters on the emits only."""
+    keys, shapes = sd15_leaves()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    res: dict = {"kernel": {name: ema_kernel_case(gen, keys, shapes, dt)
+                            for name, dt in EMA_DTYPES.items()}, "train_phase_steps_per_s": train_rate}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in EMA_DTYPES:
+        setup = setup_train(seed, "adamw", {"ema": {"enabled": True, "dtype": name,
+                                                    "decay": EMA_DECAY}})
+        state, step_fn, batch = setup["state"], setup["step_fn"], setup["batch"]
+        groups = len(setup["tx"].transforms)
+        expect = {**per_step, **optimizer_launches(state.opt_state), "ema_fused": groups}
+        shadow0 = tensor_digests(state.ema.shadow.values())
+        run = run_steps(state, step_fn, {}, lambda: batch, steps, warmup, expect)
+        state = run.pop("state")
+        check(state.ema.num_updates == warmup + steps,
+              f"{state.ema.num_updates} EMA updates in {warmup + steps} steps")
+        moved = int((tensor_digests(state.ema.shadow.values()) != shadow0).sum())
+        check(moved > len(keys) // 2, f"{moved} of {len(keys)} shadows moved")
+        tables = list(state.ema.tables.values())
+        check(len(tables) == groups, f"{len(tables)} EMA tables for {groups} groups")
+        one_minus = one_minus_decay(EMA_DECAY, state.ema.num_updates)
+        run["ema_ms_per_step"] = device_ms(
+            lambda: [ema_fused.ema_fused_apply(t, one_minus, state.step) for t in tables],
+            iters=10, warmup=1)
+        run["launches_per_step"] = {k: v / steps for k, v in run["launches"].items()}
+        run["counted_launches_per_step"] = sum(run["launches_per_step"].values())
+        run["shadows_moved"] = moved
+        if name == "bf16":
+            run["accumulation"] = ema_accumulation(setup, state, batch, groups, len(keys))
+        res[name] = run
+        del setup, state, step_fn, tables
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = res["fp32"]["launches"]
+    return res
+
+
+def ema_accumulation(setup: dict, state, batch: dict, groups: int, n_leaves: int) -> dict:
+    """ACCUM_MICRO_STEPS micro-steps at accumulate_grad_batches ACCUM_K from
+    ``state`` (its shadows lag its masters): the masters move on emits only,
+    the EMA shadows on every micro-step, ema_fused once per group each."""
+    acc_tx = GradientAccumulation(setup["tx"], ACCUM_K)
+    acc = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in state.trainable.items()}
+    state = state._replace(opt_state=AccumulationState(0, state.opt_state, acc))
+    step_fn = make_train_step(setup["spec"], acc_tx, setup["lr_fn"], ema_enabled=True)
+    n0 = state.ema.num_updates
+    torch.cuda.synchronize()
+    reset_launches()
+    prev = (tensor_digests(state.trainable.values()), tensor_digests(state.ema.shadow.values()))
+    masters_moved, shadows_moved = [], []
+    for _ in range(ACCUM_MICRO_STEPS):
+        state, metrics = step_fn(state, {}, batch)
+        now = (tensor_digests(state.trainable.values()), tensor_digests(state.ema.shadow.values()))
+        masters_moved.append(int((now[0] != prev[0]).sum()))
+        shadows_moved.append(int((now[1] != prev[1]).sum()))
+        check(math.isfinite(float(metrics["train_loss"])), "non-finite loss under accumulation")
+        prev = now
+    launches = read_launches()
+    emits = ACCUM_MICRO_STEPS // ACCUM_K
+    for i, (m, sh) in enumerate(zip(masters_moved, shadows_moved), start=1):
+        emit = i % ACCUM_K == 0
+        check(m > n_leaves // 2 if emit else m == 0,
+              f"EMA accumulation micro-step {i}: {m} of {n_leaves} masters moved")
+        check(sh > n_leaves // 2, f"EMA accumulation micro-step {i}: {sh} shadows moved")
+    check(state.ema.num_updates == n0 + ACCUM_MICRO_STEPS,
+          f"{state.ema.num_updates - n0} EMA updates in {ACCUM_MICRO_STEPS} micro-steps")
+    check(launches["ema_fused"] == groups * ACCUM_MICRO_STEPS
+          and launches["adam_bf16_fused"] == groups * emits,
+          f"launches under accumulation: {launches}")
+    return {"k": ACCUM_K, "micro_steps": ACCUM_MICRO_STEPS, "masters_moved": masters_moved,
+            "shadows_moved": shadows_moved, "of": n_leaves, "launches": launches}
+
+
+LORA_STEPS, LORA_SAVE_EVERY = 6, 4   # run 1, and its mid-epoch checkpoint that run 2 resumes
+LORA_EMA_STEPS, LORA_DROPOUT = 2, 0.1  # run 3: dropout and a bf16 EMA shadow
+
+
+def splash_levels(shape_bhwc, unet_config: UNetConfig, vae_factor: int = 8
+                  ) -> list[tuple[tuple[int, int, int, int], int]]:
+    """For images of (B, H, W, C): the (B, heads, h*w, D) of each UNet level's
+    self-attention and the calls per UNet forward that take the splash
+    kernels there. A level with attention holds layers_per_block (down) +
+    layers_per_block + 1 (up) of them, the middle block one, and a call takes
+    the kernels where the gate (ops/attention.py) admits its shape."""
+    b, hh, ww, _ = shape_bhwc
+    h, w = hh // vae_factor, ww // vae_factor
+    cfg, out = unet_config, []
+    levels = len(cfg.block_out_channels)
+    for level, ch in enumerate(cfg.block_out_channels):
+        heads = cfg.heads_at(level)
+        shape = (b, heads, h * w, ch // heads)
+        takes = attention.use_kernel(shape, shape, torch.bfloat16, False, True)
+        calls = 0
+        if "CrossAttn" in cfg.down_block_types[level]:
+            calls += takes * cfg.layers_per_block
+        if "CrossAttn" in cfg.up_block_types[levels - 1 - level]:
+            calls += takes * (cfg.layers_per_block + 1)
+        if level == levels - 1:
+            calls += takes   # the middle block
+        out.append((shape, calls))
+        h, w = -(-h // 2), -(-w // 2)
+    return out
+
+
+def splash_calls(shape_bhwc, unet_config: UNetConfig) -> int:
+    """Self-attention calls per UNet forward that take the splash kernels."""
+    return sum(n for _, n in splash_levels(shape_bhwc, unet_config))
+
+
+def step_shapes(timings: Path) -> list[list[int]]:
+    """The batch shape (B, H, W, C) of each logged step (SSDT_STEP_TIMINGS)."""
+    return [json.loads(line)["shape"] for line in timings.read_text().splitlines()]
+
+
+def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
+    """configs/lora.yaml through the train CLI over the trainer phase's SD1.5
+    directory: LoRA on the UNet and CLIP (rank 16), remat, ARB buckets from
+    the 720x576 / 576x720 PNGs, batch 4, uncached. Run 1 trains LORA_STEPS
+    steps with a checkpoint at LORA_SAVE_EVERY (mid-epoch) and at the end;
+    run 2 resumes from the mid-epoch checkpoint and must end on run 1's final
+    checkpoint and sidecar bit for bit. Run 3: LORA_EMA_STEPS steps with
+    dropout LORA_DROPOUT on every LoRA module and a bf16 EMA shadow. The cut:
+    sampling.concepts (in-training sampling, not ported)."""
+    runs, timings = workdir / "lora_runs", workdir / "lora_timings.jsonl"
+    base = load_with_defaults(CONFIGS_DIR / "lora.yaml")
+    config = merge(base, Config({
+        "model": str(model), "output_dir": str(runs), "project": "lora", "seed": seed,
+        "num_workers": NUM_WORKERS,
+        "data": {"concepts": [{"instance_set": {"path": str(images), "prompt": "{TXT_PROMPT}"}}]},
+        "sampling": {"concepts": []},
+        "trainer": {"max_steps": LORA_STEPS, "log_every_n_steps": 1},
+        "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
+                       "every_n_train_steps": LORA_SAVE_EVERY, "monitor": None},
+        "loggers": {"tensorboard": None}}))
+    check(config.gradient_checkpointing is True and config.aspect_ratio_bucket.enabled
+          and config.batch_size == 4 and config.optim_target == "lora", "lora.yaml changed")
+    cfg_path = workdir / "lora.yaml"
+    cfg_path.write_text(json.dumps(config))
+    unet_config = UNetConfig.sd15()
+    res_t = resolve_optim_target(load_optim_target("lora"), unet_param_shapes(unet_config),
+                                 clip_param_shapes(CLIPTextConfig.vit_l()))
+    groups = {comp: len(r.groups) for comp, r in res_t.items()}
+    os.environ["SSDT_STEP_TIMINGS"] = str(timings)
+
+    def cli(args, probe):
+        with probe:
+            train_cli.main(args + ["--device", DEVICE], standalone_mode=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def expect_splash(shapes, launches, what):
+        calls = sum(splash_calls(s, unet_config) for s in shapes)
+        # remat: the checkpointed blocks run their forward again in the backward
+        want = {"splash_fwd": 2 * calls, "splash_dq": calls, "splash_dkv": calls}
+        check(calls > 0 and all(launches[k] == v for k, v in want.items()),
+              f"{what}: splash launches {launches}, expected {want} for shapes {shapes}")
+        return calls
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run1 = TrainerProbe()
+        cli(["--config", str(cfg_path), "--run-id", "run1"], run1)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        shapes1 = step_shapes(timings)
+        check([s for s, _, _ in run1.steps] == list(range(1, LORA_STEPS + 1)),
+              f"lora run 1 logged steps {[s for s, _, _ in run1.steps]}")
+        check(all(math.isfinite(x) for x in run1.losses().values()), f"losses {run1.losses()}")
+        check(len({tuple(s) for s in shapes1}) > 1 and all(s[1] != s[2] for s in shapes1),
+              f"ARB buckets {shapes1}: expected non-square buckets of two orientations")
+        calls = expect_splash(shapes1, launches, "lora run 1")
+        n_groups = sum(groups.values())
+        check(launches["adam_bf16_fused"] == n_groups * LORA_STEPS and launches["ema_fused"] == 0
+              and launches["adam8_fused"] == 0, f"lora run 1 launches {launches}")
+        dir1 = runs / "lora" / "run1"
+        mid, last = (f"epoch=0-step={n}" for n in (LORA_SAVE_EVERY, LORA_STEPS))
+        check(sorted(p.name for p in dir1.glob("*.safetensors")) ==
+              [mid + ".safetensors", last + ".safetensors"],
+              f"lora run 1 wrote {sorted(p.name for p in dir1.iterdir())}")
+        ckpt = load_state_dict(dir1 / f"{mid}.safetensors")
+        factors = {k: v for k, v in ckpt.items() if k.endswith((".lora_A", ".lora_B"))}
+        check(len(factors) == 2 * n_groups and len(ckpt) == 3 * n_groups,
+              f"the LoRA checkpoint holds {len(ckpt)} tensors for {n_groups} modules")
+        trainables = {comp: sum(v.numel() for k, v in factors.items()
+                                if k.startswith(COMPONENT_PREFIX[comp] + "."))
+                      for comp in groups}
+        ckpt_bytes = (dir1 / f"{mid}.safetensors").stat().st_size
+        sidecar_bytes = (dir1 / f"{mid}.safetensors.torchstate").stat().st_size
+        want = file_digests(checkpoint_files(dir1, last))
+
+        torch.cuda.synchronize()
+        reset_launches()
+        run2 = TrainerProbe()
+        cli(["--resume", str(dir1 / f"{mid}.safetensors"), "--run-id", "run2"], run2)
+        launches2 = read_launches()
+        expect_splash(step_shapes(timings), launches2, "lora run 2")
+        check(launches2["adam_bf16_fused"] == n_groups * (LORA_STEPS - LORA_SAVE_EVERY)
+              and launches2["ema_fused"] == 0, f"lora run 2 launches {launches2}")
+        got = file_digests(checkpoint_files(runs / "lora" / "run2", last))
+        check(got == want, f"the resumed LoRA run's checkpoint differs from run 1's: {got} {want}")
+        l1, l2 = run1.losses(), run2.losses()
+        check(sorted(l2) == list(range(LORA_SAVE_EVERY + 1, LORA_STEPS + 1))
+              and all(l2[s] == l1[s] for s in l2), f"resumed losses {l2} != run 1's {l1}")
+
+        spec = json.loads(json.dumps(load_optim_target("lora")))
+        for comp in ("unet", "text_encoder"):
+            spec[comp]["targets"][0]["recurse_conf"]["lora"]["dropout"] = LORA_DROPOUT
+        ema_cfg = merge(config, Config({
+            "optim_target": spec, "ema": {"enabled": True, "dtype": "bf16"},
+            "trainer": {"max_steps": LORA_EMA_STEPS},
+            "checkpoint": {"every_n_train_steps": None}}))
+        ema_path = workdir / "lora_ema.yaml"
+        ema_path.write_text(json.dumps(ema_cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run3 = TrainerProbe()
+        cli(["--config", str(ema_path), "--run-id", "run3"], run3)
+        launches3 = read_launches()
+        peak3 = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(math.isfinite(x) for x in run3.losses().values())
+              and sorted(run3.losses()) == list(range(1, LORA_EMA_STEPS + 1)),
+              f"lora run 3 losses {run3.losses()}")
+        calls3 = expect_splash(step_shapes(timings), launches3, "lora run 3")
+        check(launches3["ema_fused"] == groups["unet"] * LORA_EMA_STEPS
+              and launches3["adam_bf16_fused"] == n_groups * LORA_EMA_STEPS,
+              f"lora run 3 launches {launches3}")
+        path3 = runs / "lora" / "run3" / f"epoch=0-step={LORA_EMA_STEPS}.safetensors"
+        meta3 = json.loads(load_metadata(path3)["json"])
+        shadow = [k for k in load_state_dict(path3) if k.startswith("unet_ema.shadow_params.")]
+        check(meta3["ema_num_updates"] == LORA_EMA_STEPS and len(shadow) == 2 * groups["unet"],
+              f"lora run 3 checkpoint: {meta3}, {len(shadow)} shadow tensors")
+    finally:
+        os.environ.pop("SSDT_STEP_TIMINGS", None)
+
+    def rate(probe, skip):
+        """Steps over the host's wall time they took (the time between their
+        logs), the steps in ``skip`` left out: the first (the pipeline's
+        warm-up) and the one that follows a checkpoint write."""
+        dts = [1.0 / m["steps_per_sec"] for s, m, _ in probe.steps if s not in skip]
+        return len(dts) / sum(dts)
+
+    # the attention shapes that took the kernels at this run's buckets
+    splash_shapes = sorted({shape for b in shapes1 for shape, n in splash_levels(b, unet_config)
+                            if n})
+    return {"steps": LORA_STEPS, "groups": groups, "trainable_params": trainables,
+            "bucket_shapes": shapes1, "splash_shapes": splash_shapes,
+            "losses": [l1[s] for s in sorted(l1)],
+            "resumed_losses": [l2[s] for s in sorted(l2)], "resume_bit_equal": True,
+            "steps_per_s": rate(run1, {1, LORA_SAVE_EVERY + 1}),
+            "resumed_steps_per_s": rate(run2, {LORA_SAVE_EVERY + 1}),
+            "first_step_s": run1.steps[0][2], "save_s": run1.saves, "resume_s": run2.resumes,
+            "checkpoint_mib": ckpt_bytes / 2 ** 20, "sidecar_mib": sidecar_bytes / 2 ** 20,
+            "peak_mem_gib": peak,
+            # every launch of the phase: runs 1, 2 (resumed) and 3
+            "launches": {k: launches[k] + launches2[k] + launches3[k] for k in launches},
+            "run1_launches": launches, "run2_launches": launches2,
+            "launches_per_step": {k: v / LORA_STEPS for k, v in launches.items()},
+            "splash_calls_per_step": calls / LORA_STEPS,
+            "ema_dropout": {"steps": LORA_EMA_STEPS, "dropout": LORA_DROPOUT,
+                            "losses": [run3.losses()[s] for s in sorted(run3.losses())],
+                            "steps_per_s": rate(run3, {1}), "peak_mem_gib": peak3,
+                            "launches": launches3,
+                            "launches_per_step": {k: v / LORA_EMA_STEPS
+                                                  for k, v in launches3.items()},
+                            "splash_calls_per_step": calls3 / LORA_EMA_STEPS,
+                            "ema_num_updates": meta3["ema_num_updates"]}}
+
+
+def lora_groups() -> list[tuple[str, list[str], list[tuple[int, ...]], dict]]:
+    """configs/lora.yaml's param groups at SD1.5 width, as the trainer holds
+    them: one per LoRA module, with its component, its two factors' keys (as
+    the trainer names them) and shapes, and the group's optimizer overrides;
+    the UNet's groups first."""
+    bases = {"unet": unet_param_shapes(UNetConfig.sd15()),
+             "text_encoder": clip_param_shapes(CLIPTextConfig.vit_l())}
+    metas = {comp: {k: torch.empty(v, device="meta") for k, v in shapes.items()}
+             for comp, shapes in bases.items()}
+    out = []
+    for comp, r in resolve_optim_target(load_optim_target("lora"), bases["unet"],
+                                        bases["text_encoder"]).items():
+        shapes = lora_factor_shapes(metas[comp], r.lora)
+        out += [(comp, [f"{COMPONENT_PREFIX[comp]}.{k}" for k in g.keys],
+                 [shapes[k] for k in g.keys], g.optimizer) for g in r.groups]
+    return out
+
+
+def lora_kernel_case(gen: torch.Generator) -> dict:
+    """The optimizer and EMA kernels in the form the lora phase runs them,
+    over lora.yaml's 264 groups of two LoRA factors each (SD1.5 width): one
+    adam_bf16_fused launch per group over fp32 masters and fp32 moments with
+    bf16 gradients (AdamW, lora.yaml's betas and eps, each group's lr and
+    decay), then one ema_fused launch per UNet group over the updated masters
+    with fp32 and with bf16 shadows; masters, moments and shadows bit for bit
+    against the plain versions. Per step: the kernels' own device time (the
+    mean launch in a torch.profiler trace times the launches), the calls'
+    time by CUDA events (the host's work around each launch included: each
+    adam_bf16_fused call uploads its gradients' addresses), the bytes bound
+    of the same work."""
+    hp = load_with_defaults(CONFIGS_DIR / "lora.yaml").optimizer.params
+    b1, b2, eps = float(hp.beta1), float(hp.beta2), float(hp.eps)
+    groups = lora_groups()
+    count = 3
+    bc = bias_corrections(b1, b2, count)
+    got, want, grads, kws = [], [], [], []
+    for _, keys, shapes, opt in groups:
+        params = [rand(sh, gen, 2e-2, torch.float32) for sh in shapes]
+        mu = [rand(sh, gen, 1e-4, torch.float32) for sh in shapes]
+        nu = [rand(sh, gen, 1e-7, torch.float32, positive=True) for sh in shapes]
+        grads.append([rand(sh, gen, 1e-3) for sh in shapes])
+        got.append(adam_bf16_fused.build_adam_table(keys, clones(params), clones(mu), clones(nu)))
+        want.append(adam_bf16_fused.build_adam_table(keys, params, mu, nu))
+        kws.append(dict(b1=b1, b2=b2, eps=eps, recip_bc=False, count=count, step=count - 1,
+                        weight_decay=float(opt["weight_decay"]),
+                        step_size=float(np.float32(-opt["lr"])), update_dtype=torch.float32))
+
+    def adam(tables, plain):
+        fn = (adam_bf16_fused.adam_bf16_fused_apply_reference if plain
+              else adam_bf16_fused.adam_bf16_fused_apply)
+        return lambda: [fn(t, g, bc, **kw) for t, g, kw in zip(tables, grads, kws)]
+
+    adam(got, False)()
+    adam(want, True)()
+    torch.cuda.synchronize()
+    err = {what: all(torch.equal(a, b) for t, u in zip(got, want)
+                     for a, b in zip(getattr(t, what), getattr(u, what)))
+           for what in ("params", "mu", "nu")}
+    err["out"] = max(max_abs(a, b) for t, u in zip(got, want) for a, b in zip(t.params, u.params))
+    check(err["params"] and err["mu"] and err["nu"],
+          f"adam_bf16_fused over the LoRA groups (fp32 masters and moments) disagrees: {err}")
+    n = sum(p.numel() for t in got for p in t.params)
+    nbytes = sum(group_bytes(t) for t in got)
+    res = {"groups": len(got), "leaves": sum(len(t.keys) for t in got), "elements": n,
+           "adam_bf16_fused": {
+               "err": err, "ms": len(got) * kernel_device_ms(adam(got, False), "adam_bf16_group",
+                                                          iters=3, warmup=1),
+               "call_ms": time_ms(adam(got, False), iters=10, warmup=1),
+               "plain_ms": time_ms(adam(want, True), iters=1, warmup=0),
+               "bytes": nbytes, "bound": list(bound(nbytes, (ADAM_OPS + EPILOGUE_OPS) * n))}}
+    # nearest library call, not the same function: torch's fused AdamW over
+    # the same fp32 lists (with fp32 copies of the gradients: it takes
+    # gradients of the params' dtype) at one lr
+    flat = [(p, g.float(), m, v) for u, gs in zip(want, grads)
+            for p, g, m, v in zip(u.params, gs, u.mu, u.nu)]
+    ps, gs, ms, vs = (list(x) for x in zip(*flat))
+    steps = [torch.tensor(float(count), device="cuda") for _ in ps]
+    res["adam_bf16_fused"]["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+        ps, gs, ms, vs, [], steps, lr=5e-4, beta1=b1, beta2=b2, weight_decay=2e-2, eps=eps,
+        amsgrad=False, maximize=False))
+    res["adam_bf16_fused"]["library"] = (
+        "torch._fused_adamw_ over the same fp32 lists, fp32 gradients, one lr (nearest call, "
+        "not the same function)")
+    del flat, ps, gs, ms, vs
+
+    unet = [(keys, t) for (comp, keys, _, _), t in zip(groups, got) if comp == "unet"]
+    one_minus, step = one_minus_decay(EMA_DECAY, 9), 8
+    res["ema_fused"] = {}
+    for name, s_dtype in EMA_DTYPES.items():
+        shadows = [[(p + rand(p.shape, gen, 1e-3, torch.float32)).to(s_dtype) for p in t.params]
+                   for _, t in unet]
+        e_got = [ema_fused.build_ema_table(keys, clones(sh), t.params)
+                 for (keys, t), sh in zip(unet, shadows)]
+        e_want = [ema_fused.build_ema_table(keys, clones(sh), t.params)
+                  for (keys, t), sh in zip(unet, shadows)]
+
+        def ema(tables, plain):
+            fn = ema_fused.ema_fused_apply_reference if plain else ema_fused.ema_fused_apply
+            return lambda: [fn(t, one_minus, step) for t in tables]
+
+        ema(e_got, False)()
+        ema(e_want, True)()
+        torch.cuda.synchronize()
+        pairs = [(a, b, s0) for t, u, sh in zip(e_got, e_want, shadows)
+                 for a, b, s0 in zip(t.shadows, u.shadows, sh)]
+        equal = all(torch.equal(a, b) for a, b, _ in pairs)
+        e_err = max(max_abs(a, b) for a, b, _ in pairs)
+        check(equal, f"ema_fused over the LoRA groups ({name} shadows of fp32 masters) "
+                     f"disagrees with its plain version: {e_err}")
+        moved = sum(not torch.equal(a, s0) for a, _, s0 in pairs)
+        check(moved == len(pairs), f"ema_fused moved {moved} of {len(pairs)} LoRA shadows")
+        e_n = sum(sh.numel() for t in e_got for sh in t.shadows)
+        e_bytes = sum(ema_bytes(t) for t in e_got)
+        s32 = [rand(p.shape, gen, 2e-2, torch.float32) for _, t in unet for p in t.params]
+        m32 = [p for _, t in unet for p in t.params]
+        res["ema_fused"][name] = {
+            "shadow": str(s_dtype), "groups": len(e_got), "elements": e_n, "bit_equal": equal,
+            "max_abs_err": e_err,
+            "ms": len(e_got) * kernel_device_ms(ema(e_got, False), "ema_group", iters=3, warmup=1),
+            "call_ms": time_ms(ema(e_got, False), iters=10, warmup=1),
+            "plain_ms": time_ms(ema(e_want, True), iters=1, warmup=0),
+            "bytes": e_bytes, "bound": list(bound(e_bytes, EMA_OPS * e_n)),
+            # the same function for an fp32 shadow of fp32 masters
+            "library_ms": device_ms(lambda: torch._foreach_lerp_(s32, m32, one_minus),
+                                    iters=10, warmup=2)}
+    return res
+
+
 def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                 record: dict) -> dict:
     """The {"kernels": [...]} entry of an optimizer kernel: the numbers of its
@@ -1285,7 +1804,9 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
             "pallas_kernel": pallas_kernel,
             "launches": record[phase]["launches"][name],
             "launches_by_phase": {p: record[p]["launches"][name] for p in PHASES},
-            "max_abs_err": max([r["err"]["out"] for r in cases] + [grouped["err"]["out"]]),
+            "max_abs_err": max([r["err"]["out"] for r in cases] + [grouped["err"]["out"]]
+                               + ([record["lora_kernels"][name]["err"]["out"]]
+                                  if name == "adam_bf16_fused" else [])),
             "ms": grouped["ms"], "plain_ms": grouped["plain_ms"],
             "bound_ms": grouped["bound"][0], "bound_by": grouped["bound"][1],
             "library_ms": grouped["library_ms"],
@@ -1293,8 +1814,42 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
             **{k: v for k, v in grouped.items() if k == "library"},
             **{k: {f: v[f] for f in ("leaves", "ms", "plain_ms", "bound", "library_ms")}
                for k, v in others.items()},
+            **({"lora_groups": lora_record(record, "adam_bf16_fused")}
+               if name == "adam_bf16_fused" else {}),
             "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound", "library_ms")}
                          for r in cases]}
+
+
+def lora_record(record: dict, kernel: str, shadow: str | None = None) -> dict:
+    """The kernels-line numbers of ``kernel`` in the lora phase's form (one
+    launch per LoRA group over fp32 masters; the EMA's with ``shadow``)."""
+    lk = record["lora_kernels"]
+    r = lk[kernel] if shadow is None else lk[kernel][shadow]
+    return {"groups": lk["groups"] if shadow is None else r["groups"],
+            **{f: r[f] for f in ("ms", "plain_ms", "bound", "library_ms")}}
+
+
+def ema_entry(source: str, replaces: str, pallas_kernel: str, record: dict) -> dict:
+    """The {"kernels": [...]} entry of the EMA kernel: its launch over the 686
+    SD1.5 leaves with an fp32 shadow (the default ema.dtype), beside the
+    bf16 shadow's; launches from the EMA phase's fp32 run."""
+    k = record["ema"]["kernel"]
+    main, other = k["fp32"], k["bf16"]
+    return {"name": "ema_fused", "route": "cuda", "source": source, "replaces": replaces,
+            "pallas_kernel": pallas_kernel,
+            "launches": record["ema"]["launches"]["ema_fused"],
+            "launches_by_phase": {p: record[p]["launches"]["ema_fused"] for p in PHASES},
+            "max_abs_err": max([main["max_abs_err"], other["max_abs_err"]]
+                               + [r["max_abs_err"]
+                                  for r in record["lora_kernels"]["ema_fused"].values()]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound"][0],
+            "bound_by": main["bound"][1], "library_ms": main["library_ms"],
+            "library": main["library"],
+            "at": f"one launch over {main['leaves']} SD1.5 leaves, {main['elements']} elements, "
+                  "fp32 shadows of bf16 masters",
+            "bf16_shadow": {f: other[f] for f in ("ms", "plain_ms", "bound", "library_ms")},
+            "ms_per_step": {name: record["ema"][name]["ema_ms_per_step"] for name in EMA_DTYPES},
+            "lora_groups": {name: lora_record(record, "ema_fused", name) for name in EMA_DTYPES}}
 
 
 def main(argv=None) -> int:
@@ -1360,6 +1915,26 @@ def main(argv=None) -> int:
     del int8
     torch.cuda.empty_cache()
 
+    ema = ema_phase(args.seed, args.steps, splash_per_step, record["train"]["steps_per_s"])
+    for name, r in ema["kernel"].items():
+        log(f"ema kernel, {name} shadows over {r['leaves']} leaves: {r['ms']:.4f} ms (bound "
+            f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, {r['bytes'] / 1e9:.3f} GB), plain "
+            f"{r['plain_ms']:.2f} ms, torch._foreach_lerp_ {r['library_ms']:.4f} ms, bit-equal "
+            f"{r['bit_equal']}")
+    for name in EMA_DTYPES:
+        r = ema[name]
+        log(f"ema {name} shadow: {r['steps_per_s']:.4f} steps/s (train phase "
+            f"{ema['train_phase_steps_per_s']:.4f}), peak {r['peak_mem_gib']:.2f} GiB (train "
+            f"phase {record['train']['peak_mem_gib']:.2f}), EMA {r['ema_ms_per_step']:.4f} ms "
+            f"per step (device), counted launches per step {r['counted_launches_per_step']:.0f} "
+            f"{r['launches_per_step']}, losses {r['losses']}")
+    acc = ema["bf16"]["accumulation"]
+    log(f"ema accumulation: k {acc['k']}, masters moved {acc['masters_moved']}, shadows moved "
+        f"{acc['shadows_moved']} of {acc['of']}, launches {acc['launches']}")
+    record["ema"] = ema
+    gc.collect()
+    torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         uncached = uncached_phase(args.seed, args.steps, Path(tmp), splash_per_step)
         log(f"uncached: {uncached['steps_per_s']:.4f} steps/s, peak "
@@ -1398,10 +1973,50 @@ def main(argv=None) -> int:
             f"{acc['masters_moved']} of {acc['of']}, launches {acc['launches']}, peak "
             f"{acc['peak_mem_gib']:.2f} GiB")
         record["trainer"] = trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        lora = lora_phase(args.seed, Path(tmp), Path(tmp) / "model", Path(tmp) / "images")
+        d = lora["ema_dropout"]
+        log(f"lora: {lora['steps_per_s']:.4f} steps/s (resumed {lora['resumed_steps_per_s']:.4f}), "
+            f"buckets {sorted({tuple(s) for s in lora['bucket_shapes']})}, trainable "
+            f"{lora['trainable_params']}, {lora['groups']} groups, checkpoint "
+            f"{lora['checkpoint_mib']:.2f} MiB (+ sidecar {lora['sidecar_mib']:.2f} MiB), peak "
+            f"{lora['peak_mem_gib']:.2f} GiB, launches per step {lora['launches_per_step']} "
+            f"({lora['splash_calls_per_step']:.1f} splash calls), losses {lora['losses']}, resumed "
+            f"{lora['resumed_losses']} (bit-equal checkpoint)")
+        log(f"lora dropout {d['dropout']} + bf16 EMA: {d['steps_per_s']:.4f} steps/s, peak "
+            f"{d['peak_mem_gib']:.2f} GiB, launches per step {d['launches_per_step']}, losses "
+            f"{d['losses']}, EMA updates {d['ema_num_updates']}")
+        record["lora"] = lora
+
+    # the kernels in the forms and at the shapes the lora phase ran them
+    record["kernels_lora"] = [kernel_phase(tuple(sh), gen, rate) for sh in lora["splash_shapes"]]
+    for r in record["kernels_lora"]:
+        log(f"kernels (lora) {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
+    record["lora_kernels"] = lora_kernel_case(gen)
+    lk = record["lora_kernels"]
+    a = lk["adam_bf16_fused"]
+    log(f"lora kernels: adam_bf16_fused over {lk['groups']} groups ({lk['leaves']} fp32 leaves, "
+        f"{lk['elements']} elements): kernels {a['ms']:.4f} ms per step, calls {a['call_ms']:.4f} "
+        f"ms (bound {a['bound'][0]:.4f} ms by "
+        f"{a['bound'][1]}), plain {a['plain_ms']:.2f} ms, torch._fused_adamw_ "
+        f"{a['library_ms']:.4f} ms, bit-equal {a['err']}")
+    for name, r in lk["ema_fused"].items():
+        log(f"lora kernels: ema_fused, {name} shadows over {r['groups']} UNet groups of fp32 "
+            f"masters: kernels {r['ms']:.4f} ms per step, calls {r['call_ms']:.4f} ms (bound "
+            f"{r['bound'][0]:.4f} ms by "
+            f"{r['bound'][1]}), plain {r['plain_ms']:.2f} ms, torch._foreach_lerp_ "
+            f"{r['library_ms']:.4f} ms, bit-equal {r['bit_equal']}")
+    torch.cuda.empty_cache()
 
     main_shape = record["kernels"][0]
+    splash_records = record["kernels"] + [record["kernels_arb"]] + record["kernels_lora"]
     kernels = []
     for name, (source, replaces, pallas_kernel) in KERNELS.items():
+        if name == "ema_fused":
+            kernels.append(ema_entry(source, replaces, pallas_kernel, record))
+            continue
         if name not in SPLASH:
             kernels.append(optim_entry(name, source, replaces, pallas_kernel, record))
             continue
@@ -1410,7 +2025,7 @@ def main(argv=None) -> int:
             "pallas_kernel": pallas_kernel,
             "launches": record["train"]["launches"][name],
             "launches_by_phase": {p: record[p]["launches"][name] for p in PHASES},
-            "max_abs_err": max(r["err"][name] for r in record["kernels"] + [record["kernels_arb"]]),
+            "max_abs_err": max(r["err"][name] for r in splash_records),
             "ms": main_shape["ms"][name], "plain_ms": main_shape["plain_ms"][name],
             "bound_ms": main_shape["bound"][name][0],
             # the exponential unit's term counts as operations (of their
@@ -1426,7 +2041,7 @@ def main(argv=None) -> int:
                           "plain_ms": r["plain_ms"][name], "bound_ms": r["bound"][name][0],
                           "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"],
                           "bwd_pair_ms": r["bwd_pair_ms"]}
-                         for r in record["kernels"] + [record["kernels_arb"]]],
+                         for r in splash_records],
         })
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -9,9 +9,10 @@ the penultimate layer, ``clip_stop_at_layer: 2``).
 
 Parameter keys are the transformers state-dict names under ``text_model.``.
 The causal self-attention goes through ``ops/attention.py`` and takes its
-math path (causal, L = 77), as it takes XLA's on the TPU. Not ported yet:
-the SDXL / SD3 encode (``clip_text_encode_sdxl``) and textual-inversion rows
-trained beside the frozen table (``token_embedding.trained_extra``).
+math path (causal, L = 77), as it takes XLA's on the TPU. Textual-inversion
+rows trained beside the frozen table (``token_embedding.trained_extra``,
+``text/ti.py``) are appended below it, so only they take gradients. Not
+ported yet: the SDXL / SD3 encode (``clip_text_encode_sdxl``).
 """
 
 from __future__ import annotations
@@ -73,10 +74,10 @@ def clip_text_apply(params: Params, input_ids: torch.Tensor, config: CLIPTextCon
 
 
 def _embed(p: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    if TRAINED_EXTRA in p:
-        raise NotImplementedError(
-            "textual-inversion rows (token_embedding.trained_extra): not ported yet")
     tok = p["text_model.embeddings.token_embedding.weight"]
+    extra = p.get(TRAINED_EXTRA)
+    if extra is not None:
+        tok = torch.cat([tok, extra.to(tok.dtype)], dim=0)
     pos = p["text_model.embeddings.position_embedding.weight"]
     return tok[input_ids] + pos[:input_ids.shape[1]]
 

@@ -7,13 +7,21 @@ Precision follows the JAX code, not ``torch.autocast``: linear and conv
 outputs stay in the activation dtype, GroupNorm and LayerNorm take fp32
 statistics and cast back.
 
-LoRA factors (``{name}.lora_A``) are a later slice of the port: a parameter
-dict holding them is refused rather than silently run without the delta.
+LoRA factors ride in the same dict as ``{name}.lora_A`` (r, in),
+``{name}.lora_B`` (out, r) and an integer ``{name}.lora_alpha``: ``linear``
+and 1x1 ``conv2d`` add ``(x A^T) B^T * alpha / r`` (over the channel axis,
+dim 1, for the NCHW conv). LoRA dropout (the original trainer's
+``lora_dropout``) drops the delta's input with a static per-path rate
+(``set_lora_dropout_rates``) on the training path only: the train step puts
+a ``LoRADropout`` under ``LORA_DROPOUT`` in the component's dict, inference
+never does.
 """
 
 from __future__ import annotations
 
 import math
+import zlib
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,24 +31,88 @@ from ..device import resolve_device
 Params = dict[str, torch.Tensor]
 
 
-def _no_lora(p: Params, name: str) -> None:
-    if f"{name}.lora_A" in p:
-        raise NotImplementedError(
-            f"LoRA factors on {name}: the port does not run LoRA yet")
+# --- LoRA dropout -------------------------------------------------------------
+LORA_DROPOUT = "__lora_dropout__"
+_LORA_DROPOUT_RATES: dict[str, float] = {}
+_SEED_MASK = (1 << 63) - 1
+
+
+def set_lora_dropout_rates(rates: dict[str, float]) -> None:
+    """Replace the static path -> rate registry (component-relative paths)."""
+    _LORA_DROPOUT_RATES.clear()
+    _LORA_DROPOUT_RATES.update({k: float(v) for k, v in rates.items() if v})
+
+
+def lora_dropout_rates() -> dict[str, float]:
+    return dict(_LORA_DROPOUT_RATES)
+
+
+def layer_seed(base: int, name: str) -> int:
+    """The seed of layer ``name``'s mask generator in a step with base seed
+    ``base`` (the analogue of JAX's ``fold_in(rng, crc32(name))``)."""
+    return (int(base) * 0x9E3779B97F4A7C15 + zlib.crc32(name.encode())) & _SEED_MASK
+
+
+class LoRADropout:
+    """The keep masks of one step: each layer draws its own from a generator
+    seeded by ``layer_seed(base, name)``, so a recompute under
+    ``torch.utils.checkpoint`` (which restores the global RNG state, not an
+    explicit generator's) draws the same mask again; or ``masks`` (layer
+    name -> bool keep mask in the layer input's layout) replace the draws."""
+
+    def __init__(self, base: Optional[int] = None,
+                 masks: Optional[dict[str, torch.Tensor]] = None):
+        self.base, self.masks = base, masks
+
+    def keep(self, name: str, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if self.masks is not None:
+            return self.masks[name].to(x.device)
+        gen = torch.Generator(device=x.device).manual_seed(layer_seed(self.base, name))
+        return torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+
+
+def _lora_delta(p: Params, name: str, x: torch.Tensor, y: torch.Tensor,
+                conv: bool = False) -> torch.Tensor:
+    """y plus the LoRA update ``(x A^T) B^T * alpha / r`` if ``{name}.lora_A``
+    is in ``p``. Both products come out in x's dtype; the scale is
+    ``alpha / r`` in y's dtype (a division by a 0-dim tensor: torch on CUDA
+    would multiply by the reciprocal of a python divisor). ``conv``: x is
+    NCHW and the product runs over its channel axis."""
+    a = p.get(f"{name}.lora_A")
+    if a is None:
+        return y
+    rate = _LORA_DROPOUT_RATES.get(name, 0.0)
+    dropout = p.get(LORA_DROPOUT)
+    if rate > 0.0 and dropout is not None:
+        x = torch.where(dropout.keep(name, x, rate), x / x.new_full((), 1.0 - rate),
+                        x.new_zeros(()))
+    b = p[f"{name}.lora_B"]
+    alpha = p.get(f"{name}.lora_alpha")
+    rank = a.shape[0]
+    scale = (alpha.to(y.dtype) if alpha is not None else y.new_ones(())) / y.new_full((), rank)
+    a, b = a.to(x.dtype), b.to(x.dtype)
+    if conv:
+        h = F.conv2d(F.conv2d(x, a[:, :, None, None]), b[:, :, None, None])
+    else:
+        h = F.linear(F.linear(x, a), b)
+    return y + h * scale
 
 
 def linear(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W^T + b with W stored (out, in)."""
-    _no_lora(p, name)
-    return F.linear(x, p[f"{name}.weight"], p.get(f"{name}.bias"))
+    """y = x @ W^T + b with W stored (out, in), plus its LoRA delta."""
+    y = F.linear(x, p[f"{name}.weight"], p.get(f"{name}.bias"))
+    return _lora_delta(p, name, x, y)
 
 
 def conv2d(p: Params, name: str, x: torch.Tensor, stride: int = 1,
            padding: int = 1) -> torch.Tensor:
-    """NCHW convolution with an OIHW kernel."""
-    _no_lora(p, name)
-    return F.conv2d(x, p[f"{name}.weight"], p.get(f"{name}.bias"),
-                    stride=stride, padding=padding)
+    """NCHW convolution with an OIHW kernel; a 1x1 kernel takes its LoRA
+    delta."""
+    w = p[f"{name}.weight"]
+    y = F.conv2d(x, w, p.get(f"{name}.bias"), stride=stride, padding=padding)
+    if w.shape[2] == 1 and w.shape[3] == 1 and f"{name}.lora_A" in p:
+        y = _lora_delta(p, name, x, y, conv=True)
+    return y
 
 
 def group_norm(p: Params, name: str, x: torch.Tensor, groups: int = 32,

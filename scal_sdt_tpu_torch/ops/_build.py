@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("splash_fwd.cu", "splash_bwd.cu", "adam8_fused.cu", "adam_bf16_fused.cu")
+SOURCES = ("splash_fwd.cu", "splash_bwd.cu", "adam8_fused.cu", "adam_bf16_fused.cu",
+           "ema_fused.cu")
 HEADERS = ("splash_common.cuh", "adam_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +40,7 @@ _SIGNATURES = {
                              + [_I, _I, ctypes.c_uint, _I, _F, _F, ctypes.c_uint, _P]),
     "ssdt_adam8_group": ([_P] * 3 + [_I] * 5 + [_F] * 7
                          + [_I, _F, _F, ctypes.c_uint, _P]),
+    "ssdt_ema_group": [_P, _P, _I, ctypes.c_longlong, _I, _I, _I, _F, ctypes.c_uint, _P],
 }
 
 _library: ctypes.CDLL | None = None

@@ -5,7 +5,10 @@ master apply of the grouped entries), and of the master apply in
 ``training/step.py``. Each leaf's two salts live here, as ops and training
 both need them: ``crc32(key) ^ NU_SALT`` for the bf16 nu store (dithered at
 the optimizer's count) and ``crc32(key) ^ MASTER_SALT`` for the bf16 master
-store (dithered at the train step).
+store (dithered at the train step). A bf16 EMA shadow (``ema_dither``) reads
+the low half of the master store's hash where the master is bf16 (one hash,
+two independent 16-bit streams), and the high half of a hash salted
+``crc32(key) ^ EMA_SALT`` otherwise, both at the train step.
 
 The bits match the JAX version exactly. torch has no general uint32
 arithmetic, so the hash runs on int32 tensors holding the uint32 bit
@@ -24,6 +27,7 @@ import torch
 _U32 = 0xFFFFFFFF
 NU_SALT = 0xE3A0003
 MASTER_SALT = 0xE3A0001
+EMA_SALT = 0xE3A0002
 
 
 def leaf_salt(key: str, base: int) -> int:
@@ -69,6 +73,16 @@ def cheap_dither_u32(shape, step: int, salt: int, device) -> torch.Tensor:
 def cheap_dither_u16(shape, step: int, salt: int, device) -> torch.Tensor:
     """High 16 bits of :func:`cheap_dither_u32`, values in [0, 2^16) (int32)."""
     return _shr(cheap_dither_u32(shape, step, salt, device), 16)
+
+
+def ema_dither(shape, step: int, key: str, master_is_bf16: bool, device) -> torch.Tensor:
+    """The 16 dither bits (int32 values in [0, 2^16)) of a bf16 EMA shadow's
+    SR store of leaf ``key`` at train step ``step`` (the step before its
+    increment): the low half of the master store's hash for a bf16 master,
+    the high half of a hash salted ``EMA_SALT`` otherwise."""
+    if master_is_bf16:
+        return cheap_dither_u32(shape, step, leaf_salt(key, MASTER_SALT), device) & 0xFFFF
+    return cheap_dither_u16(shape, step, leaf_salt(key, EMA_SALT), device)
 
 
 def stochastic_round_bf16_bits(x: torch.Tensor, r16: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,10 @@ Two files per checkpoint:
 * ``<name>.safetensors``: the file both packages read and write, with the same
   keys, dtypes and metadata. Trainable tensors under their natural names
   (``unet.*``, ``condition_model.encoder.*``) in the masters' dtype, stored
-  LoRA alphas from the frozen dict, and metadata ``{"json": {"step", "epoch",
-  "batch_in_epoch", ...}}``; an EMA shadow would go under
-  ``unet_ema.shadow_params.*``.
+  LoRA alphas from the frozen dict, the EMA shadow (when EMA is on) under
+  ``unet_ema.shadow_params.*`` in the shadow's dtype, and metadata
+  ``{"json": {"step", "ema_decay", "ema_num_updates", "epoch",
+  "batch_in_epoch", "ti_tokens", ...}}``.
 * ``<name>.safetensors.torchstate``: the port's exact-resume sidecar, itself
   a safetensors file: the optimizer state (per group: Adam's moments, or
   Adam8bit's payloads and scales, plus the accumulation sum under gradient
@@ -18,8 +19,9 @@ Two files per checkpoint:
   checkpoint it restores the parameters and the loop state and warns that
   the optimizer state starts fresh.
 
-Restores copy into the template state's tensors in place, so the optimizer's
-cached leaf tables (``training/optimizers.py``) stay valid after a resume.
+Restores copy into the template state's tensors in place (the EMA shadow
+too), so the optimizer's and the EMA's cached leaf tables stay valid after
+a resume.
 
 Retention mirrors the reference's ModelCheckpoint knobs: every_n_epochs /
 every_n_train_steps / save_top_k / monitor / mode, with ``{epoch}`` /
@@ -55,12 +57,20 @@ def sidecar_path(path: Path) -> Path:
 
 def checkpoint_state_dict(state: TrainState, frozen: dict) -> tuple[dict, dict]:
     """(flat tensors, metadata) of the checkpoint file: the trainable
-    tensors in their dtype, and the stored LoRA alphas from ``frozen``."""
+    tensors in their dtype, the stored LoRA alphas from ``frozen``, and the
+    EMA shadow under its UNet-relative names with its decay and count."""
     tensors = {k: v.detach() for k, v in state.trainable.items()}
     for k, v in frozen.items():
         if k.endswith(".lora_alpha"):
             tensors[k] = v
-    return tensors, {"step": int(state.step)}
+    meta = {"step": int(state.step)}
+    if state.ema is not None:
+        for k, v in state.ema.shadow.items():
+            rel = k[len(UNET_PREFIX) + 1:] if k.startswith(UNET_PREFIX + ".") else k
+            tensors[EMA_PREFIX + rel] = v.detach()
+        meta["ema_decay"] = float(state.ema.decay)
+        meta["ema_num_updates"] = int(state.ema.num_updates)
+    return tensors, meta
 
 
 def _flatten(obj: Any, prefix: str, tensors: dict, numbers: dict) -> None:
@@ -112,16 +122,20 @@ def train_state_dict(state: TrainState) -> tuple[dict, dict]:
 
 
 def save_checkpoint(path: Path, state: TrainState, frozen: dict,
-                    loop_state: Optional[dict] = None) -> None:
+                    loop_state: Optional[dict] = None,
+                    extra_meta: Optional[dict] = None) -> None:
     """Write the checkpoint file and its sidecar (rank 0 only).
     ``loop_state`` ({epoch, batch_in_epoch}) rides in the metadata, so a
-    resume can fast-forward the data pipeline mid-epoch."""
+    resume can fast-forward the data pipeline mid-epoch; ``extra_meta`` too
+    (the trainer's ``ti_tokens``)."""
     if not is_main_process():
         return
     path = Path(path)
     tensors, meta = checkpoint_state_dict(state, frozen)
     if loop_state:
         meta.update({k: int(v) for k, v in loop_state.items()})
+    if extra_meta:
+        meta.update(extra_meta)
     path.parent.mkdir(parents=True, exist_ok=True)
     save_state_dict(tensors, path, metadata={"json": json.dumps(meta)})
     side, numbers = train_state_dict(state)
@@ -161,13 +175,15 @@ def restore_train_state(path: Path, template_state: TrainState) -> TrainState:
     """Exact resume: the parameters from the checkpoint, and the optimizer
     state, step and generator from the port's sidecar, each copied into the
     template state's tensors in place (cast to the template's dtype: a
-    bf16-master state takes bf16 whatever the file holds). The EMA half of
-    the file is ignored, as EMA is off. Without the port's sidecar the
-    optimizer state and generator stay the template's and the step is the
-    file's; a JAX sidecar next to the file is not read, with a warning."""
+    bf16-master state takes bf16 whatever the file holds). With EMA on, the
+    file's shadow, decay and count replace the template's (a file without
+    one leaves the template's); with EMA off the file's shadow is ignored.
+    Without the port's sidecar the optimizer state and generator stay the
+    template's and the step is the file's; a JAX sidecar next to the file is
+    not read, with a warning."""
     path = Path(path)
     tensors, meta = load_checkpoint_tensors(path)
-    trainable_file, _ = split_checkpoint(tensors, meta)
+    trainable_file, ema_file = split_checkpoint(tensors, meta)
     loaded = 0
     for k, v in template_state.trainable.items():
         if k in trainable_file:
@@ -175,6 +191,20 @@ def restore_train_state(path: Path, template_state: TrainState) -> TrainState:
             loaded += 1
     logger.info(f"Restored {loaded}/{len(template_state.trainable)} trainable params "
                 f"({len(trainable_file)} tensors on disk)")
+    ema = template_state.ema
+    if ema is not None and ema_file is not None:
+        shadow = ema_file["shadow_params"]
+        missing = sorted(set(ema.shadow) - set(shadow))
+        if missing:
+            raise ValueError(f"{path}: the EMA shadow lacks {len(missing)} keys, e.g. "
+                             f"{missing[0]}")
+        for k, v in ema.shadow.items():
+            v.copy_(shadow[k].to(v.dtype))
+        ema = dataclasses.replace(ema, num_updates=int(ema_file["num_updates"]),
+                                  decay=float(ema_file["decay"]))
+        logger.info(f"Restored the EMA shadow ({len(shadow)} tensors, "
+                    f"{ema.num_updates} updates)")
+    template_state = template_state._replace(ema=ema)
 
     side = sidecar_path(path)
     if not side.exists():
@@ -233,11 +263,11 @@ class CheckpointManager:
         return re.sub(r"\{([\w.]+)(:[^}]*)?\}", repl, self.filename)
 
     def save(self, state: TrainState, frozen: dict, metrics: dict,
-             loop_state: Optional[dict] = None) -> Path:
+             loop_state: Optional[dict] = None, extra_meta: Optional[dict] = None) -> Path:
         """Write the checkpoint, then prune to ``save_top_k`` by ``monitor``
         (rank 0 only)."""
         path = self.run_dir / (self._format_name(metrics) + ".safetensors")
-        save_checkpoint(path, state, frozen, loop_state=loop_state)
+        save_checkpoint(path, state, frozen, loop_state=loop_state, extra_meta=extra_meta)
         if not is_main_process():
             return path
         logger.info(f"Saved checkpoint {path}")

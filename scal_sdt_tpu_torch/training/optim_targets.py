@@ -1,11 +1,12 @@
 """Declarative optim-target resolution over flat parameter names (port of
-``scal_sdt_tpu/training/optim_targets.py`` minus LoRA injection).
+``scal_sdt_tpu/training/optim_targets.py``).
 
 A ``targets:`` spec (the original trainer's ``{index, targets, recurse_conf}``
 schema) resolves against the dotted keys of the flat param dict: "submodule"
-is "key prefix". The result is the trainable keys and ordered param groups
-with optimizer overrides. Specs that ask for LoRA factors are refused until
-LoRA is ported.
+is "key prefix". The result is the trainable keys, ordered param groups with
+optimizer overrides, and the LoRA specs of the modules a ``lora:`` node
+names: such a module trains its ``lora_A`` / ``lora_B`` factors (injected by
+``training/lora.py``), one group per module.
 """
 
 from __future__ import annotations
@@ -19,6 +20,13 @@ from ..conf import Config, merge
 COMPONENT_PREFIX = {"unet": "unet", "text_encoder": "condition_model.encoder"}
 
 
+@dataclasses.dataclass(frozen=True)
+class LoRASpec:
+    rank: int = 4
+    alpha: float = 1.0
+    dropout: float = 0.0
+
+
 @dataclasses.dataclass
 class ParamGroup:
     """One optimizer group: trainable keys + optimizer kwarg overrides."""
@@ -30,6 +38,7 @@ class ParamGroup:
 class TargetResolution:
     trainable: list[str]
     groups: list[ParamGroup]
+    lora: dict[str, LoRASpec] = dataclasses.field(default_factory=dict)  # module path -> spec
 
 
 def _children(param_keys: list[str], prefix: str) -> list[str]:
@@ -60,11 +69,18 @@ def resolve_targets(component_targets: list, param_keys: Iterable[str]) -> Targe
     result = TargetResolution(trainable=[], groups=[])
 
     def leaf(prefix: str, node_config: Config):
-        if node_config.get("lora") is not None:
-            raise NotImplementedError(f"LoRA target {prefix}: the port does not run LoRA yet")
-        keys = _module_param_keys(param_keys, prefix)
-        if not keys:
-            raise KeyError(f"Optim target {prefix} matches no parameters")
+        lora = node_config.get("lora")
+        if lora is not None:
+            if f"{prefix}.weight" not in param_keys:
+                raise KeyError(f"LoRA target {prefix} has no weight parameter")
+            result.lora[prefix] = LoRASpec(rank=int(lora.get("rank", 4)),
+                                           alpha=float(lora.get("alpha", 1)),
+                                           dropout=float(lora.get("dropout", 0.0)))
+            keys = [f"{prefix}.lora_A", f"{prefix}.lora_B"]
+        else:
+            keys = _module_param_keys(param_keys, prefix)
+            if not keys:
+                raise KeyError(f"Optim target {prefix} matches no parameters")
         result.trainable.extend(keys)
         result.groups.append(ParamGroup(keys=keys,
                                         optimizer=dict(node_config.get("optimizer", {}))))

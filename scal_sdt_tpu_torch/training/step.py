@@ -17,12 +17,22 @@ the JAX dither. The masters are updated in place, as the JAX step donates
 them. ``apply_updates`` is that apply as a plain chain over the updates of
 ``tx.update``.
 
+With ``ema_enabled`` the step then updates the EMA shadow of the ``unet.*``
+masters (``training/ema.py``), one launch per param group, on every call:
+under gradient accumulation the micro-steps that emit no update count too,
+as in the JAX step.
+
 The JAX step draws from ``fold_in(rng, step)``; torch cannot reproduce that
 stream, so the port draws from an explicit ``torch.Generator`` and accepts
 the draws from the caller instead (``Draws``), which is how the tests feed
-both the same numbers. The generator's order: the latent noise (after the
+both the same numbers. The generator's order: the LoRA dropout's base seed
+(only while a LoRA dropout rate is set), the latent noise (after the
 encode), the CFG-dropout scalar, then noise, timesteps, offset and octaves.
-The SDXL and SD3 branches, LoRA dropout and the EMA are later slices.
+Each LoRA layer draws its dropout mask from a generator of its own seeded
+from the base seed and its name (``models/functional.py`` ``LoRADropout``),
+so the recompute of a checkpointed block draws the same mask; UNet and CLIP
+share the base seed, as they share JAX's ``rng_lora``. The SDXL and SD3
+branches are later slices.
 """
 
 from __future__ import annotations
@@ -36,10 +46,11 @@ import torch.nn.functional as F
 from ..conf import Config
 from ..diffusion.schedule import NoiseSchedule
 from ..models.clip import CLIPTextConfig, clip_text_apply
-from ..models.functional import Params, scaled
+from ..models.functional import LORA_DROPOUT, LoRADropout, Params, lora_dropout_rates, scaled
 from ..models.unet import UNetConfig, unet_apply
 from ..models.vae import VAEConfig, encoder_apply, latent_noise, sample_latents
 from ..ops.sr import MASTER_SALT, apply_update_reference, leaf_salt
+from .ema import EMAState, ema_init, ema_update
 from .optim_targets import COMPONENT_PREFIX
 
 UNET_PREFIX = COMPONENT_PREFIX["unet"]
@@ -53,6 +64,7 @@ class TrainState(NamedTuple):
     trainable: Params             # prefixed flat dict (masters)
     opt_state: object
     generator: torch.Generator    # draws noise and timesteps, on the params' device
+    ema: Optional[EMAState] = None  # over the trainable unet.* masters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +136,9 @@ class Draws:
     octaves: tuple[torch.Tensor, ...] = ()   # multires octaves, coarsest last
     latent_noise: Optional[torch.Tensor] = None  # (B, C, h, w), with 'images'
     uncond_u: Optional[torch.Tensor] = None  # 0-dim uniform, with uncond on
+    # LoRA dropout (while a rate is set): per-layer keep masks in each layer
+    # input's layout, by component-relative layer name
+    lora_masks: Optional[dict[str, torch.Tensor]] = None
 
 
 def _octave_sizes(h: int, w: int, iterations: int) -> list[tuple[int, int]]:
@@ -195,14 +210,31 @@ def _encode_latents(trainable: Params, frozen: Params, images: torch.Tensor,
                           spec.vae_config.shift_factor), noise
 
 
+def lora_dropout(generator: Optional[torch.Generator], draws: Optional[Draws]
+                 ) -> Optional[LoRADropout]:
+    """The step's LoRA dropout (None while no rate is set): the masks of
+    ``draws``, else a base seed drawn from ``generator``."""
+    if not lora_dropout_rates():
+        return None
+    if draws is not None:
+        if draws.lora_masks is None:
+            raise ValueError("LoRA dropout is on: the draws need lora_masks")
+        return LoRADropout(masks=draws.lora_masks)
+    seed = torch.randint(0, 1 << 62, (), generator=generator, device=generator.device)
+    return LoRADropout(int(seed))
+
+
 def _encode_conds(trainable: Params, frozen: Params, batch: dict, spec: StepSpec,
-                  uncond_u: Optional[torch.Tensor]) -> torch.Tensor:
+                  uncond_u: Optional[torch.Tensor],
+                  dropout: Optional[LoRADropout] = None) -> torch.Tensor:
     """CLIP conditionings of ``input_ids`` with CFG dropout: when
     ``uncond_u < p`` the whole batch is dropped, to the empty prompt's ids
     ('eos') or to zero conds ('zeros')."""
     if spec.clip_config is None:
         raise ValueError("a batch of input_ids needs StepSpec.clip_config")
     te_params = _merged_component(trainable, frozen, TE_PREFIX, spec.compute_dtype)
+    if dropout is not None:
+        te_params[LORA_DROPOUT] = dropout
     input_ids = batch["input_ids"]
     drop = uncond_u < spec.uncond_p if spec.uncond_enabled else None
     if drop is not None and spec.uncond_mode == "eos":
@@ -224,6 +256,7 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
     ``draws`` replaces the generator's draws when given."""
     dt = spec.compute_dtype
     latent_noise_ = uncond_u = None
+    dropout = lora_dropout(generator, draws)
     if "latents" in batch:
         latents = batch["latents"].to(dt)
     else:
@@ -236,7 +269,7 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
     if "conds" in batch:
         conds = batch["conds"].to(dt)
     else:
-        conds = _encode_conds(trainable, frozen, batch, spec, uncond_u)
+        conds = _encode_conds(trainable, frozen, batch, spec, uncond_u, dropout)
     if draws is None:
         draws = draw(generator, spec, latents, latent_noise_, uncond_u)
 
@@ -250,6 +283,8 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
     noisy = spec.schedule.add_noise(latents, noise, timesteps)
 
     unet_params = _merged_component(trainable, frozen, UNET_PREFIX, dt)
+    if dropout is not None:
+        unet_params[LORA_DROPOUT] = dropout
     pred = unet_apply(unet_params, noisy, timesteps, conds, spec.unet_config, remat=spec.remat)
 
     target = spec.schedule.training_target(latents, noise, timesteps)
@@ -280,7 +315,8 @@ def loss_and_grads(spec: StepSpec, trainable: Params, frozen: Params, batch: dic
                    ) -> tuple[torch.Tensor, Params]:
     """(loss, gradients) with gradients taken w.r.t. a compute-dtype copy of
     the trainable dict, so they come out in the compute dtype (bf16), as in
-    the JAX step."""
+    the JAX step. A trainable the loss does not reach (the LoRA factors of a
+    CLIP layer that CLIP-skip drops) gets zeros, as ``jax.grad`` gives it."""
     dt = spec.compute_dtype
     use_compute = dt != torch.float32
     compute = {k: (v.detach().to(dt) if use_compute and v.is_floating_point()
@@ -288,36 +324,57 @@ def loss_and_grads(spec: StepSpec, trainable: Params, frozen: Params, batch: dic
                for k, v in trainable.items()}
     loss, _ = compute_loss(compute, frozen, batch, generator, spec, draws)
     keys = list(compute)
-    grads = torch.autograd.grad(loss, [compute[k] for k in keys])
-    return loss.detach(), dict(zip(keys, grads))
+    grads = torch.autograd.grad(loss, [compute[k] for k in keys], allow_unused=True)
+    return loss.detach(), {k: g if g is not None else torch.zeros_like(compute[k])
+                           for k, g in zip(keys, grads)}
+
+
+def _group_keys(tx) -> dict[str, list[str]]:
+    """label -> the keys of its param group, from the optimizer's labels."""
+    labels = tx.labels if hasattr(tx, "labels") else tx.inner.labels
+    groups: dict[str, list[str]] = {}
+    for k in sorted(labels):
+        groups.setdefault(labels[k], []).append(k)
+    return groups
 
 
 def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
                     ema_enabled: bool = False):
     """Build ``train_step(state, frozen, batch, draws=None) -> (state, metrics)``:
     ``loss_and_grads``, then ``tx.update_and_apply``, which updates the
-    masters of ``state.trainable`` in place."""
-    if ema_enabled:
-        raise NotImplementedError("EMA: the port does not run ema_update yet")
+    masters of ``state.trainable`` in place, then (``ema_enabled``) the EMA
+    of the new masters, its shadows updated in place."""
+    groups = _group_keys(tx) if ema_enabled else None
 
     def train_step(state: TrainState, frozen: Params, batch: dict,
                    draws: Optional[Draws] = None):
         loss, grads = loss_and_grads(spec, state.trainable, frozen, batch, state.generator,
                                      draws)
+        ema = state.ema
         with torch.no_grad():
             opt_state = tx.update_and_apply(grads, state.opt_state, state.trainable, state.step)
             del grads
+            if ema_enabled:
+                if ema is None:
+                    raise ValueError("EMA is on but the train state holds none "
+                                     "(init_train_state(ema_enabled=True))")
+                ema = ema_update(ema, state.trainable, state.step, groups)
         metrics = {"train_loss": loss, "lr": lr_fn(state.step)}
-        return TrainState(state.step + 1, state.trainable, opt_state, state.generator), metrics
+        return state._replace(step=state.step + 1, opt_state=opt_state, ema=ema), metrics
 
     return train_step
 
 
-def init_train_state(trainable: Params, tx, seed: int = 0,
-                     ema_enabled: bool = False) -> TrainState:
-    """Step 0, optimizer state, and a generator seeded on the params' device."""
-    if ema_enabled:
-        raise NotImplementedError("EMA: the port does not run ema_update yet")
+def init_train_state(trainable: Params, tx, seed: int = 0, ema_enabled: bool = False,
+                     ema_decay: float = 0.995,
+                     ema_dtype: torch.dtype = torch.float32) -> TrainState:
+    """Step 0, optimizer state, a generator seeded on the params' device, and
+    (``ema_enabled``) an EMA shadow of the ``unet.*`` masters in
+    ``ema_dtype``."""
     device = next(iter(trainable.values())).device
+    ema = None
+    if ema_enabled:
+        ema = ema_init({k: v for k, v in trainable.items() if k.startswith(UNET_PREFIX + ".")},
+                       ema_decay, ema_dtype)
     return TrainState(step=0, trainable=trainable, opt_state=tx.init(trainable),
-                      generator=torch.Generator(device=device).manual_seed(seed))
+                      generator=torch.Generator(device=device).manual_seed(seed), ema=ema)

@@ -1,24 +1,28 @@
 """The training loop (port of ``scal_sdt_tpu/training/trainer.py``).
 
-``Trainer`` owns a run: it loads the models, resolves the tokenizer and the
-optim target, splits the parameters into trainable masters (fp32, or bf16
-under ``optimizer.master_dtype: bf16``) and frozen weights (bf16 under bf16
-compute unless ``trainer.frozen_dtype: fp32``) on its device, builds the
-data pipeline, the per-group optimizer (with gradient accumulation) and the
-train step, and runs the epoch loop with logging, checkpoints, mid-epoch
-resume, the NaN tripwire, the SIGTERM autosave and the profiler.
+``Trainer`` owns a run: it loads the models, resolves the tokenizer, installs
+custom embeddings, resolves the optim target, injects LoRA factors (with
+their dropout rates) and textual-inversion rows, splits the parameters into
+trainable masters (fp32, or bf16 under ``optimizer.master_dtype: bf16``) and
+frozen weights (bf16 under bf16 compute unless ``trainer.frozen_dtype:
+fp32``) on its device, builds the data pipeline, the per-group optimizer
+(with gradient accumulation; textual inversion in its own ``ti`` group) and
+the train step (with the EMA), and runs the epoch loop with logging,
+checkpoints, mid-epoch resume, the NaN tripwire, the SIGTERM autosave and
+the profiler.
 
 What the port has no counterpart for yet is refused when the trainer is
-built, naming its ROADMAP item (``refuse_later_slices``): EMA, LoRA, textual
-inversion and custom embeddings (1.12), in-training sampling (1.13), SDXL
-and SD3 models (1.15, 1.16; the loader refuses their layouts) and more than
-one device (1.17). The trainer keys of the JAX package that steer XLA
+built, naming its ROADMAP item (``refuse_later_slices``): in-training
+sampling (1.13), SDXL and SD3 models (1.15, 1.16; the loader refuses their
+layouts, the optim-target resolution a ``text_encoder_2`` section) and more
+than one device (1.17). The trainer keys of the JAX package that steer XLA
 (compile caches, bucket warm-up, buffer donation, slab packing) are accepted
 and do nothing in eager PyTorch; the trainer says so once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -34,10 +38,14 @@ import torch
 from ..conf import Config, load_optim_target
 from ..data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
 from ..device import resolve_device
+from ..models.functional import set_lora_dropout_rates
 from ..ops import attention as attention_ops
+from ..text.embeddings import TOKEN_EMBEDDING_KEY, install_custom_embeddings, load_embeddings_dir
+from ..text.ti import TRAINED_EXTRA_KEY, parse_ti_specs, setup_ti_training
 from ..text.tokenizer import resolve_tokenizer
 from ..utils.logging import is_main_process, world_size
 from .checkpoint import CheckpointManager, load_loop_state, restore_train_state
+from .lora import init_lora_params
 from .optim_targets import COMPONENT_PREFIX, group_labels, resolve_optim_target
 from .optimizers import build_optimizer
 from .step import (TE_PREFIX, UNET_PREFIX, VAE_PREFIX, Draws, StepSpec, init_train_state,
@@ -51,30 +59,12 @@ INERT_TRAINER_KEYS = ("compilation_cache", "compilation_cache_dir", "aot_bucket_
 _BF16_NAMES = ("16", "bf16", "bfloat16")
 
 
-def _mentions(node, key: str) -> bool:
-    """Whether a nested config holds ``key`` with a value anywhere."""
-    if isinstance(node, dict):
-        return any((k == key and v is not None) or _mentions(v, key) for k, v in node.items())
-    if isinstance(node, list):
-        return any(_mentions(v, key) for v in node)
-    return False
-
-
 def refuse_later_slices(config: Config) -> None:
     """Raise for a config that needs a part of the trainer the port does not
     have yet, naming the ROADMAP item that brings it."""
     def refuse(what: str, item: str):
         raise NotImplementedError(f"{what}: not ported yet (ROADMAP {item})")
 
-    if (config.get("ema") or {}).get("enabled", False):
-        refuse("ema.enabled", "1.12")
-    embeddings = config.get("custom_embeddings") or {}
-    if embeddings.get("enabled", False):
-        refuse("custom_embeddings", "1.12")
-    if (embeddings.get("train") or {}).get("enabled", False):
-        refuse("custom_embeddings.train (textual inversion)", "1.12")
-    if _mentions(load_optim_target(config.optim_target), "lora"):
-        refuse(f"LoRA in optim target {config.optim_target!r}", "1.12")
     if (config.get("sampling") or {}).get("concepts"):
         refuse("sampling.concepts (in-training sampling)", "1.13")
     mesh = config.trainer.get("mesh") or {}
@@ -122,13 +112,49 @@ class Trainer:
         # off; here it keeps every call off the splash kernels
         attention_ops.FORCE_MATH = not bool(config.get("xformers", True))
 
+        # -- custom embeddings: extra frozen rows of the token table ------------
+        models = dataclasses.replace(models, clip=dict(models.clip))
+        embeddings = config.get("custom_embeddings") or {}
+        if embeddings.get("enabled", False):
+            embs = load_embeddings_dir(embeddings.path)
+            logger.info(f"Loaded {len(embs)} custom embeddings")
+            models.clip = install_custom_embeddings(models.clip, self.tokenizer, embs)
+            models.clip_config = dataclasses.replace(
+                models.clip_config, vocab_size=models.clip[TOKEN_EMBEDDING_KEY].shape[0])
+        self.models = models
+
         self.resolutions = resolve_optim_target(load_optim_target(config.optim_target),
                                                 models.unet.keys(), models.clip.keys())
         self.train_text_encoder = bool(self.resolutions["text_encoder"].trainable)
 
+        # -- LoRA factors, drawn path by path from one CPU generator ---------------
+        seed_gen = torch.Generator().manual_seed(seed)
+        components = {"unet": dict(models.unet), "text_encoder": models.clip}
+        for comp, res in self.resolutions.items():
+            if res.lora:
+                components[comp].update(init_lora_params(seed_gen, components[comp], res.lora))
+                logger.info(f"Injected {len(res.lora)} LoRA modules into {comp}")
+        dropout = {path: spec.dropout for res in self.resolutions.values()
+                   for path, spec in res.lora.items() if spec.dropout}
+        set_lora_dropout_rates(dropout)
+        if dropout:
+            logger.info(f"LoRA dropout active on {len(dropout)} modules")
+
+        # -- textual-inversion training: its own trainable rows ---------------------
+        self.ti_meta = None
+        ti_conf = embeddings.get("train") or {}
+        if ti_conf.get("enabled", False):
+            if config.data.get("cache"):
+                raise ValueError("custom_embeddings.train requires live text encoding; it "
+                                 "cannot train from a precomputed condition cache")
+            components["text_encoder"], self.ti_meta = setup_ti_training(
+                components["text_encoder"], self.tokenizer, parse_ti_specs(ti_conf), seed=seed)
+
         # -- trainable / frozen partition, on the device -----------------------
         trainable_keys = {f"{COMPONENT_PREFIX[comp]}.{k}"
                           for comp, res in self.resolutions.items() for k in res.trainable}
+        if self.ti_meta:
+            trainable_keys.add(f"{TE_PREFIX}.{TRAINED_EXTRA_KEY}")
         master_bf16 = str(config.optimizer.get("master_dtype", "fp32")) in ("bf16", "bfloat16")
         compute_bf16 = str(config.trainer.get("precision", "bf16")) in _BF16_NAMES
         # frozen weights are cast to the compute dtype at every use, so bf16
@@ -139,7 +165,8 @@ class Trainer:
                   else torch.float32}
         trainable: dict = {}
         frozen: dict = {}
-        for k, v in {**_prefixed(models.unet, UNET_PREFIX), **_prefixed(models.clip, TE_PREFIX),
+        for k, v in {**_prefixed(components["unet"], UNET_PREFIX),
+                     **_prefixed(components["text_encoder"], TE_PREFIX),
                      **_prefixed(models.vae, VAE_PREFIX)}.items():
             is_trainable = k in trainable_keys
             dtype = dtypes[is_trainable] if v.is_floating_point() else v.dtype
@@ -162,13 +189,23 @@ class Trainer:
         labels = group_labels(self.resolutions)
         groups = [group for res in self.resolutions.values() for group in res.groups]
         overrides = {f"g{i}": group.optimizer for i, group in enumerate(groups)}
+        if self.ti_meta:
+            # its own group: a much higher lr than fine-tuning, no weight decay
+            labels[f"{TE_PREFIX}.{TRAINED_EXTRA_KEY}"] = "ti"
+            overrides["ti"] = {"lr": float(ti_conf.get("lr", 5e-3)), "weight_decay": 0.0}
         self.tx, self.lr_fn = build_optimizer(config, labels, overrides, self.steps_per_epoch, 1)
         self.spec = StepSpec.from_config(config, models.unet_config, models.schedule,
                                          vae_config=models.vae_config,
                                          clip_config=models.clip_config,
                                          train_text_encoder=self.train_text_encoder)
-        self.train_step = make_train_step(self.spec, self.tx, self.lr_fn)
-        self.state = init_train_state(trainable, self.tx, seed=seed)
+        ema = config.get("ema") or {}
+        ema_enabled = bool(ema.get("enabled", False))
+        self.train_step = make_train_step(self.spec, self.tx, self.lr_fn, ema_enabled)
+        self.state = init_train_state(
+            trainable, self.tx, seed=seed, ema_enabled=ema_enabled,
+            ema_decay=float(ema.get("decay", 0.995)),
+            ema_dtype=(torch.bfloat16 if str(ema.get("dtype", "fp32")) in ("bf16", "bfloat16")
+                       else torch.float32))
         del trainable
 
         self.ckpt = CheckpointManager(self.run_dir, config.checkpoint)
@@ -340,7 +377,8 @@ class Trainer:
     def _save(self, epoch: int, metrics: dict) -> None:
         self.ckpt.save(self.state, self.frozen, {"epoch": epoch, "step": self.global_step,
                                                  **metrics},
-                       loop_state={"epoch": epoch, "batch_in_epoch": self.batch_in_epoch})
+                       loop_state={"epoch": epoch, "batch_in_epoch": self.batch_in_epoch},
+                       extra_meta={"ti_tokens": self.ti_meta} if self.ti_meta else None)
 
     def natural_trainable(self) -> dict:
         """The trainable masters under their natural names (the port packs

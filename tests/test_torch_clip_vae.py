@@ -94,12 +94,20 @@ def test_eos_positions_match_jax(eos):
 
 
 def test_clip_refuses_textual_inversion_rows():
+    """Textual-inversion rows were refused until the port trained them; now
+    ``trained_extra`` extends the table: an id past it reads those rows (as
+    in JAX; tests/test_torch_ti.py holds the encoder against JAX's). The
+    name dates from the refusal and is kept, so that the test's ID stays the
+    same."""
     params = params_from_jax(rand_unet_params(
         jclip.clip_param_shapes(jclip.CLIPTextConfig.tiny())), device="cpu")
-    params[tclip.TRAINED_EXTRA] = torch.zeros(2, 32)
-    with pytest.raises(NotImplementedError, match="trained_extra"):
-        tclip.clip_text_apply(params, torch.zeros(1, 77, dtype=torch.long),
-                              tclip.CLIPTextConfig.tiny())
+    cfg = tclip.CLIPTextConfig.tiny()
+    ids = torch.zeros(1, 77, dtype=torch.long)
+    base = tclip.clip_text_apply(params, ids, cfg)
+    params[tclip.TRAINED_EXTRA] = torch.ones(2, 32)
+    assert torch.equal(tclip.clip_text_apply(params, ids, cfg), base)
+    ids[0, 3] = cfg.vocab_size + 1
+    assert not torch.equal(tclip.clip_text_apply(params, ids, cfg), base)
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,8 @@ splash attention (end to end, and the dq kernel alone), the fused Adam
 update and the int8 Adam update, each in its single-leaf update-only form
 and its grouped form (Adam, decay, schedule and master apply over a leaf
 table in one launch; with bf16 gradients, and with the fp32 gradients of
-gradient accumulation); and the attention gate: `FORCE_MATH` keeps a
+gradient accumulation); the grouped EMA update (ema_fused); and the
+attention gate: `FORCE_MATH` keeps a
 full-width UNet off the splash kernels.
 
 Skips without a CUDA card. Imports no JAX, so it also runs where JAX is not
@@ -18,6 +19,7 @@ import torch
 
 from scal_sdt_tpu_torch.ops import adam8_fused as A8
 from scal_sdt_tpu_torch.ops import adam_bf16_fused as AF
+from scal_sdt_tpu_torch.ops import ema_fused as EF
 from scal_sdt_tpu_torch.ops import splash as S
 
 
@@ -275,6 +277,38 @@ def _adam_bf16_group_case(m_dt, p_dt, form, wd, g_dt):
             assert torch.equal(a, b), f"{what} {k}: two launches differ"
             assert torch.equal(a, c), f"{what} {k}"
         assert not torch.equal(got.params[i], params[i]) or GROUP_SIZES[i] < 8, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dt", [torch.bfloat16, torch.float32], ids=["bf16_master", "fp32_master"])
+@pytest.mark.parametrize("s_dt", [torch.bfloat16, torch.float32], ids=["bf16_shadow", "fp32_shadow"])
+def test_ema_group_matches_reference_on_cuda(s_dt, p_dt):
+    """The grouped EMA update (one launch over a ragged leaf set, views off
+    16 bytes) against its plain version leaf by leaf: shadows bit for bit,
+    a bf16 shadow under either dither rule (low half of the master store's
+    hash for bf16 masters, high half of its own otherwise); a second launch
+    from the same state gives the same bits."""
+    _need_card()
+    r = np.random.RandomState(4)
+    keys = [f"unet.l{i}.weight" for i in range(len(GROUP_SIZES))]
+    shadows = _views(GROUP_SIZES, s_dt, _offsets(3), r)
+    masters = _views(GROUP_SIZES, p_dt, _offsets(5), r)
+    one_minus = float(np.float32(1) - np.float32(0.995))
+    results = []
+    for _ in range(2):
+        t = EF.build_ema_table(keys, _copies(shadows), masters)
+        before = EF.launches["ema_fused"]
+        EF.ema_fused_apply(t, one_minus, 11)
+        assert EF.launches["ema_fused"] == before + 1
+        results.append(t)
+    want = EF.build_ema_table(keys, _copies(shadows), masters)
+    EF.ema_fused_apply_reference(want, one_minus, 11)
+    torch.cuda.synchronize()
+    got, again = results
+    for i, k in enumerate(keys):
+        assert torch.equal(got.shadows[i], again.shadows[i]), f"{k}: two launches differ"
+        assert torch.equal(got.shadows[i], want.shadows[i]), k
+        assert not torch.equal(got.shadows[i], shadows[i]) or GROUP_SIZES[i] < 8, k
 
 
 @pytest.mark.cuda

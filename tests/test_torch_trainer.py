@@ -20,7 +20,7 @@
   trainer moves the masters on emit steps only.
 * Behaviour: the NaN tripwire, the SIGTERM autosave, SSDT_STEP_TIMINGS and
   the profiler trace, the ``xformers`` switch, the configs that need later
-  slices.
+  slices (and those of item 1.12, which build now).
 * The CLI with ``--device cpu``: run dir and ``config.yaml`` snapshot, the
   usage and config errors, ``--resume`` from the snapshot.
 """
@@ -419,10 +419,12 @@ def _sdxl_dir(tmp_path, tiny_run, sub):
 
 
 LATER_SLICES = {
-    "ema": ({"ema": {"enabled": True}}, "1.12"),
-    "lora": ({"optim_target": "lora"}, "1.12"),
-    "custom_embeddings": ({"custom_embeddings": {"enabled": True}}, "1.12"),
-    "textual_inversion": ({"custom_embeddings": {"train": {"enabled": True}}}, "1.12"),
+    # item 1.12 is ported: these build now (TI from a cache raises as in JAX)
+    "ema": ({"ema": {"enabled": True}}, None),
+    "lora": ({"optim_target": "lora_no-te"}, None),
+    "custom_embeddings": ({"custom_embeddings": {"enabled": True}}, None),
+    "textual_inversion": ({"custom_embeddings": {"train": {
+        "enabled": True, "tokens": [{"keyword": "my-cat"}]}}}, "live text encoding"),
     "sampling": ({"sampling": {"concepts": [{"prompt": "a cat"}], "interval_steps": 1}},
                  "1.13"),
     "sdxl": ("sdxl", "1.15"),
@@ -434,12 +436,27 @@ LATER_SLICES = {
 
 @pytest.mark.parametrize("case", list(LATER_SLICES))
 def test_later_slice_configs_raise(tiny_run, tmp_path, monkeypatch, case):
+    """Configs that need a later slice raise naming its ROADMAP item; those of
+    item 1.12 (EMA, LoRA, custom embeddings) build, and textual inversion
+    from a condition cache raises as the JAX trainer does."""
     overrides, item = LATER_SLICES[case]
     if case == "world_size":
         monkeypatch.setenv("WORLD_SIZE", "2")
+    if case == "custom_embeddings":
+        (tmp_path / "emb").mkdir()
+        overrides = {"custom_embeddings": {"enabled": True, "path": str(tmp_path / "emb")}}
     if isinstance(overrides, str):
         overrides = {"model": _sdxl_dir(tmp_path, tiny_run, overrides)}
     cfg = _cached_config(tiny_run, **overrides)
+    if item is None:
+        trainer = TTrainer(cfg, tmp_path / "run", device="cpu")
+        assert (trainer.state.ema is not None) == (case == "ema")
+        assert any(k.endswith(".lora_A") for k in trainer.state.trainable) == (case == "lora")
+        return
+    if case == "textual_inversion":
+        with pytest.raises(ValueError, match=item):
+            TTrainer(cfg, tmp_path / "run", device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         TTrainer(cfg, tmp_path / "run", device="cpu")
 
