@@ -117,15 +117,18 @@ Phases (any failure raises and the script exits non-zero):
 11. lora   -- the port's configs/lora.yaml (UNet and CLIP LoRA, rank 16, remat,
               ARB, batch 4) through the train CLI on the trainer phase's
               diffusers directory and the uncached phase's PNGs (720x576 and
-              576x720: non-square buckets), sampling.concepts empty (not
-              ported): 6 steps with a mid-epoch checkpoint at step 4, a run
-              resumed from it that must end on the same checkpoint bytes,
-              then 2 steps with LoRA dropout 0.1 and a bf16 EMA shadow. Each
-              step's splash launches must match the gate at its bucket's
-              lengths (forward twice under remat), adam_bf16_fused one launch
-              per LoRA module, ema_fused one per UNet module. Prints steps/s
-              (steps over the wall time between their logs, the first step
-              and the one after a checkpoint write left out), buckets,
+              576x720: non-square buckets), with the file's in-training
+              sampling cut to every 4 steps and 2 images: 6 steps with a
+              mid-epoch checkpoint at step 4 (sampled just before it: PNGs in
+              samples/4/), a run resumed from it that must end on the same
+              checkpoint bytes, then 2 steps with LoRA dropout 0.1 and a bf16
+              EMA shadow. Each step's splash launches must match the gate at
+              its bucket's lengths (forward twice under remat; the sampled
+              images' forwards on top), adam_bf16_fused one launch per LoRA
+              module, ema_fused one per UNet module. Prints steps/s (steps
+              over the wall time between their logs, the first step and the
+              one after a checkpoint write and the sampling left out), the
+              sampling event's seconds, buckets,
               trainable counts, launches per step (the kernels line counts
               all three runs), checkpoint size, peak memory. Then the kernels
               in the lora phase's forms: each splash kernel at the attention
@@ -136,6 +139,35 @@ Phases (any failure raises and the script exits non-zero):
               updated masters (fp32 and bf16 shadows), bit for bit against
               their plain versions; one step's launches timed beside the
               bytes bound, torch._fused_adamw_ and torch._foreach_lerp_.
+12. sample -- the sample CLI (python -m scal_sdt_tpu_torch.cli.sample) on the
+              trainer phase's directory at the shipped concept's settings
+              (configs/dreambooth.yaml: its prompt and negative prompt, 28
+              steps, cfg 11, 512^2, seed 114514, CLIP-skip 2): after a
+              warm-up image, two images per method (ddim, euler, euler_a,
+              dpmpp_2m), one with guidance rescale 0.7, one img2img
+              (strength 0.75) and one at 704x512, each run's launches
+              counted alone: splash_fwd 10 per UNet call (280 per 512^2
+              image), no backward or optimizer kernel. The PNGs are valid
+              and decoded from finite latents; the first image made again
+              has the same PNG bytes. Then the DDIM loop with the kernels
+              against the plain attention path (ops/attention.FORCE_MATH)
+              from one noise: the latents after the first step within the
+              check phase's bound, the final latents within
+              SAMPLE_FINAL_TOL. Prints seconds per image, UNet calls per
+              second, launches per image, one UNet call's device and host ms
+              and CUDA operations (a torch.profiler trace), the VAE decode's
+              and CLIP's device ms, peak memory. splash_fwd is then held in
+              sampling's forms under inference mode: (2,8,4096,40),
+              (2,8,1024,80), (2,8,5632,40), (2,8,1408,80), timed beside its
+              bound, its plain version and SDPA's forward.
+13. dreambooth -- the port's configs/dreambooth.yaml on that directory, the
+              PNGs as instance images, cut to 4 class images and 4 steps:
+              the class-image CLI (python -m
+              scal_sdt_tpu_torch.cli.gen_class_imgs) writes 4 MD5-named
+              PNGs at 512^2 and, run again, none; the train CLI trains 4
+              steps with prior preservation (2 instance + 2 class images
+              per batch). Prints the class images' seconds each and the
+              steps/s.
 
 The optim phase also runs both grouped kernels with fp32 gradients, the mean
 that gradient accumulation hands them, at the same bounds.
@@ -167,19 +199,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scal_sdt_tpu_torch.cli import gen_class_imgs as gen_class_imgs_cli
+from scal_sdt_tpu_torch.cli import sample as sample_cli
 from scal_sdt_tpu_torch.cli import train as train_cli
 from scal_sdt_tpu_torch.cli.cache import assemble_cache, build_local_shard
 from scal_sdt_tpu_torch.conf import (CONFIGS_DIR, Config, default, load_optim_target,
                                      load_with_defaults, merge)
-from scal_sdt_tpu_torch.convert.loader import LoadedModels
+from scal_sdt_tpu_torch.convert.loader import LoadedModels, load_components
 from scal_sdt_tpu_torch.data.datasets import LatentCache
 from scal_sdt_tpu_torch.data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
+from scal_sdt_tpu_torch.diffusion import sampler
 from scal_sdt_tpu_torch.models.clip import (CLIPTextConfig, clip_param_shapes, clip_text_apply,
                                             init_clip_params)
 from scal_sdt_tpu_torch.models.unet import (UNetConfig, init_unet_params, unet_apply,
                                             unet_param_shapes)
-from scal_sdt_tpu_torch.models.vae import (VAEConfig, encoder_apply, init_vae_params,
-                                           sample_latents)
+from scal_sdt_tpu_torch.models.vae import (VAEConfig, decoder_apply, encoder_apply,
+                                           init_vae_params, sample_latents)
 from scal_sdt_tpu_torch.ops import _build, adam8_fused, adam_bf16_fused, attention, ema_fused, splash
 from scal_sdt_tpu_torch.text.bpe import CLIPBPETokenizer, bytes_to_unicode
 from scal_sdt_tpu_torch.training.checkpoint import CheckpointManager
@@ -189,6 +224,7 @@ from scal_sdt_tpu_torch.training.optim_targets import (COMPONENT_PREFIX, group_l
                                                        resolve_optim_target)
 from scal_sdt_tpu_torch.training.optimizers import AccumulationState, GradientAccumulation, build_optimizer
 from scal_sdt_tpu_torch.training.quantized import Adam8bit, bias_corrections
+from scal_sdt_tpu_torch.training.sample_callback import SampleCallback
 from scal_sdt_tpu_torch.training.step import (StepSpec, compute_loss, draw, init_train_state,
                                               make_train_step)
 from scal_sdt_tpu_torch.training.trainer import Trainer
@@ -250,7 +286,7 @@ KERNELS = {
 }
 SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
 PHASES = ("train", "train_int8", "uncached", "cache", "trainer", "ema",
-          "lora")   # the phases that train
+          "sample", "lora", "dreambooth")   # the phases that run a main path
 COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
 
@@ -1503,15 +1539,19 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
     steps with a checkpoint at LORA_SAVE_EVERY (mid-epoch) and at the end;
     run 2 resumes from the mid-epoch checkpoint and must end on run 1's final
     checkpoint and sidecar bit for bit. Run 3: LORA_EMA_STEPS steps with
-    dropout LORA_DROPOUT on every LoRA module and a bf16 EMA shadow. The cut:
-    sampling.concepts (in-training sampling, not ported)."""
+    dropout LORA_DROPOUT on every LoRA module and a bf16 EMA shadow. The
+    file's in-training sampling is on, cut to every LORA_SAMPLE_EVERY steps
+    and LORA_SAMPLES images: run 1 samples once, at its mid-epoch step,
+    before the checkpoint that run 2 resumes; the PNGs land in
+    samples/<step>/, and run 2 still ends on run 1's bytes."""
     runs, timings = workdir / "lora_runs", workdir / "lora_timings.jsonl"
     base = load_with_defaults(CONFIGS_DIR / "lora.yaml")
+    sample_concepts = [{**c, "num_samples": LORA_SAMPLES} for c in base.sampling.concepts]
     config = merge(base, Config({
         "model": str(model), "output_dir": str(runs), "project": "lora", "seed": seed,
         "num_workers": NUM_WORKERS,
         "data": {"concepts": [{"instance_set": {"path": str(images), "prompt": "{TXT_PROMPT}"}}]},
-        "sampling": {"concepts": []},
+        "sampling": {"interval_steps": LORA_SAMPLE_EVERY, "concepts": sample_concepts},
         "trainer": {"max_steps": LORA_STEPS, "log_every_n_steps": 1},
         "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
                        "every_n_train_steps": LORA_SAVE_EVERY, "monitor": None},
@@ -1532,10 +1572,11 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    def expect_splash(shapes, launches, what):
+    def expect_splash(shapes, launches, what, sampled=0):
         calls = sum(splash_calls(s, unet_config) for s in shapes)
-        # remat: the checkpointed blocks run their forward again in the backward
-        want = {"splash_fwd": 2 * calls, "splash_dq": calls, "splash_dkv": calls}
+        # remat: the checkpointed blocks run their forward again in the
+        # backward; each sampled image adds its UNet calls' forwards
+        want = {"splash_fwd": 2 * calls + sampled, "splash_dq": calls, "splash_dkv": calls}
         check(calls > 0 and all(launches[k] == v for k, v in want.items()),
               f"{what}: splash launches {launches}, expected {want} for shapes {shapes}")
         return calls
@@ -1545,7 +1586,8 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         run1 = TrainerProbe()
-        cli(["--config", str(cfg_path), "--run-id", "run1"], run1)
+        with CallbackProbe() as sampling:
+            cli(["--config", str(cfg_path), "--run-id", "run1"], run1)
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         shapes1 = step_shapes(timings)
@@ -1554,7 +1596,23 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
         check(all(math.isfinite(x) for x in run1.losses().values()), f"losses {run1.losses()}")
         check(len({tuple(s) for s in shapes1}) > 1 and all(s[1] != s[2] for s in shapes1),
               f"ARB buckets {shapes1}: expected non-square buckets of two orientations")
-        calls = expect_splash(shapes1, launches, "lora run 1")
+        sample_dir = runs / "lora" / "run1" / "samples"
+        events = LORA_STEPS // LORA_SAMPLE_EVERY
+        check([step for step, _ in sampling.events] ==
+              [LORA_SAMPLE_EVERY * (i + 1) for i in range(events)]
+              and sorted(p.name for p in sample_dir.iterdir()) ==
+              sorted(str(step) for step, _ in sampling.events),
+              f"lora run 1 sampled at {sampling.events}: {sorted(sample_dir.iterdir())}")
+        size = (int(sample_concepts[0]["width"]), int(sample_concepts[0]["height"]))
+        for step, _ in sampling.events:
+            pngs = sorted((sample_dir / str(step)).glob("*.png"))
+            check([p.name for p in pngs] == [f"0-{j}.png" for j in range(LORA_SAMPLES)],
+                  f"lora run 1 samples at step {step}: {pngs}")
+            for p in pngs:
+                png_pixels(p, size)
+        sampled = (events * LORA_SAMPLES * int(sample_concepts[0]["steps"])
+                   * splash_calls((2, size[1], size[0], 3), unet_config))
+        calls = expect_splash(shapes1, launches, "lora run 1", sampled)
         n_groups = sum(groups.values())
         check(launches["adam_bf16_fused"] == n_groups * LORA_STEPS and launches["ema_fused"] == 0
               and launches["adam8_fused"] == 0, f"lora run 1 launches {launches}")
@@ -1630,6 +1688,8 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
     splash_shapes = sorted({shape for b in shapes1 for shape, n in splash_levels(b, unet_config)
                             if n})
     return {"steps": LORA_STEPS, "groups": groups, "trainable_params": trainables,
+            "sampling": {"interval_steps": LORA_SAMPLE_EVERY, "num_samples": LORA_SAMPLES,
+                         "events_s": sampling.events, "splash_fwd": sampled},
             "bucket_shapes": shapes1, "splash_shapes": splash_shapes,
             "losses": [l1[s] for s in sorted(l1)],
             "resumed_losses": [l2[s] for s in sorted(l2)], "resume_bit_equal": True,
@@ -1641,7 +1701,9 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
             # every launch of the phase: runs 1, 2 (resumed) and 3
             "launches": {k: launches[k] + launches2[k] + launches3[k] for k in launches},
             "run1_launches": launches, "run2_launches": launches2,
-            "launches_per_step": {k: v / LORA_STEPS for k, v in launches.items()},
+            # training's launches per step (run 1's sampling event left out)
+            "launches_per_step": {k: (v - (sampled if k == "splash_fwd" else 0)) / LORA_STEPS
+                                  for k, v in launches.items()},
             "splash_calls_per_step": calls / LORA_STEPS,
             "ema_dropout": {"steps": LORA_EMA_STEPS, "dropout": LORA_DROPOUT,
                             "losses": [run3.losses()[s] for s in sorted(run3.losses())],
@@ -1778,6 +1840,385 @@ def lora_kernel_case(gen: torch.Generator) -> dict:
             # the same function for an fp32 shadow of fp32 masters
             "library_ms": device_ms(lambda: torch._foreach_lerp_(s32, m32, one_minus),
                                     iters=10, warmup=2)}
+    return res
+
+
+# -- sampling: the sample CLI, in-training sampling, DreamBooth class images ----------
+
+SAMPLE_METHODS = ("ddim", "euler", "euler_a", "dpmpp_2m")
+SAMPLING_SHAPES = [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 5632, 40), (2, 8, 1408, 80)]
+# final latents after the 28-step DDIM ladder, kernel path against the plain
+# attention path: relative L2 error, ||a - b|| / ||b|| (the bound stated before
+# the first run)
+SAMPLE_FINAL_TOL = 0.25
+ARB_SAMPLE_SIZE = (704, 512)              # (w, h): 88x64 latents, L = 5632 and 1408
+LORA_SAMPLE_EVERY, LORA_SAMPLES = 4, 2   # the lora phase's cut of lora.yaml's sampling
+DB_CLASS_IMAGES, DB_STEPS = 4, 4         # the dreambooth phase's cuts of dreambooth.yaml
+HOLD_CYCLES = 2_000_000_000             # ~1 s spin: a whole UNet call queues behind it
+
+
+class SampleProbe:
+    """What sampling runs do, read at the sampler module's functions while
+    the probe is open: for each ``sample_images`` call its host seconds (the
+    images come back to the host, so the device is done), its UNet calls,
+    and whether the latents the decoder took and its images were finite."""
+
+    def __init__(self):
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        self._real = (sampler.sample_images, sampler.unet_apply, sampler.decoder_apply)
+        images_fn, unet_fn, decoder_fn = self._real
+        probe, state = self, {}
+
+        def _sample_images(*args, **kwargs):
+            state.update(unet_calls=0, finite=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = images_fn(*args, **kwargs)
+            probe.calls.append({"s": time.perf_counter() - t0, "images": len(out), **state})
+            return out
+
+        def _unet(*args, **kwargs):
+            state["unet_calls"] += 1
+            return unet_fn(*args, **kwargs)
+
+        def _decoder(params, latents, config):
+            out = decoder_fn(params, latents, config)
+            state["finite"] &= bool(torch.isfinite(latents).all() and torch.isfinite(out).all())
+            return out
+
+        sampler.sample_images, sampler.unet_apply, sampler.decoder_apply = (
+            _sample_images, _unet, _decoder)
+        return self
+
+    def __exit__(self, *exc):
+        sampler.sample_images, sampler.unet_apply, sampler.decoder_apply = self._real
+
+
+def shipped_concept():
+    """configs/dreambooth.yaml's sampling concept (the prompt, negative
+    prompt, 28 steps, cfg 11, 512^2, seed 114514 of every shipped SD1.x
+    config), and its clip_stop_at_layer."""
+    cfg = load_with_defaults(CONFIGS_DIR / "dreambooth.yaml")
+    return cfg.sampling.concepts[0], int(cfg.clip_stop_at_layer)
+
+
+def png_pixels(path: Path, size: tuple[int, int]) -> np.ndarray:
+    """The pixels of a PNG the sampler wrote, checked to be a (w, h) RGB image."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        check(img.format == "PNG" and img.mode == "RGB" and img.size == size,
+              f"{path}: {img.format} {img.mode} {img.size}, expected an RGB PNG of {size}")
+        return np.asarray(img)
+
+
+def sampling_kernel_case(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
+    """splash_fwd in sampling's form (inference mode, the CFG pair's batch,
+    head-split views) against its plain version, at FWD_TOL; its time, its
+    plain version's and SDPA's forward, each queued behind a spin kernel,
+    beside the bound."""
+    b, h, l, d = shape
+    q, k, v = (head_views(shape, gen) for _ in range(3))
+    with torch.inference_mode():
+        qs = splash._prescale(q, d ** -0.5)
+        o, lse = splash.splash_fwd(qs, k, v)
+        o_ref, lse_ref = splash.splash_fwd_reference(qs, k, v)
+        err = max_abs(o, o_ref)
+        check(err <= FWD_TOL, f"splash_fwd (inference) disagrees at {shape}: {err}")
+        res = {"shape": list(shape), "err": err, "lse_err": max_abs(lse, lse_ref),
+               "ms": device_ms(lambda: splash.splash_fwd(qs, k, v)),
+               "plain_ms": device_ms(lambda: splash.splash_fwd_reference(qs, k, v), iters=3),
+               "sdpa_fwd_ms": device_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)),
+               "bound": list(bounds_ms(b, h, l, l, d, *rate)["splash_fwd"])}
+    del q, k, v, qs, o, lse, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def device_ops(fn) -> tuple[int, float]:
+    """(CUDA operations, their summed device ms) of one call of fn(), from a
+    torch.profiler trace after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+
+def sampling_check(model: Path, seed: int) -> dict:
+    """On the model directory's components in bf16: the DDIM loop at the
+    shipped concept's settings with the kernels, then with the attention
+    gate closed (ops/attention.FORCE_MATH), from one initial noise. The
+    latents after the first step (the second UNet call's input) within
+    CHECK_TOL of each other (relative max-abs, as the check phase), the final
+    latents within SAMPLE_FINAL_TOL (relative L2), both
+    finite; splash_fwd launches 10 per UNet call with the kernels, none
+    without. Then the device ms of one UNet call on the CFG pair (and its
+    host ms, issuing included), of the VAE decode of one 512^2 image and of
+    CLIP on the pair, and the CUDA operations of one UNet call."""
+    concept, clip_skip = shipped_concept()
+    models = load_components(merge(default(), Config({"model": str(model)})))
+    spec = sampler.SamplerSpec(unet_config=models.unet_config, vae_config=models.vae_config,
+                               clip_config=models.clip_config, schedule=models.schedule,
+                               clip_stop_at_layer=clip_skip)
+    unet, vae, clip = (sampler.cast_params(p, spec.dtype, DEVICE)
+                       for p in (models.unet, models.vae, models.clip))
+    del models
+    tokenizer = CLIPBPETokenizer.from_dir(model / "tokenizer")
+    steps, cfg_scale = int(concept.steps), float(concept.cfg_scale)
+    width, height = int(concept.width), int(concept.height)
+    f = 2 ** (len(spec.vae_config.block_out_channels) - 1)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    res: dict = {}
+    with torch.inference_mode():
+        ids = torch.from_numpy(np.asarray(tokenizer([concept.negative_prompt, concept.prompt]),
+                                          np.int64)).to(DEVICE)
+        context = clip_text_apply(clip, ids, spec.clip_config, clip_skip)
+        uncond, cond = context[:1], context[1:]
+        noise = torch.randn(1, spec.unet_config.in_channels, height // f, width // f,
+                            generator=gen, dtype=torch.bfloat16, device=DEVICE)
+
+        def ddim(force_math: bool):
+            inputs, real = [], sampler.unet_apply
+
+            def record(p, x, t, c, config, **kw):
+                inputs.append(x[:1].clone())
+                return real(p, x, t, c, config, **kw)
+
+            sampler.unet_apply, attention.FORCE_MATH = record, force_math
+            reset_launches()
+            try:
+                out = sampler.ddim_sample_latents(unet, cond, uncond, None, spec, steps,
+                                                  cfg_scale, height, width, 1,
+                                                  draws=sampler.SamplerDraws(noise=noise))
+            finally:
+                sampler.unet_apply, attention.FORCE_MATH = real, False
+            torch.cuda.synchronize()
+            return inputs[1], out, read_launches()["splash_fwd"]
+
+        k_first, k_final, k_launches = ddim(False)
+        p_first, p_final, p_launches = ddim(True)
+        check(all(bool(torch.isfinite(t).all()) for t in (k_first, k_final, p_first, p_final)),
+              "non-finite DDIM latents")
+        calls = splash_calls((2, height, width, 3), spec.unet_config)
+        check(k_launches == steps * calls and p_launches == 0,
+              f"splash_fwd launches {k_launches} (kernels), {p_launches} (plain)")
+        res["first_step_rel_err"] = rel_err(k_first, p_first)
+        res["final_rel_err"] = float((k_final.float() - p_final.float()).norm()
+                                     / p_final.float().norm())
+        res["final_rel_max_abs_err"] = rel_err(k_final, p_final)
+        check(res["first_step_rel_err"] <= CHECK_TOL,
+              f"first DDIM step, kernel path vs plain: {res['first_step_rel_err']}")
+        check(res["final_rel_err"] <= SAMPLE_FINAL_TOL,
+              f"final DDIM latents after {steps} steps, kernel path vs plain: "
+              f"{res['final_rel_err']}")
+
+        pair = torch.cat([noise, noise])
+        t = torch.full((2,), 500, device=DEVICE)
+        call = lambda: unet_apply(unet, pair, t, context, spec.unet_config)  # noqa: E731
+        res["unet_device_ms"] = device_ms(call, iters=5, warmup=1, hold_cycles=HOLD_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        res["unet_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        res["unet_ops"], res["unet_ops_device_ms"] = device_ops(call)
+        z = noise.float().div(spec.vae_config.scaling_factor).bfloat16()
+        res["vae_decode_ms"] = device_ms(lambda: decoder_apply(vae, z, spec.vae_config), iters=5,
+                                         warmup=1, hold_cycles=HOLD_CYCLES)
+        res["clip_ms"] = device_ms(
+            lambda: clip_text_apply(clip, ids, spec.clip_config, clip_skip), iters=10)
+    del unet, vae, clip
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sample_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
+    """The sample CLI on the trainer phase's SD1.5 directory at the shipped
+    concept's settings: a warm-up image, then two images with each method,
+    one with guidance rescale 0.7, one img2img (strength 0.75 from one of
+    the uncached phase's PNGs), one at 704x512, and the first DDIM image
+    again. Each run's launches are counted alone: splash_fwd 10 per UNet
+    call where the gate admits the lengths (at 704x512 as well: L = 5632 and
+    1408), no backward or optimizer kernel. The PNGs are valid, decoded from
+    finite latents, and the repeat's bytes equal the first's. Then
+    ``sampling_check``."""
+    concept, clip_skip = shipped_concept()
+    steps = int(concept.steps)
+    base = ["--model", str(model), "--prompt", concept.prompt, "--negative",
+            concept.negative_prompt, "--steps", str(steps), "--cfg", str(concept.cfg_scale),
+            "--seed", str(concept.seed), "--clip-skip", str(clip_skip), "--device", DEVICE]
+    # each method makes two images (seeds s and s + 1), whose times are both
+    # kept: the host-bound loop's time moves from call to call
+    runs = {"warmup": ("ddim", []), **{m: (m, ["--num", "2"]) for m in SAMPLE_METHODS},
+            "rescale": ("ddim", ["--guidance-rescale", "0.7"]),
+            "img2img": ("ddim", ["--init-image", str(images / "img_000.png"),
+                                 "--strength", "0.75"]),
+            "704x512": ("ddim", []),
+            "repeat": ("ddim", [])}
+    unet_config = UNetConfig.sd15()
+    res: dict = {"runs": {}}
+    launches_total = dict.fromkeys(read_launches(), 0)
+    peak = 0.0
+    for name, (method, extra) in runs.items():
+        out = workdir / "samples" / name
+        width, height = (ARB_SAMPLE_SIZE if name == "704x512"
+                         else (int(concept.width), int(concept.height)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with SampleProbe() as probe:
+            sample_cli.main(base + ["--method", method, "--width", str(width), "--height",
+                                    str(height), "--out", str(out)] + extra,
+                            standalone_mode=False)
+        launches = read_launches()
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        for k, v in launches.items():
+            launches_total[k] += v
+        images = len(probe.calls)
+        check(images == (2 if "--num" in extra else 1) and all(c["finite"] for c in probe.calls)
+              and all(c["images"] == 1 for c in probe.calls), f"sample {name}: {probe.calls}")
+        pngs = sorted(out.glob("*.png"))
+        check(len(pngs) == images, f"sample {name} wrote {pngs}")
+        pixels = [png_pixels(p, (width, height)) for p in pngs]
+        steps_run = steps - int(steps * 0.25) if name == "img2img" else steps
+        calls = splash_calls((2, height, width, 3), unet_config)
+        check(all(c["unet_calls"] == steps_run for c in probe.calls)
+              and launches["splash_fwd"] == images * steps_run * calls
+              and sum(launches.values()) == launches["splash_fwd"],
+              f"sample {name}: UNet calls {[c['unet_calls'] for c in probe.calls]}, launches "
+              f"{launches}, expected {steps_run} calls per image and splash_fwd {calls} per "
+              "call only")
+        secs = [c["s"] for c in probe.calls]
+        res["runs"][name] = {
+            "method": method, "size": [width, height], "s_per_image": secs,
+            "unet_calls": steps_run, "unet_calls_per_s": [steps_run / t for t in secs],
+            "launches": launches, "splash_fwd_per_image": launches["splash_fwd"] // images,
+            "png_sha256": hashlib.sha256(pngs[0].read_bytes()).hexdigest(),
+            "pixel_mean": float(pixels[0].mean())}
+    first, again = res["runs"]["ddim"], res["runs"]["repeat"]
+    check(first["png_sha256"] == again["png_sha256"],
+          "the same seed twice gave other PNG bytes")
+    res["deterministic"] = True
+    res["peak_mem_gib"] = peak
+    res["launches"] = launches_total
+    res["check"] = sampling_check(model, seed)
+    return res
+
+
+class CallbackProbe:
+    """The seconds of each SampleCallback call that wrote samples."""
+
+    def __init__(self):
+        self.events: list[tuple[int, float]] = []
+
+    def __enter__(self):
+        self._real = SampleCallback.__call__
+        real, probe = self._real, self
+
+        def _call(cb, trainer, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real(cb, trainer, step)
+            torch.cuda.synchronize()
+            if (cb.sample_dir / str(step)).is_dir():
+                probe.events.append((step, time.perf_counter() - t0))
+
+        SampleCallback.__call__ = _call
+        return self
+
+    def __exit__(self, *exc):
+        SampleCallback.__call__ = self._real
+
+
+def dreambooth_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
+    """The port's configs/dreambooth.yaml on the trainer phase's SD1.5
+    directory, with the uncached phase's PNGs as the instance set. Cut:
+    num_target DB_CLASS_IMAGES, the run DB_STEPS steps (max_epochs 100 in the
+    file), the dataset. The class-image CLI makes DB_CLASS_IMAGES images at
+    512^2 (28 DDIM steps, cfg 11, one per batch), MD5-named PNGs; run again,
+    it makes none. Then the train CLI trains DB_STEPS steps with prior
+    preservation (batch 2 instance + 2 class images), the full UNet with
+    remat: splash fwd 20, dq 10, dkv 10 and adam_bf16_fused one per param
+    group per step."""
+    base = load_with_defaults(CONFIGS_DIR / "dreambooth.yaml")
+    c0 = base.data.concepts[0]
+    class_dir = workdir / "class"
+    concept = {"instance_set": {"path": str(images), "prompt": c0.instance_set.prompt},
+               "class_set": {"path": str(class_dir), "prompt": c0.class_set.prompt,
+                             "auto_generate": {**c0.class_set.auto_generate,
+                                               "num_target": DB_CLASS_IMAGES}}}
+    config = merge(base, Config({
+        "model": str(model), "output_dir": str(workdir / "db_runs"), "project": "dreambooth",
+        "seed": seed, "num_workers": NUM_WORKERS, "data": {"concepts": [concept]},
+        "trainer": {"max_steps": DB_STEPS, "log_every_n_steps": 1},
+        "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None, "monitor": None},
+        "loggers": {"tensorboard": None}}))
+    check(config.prior_preservation.enabled and config.batch_size == 2
+          and not config.aspect_ratio_bucket.enabled and config.gradient_checkpointing is True
+          and c0.class_set.auto_generate.steps == 28, "dreambooth.yaml changed")
+    cfg_path = workdir / "dreambooth.yaml"
+    cfg_path.write_text(json.dumps(config))
+    res: dict = {"class_images": DB_CLASS_IMAGES, "steps": DB_STEPS}
+
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        with SampleProbe() as probe:
+            gen_class_imgs_cli.main(["--config", str(cfg_path), "--device", DEVICE],
+                                    standalone_mode=False)
+        runs.append((probe.calls, read_launches(), sorted(class_dir.glob("*.png"))))
+    (calls1, launches1, made), (calls2, launches2, again) = runs
+    check(len(made) == DB_CLASS_IMAGES and len(calls1) == DB_CLASS_IMAGES
+          and all(c["finite"] for c in calls1), f"class images: {made}, calls {calls1}")
+    for p in made:
+        pixels = png_pixels(p, (int(config.data.resolution),) * 2)
+        check(p.stem == hashlib.md5(pixels.tobytes()).hexdigest(), f"{p.name} is not its MD5")
+    steps, res_px = int(c0.class_set.auto_generate.steps), int(config.data.resolution)
+    unet_config = UNetConfig.sd15()
+    check(launches1["splash_fwd"]
+          == DB_CLASS_IMAGES * steps * splash_calls((2, res_px, res_px, 3), unet_config)
+          and sum(launches1.values()) == launches1["splash_fwd"], f"class launches {launches1}")
+    check(again == made and not calls2 and not any(launches2.values()),
+          f"the second class-image run made {len(again) - len(made)} images, "
+          f"launches {launches2}")
+    res["class_s_per_image"] = [c["s"] for c in calls1]
+
+    groups = len(resolve_optim_target(load_optim_target(config.optim_target),
+                                      unet_param_shapes(unet_config), [])["unet"].groups)
+    calls = splash_calls((4, res_px, res_px, 3), unet_config)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with TrainerProbe() as run:
+        train_cli.main(["--config", str(cfg_path), "--run-id", "db", "--device", DEVICE],
+                       standalone_mode=False)
+    launches = read_launches()
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = run.losses()
+    check(sorted(losses) == list(range(1, DB_STEPS + 1))
+          and all(math.isfinite(x) for x in losses.values()), f"dreambooth losses {losses}")
+    want = {"splash_fwd": 2 * calls * DB_STEPS, "splash_dq": calls * DB_STEPS,
+            "splash_dkv": calls * DB_STEPS, "adam_bf16_fused": groups * DB_STEPS,
+            "adam8_fused": 0, "ema_fused": 0}
+    check(launches == want, f"dreambooth launches {launches}, expected {want}")
+    for p in (workdir / "db_runs").rglob("*.safetensors*"):
+        p.unlink()
+    dts = [1.0 / m["steps_per_sec"] for s, m, _ in run.steps if s != 1]
+    res.update({"losses": [losses[s] for s in sorted(losses)],
+                "steps_per_s": len(dts) / sum(dts), "train_launches": launches,
+                "launches": {k: launches1[k] + launches[k] for k in launches}})
     return res
 
 
@@ -1976,6 +2417,25 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        sample = sample_phase(args.seed, Path(tmp), Path(tmp) / "model", Path(tmp) / "images")
+        for name, r in sample["runs"].items():
+            log(f"sample {name} ({r['method']}, {r['size'][0]}x{r['size'][1]}): "
+                f"{[round(t, 3) for t in r['s_per_image']]} s per image, {r['unet_calls']} UNet "
+                f"calls ({[round(n, 2) for n in r['unet_calls_per_s']]} per s), splash_fwd "
+                f"{r['splash_fwd_per_image']} per image, launches {r['launches']}")
+        c = sample["check"]
+        log(f"sample: deterministic {sample['deterministic']}, peak {sample['peak_mem_gib']:.2f} "
+            f"GiB, DDIM kernel path vs plain: first step {c['first_step_rel_err']:.3e} (bound "
+            f"{CHECK_TOL}), final latents {c['final_rel_err']:.3e} relative L2 (bound "
+            f"{SAMPLE_FINAL_TOL}; max-abs {c['final_rel_max_abs_err']:.3e}); "
+            f"one UNet call on the CFG pair: device {c['unet_device_ms']:.3f} ms, host (issuing "
+            f"included) {c['unet_host_ms']:.3f} ms, {c['unet_ops']} CUDA operations "
+            f"({c['unet_ops_device_ms']:.3f} ms traced); VAE decode {c['vae_decode_ms']:.3f} ms, "
+            f"CLIP (pair) {c['clip_ms']:.3f} ms (device)")
+        record["sample"] = sample
+        gc.collect()
+        torch.cuda.empty_cache()
+
         lora = lora_phase(args.seed, Path(tmp), Path(tmp) / "model", Path(tmp) / "images")
         d = lora["ema_dropout"]
         log(f"lora: {lora['steps_per_s']:.4f} steps/s (resumed {lora['resumed_steps_per_s']:.4f}), "
@@ -1988,12 +2448,32 @@ def main(argv=None) -> int:
         log(f"lora dropout {d['dropout']} + bf16 EMA: {d['steps_per_s']:.4f} steps/s, peak "
             f"{d['peak_mem_gib']:.2f} GiB, launches per step {d['launches_per_step']}, losses "
             f"{d['losses']}, EMA updates {d['ema_num_updates']}")
+        ls = lora["sampling"]
+        log(f"lora in-training sampling: every {ls['interval_steps']} steps, "
+            f"{ls['num_samples']} images, events (step, s) {ls['events_s']}, splash_fwd "
+            f"{ls['splash_fwd']}")
         record["lora"] = lora
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        db = dreambooth_phase(args.seed, Path(tmp), Path(tmp) / "model", Path(tmp) / "images")
+        log(f"dreambooth: {db['class_images']} class images at "
+            f"{[round(t, 3) for t in db['class_s_per_image']]} s each, a second run made none; "
+            f"{db['steps']} prior-preservation steps at {db['steps_per_s']:.4f} steps/s, peak "
+            f"{db['peak_mem_gib']:.2f} GiB, launches {db['train_launches']}, losses "
+            f"{db['losses']}")
+        record["dreambooth"] = db
 
     # the kernels in the forms and at the shapes the lora phase ran them
     record["kernels_lora"] = [kernel_phase(tuple(sh), gen, rate) for sh in lora["splash_shapes"]]
     for r in record["kernels_lora"]:
         log(f"kernels (lora) {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
+    # splash_fwd in the forms sampling runs it
+    record["kernels_sampling"] = [sampling_kernel_case(sh, gen, rate) for sh in SAMPLING_SHAPES]
+    for r in record["kernels_sampling"]:
+        log(f"kernels (sampling, inference) {r['shape']}: splash_fwd {r['ms']:.4f} ms (bound "
+            f"{r['bound'][0]:.4f} ms by {r['bound'][1]}), plain {r['plain_ms']:.3f} ms, SDPA "
+            f"forward {r['sdpa_fwd_ms']:.4f} ms, max-abs err {r['err']:.3e}")
     record["lora_kernels"] = lora_kernel_case(gen)
     lk = record["lora_kernels"]
     a = lk["adam_bf16_fused"]
@@ -2025,7 +2505,9 @@ def main(argv=None) -> int:
             "pallas_kernel": pallas_kernel,
             "launches": record["train"]["launches"][name],
             "launches_by_phase": {p: record[p]["launches"][name] for p in PHASES},
-            "max_abs_err": max(r["err"][name] for r in splash_records),
+            "max_abs_err": max([r["err"][name] for r in splash_records]
+                               + ([r["err"] for r in record["kernels_sampling"]]
+                                  if name == "splash_fwd" else [])),
             "ms": main_shape["ms"][name], "plain_ms": main_shape["plain_ms"][name],
             "bound_ms": main_shape["bound"][name][0],
             # the exponential unit's term counts as operations (of their
@@ -2036,7 +2518,9 @@ def main(argv=None) -> int:
             "library": "SDPA forward (F.scaled_dot_product_attention)" if name == "splash_fwd"
                        else SDPA_BWD,
             "at": main_shape["shape"],
-            **({} if name == "splash_fwd" else {"bwd_pair_ms": main_shape["bwd_pair_ms"]}),
+            **({"sampling": [{k: r[k] for k in ("shape", "ms", "plain_ms", "sdpa_fwd_ms")}
+                             | {"bound_ms": r["bound"][0]} for r in record["kernels_sampling"]]}
+               if name == "splash_fwd" else {"bwd_pair_ms": main_shape["bwd_pair_ms"]}),
             "by_shape": [{"shape": r["shape"], "ms": r["ms"][name],
                           "plain_ms": r["plain_ms"][name], "bound_ms": r["bound"][name][0],
                           "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"],

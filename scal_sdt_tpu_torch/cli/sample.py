@@ -1,0 +1,167 @@
+"""Text-to-image sampling CLI (port of ``scal_sdt_tpu/cli/sample.py``).
+
+    python -m scal_sdt_tpu_torch.cli.sample --model sd15_dir --prompt "a corgi" \\
+        --steps 28 --cfg 7.5 --out out/ [--ckpt run/step8.safetensors] [--device cuda]
+
+Runs ``diffusion/sampler.py`` (DDIM, Euler, Euler-a, DPM++(2M), with CFG
+rescale and img2img) on a diffusers directory the trainer can load,
+optionally overlaying a training checkpoint: a full fine-tune's tensors or
+LoRA factors (which the UNet forward consumes as run-time deltas) from
+either package's ``.safetensors`` file, or a kohya / AddNet LoRA file; the
+checkpoint's trained textual-inversion keywords are registered with the
+tokenizer. Samples run on a card unless ``--device cpu`` asks for the CPU.
+Not ported yet: single-file LDM models (ROADMAP 1.18) and the SD3 options
+``--tokenizer-3``, ``--mmdit-head-dim`` and ``--pos-embed-max-size`` (1.16).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+
+import click
+import numpy as np
+
+from ..device import resolve_device
+
+logger = logging.getLogger("sample")
+
+
+def merge_checkpoint(models, ckpt_path: Path) -> dict:
+    """Overlay a training checkpoint's trainable tensors (and LoRA factors)
+    onto the loaded components, in place. kohya/AddNet LoRA files are
+    detected and imported. Returns the checkpoint metadata (``ti_tokens``
+    for trained TI keywords)."""
+    from ..convert.kohya import from_kohya_format, is_kohya_lora
+    from ..training.checkpoint import load_checkpoint_tensors
+    from ..training.step import TE_PREFIX, UNET_PREFIX, VAE_PREFIX
+
+    tensors, meta = load_checkpoint_tensors(ckpt_path)
+    if is_kohya_lora(tensors):
+        logger.info("Checkpoint is a kohya/AddNet LoRA file; importing")
+        tensors = from_kohya_format(tensors, models.unet.keys(), models.clip.keys())
+    targets = {UNET_PREFIX: models.unet, TE_PREFIX: models.clip, VAE_PREFIX: models.vae}
+    merged = {p: 0 for p in targets}
+    for key, value in tensors.items():
+        if key.startswith("unet_ema."):
+            continue  # the EMA is published with `ckpt_tool prune --ema` instead
+        for prefix, params in targets.items():
+            if key.startswith(prefix + "."):
+                params[key[len(prefix) + 1:]] = value
+                merged[prefix] += 1
+                break
+    logger.info("Merged checkpoint tensors: " +
+                ", ".join(f"{p}={n}" for p, n in merged.items() if n))
+    return meta
+
+
+@click.command()
+@click.option("--model", required=True, help="diffusers directory")
+@click.option("--prompt", "prompts", multiple=True, required=True,
+              help="Prompt (repeat for a batch of different prompts)")
+@click.option("--negative", default="", help="Negative prompt")
+@click.option("--ckpt", type=click.Path(exists=True, path_type=Path), default=None,
+              help="Training checkpoint to overlay (full-FT or LoRA, or a kohya LoRA file)")
+@click.option("--vae", default=None, help="External VAE directory")
+@click.option("--num", default=1, show_default=True, help="Images per prompt")
+@click.option("--steps", default=28, show_default=True)
+@click.option("--cfg", default=7.5, show_default=True)
+@click.option("--width", default=512, show_default=True)
+@click.option("--height", default=512, show_default=True)
+@click.option("--seed", default=42, show_default=True)
+@click.option("--method", default="ddim", show_default=True,
+              type=click.Choice(["ddim", "euler", "euler_a", "dpmpp_2m"]),
+              help="Sampler (euler/euler_a/dpmpp_2m are k-diffusion style)")
+@click.option("--guidance-rescale", default=0.0, show_default=True,
+              help="CFG rescale phi (arXiv:2305.08891; ~0.7 for zero-terminal-SNR "
+                   "v-prediction models)")
+@click.option("--init-image", type=click.Path(exists=True, path_type=Path), default=None,
+              help="img2img init image")
+@click.option("--strength", default=0.75, show_default=True,
+              help="img2img denoising strength (1.0 ignores the init)")
+@click.option("--clip-skip", default=1, show_default=True,
+              help="CLIP stop-at-layer (reference clip_stop_at_layer)")
+@click.option("--tokenizer", "tokenizer_src", default=None,
+              help="Tokenizer assets dir ('hash' for the test stand-in)")
+@click.option("--tokenizer-3", "tokenizer_3_src", default=None,
+              help="T5 tokenizer.json of SD3 models (not ported yet)")
+@click.option("--mmdit-head-dim", type=int, default=None,
+              help="MMDiT head dim of SD3 single-file models (not ported yet)")
+@click.option("--pos-embed-max-size", type=int, default=None,
+              help="MMDiT sincos grid size of SD3 single-file models (not ported yet)")
+@click.option("--out", type=click.Path(path_type=Path), default=Path("samples"),
+              show_default=True)
+@click.option("--device", default="cuda", show_default=True,
+              help="Device to sample on ('cpu' runs without a card).")
+def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, seed, method,
+         guidance_rescale, init_image, strength, clip_skip, tokenizer_src, tokenizer_3_src,
+         mmdit_head_dim, pos_embed_max_size, out, device):
+    sd3 = {"--tokenizer-3": tokenizer_3_src, "--mmdit-head-dim": mmdit_head_dim,
+           "--pos-embed-max-size": pos_embed_max_size}
+    given = [name for name, value in sd3.items() if value is not None]
+    if given:
+        raise NotImplementedError(f"{', '.join(given)}: SD3 models are not ported yet "
+                                  "(ROADMAP 1.16)")
+    dev = resolve_device(device)
+
+    from PIL import Image
+
+    from ..conf import Config, default, merge
+    from ..convert.loader import load_components
+    from ..diffusion.sampler import SamplerSpec, cast_params, sample_images
+    from ..text.tokenizer import resolve_tokenizer
+
+    config = merge(default(), Config({
+        "model": str(model), "vae": vae, "clip_stop_at_layer": int(clip_skip),
+        **({"tokenizer": tokenizer_src} if tokenizer_src else {}),
+    }))
+    models = load_components(config)
+    tokenizer = resolve_tokenizer(config, allow_hash=tokenizer_src == "hash")
+    if ckpt is not None:
+        meta = merge_checkpoint(models, ckpt)
+        if meta.get("ti_tokens"):
+            # trained TI keywords: placeholder tokens that resolve to the
+            # trained_extra rows
+            from ..text.ti import register_ti_tokens_for_inference
+
+            register_ti_tokens_for_inference(tokenizer, meta["ti_tokens"])
+            logger.info("Registered trained TI keywords: " +
+                        ", ".join(e["keyword"] for e in meta["ti_tokens"]))
+
+    spec = SamplerSpec(unet_config=models.unet_config, vae_config=models.vae_config,
+                       clip_config=models.clip_config, schedule=models.schedule,
+                       clip_stop_at_layer=int(clip_skip))
+    # onto the device once, in the sampling dtype: sample_images' own cast is
+    # then a no-op for every call
+    unet, vae_params, clip = (cast_params(p, spec.dtype, dev)
+                              for p in (models.unet, models.vae, models.clip))
+    del models
+
+    init_arr = None
+    if init_image is not None:
+        img = Image.open(init_image).convert("RGB").resize((int(width), int(height)),
+                                                           Image.LANCZOS)
+        init_arr = np.asarray(img).astype(np.float32) / 127.5 - 1.0
+
+    out.mkdir(parents=True, exist_ok=True)
+    batch = list(prompts)
+    for rep in range(int(num)):
+        t0 = time.perf_counter()
+        images = sample_images(
+            unet, vae_params, clip, tokenizer, batch, negative, spec, steps=int(steps),
+            cfg_scale=float(cfg), width=int(width), height=int(height), seed=int(seed) + rep,
+            method=method, init_image=init_arr, strength=float(strength),
+            guidance_rescale=float(guidance_rescale), device=dev)
+        dt = time.perf_counter() - t0   # images come back on the host: the loop is done
+        for i, img in enumerate(images):
+            path = out / f"{i:02d}_{rep:02d}.png"
+            Image.fromarray(img).save(path)
+            logger.info(f"Wrote {path}")
+        logger.info(f"Batch {rep}: {len(batch)} image(s) in {dt:.3f} s")
+    logger.info(f"Done: {len(batch) * int(num)} image(s) in {out}")
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -7,9 +7,10 @@ The JAX CLI's run-dir layout and resume semantics: checkpoints land in
 ``<output_dir>/<project>/<run_id>/``, the resolved config is snapshotted to
 ``config.yaml`` there, and ``--resume`` reloads the snapshot next to the
 checkpoint. The run trains on a card unless ``--device cpu`` asks for the
-CPU. Not ported yet: ``trainer.auto_scale_batch_size`` (the batch-size
-tuner, ROADMAP 1.18), in-training sampling (1.13), and multi-process runs
-(1.17).
+CPU. The run samples ``sampling.concepts`` into ``<run_dir>/samples/<step>/``
+every ``sampling.interval_steps`` steps. Not ported yet:
+``trainer.auto_scale_batch_size`` (the batch-size tuner, ROADMAP 1.18) and
+multi-process runs (1.17).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import click
 
 from .. import conf
 from ..device import resolve_device
+from ..training.sample_callback import SampleCallback
 from ..training.trainer import Trainer
 
 logger = logging.getLogger("train")
@@ -96,7 +98,7 @@ def main(config_path: Optional[Path], run_id: Optional[str],
         trainer.resume(resume_ckpt_path)
 
     conf.save(config, run_dir / "config.yaml")
-    trainer.fit()
+    trainer.fit(sample_callback=SampleCallback(run_dir / "samples"))
 
 
 if __name__ == "__main__":

@@ -186,8 +186,8 @@ def load_components(config: Config) -> LoadedModels:
     p = Path(str(name))
     if p.is_file():
         raise NotImplementedError(
-            f"{p}: single-file (LDM) checkpoints are not ported yet; pass a diffusers "
-            "directory")
+            f"{p}: single-file (LDM) checkpoints are not ported yet (ROADMAP 1.18); pass a "
+            "diffusers directory")
     if not p.is_dir():
         raise NotImplementedError(
             f"model {name!r} is not a local directory: hub ids are not ported yet")

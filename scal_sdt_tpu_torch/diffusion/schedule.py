@@ -1,5 +1,5 @@
-"""DDPM noise schedule: q-sample and training targets (port of
-``scal_sdt_tpu/diffusion/schedule.py``).
+"""DDPM noise schedule: q-sample, training targets and the DDIM sampling
+fields (port of ``scal_sdt_tpu/diffusion/schedule.py``).
 
 The tables are computed on the host in float64/float32 exactly as the JAX
 version does, then kept per (device, dtype) so a training step gathers from
@@ -24,6 +24,14 @@ class NoiseSchedule:
     beta_end: float = 0.012
     beta_schedule: str = "scaled_linear"
     prediction_type: str = "epsilon"  # 'epsilon' | 'sample' | 'v'
+    # DDIM sampling semantics (diffusers SD1 scheduler config)
+    steps_offset: int = 1
+    clip_sample: bool = False
+    set_alpha_to_one: bool = False
+    # diffusers timestep_spacing: 'leading' (SD default) or 'trailing'
+    # (recommended with zero-terminal-SNR models, arXiv:2305.08891 §3.2:
+    # sampling then starts from the pure-noise timestep T-1)
+    timestep_spacing: str = "leading"
     # Zero-terminal-SNR beta rescale (arXiv:2305.08891): the last train
     # timestep becomes pure noise. Requires v or sample prediction.
     rescale_zero_terminal_snr: bool = False
@@ -60,15 +68,18 @@ class NoiseSchedule:
 
     @classmethod
     def from_diffusers_scheduler_config(cls, config: dict) -> "NoiseSchedule":
-        """The training fields of a diffusers ``scheduler_config.json``
-        (the sampling fields, such as ``steps_offset``, come with DDIM)."""
+        """The fields of a diffusers ``scheduler_config.json``."""
         return cls(
             num_train_timesteps=int(config.get("num_train_timesteps", 1000)),
             beta_start=float(config.get("beta_start", 0.00085)),
             beta_end=float(config.get("beta_end", 0.012)),
             beta_schedule=config.get("beta_schedule", "scaled_linear"),
             prediction_type=config.get("prediction_type", "epsilon"),
+            steps_offset=int(config.get("steps_offset", 1)),
+            clip_sample=bool(config.get("clip_sample", False)),
+            set_alpha_to_one=bool(config.get("set_alpha_to_one", False)),
             rescale_zero_terminal_snr=bool(config.get("rescale_betas_zero_snr", False)),
+            timestep_spacing=config.get("timestep_spacing", "leading"),
         )
 
     def _table(self, name: str, device: torch.device, dtype: torch.dtype) -> torch.Tensor:

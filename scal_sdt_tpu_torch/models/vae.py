@@ -1,8 +1,9 @@
-"""AutoencoderKL (SD1.x VAE) encoder over a flat param dict (port of
-``scal_sdt_tpu/models/vae.py``), NCHW activations.
+"""AutoencoderKL (SD1.x VAE) encoder and decoder over a flat param dict
+(port of ``scal_sdt_tpu/models/vae.py``), NCHW activations.
 
-Equivalent of the diffusers ``AutoencoderKL`` encode the reference uses for
-latents in the training step and in the offline cache. Parameter keys are
+Equivalent of the diffusers ``AutoencoderKL`` the reference uses: encode for
+latents in the training step and in the offline cache, decode for sampling.
+Parameter keys are
 the diffusers state-dict names; ``vae_param_shapes`` covers the whole VAE
 (encoder and decoder), which the loader validates a checkpoint against.
 
@@ -10,7 +11,8 @@ The mid-block attention is single-head with D = 512: it takes the math path
 of ``ops/attention.py``, as it takes XLA's on the TPU. Norms use eps 1e-6
 with fp32 statistics. Downsampling pads (0, 1) on H and W and runs a
 stride-2 valid conv, as diffusers does; a symmetric ``padding=1`` would be
-another function. The decoder waits for the sampler slice.
+another function. Upsampling repeats each pixel 2x2 (nearest) before its
+conv, as the JAX decoder's broadcast and reshape do in NHWC.
 """
 
 from __future__ import annotations
@@ -119,6 +121,25 @@ def sample_latents(moments: torch.Tensor, noise: torch.Tensor,
     if shift_factor:
         z = z - z.new_full((), shift_factor)
     return scaled(z, scaling_factor)
+
+
+def decoder_apply(params: Params, latents: torch.Tensor, config: VAEConfig) -> torch.Tensor:
+    """latents: (B, latent, h, w), already divided by the scaling factor ->
+    images (B, 3, 8h, 8w) in about [-1, 1]."""
+    z = (conv2d(params, "post_quant_conv", latents, padding=0)
+         if "post_quant_conv.weight" in params else latents)
+    p = sub_params(params, "decoder")
+    g = config.norm_num_groups
+    h = conv2d(p, "conv_in", z)
+    h = _mid(p, "mid_block", h, g)
+    for i in range(len(config.block_out_channels)):
+        for j in range(config.layers_per_block + 1):
+            h = _resnet(p, f"up_blocks.{i}.resnets.{j}", h, g)
+        if f"up_blocks.{i}.upsamplers.0.conv.weight" in p:
+            h = F.interpolate(h, scale_factor=2, mode="nearest")
+            h = conv2d(p, f"up_blocks.{i}.upsamplers.0.conv", h)
+    h = silu(group_norm(p, "conv_norm_out", h, g, eps=1e-6))
+    return conv2d(p, "conv_out", h)
 
 
 # ---------------------------------------------------------------------------

@@ -8,16 +8,17 @@ frozen weights (bf16 under bf16 compute unless ``trainer.frozen_dtype:
 fp32``) on its device, builds the data pipeline, the per-group optimizer
 (with gradient accumulation; textual inversion in its own ``ti`` group) and
 the train step (with the EMA), and runs the epoch loop with logging,
-checkpoints, mid-epoch resume, the NaN tripwire, the SIGTERM autosave and
-the profiler.
+checkpoints, mid-epoch resume, the NaN tripwire, the SIGTERM autosave, the
+profiler and the in-training sample callback (``training/sample_callback.py``,
+fed by ``merged_inference_params``).
 
 What the port has no counterpart for yet is refused when the trainer is
-built, naming its ROADMAP item (``refuse_later_slices``): in-training
-sampling (1.13), SDXL and SD3 models (1.15, 1.16; the loader refuses their
-layouts, the optim-target resolution a ``text_encoder_2`` section) and more
-than one device (1.17). The trainer keys of the JAX package that steer XLA
-(compile caches, bucket warm-up, buffer donation, slab packing) are accepted
-and do nothing in eager PyTorch; the trainer says so once.
+built, naming its ROADMAP item (``refuse_later_slices``): SDXL and SD3
+models (1.15, 1.16; the loader refuses their layouts, the optim-target
+resolution a ``text_encoder_2`` section) and more than one device (1.17).
+The trainer keys of the JAX package that steer XLA (compile caches, bucket
+warm-up, buffer donation, slab packing) are accepted and do nothing in eager
+PyTorch; the trainer says so once.
 """
 
 from __future__ import annotations
@@ -65,8 +66,6 @@ def refuse_later_slices(config: Config) -> None:
     def refuse(what: str, item: str):
         raise NotImplementedError(f"{what}: not ported yet (ROADMAP {item})")
 
-    if (config.get("sampling") or {}).get("concepts"):
-        refuse("sampling.concepts (in-training sampling)", "1.13")
     mesh = config.trainer.get("mesh") or {}
     if any(int(mesh.get(axis) or 1) > 1 for axis in ("data", "fsdp", "tensor")):
         refuse(f"trainer.mesh {dict(mesh)} (more than one device)", "1.17")
@@ -384,6 +383,11 @@ class Trainer:
         """The trainable masters under their natural names (the port packs
         no leaves into slabs, so this is the state's own dict)."""
         return dict(self.state.trainable)
+
+    def merged_inference_params(self) -> dict:
+        """The current frozen + trainable view for sampling (LoRA factors stay
+        run-time deltas, which the UNet forward consumes)."""
+        return {**self.frozen, **self.state.trainable}
 
 
 class _StepProfiler:

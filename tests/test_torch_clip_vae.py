@@ -1,10 +1,10 @@
-"""The port's CLIP text encoder, VAE encoder and diffusers loader against the
-JAX package, in fp32 on the CPU.
+"""The port's CLIP text encoder, VAE encoder and decoder and diffusers
+loader against the JAX package, in fp32 on the CPU (the decoder in bf16 too).
 
 Same seeded numpy params and inputs into both; outputs within 1e-5 of the
 reference's largest entry (the two sum products in another order): CLIP at
-``stop_at_layer`` 1 and 2, the VAE moments (NCHW here, NHWC in JAX),
-``sample_latents`` with the noise injected. Shape templates, EOS positions,
+``stop_at_layer`` 1 and 2, the VAE moments and decoded images (NCHW here,
+NHWC in JAX), ``sample_latents`` with the noise injected. Shape templates, EOS positions,
 ``quick_gelu`` and the loader's configs and dicts agree exactly.
 """
 
@@ -33,6 +33,7 @@ from scal_sdt_tpu_torch.models import vae as tvae
 from torch_port_helpers import rand_unet_params, tiny_model_dir, to_np
 
 TOL = 1e-5   # max-abs error, relative to the reference's largest entry
+DECODER_BF16_TOL = 2.0 ** -5
 
 
 def _close(got, want, what=""):
@@ -126,6 +127,39 @@ def test_encoder_apply_matches_jax(tiny_vae):
                              tvae.VAEConfig.tiny())
     assert got.shape == (2, 8, 10, 9)
     _close(got.permute(0, 2, 3, 1), want, "moments")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("post_quant_conv", [True, False])
+def test_decoder_apply_matches_jax(tiny_vae, dtype, post_quant_conv):
+    """Latents (2, 4, 9, 7) -> images (2, 3, 18, 14). fp32 within TOL of the
+    reference's largest entry; bf16 within DECODER_BF16_TOL (2^-5, four bf16
+    ulps of it: each package rounds its bf16 chain at other points)."""
+    params, _ = tiny_vae
+    if not post_quant_conv:
+        params = {k: v for k, v in params.items() if not k.startswith("post_quant_conv.")}
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    latents = np.random.RandomState(8).randn(2, 9, 7, 4).astype(np.float32) * 3
+    jparams = {k: jnp.asarray(v, jdt) for k, v in params.items()}
+    want = jvae.decoder_apply(jparams, jnp.asarray(latents, jdt), jvae.VAEConfig.tiny())
+    tparams = {k: v.to(tdt) for k, v in params_from_jax(params, device="cpu").items()}
+    got = tvae.decoder_apply(tparams, _nchw(latents).to(tdt), tvae.VAEConfig.tiny())
+    assert got.shape == (2, 3, 18, 14) and got.dtype == tdt
+    got, want = to_np(got.permute(0, 2, 3, 1)), to_np(want)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= (TOL if dtype == "float32" else DECODER_BF16_TOL), f"{dtype}: {err}"
+
+
+def test_decoder_upsample_equals_pixel_repeat():
+    """The decoder's nearest x2 upsample is the JAX decoder's broadcast and
+    reshape: every pixel repeated 2 x 2, bit for bit."""
+    x = torch.randn(2, 3, 5, 7).to(torch.bfloat16)
+    up = torch.nn.functional.interpolate(x, scale_factor=2, mode="nearest")
+    assert torch.equal(up, x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3))
+    b, c, h, w = x.shape
+    nhwc = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    assert torch.equal(up, nhwc.reshape(b, 2 * h, 2 * w, c).permute(0, 3, 1, 2))
 
 
 @pytest.mark.parametrize("shift", [0.0, 0.0609])

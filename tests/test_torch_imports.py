@@ -34,7 +34,11 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 44
+    assert int(proc.stdout.split()[0]) >= 49
+    # the sampling slice's modules are among those imported
+    assert {"scal_sdt_tpu_torch.diffusion.sampler", "scal_sdt_tpu_torch.convert.kohya",
+            "scal_sdt_tpu_torch.cli.sample", "scal_sdt_tpu_torch.cli.gen_class_imgs",
+            "scal_sdt_tpu_torch.training.sample_callback"} <= set(_modules())
 
 
 def test_sources_name_no_jax():
@@ -46,15 +50,19 @@ def test_sources_name_no_jax():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "init_unet_params", "params_from_jax",
                                    "init_vae_params", "init_clip_params", "to_device",
-                                   "Trainer", "train_cli"])
+                                   "Trainer", "train_cli", "sample_images", "sample_cli",
+                                   "gen_class_imgs_cli"])
 def test_default_device_needs_cuda(entry, tmp_path):
     import torch
     from click.testing import CliRunner
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
+    from scal_sdt_tpu_torch.cli import gen_class_imgs, sample
     from scal_sdt_tpu_torch.cli import train as train_cli
     from scal_sdt_tpu_torch.conf import default
+    from scal_sdt_tpu_torch.diffusion.sampler import SamplerSpec, sample_images
+    from scal_sdt_tpu_torch.diffusion.schedule import NoiseSchedule
     from scal_sdt_tpu_torch.training.trainer import Trainer
     from scal_sdt_tpu_torch.convert.from_jax import params_from_jax
     from scal_sdt_tpu_torch.data.pipeline import to_device
@@ -70,7 +78,18 @@ def test_default_device_needs_cuda(entry, tmp_path):
              "to_device": lambda: to_device({}),
              "Trainer": lambda: Trainer(default(), tmp_path),
              "train_cli": lambda: CliRunner().invoke(train_cli.main, [],
-                                                     catch_exceptions=False)}
+                                                     catch_exceptions=False),
+             "sample_images": lambda: sample_images(
+                 {}, {}, {}, None, ["a cat"], "", SamplerSpec(
+                     UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+                     NoiseSchedule())),
+             "sample_cli": lambda: CliRunner().invoke(
+                 sample.main, ["--model", str(tmp_path), "--prompt", "a cat"],
+                 catch_exceptions=False),
+             "gen_class_imgs_cli": lambda: CliRunner().invoke(
+                 gen_class_imgs.main, ["--config", str(config)], catch_exceptions=False)}
+    config = tmp_path / "cfg.yaml"
+    config.write_text("{}")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
 

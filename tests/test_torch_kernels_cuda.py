@@ -3,7 +3,8 @@ splash attention (end to end, and the dq kernel alone), the fused Adam
 update and the int8 Adam update, each in its single-leaf update-only form
 and its grouped form (Adam, decay, schedule and master apply over a leaf
 table in one launch; with bf16 gradients, and with the fp32 gradients of
-gradient accumulation); the grouped EMA update (ema_fused); and the
+gradient accumulation); the grouped EMA update (ema_fused); the splash
+forward in sampling's inference form; and the
 attention gate: `FORCE_MATH` keeps a
 full-width UNet off the splash kernels.
 
@@ -66,6 +67,29 @@ def test_kernels_match_reference_on_cuda(shape, layout):
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("the kernels run on a CUDA card only")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 5632, 40),
+                                   (2, 8, 1408, 80)])
+def test_splash_forward_in_the_sampling_forms_on_cuda(shape):
+    """Sampling's form of the forward: under torch.inference_mode, at the CFG
+    pair's batch of 2, 512^2 and 704x512 latents (L = 5632 and 1408, which
+    no 256-row block divides), head-split views: splash_attention launches
+    splash_fwd once and no backward kernel, within 5e-3 max-abs of its plain
+    version."""
+    _need_card()
+    r = np.random.RandomState(7)
+    b, h, l, d = shape
+    q, k, v = (_heads(torch.from_numpy(r.randn(b, l, h * d).astype(np.float32)).cuda()
+                      .bfloat16(), shape, "heads") for _ in range(3))
+    S.reset_launches()
+    with torch.inference_mode():
+        out = S.splash_attention(q, k, v, d ** -0.5)
+        want = S.splash_attention_reference(q, k, v, d ** -0.5)
+    assert S.launches == {"splash_fwd": 1, "splash_dq": 0, "splash_dkv": 0}
+    assert out.is_inference() and out.shape == shape
+    assert float((out.float() - want.float()).abs().max()) < 5e-3
 
 
 @pytest.mark.cuda

@@ -419,14 +419,14 @@ def _sdxl_dir(tmp_path, tiny_run, sub):
 
 
 LATER_SLICES = {
-    # item 1.12 is ported: these build now (TI from a cache raises as in JAX)
+    # items 1.12 and 1.13 are ported: these build now (TI from a cache raises
+    # as in JAX)
     "ema": ({"ema": {"enabled": True}}, None),
     "lora": ({"optim_target": "lora_no-te"}, None),
     "custom_embeddings": ({"custom_embeddings": {"enabled": True}}, None),
     "textual_inversion": ({"custom_embeddings": {"train": {
         "enabled": True, "tokens": [{"keyword": "my-cat"}]}}}, "live text encoding"),
-    "sampling": ({"sampling": {"concepts": [{"prompt": "a cat"}], "interval_steps": 1}},
-                 "1.13"),
+    "sampling": ({"sampling": {"concepts": [{"prompt": "a cat"}], "interval_steps": 1}}, None),
     "sdxl": ("sdxl", "1.15"),
     "sd3": ("sd3", "1.16"),
     "mesh": ({"trainer": {"mesh": {"data": 2}}}, "1.17"),
@@ -437,8 +437,9 @@ LATER_SLICES = {
 @pytest.mark.parametrize("case", list(LATER_SLICES))
 def test_later_slice_configs_raise(tiny_run, tmp_path, monkeypatch, case):
     """Configs that need a later slice raise naming its ROADMAP item; those of
-    item 1.12 (EMA, LoRA, custom embeddings) build, and textual inversion
-    from a condition cache raises as the JAX trainer does."""
+    items 1.12 (EMA, LoRA, custom embeddings) and 1.13 (sampling concepts)
+    build, and textual inversion from a condition cache raises as the JAX
+    trainer does."""
     overrides, item = LATER_SLICES[case]
     if case == "world_size":
         monkeypatch.setenv("WORLD_SIZE", "2")
