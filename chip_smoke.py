@@ -168,6 +168,42 @@ Phases (any failure raises and the script exits non-zero):
               steps with prior preservation (2 instance + 2 class images
               per batch). Prints the class images' seconds each and the
               steps/s.
+14. sdxl   -- SDXL-base at its published widths (the text_time UNet,
+              UNetConfig.sdxl, 2.57 B parameters; CLIP ViT-L and OpenCLIP
+              bigG with its text_projection; SD's VAE at scaling factor
+              0.13025; the SD1.5 scheduler config; the synthetic vocab),
+              random bf16 weights from --seed, written as a diffusers
+              directory once (about 7 GB, in place of the SD1.5 one) and six
+              PNGs at 1024x1024, 1152x896 and 896x1152. The SDXL phases on
+              them, each with the port's configs/sdxl_lora.yaml (LoRA rank 16
+              on the UNet and both towers: 986 groups, remat, ARB at 1024,
+              batch 1, AdamW):
+              sdxl_cache: the cache CLI at 1024 ARB writes {id}.cond (both
+              towers' penultimate states) and {id}.pooled for every image,
+              then the train CLI trains 2 steps from that file;
+              sdxl_lora: the train CLI uncached, 6 steps with a mid-epoch
+              checkpoint at 4 and the file's sampling cut to one event of 2
+              images (24 DPM++(2M) steps, cfg 7, 1024^2) before it, then a
+              run resumed from step 4 that must end on the same checkpoint
+              bytes and losses; splash launches per step match the gate at
+              each bucket (70 self-attentions at 1024^2: transformer depths
+              1, 2, 10), adam_bf16_fused one launch per group; step 5 runs
+              under the trainer's torch.profiler (its kernels by category,
+              launches and the device's busy share);
+              sdxl_sample: the sample CLI at the file's concept (24 steps,
+              cfg 7, 1024^2, seed 114514), one image per method and the
+              concept's DPM++(2M) again with equal PNG bytes, splash_fwd
+              1,680 per image; the DDIM loop with the kernels against the
+              plain attention path at the sample phase's bounds; one UNet
+              call's device and host ms and CUDA operations, the 1024^2
+              decode's and both towers' device ms.
+              Prints each phase's seconds. Then the kernels in SDXL's forms
+              (head dim 64, the kernels' DP = 64 instances): splash fwd, dq,
+              dkv at (1,10,4096,64), (1,20,1024,64), the ragged
+              (1,10,4032,64) and the lora run's bucket shapes as in phase 2;
+              splash_fwd in sampling's form at (2,10,4096,64) and
+              (2,20,1024,64); adam_bf16_fused over lora_sdxl's 986 groups of
+              fp32 factors at SDXL widths, bit for bit.
 
 The optim phase also runs both grouped kernels with fp32 gradients, the mean
 that gradient accumulation hands them, at the same bounds.
@@ -189,6 +225,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -200,6 +237,7 @@ import torch
 import torch.nn.functional as F
 
 from scal_sdt_tpu_torch.cli import gen_class_imgs as gen_class_imgs_cli
+from scal_sdt_tpu_torch.cli import cache as cache_cli
 from scal_sdt_tpu_torch.cli import sample as sample_cli
 from scal_sdt_tpu_torch.cli import train as train_cli
 from scal_sdt_tpu_torch.cli.cache import assemble_cache, build_local_shard
@@ -210,7 +248,7 @@ from scal_sdt_tpu_torch.data.datasets import LatentCache
 from scal_sdt_tpu_torch.data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
 from scal_sdt_tpu_torch.diffusion import sampler
 from scal_sdt_tpu_torch.models.clip import (CLIPTextConfig, clip_param_shapes, clip_text_apply,
-                                            init_clip_params)
+                                            encode_sdxl, init_clip_params)
 from scal_sdt_tpu_torch.models.unet import (UNetConfig, init_unet_params, unet_apply,
                                             unet_param_shapes)
 from scal_sdt_tpu_torch.models.vae import (VAEConfig, decoder_apply, encoder_apply,
@@ -286,7 +324,8 @@ KERNELS = {
 }
 SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
 PHASES = ("train", "train_int8", "uncached", "cache", "trainer", "ema",
-          "sample", "lora", "dreambooth")   # the phases that run a main path
+          "sample", "lora", "dreambooth", "sdxl_cache", "sdxl_lora",
+          "sdxl_sample")   # the phases that run a main path
 COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
 
@@ -1500,8 +1539,10 @@ def splash_levels(shape_bhwc, unet_config: UNetConfig, vae_factor: int = 8
     """For images of (B, H, W, C): the (B, heads, h*w, D) of each UNet level's
     self-attention and the calls per UNet forward that take the splash
     kernels there. A level with attention holds layers_per_block (down) +
-    layers_per_block + 1 (up) of them, the middle block one, and a call takes
-    the kernels where the gate (ops/attention.py) admits its shape."""
+    layers_per_block + 1 (up) transformers, the middle block one at the last
+    level's width, each of tf_depth_at(level) blocks with one self-attention
+    (SD1.5: 1 everywhere; SDXL: 1, 2, 10); a call takes the kernels where the
+    gate (ops/attention.py) admits its shape."""
     b, hh, ww, _ = shape_bhwc
     h, w = hh // vae_factor, ww // vae_factor
     cfg, out = unet_config, []
@@ -1510,14 +1551,14 @@ def splash_levels(shape_bhwc, unet_config: UNetConfig, vae_factor: int = 8
         heads = cfg.heads_at(level)
         shape = (b, heads, h * w, ch // heads)
         takes = attention.use_kernel(shape, shape, torch.bfloat16, False, True)
-        calls = 0
+        transformers = 0
         if "CrossAttn" in cfg.down_block_types[level]:
-            calls += takes * cfg.layers_per_block
+            transformers += cfg.layers_per_block
         if "CrossAttn" in cfg.up_block_types[levels - 1 - level]:
-            calls += takes * (cfg.layers_per_block + 1)
+            transformers += cfg.layers_per_block + 1
         if level == levels - 1:
-            calls += takes   # the middle block
-        out.append((shape, calls))
+            transformers += 1   # the middle block
+        out.append((shape, takes * transformers * cfg.tf_depth_at(level)))
         h, w = -(-h // 2), -(-w // 2)
     return out
 
@@ -1530,6 +1571,19 @@ def splash_calls(shape_bhwc, unet_config: UNetConfig) -> int:
 def step_shapes(timings: Path) -> list[list[int]]:
     """The batch shape (B, H, W, C) of each logged step (SSDT_STEP_TIMINGS)."""
     return [json.loads(line)["shape"] for line in timings.read_text().splitlines()]
+
+
+def expect_train_splash(shapes, launches: dict, what: str, unet_config: UNetConfig,
+                        vae_factor: int = 8, sampled: int = 0) -> int:
+    """Check a remat run's splash launches against the gate at each step's
+    batch shape (B, H, W, C) (``vae_factor`` 1: latents): each admitted
+    self-attention runs its forward twice (the recompute) and dq, dkv once;
+    sampled images' forwards on top. Returns the calls."""
+    calls = sum(n for s in shapes for _, n in splash_levels(s, unet_config, vae_factor))
+    want = {"splash_fwd": 2 * calls + sampled, "splash_dq": calls, "splash_dkv": calls}
+    check(calls > 0 and all(launches[k] == v for k, v in want.items()),
+          f"{what}: splash launches {launches}, expected {want} for shapes {shapes}")
+    return calls
 
 
 def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
@@ -1572,15 +1626,6 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    def expect_splash(shapes, launches, what, sampled=0):
-        calls = sum(splash_calls(s, unet_config) for s in shapes)
-        # remat: the checkpointed blocks run their forward again in the
-        # backward; each sampled image adds its UNet calls' forwards
-        want = {"splash_fwd": 2 * calls + sampled, "splash_dq": calls, "splash_dkv": calls}
-        check(calls > 0 and all(launches[k] == v for k, v in want.items()),
-              f"{what}: splash launches {launches}, expected {want} for shapes {shapes}")
-        return calls
-
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1612,7 +1657,8 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
                 png_pixels(p, size)
         sampled = (events * LORA_SAMPLES * int(sample_concepts[0]["steps"])
                    * splash_calls((2, size[1], size[0], 3), unet_config))
-        calls = expect_splash(shapes1, launches, "lora run 1", sampled)
+        calls = expect_train_splash(shapes1, launches, "lora run 1", unet_config,
+                                    sampled=sampled)
         n_groups = sum(groups.values())
         check(launches["adam_bf16_fused"] == n_groups * LORA_STEPS and launches["ema_fused"] == 0
               and launches["adam8_fused"] == 0, f"lora run 1 launches {launches}")
@@ -1637,7 +1683,7 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
         run2 = TrainerProbe()
         cli(["--resume", str(dir1 / f"{mid}.safetensors"), "--run-id", "run2"], run2)
         launches2 = read_launches()
-        expect_splash(step_shapes(timings), launches2, "lora run 2")
+        expect_train_splash(step_shapes(timings), launches2, "lora run 2", unet_config)
         check(launches2["adam_bf16_fused"] == n_groups * (LORA_STEPS - LORA_SAVE_EVERY)
               and launches2["ema_fused"] == 0, f"lora run 2 launches {launches2}")
         got = file_digests(checkpoint_files(runs / "lora" / "run2", last))
@@ -1665,7 +1711,7 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
         check(all(math.isfinite(x) for x in run3.losses().values())
               and sorted(run3.losses()) == list(range(1, LORA_EMA_STEPS + 1)),
               f"lora run 3 losses {run3.losses()}")
-        calls3 = expect_splash(step_shapes(timings), launches3, "lora run 3")
+        calls3 = expect_train_splash(step_shapes(timings), launches3, "lora run 3", unet_config)
         check(launches3["ema_fused"] == groups["unet"] * LORA_EMA_STEPS
               and launches3["adam_bf16_fused"] == n_groups * LORA_EMA_STEPS,
               f"lora run 3 launches {launches3}")
@@ -1715,39 +1761,38 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
                             "ema_num_updates": meta3["ema_num_updates"]}}
 
 
-def lora_groups() -> list[tuple[str, list[str], list[tuple[int, ...]], dict]]:
-    """configs/lora.yaml's param groups at SD1.5 width, as the trainer holds
-    them: one per LoRA module, with its component, its two factors' keys (as
-    the trainer names them) and shapes, and the group's optimizer overrides;
-    the UNet's groups first."""
-    bases = {"unet": unet_param_shapes(UNetConfig.sd15()),
-             "text_encoder": clip_param_shapes(CLIPTextConfig.vit_l())}
+def lora_groups(target: str = "lora", bases: dict | None = None
+                ) -> list[tuple[str, list[str], list[tuple[int, ...]], dict]]:
+    """An optim target's LoRA param groups (configs/lora.yaml's at SD1.5 width
+    by default; ``bases``: component -> its param shapes), as the trainer
+    holds them: one per LoRA module, with its component, its two factors'
+    keys (as the trainer names them) and shapes, and the group's optimizer
+    overrides; the UNet's groups first."""
+    bases = bases or {"unet": unet_param_shapes(UNetConfig.sd15()),
+                      "text_encoder": clip_param_shapes(CLIPTextConfig.vit_l())}
     metas = {comp: {k: torch.empty(v, device="meta") for k, v in shapes.items()}
              for comp, shapes in bases.items()}
     out = []
-    for comp, r in resolve_optim_target(load_optim_target("lora"), bases["unet"],
-                                        bases["text_encoder"]).items():
+    for comp, r in resolve_optim_target(load_optim_target(target), bases["unet"],
+                                        bases["text_encoder"],
+                                        bases.get("text_encoder_2")).items():
         shapes = lora_factor_shapes(metas[comp], r.lora)
         out += [(comp, [f"{COMPONENT_PREFIX[comp]}.{k}" for k in g.keys],
                  [shapes[k] for k in g.keys], g.optimizer) for g in r.groups]
     return out
 
 
-def lora_kernel_case(gen: torch.Generator) -> dict:
-    """The optimizer and EMA kernels in the form the lora phase runs them,
-    over lora.yaml's 264 groups of two LoRA factors each (SD1.5 width): one
-    adam_bf16_fused launch per group over fp32 masters and fp32 moments with
-    bf16 gradients (AdamW, lora.yaml's betas and eps, each group's lr and
-    decay), then one ema_fused launch per UNet group over the updated masters
-    with fp32 and with bf16 shadows; masters, moments and shadows bit for bit
-    against the plain versions. Per step: the kernels' own device time (the
-    mean launch in a torch.profiler trace times the launches), the calls'
-    time by CUDA events (the host's work around each launch included: each
-    adam_bf16_fused call uploads its gradients' addresses), the bytes bound
-    of the same work."""
-    hp = load_with_defaults(CONFIGS_DIR / "lora.yaml").optimizer.params
+def lora_adam_case(gen: torch.Generator, groups, hp) -> tuple[dict, list]:
+    """adam_bf16_fused as a LoRA run launches it: one launch per group of
+    ``groups`` over fp32 masters and fp32 moments with bf16 gradients
+    (AdamW with ``hp``'s betas and eps, each group's lr and decay), bit for
+    bit against its plain version. Per step: the kernels' own device time
+    (the mean launch in a torch.profiler trace times the launches), the
+    calls' time by CUDA events (the host's work around each launch
+    included: each call uploads its gradients' addresses), the bytes bound
+    of the same work and torch._fused_adamw_ over the same lists. Returns
+    the record and the kernel's tables (their masters updated)."""
     b1, b2, eps = float(hp.beta1), float(hp.beta2), float(hp.eps)
-    groups = lora_groups()
     count = 3
     bc = bias_corrections(b1, b2, count)
     got, want, grads, kws = [], [], [], []
@@ -1798,8 +1843,20 @@ def lora_kernel_case(gen: torch.Generator) -> dict:
     res["adam_bf16_fused"]["library"] = (
         "torch._fused_adamw_ over the same fp32 lists, fp32 gradients, one lr (nearest call, "
         "not the same function)")
-    del flat, ps, gs, ms, vs
+    del flat, ps, gs, ms, vs, want, grads
+    return res, got
 
+
+def lora_kernel_case(gen: torch.Generator) -> dict:
+    """The optimizer and EMA kernels in the form the lora phase runs them,
+    over lora.yaml's 264 groups of two LoRA factors each (SD1.5 width):
+    ``lora_adam_case``, then one ema_fused launch per UNet group over the
+    updated masters with fp32 and with bf16 shadows, bit for bit against its
+    plain version, timed as the optimizer is and beside
+    torch._foreach_lerp_."""
+    groups = lora_groups()
+    res, got = lora_adam_case(gen, groups, load_with_defaults(CONFIGS_DIR / "lora.yaml")
+                              .optimizer.params)
     unet = [(keys, t) for (comp, keys, _, _), t in zip(groups, got) if comp == "unet"]
     one_minus, step = one_minus_decay(EMA_DECAY, 9), 8
     res["ema_fused"] = {}
@@ -1952,24 +2009,25 @@ def device_ops(fn) -> tuple[int, float]:
     return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
 
 
-def sampling_check(model: Path, seed: int) -> dict:
-    """On the model directory's components in bf16: the DDIM loop at the
-    shipped concept's settings with the kernels, then with the attention
-    gate closed (ops/attention.FORCE_MATH), from one initial noise. The
-    latents after the first step (the second UNet call's input) within
-    CHECK_TOL of each other (relative max-abs, as the check phase), the final
-    latents within SAMPLE_FINAL_TOL (relative L2), both
-    finite; splash_fwd launches 10 per UNet call with the kernels, none
-    without. Then the device ms of one UNet call on the CFG pair (and its
-    host ms, issuing included), of the VAE decode of one 512^2 image and of
-    CLIP on the pair, and the CUDA operations of one UNet call."""
-    concept, clip_skip = shipped_concept()
+def sampling_check(model: Path, seed: int, concept, clip_skip: int = 1) -> dict:
+    """On the model directory's components in bf16: the DDIM loop at
+    ``concept``'s settings with the kernels, then with the attention gate
+    closed (ops/attention.FORCE_MATH), from one initial noise. The latents
+    after the first step (the second UNet call's input) within CHECK_TOL of
+    each other (relative max-abs, as the check phase), the final latents
+    within SAMPLE_FINAL_TOL (relative L2), both finite; splash_fwd launches
+    as the gate admits per UNet call with the kernels, none without. Then
+    the device ms of one UNet call on the CFG pair (and its host ms, issuing
+    included), of the VAE decode of one image and of the text encoder(s) on
+    the pair, and the CUDA operations of one UNet call. An SDXL directory
+    conditions through both towers and the CFG pair's added_cond."""
     models = load_components(merge(default(), Config({"model": str(model)})))
     spec = sampler.SamplerSpec(unet_config=models.unet_config, vae_config=models.vae_config,
                                clip_config=models.clip_config, schedule=models.schedule,
-                               clip_stop_at_layer=clip_skip)
+                               clip_stop_at_layer=clip_skip, clip2_config=models.clip2_config)
     unet, vae, clip = (sampler.cast_params(p, spec.dtype, DEVICE)
                        for p in (models.unet, models.vae, models.clip))
+    clip2 = sampler.cast_params(models.clip2, spec.dtype, DEVICE) if spec.sdxl else None
     del models
     tokenizer = CLIPBPETokenizer.from_dir(model / "tokenizer")
     steps, cfg_scale = int(concept.steps), float(concept.cfg_scale)
@@ -1980,7 +2038,18 @@ def sampling_check(model: Path, seed: int) -> dict:
     with torch.inference_mode():
         ids = torch.from_numpy(np.asarray(tokenizer([concept.negative_prompt, concept.prompt]),
                                           np.int64)).to(DEVICE)
-        context = clip_text_apply(clip, ids, spec.clip_config, clip_skip)
+        added = None
+        if spec.sdxl:
+            encode = lambda: encode_sdxl(clip, clip2, ids, spec.clip_config,  # noqa: E731
+                                         spec.clip2_config)
+            context, pooled = encode()
+            added = {"text_embeds": pooled.to(spec.dtype),
+                     "time_ids": torch.tensor([height, width, 0, 0, height, width],
+                                              dtype=torch.float32, device=DEVICE).expand(2, 6)}
+        else:
+            encode = lambda: clip_text_apply(clip, ids, spec.clip_config,  # noqa: E731
+                                             clip_skip)
+            context = encode()
         uncond, cond = context[:1], context[1:]
         noise = torch.randn(1, spec.unet_config.in_channels, height // f, width // f,
                             generator=gen, dtype=torch.bfloat16, device=DEVICE)
@@ -1997,7 +2066,8 @@ def sampling_check(model: Path, seed: int) -> dict:
             try:
                 out = sampler.ddim_sample_latents(unet, cond, uncond, None, spec, steps,
                                                   cfg_scale, height, width, 1,
-                                                  draws=sampler.SamplerDraws(noise=noise))
+                                                  draws=sampler.SamplerDraws(noise=noise),
+                                                  added_cond=added)
             finally:
                 sampler.unet_apply, attention.FORCE_MATH = real, False
             torch.cuda.synchronize()
@@ -2022,21 +2092,24 @@ def sampling_check(model: Path, seed: int) -> dict:
 
         pair = torch.cat([noise, noise])
         t = torch.full((2,), 500, device=DEVICE)
-        call = lambda: unet_apply(unet, pair, t, context, spec.unet_config)  # noqa: E731
-        res["unet_device_ms"] = device_ms(call, iters=5, warmup=1, hold_cycles=HOLD_CYCLES)
+        call = lambda: unet_apply(unet, pair, t, context, spec.unet_config,  # noqa: E731
+                                  added_cond=added)
+        # 3 calls: the host of an H100 machine took 70-180 ms to issue one
+        # SDXL call, and all of them must queue behind the ~1 s spin for the
+        # host's time not to count
+        res["unet_device_ms"] = device_ms(call, iters=3, warmup=1, hold_cycles=HOLD_CYCLES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(3):
             call()
         torch.cuda.synchronize()
-        res["unet_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        res["unet_host_ms"] = (time.perf_counter() - t0) / 3 * 1e3
         res["unet_ops"], res["unet_ops_device_ms"] = device_ops(call)
         z = noise.float().div(spec.vae_config.scaling_factor).bfloat16()
         res["vae_decode_ms"] = device_ms(lambda: decoder_apply(vae, z, spec.vae_config), iters=5,
                                          warmup=1, hold_cycles=HOLD_CYCLES)
-        res["clip_ms"] = device_ms(
-            lambda: clip_text_apply(clip, ids, spec.clip_config, clip_skip), iters=10)
-    del unet, vae, clip
+        res["clip_ms"] = device_ms(encode, iters=10, hold_cycles=HOLD_CYCLES)
+    del unet, vae, clip, clip2
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2111,7 +2184,7 @@ def sample_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
     res["deterministic"] = True
     res["peak_mem_gib"] = peak
     res["launches"] = launches_total
-    res["check"] = sampling_check(model, seed)
+    res["check"] = sampling_check(model, seed, concept, clip_skip)
     return res
 
 
@@ -2222,6 +2295,381 @@ def dreambooth_phase(seed: int, workdir: Path, model: Path, images: Path) -> dic
     return res
 
 
+# -- SDXL: configs/sdxl_lora.yaml at SDXL-base's published widths ----------------------
+
+SDXL_VAE_SCALE = 0.13025   # SDXL-base's vae/config.json scaling_factor
+SDXL_RESOLUTION = 1024     # sdxl_lora.yaml's data.resolution and sampling size
+# (w, h) of the SDXL phases' PNGs, two each: ARB at 1024 puts them in the
+# 1024x1024, 1408x1024 and 1024x1408 buckets (L = 4096 / 1024 and 5632 / 1408)
+SDXL_IMAGE_SIZES = [(1024, 1024), (1152, 896), (896, 1152)]
+SDXL_IMAGES = 6            # one epoch of 6 steps at sdxl_lora.yaml's batch 1
+SDXL_STEPS, SDXL_SAVE_EVERY = 6, 4       # the lora run and its mid-epoch checkpoint
+SDXL_SAMPLE_EVERY, SDXL_SAMPLES = 4, 2   # the cut of sdxl_lora.yaml's sampling (100 x 4)
+SDXL_CACHED_STEPS = 2
+# splash in SDXL's training forms (batch 1, head dim 64): 1024^2 levels 1
+# and 2, and a ragged ARB length (72 x 56); the lora run's bucket shapes join
+# them. Sampling's: the CFG pair at 1024^2.
+SDXL_KERNEL_SHAPES = [(1, 10, 4096, 64), (1, 20, 1024, 64), (1, 10, 4032, 64)]
+SDXL_SAMPLING_SHAPES = [(2, 10, 4096, 64), (2, 20, 1024, 64)]
+
+
+def write_sdxl_images(root: Path, seed: int) -> Path:
+    """SDXL_IMAGES PNGs of random pixels at SDXL_IMAGE_SIZES, with captions."""
+    from PIL import Image
+
+    d = root / "sdxl_images"
+    d.mkdir(parents=True)
+    r = np.random.RandomState(seed + 30)
+    for i in range(SDXL_IMAGES):
+        w, h = SDXL_IMAGE_SIZES[i % len(SDXL_IMAGE_SIZES)]
+        Image.fromarray(r.randint(0, 256, (h, w, 3), np.uint8)).save(d / f"img_{i:03d}.png")
+        (d / f"img_{i:03d}.txt").write_text(f"a photo of the dog number {i}, tag {i % 3}")
+    return d
+
+
+def write_sdxl_dir(root: Path, seed: int) -> Path:
+    """A diffusers directory of SDXL-base at its published widths in bf16,
+    random weights from ``seed``: the text_time UNet (UNetConfig.sdxl, 2.57 B
+    parameters), the VAE (SD's, scaling factor 0.13025), CLIP ViT-L and
+    OpenCLIP bigG with its text_projection (both towers' EOS id the
+    synthetic vocab's), the scheduler (scaled_linear 0.00085-0.012,
+    steps_offset 1) and the synthetic vocab."""
+    d = root / "sdxl"
+    tok = write_vocab(d / "tokenizer")
+    eos = {"eos_token_id": len(json.loads((tok / "vocab.json").read_text())) - 1}
+    parts = {"unet": (UNetConfig.sdxl(), init_unet_params),
+             "vae": (dataclasses.replace(VAEConfig.sd15(), scaling_factor=SDXL_VAE_SCALE),
+                     init_vae_params),
+             "text_encoder": (dataclasses.replace(CLIPTextConfig.vit_l(), **eos),
+                              init_clip_params),
+             "text_encoder_2": (dataclasses.replace(CLIPTextConfig.sdxl_g(), **eos),
+                                init_clip_params)}
+    for i, (name, (cfg, init)) in enumerate(parts.items()):
+        params = init(cfg, seed=seed + 20 + i, device=DEVICE, dtype=torch.bfloat16)
+        (d / name).mkdir()
+        save_state_dict(params, d / name / "diffusion_pytorch_model.safetensors")
+        (d / name / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+        del params
+    torch.cuda.empty_cache()
+    (d / "scheduler").mkdir()
+    (d / "scheduler" / "scheduler_config.json").write_text(json.dumps(SD15_SCHEDULER))
+    return d
+
+
+def sdxl_config(workdir: Path, name: str, model: Path, images: Path, seed: int,
+                overrides: dict) -> tuple[Config, Path]:
+    """The port's configs/sdxl_lora.yaml on ``model`` and ``images`` with
+    ``overrides``, written to ``workdir/<name>.yaml``."""
+    base = load_with_defaults(CONFIGS_DIR / "sdxl_lora.yaml")
+    check(base.gradient_checkpointing is True and base.aspect_ratio_bucket.enabled
+          and base.batch_size == 1 and base.optim_target == "lora_sdxl"
+          and base.data.resolution == SDXL_RESOLUTION and base.sampling.method == "dpmpp_2m",
+          "sdxl_lora.yaml changed")
+    config = merge(base, Config({
+        "model": str(model), "output_dir": str(workdir / "sdxl_runs"), "project": name,
+        "seed": seed, "num_workers": NUM_WORKERS,
+        "data": {"concepts": [{"instance_set": {"path": str(images),
+                                                "prompt": "{TXT_PROMPT}"}}]},
+        "loggers": {"tensorboard": None}}), Config(overrides))
+    path = workdir / f"{name}.yaml"
+    path.write_text(json.dumps(config))
+    return config, path
+
+
+def sdxl_bases() -> dict[str, dict]:
+    """SDXL-base's param shapes by component."""
+    return {"unet": unet_param_shapes(UNetConfig.sdxl()),
+            "text_encoder": clip_param_shapes(CLIPTextConfig.vit_l()),
+            "text_encoder_2": clip_param_shapes(CLIPTextConfig.sdxl_g())}
+
+
+def sdxl_groups() -> dict[str, int]:
+    """lora_sdxl's param groups per component at SDXL-base's widths."""
+    groups = lora_groups("lora_sdxl", sdxl_bases())
+    return {comp: sum(g[0] == comp for g in groups) for comp in sdxl_bases()}
+
+
+KERNEL_CATEGORIES = (   # kernel name fragment -> category, first match wins
+    ("splash_", "splash"), ("adam", "optimizer"), ("conv", "convs"), ("fprop", "convs"),
+    ("dgrad", "convs"), ("wgrad", "convs"), ("cudnn", "convs"), ("gemm", "GEMMs"),
+    ("cutlass", "GEMMs"), ("nvjet", "GEMMs"), ("xmma", "GEMMs"),
+    ("norm", "norms"), ("reduce", "reductions"), ("softmax", "softmax"),
+    ("elementwise", "elementwise"), ("vectorized", "elementwise"), ("unrolled", "elementwise"),
+    ("copy", "elementwise"), ("cat", "elementwise"))
+
+
+def trace_breakdown(path: Path) -> dict:
+    """One traced step from a torch.profiler Chrome trace: its kernels'
+    count and summed device ms by category, the device's busy ms (the union
+    of the kernels' intervals) over the traced span (first to last kernel
+    or runtime call), and the host's kernel launches."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    check(bool(kernels), f"{path}: the profiled step traced no kernel")
+    launches = sum(e.get("cat") == "cuda_runtime" and "LaunchKernel" in e.get("name", "")
+                   for e in events)
+    by: dict[str, float] = {}
+    for e in kernels:
+        name = e["name"].lower()
+        cat = next((c for frag, c in KERNEL_CATEGORIES if frag in name), "other")
+        by[cat] = by.get(cat, 0.0) + e["dur"] / 1e3
+    busy, end = 0.0, -math.inf
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    timed = kernels + [e for e in events if e.get("cat") == "cuda_runtime" and "dur" in e]
+    span = (max(e["ts"] + e["dur"] for e in timed) - min(e["ts"] for e in timed)) / 1e3
+    return {"kernels": len(kernels), "kernel_ms": sum(by.values()), "busy_ms": busy / 1e3,
+            "span_ms": span, "busy_share": busy / 1e3 / span, "launches": launches,
+            "by_category_ms": dict(sorted(by.items(), key=lambda kv: -kv[1]))}
+
+
+def sdxl_cache_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
+    """The cache CLI on the SDXL directory over the SDXL PNGs at 1024 ARB
+    (batch 1): every entry holds {id}.latent.0, {id}.cond (77, 2048: both
+    towers' penultimate states) and {id}.pooled (1280,); then the train CLI
+    trains SDXL_CACHED_STEPS lora_sdxl steps from the file."""
+    cache = workdir / "sdxl_cache.safetensors"
+    timings = workdir / "sdxl_cache_timings.jsonl"
+    _, cfg_path = sdxl_config(workdir, "sdxl_cache", model, images, seed, {
+        "data": {"cache": str(cache)}, "sampling": {"concepts": []},
+        "trainer": {"max_steps": SDXL_CACHED_STEPS, "log_every_n_steps": 1},
+        "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
+                       "every_n_train_steps": None, "monitor": None}})
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cache_cli.main(["--config", str(cfg_path), "--batch-size", "1", "--device", DEVICE],
+                   standalone_mode=False)
+    encode_s = time.perf_counter() - t0
+    encode_launches = read_launches()
+    check(not any(encode_launches.values()), f"the cache encode launched {encode_launches}")
+    c = LatentCache(cache)
+    entries = [int(i) for i in c.entries]
+    width = UNetConfig.sdxl().cross_attention_dim            # both towers' states
+    pooled = CLIPTextConfig.sdxl_g().projection_dim
+    check(len(entries) == SDXL_IMAGES and all(
+        c.cond(i).shape == (77, width) and c.pooled(i).shape == (pooled,)
+        and np.isfinite(c.pooled(i)).all() for i in entries),
+        f"the SDXL cache: {len(entries)} entries, keys {sorted(c._keys)[:6]}")
+    groups = sum(sdxl_groups().values())
+    os.environ["SSDT_STEP_TIMINGS"] = str(timings)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with TrainerProbe() as run:
+            train_cli.main(["--config", str(cfg_path), "--run-id", "cached", "--device", DEVICE],
+                           standalone_mode=False)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        os.environ.pop("SSDT_STEP_TIMINGS", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = run.losses()
+    check(sorted(losses) == list(range(1, SDXL_CACHED_STEPS + 1))
+          and all(math.isfinite(x) for x in losses.values()), f"cached SDXL losses {losses}")
+    shapes = step_shapes(timings)
+    expect_train_splash(shapes, launches, "cached SDXL steps", UNetConfig.sdxl(), vae_factor=1)
+    check(launches["adam_bf16_fused"] == groups * SDXL_CACHED_STEPS
+          and launches["adam8_fused"] == launches["ema_fused"] == 0,
+          f"cached SDXL launches {launches}")
+    return {"entries": len(entries), "encode_s": encode_s,
+            "images_per_s": len(entries) / encode_s, "file_mib": cache.stat().st_size / 2 ** 20,
+            "latent_shapes": sorted({tuple(s) for s in shapes}),
+            "losses": [losses[s] for s in sorted(losses)], "peak_mem_gib": peak,
+            "launches": launches, "first_step_s": run.steps[0][2]}
+
+
+def sdxl_lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
+    """The port's configs/sdxl_lora.yaml through the train CLI on the SDXL
+    directory: LoRA on the UNet and both towers (rank 16), remat, ARB at
+    1024, batch 1, uncached. Run 1 trains SDXL_STEPS steps with a
+    checkpoint at SDXL_SAVE_EVERY (mid-epoch) and one sampling event of
+    SDXL_SAMPLES images (24 DPM++(2M) steps, cfg 7, 1024^2) just before it;
+    run 2 resumes from that checkpoint and must end on run 1's final
+    checkpoint and sidecar bytes and losses. Splash launches per step match
+    the gate at each step's bucket (forward twice under remat; the sampled
+    images' forwards on top), adam_bf16_fused one launch per LoRA module."""
+    runs, timings = workdir / "sdxl_runs", workdir / "sdxl_timings.jsonl"
+    base = load_with_defaults(CONFIGS_DIR / "sdxl_lora.yaml")
+    concepts = [{**c, "num_samples": SDXL_SAMPLES} for c in base.sampling.concepts]
+    config, cfg_path = sdxl_config(workdir, "sdxl_lora", model, images, seed, {
+        "sampling": {"interval_steps": SDXL_SAMPLE_EVERY, "concepts": concepts},
+        "trainer": {"max_steps": SDXL_STEPS, "log_every_n_steps": 1},
+        # a torch.profiler trace of the step after the checkpoint (left out
+        # of the rate, as the write precedes it)
+        "profiler": {"enabled": True, "start_step": SDXL_SAVE_EVERY, "num_steps": 1},
+        "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
+                       "every_n_train_steps": SDXL_SAVE_EVERY, "monitor": None}})
+    groups = sdxl_groups()
+    n_groups = sum(groups.values())
+    concept = concepts[0]
+    size = (int(concept["width"]), int(concept["height"]))
+    sample_steps = int(concept["steps"])
+    os.environ["SSDT_STEP_TIMINGS"] = str(timings)
+
+    def cli(args, probe):
+        with probe:
+            train_cli.main(args + ["--device", DEVICE], standalone_mode=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run1 = TrainerProbe()
+        with CallbackProbe() as sampling:
+            cli(["--config", str(cfg_path), "--run-id", "run1"], run1)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        shapes1 = step_shapes(timings)
+        check([s for s, _, _ in run1.steps] == list(range(1, SDXL_STEPS + 1))
+              and all(math.isfinite(x) for x in run1.losses().values()),
+              f"SDXL lora run 1: steps {[s for s, _, _ in run1.steps]}, losses {run1.losses()}")
+        check(len({tuple(s) for s in shapes1}) > 1, f"ARB buckets {shapes1}")
+        sample_dir = runs / "sdxl_lora" / "run1" / "samples"
+        events = SDXL_STEPS // SDXL_SAMPLE_EVERY
+        check([step for step, _ in sampling.events] ==
+              [SDXL_SAMPLE_EVERY * (i + 1) for i in range(events)],
+              f"SDXL lora run 1 sampled at {sampling.events}")
+        for step, _ in sampling.events:
+            pngs = sorted((sample_dir / str(step)).glob("*.png"))
+            check([p.name for p in pngs] == [f"0-{j}.png" for j in range(SDXL_SAMPLES)],
+                  f"SDXL lora run 1 samples at step {step}: {pngs}")
+            for p in pngs:
+                png_pixels(p, size)
+        per_image = sample_steps * splash_calls((2, size[1], size[0], 3), UNetConfig.sdxl())
+        sampled = events * SDXL_SAMPLES * per_image
+        calls = expect_train_splash(shapes1, launches, "SDXL lora run 1", UNetConfig.sdxl(),
+                                    sampled=sampled)
+        check(launches["adam_bf16_fused"] == n_groups * SDXL_STEPS
+              and launches["ema_fused"] == launches["adam8_fused"] == 0,
+              f"SDXL lora run 1 launches {launches}")
+        dir1 = runs / "sdxl_lora" / "run1"
+        mid, last = (f"epoch=0-step={n}" for n in (SDXL_SAVE_EVERY, SDXL_STEPS))
+        check(sorted(p.name for p in dir1.glob("*.safetensors")) ==
+              [mid + ".safetensors", last + ".safetensors"],
+              f"SDXL lora run 1 wrote {sorted(p.name for p in dir1.iterdir())}")
+        ckpt = load_state_dict(dir1 / f"{mid}.safetensors")
+        factors = {k: v for k, v in ckpt.items() if k.endswith((".lora_A", ".lora_B"))}
+        check(len(factors) == 2 * n_groups and len(ckpt) == 3 * n_groups
+              and any(k.startswith("condition_model.encoder_2.") for k in factors),
+              f"the SDXL LoRA checkpoint holds {len(ckpt)} tensors for {n_groups} modules")
+        trainables = {comp: sum(v.numel() for k, v in factors.items()
+                                if k.startswith(COMPONENT_PREFIX[comp] + "."))
+                      for comp in groups}
+        ckpt_bytes = (dir1 / f"{mid}.safetensors").stat().st_size
+        sidecar_bytes = (dir1 / f"{mid}.safetensors.torchstate").stat().st_size
+        want = file_digests(checkpoint_files(dir1, last))
+
+        torch.cuda.synchronize()
+        reset_launches()
+        run2 = TrainerProbe()
+        cli(["--resume", str(dir1 / f"{mid}.safetensors"), "--run-id", "run2"], run2)
+        launches2 = read_launches()
+        expect_train_splash(step_shapes(timings), launches2, "SDXL lora run 2", UNetConfig.sdxl())
+        check(launches2["adam_bf16_fused"] == n_groups * (SDXL_STEPS - SDXL_SAVE_EVERY),
+              f"SDXL lora run 2 launches {launches2}")
+        got = file_digests(checkpoint_files(runs / "sdxl_lora" / "run2", last))
+        check(got == want, f"the resumed SDXL LoRA run's checkpoint differs: {got} {want}")
+        l1, l2 = run1.losses(), run2.losses()
+        check(sorted(l2) == list(range(SDXL_SAVE_EVERY + 1, SDXL_STEPS + 1))
+              and all(l2[s] == l1[s] for s in l2), f"resumed losses {l2} != run 1's {l1}")
+    finally:
+        os.environ.pop("SSDT_STEP_TIMINGS", None)
+
+    profile = trace_breakdown(dir1 / "profile" / f"trace_step{SDXL_SAVE_EVERY}.json")
+    # steps over the wall time between their logs: the first step and the
+    # one after the checkpoint write (and the sampling event) left out
+    dts = [1.0 / m["steps_per_sec"] for s, m, _ in run1.steps if s not in (1, SDXL_SAVE_EVERY + 1)]
+    dts2 = [1.0 / m["steps_per_sec"] for s, m, _ in run2.steps if s != SDXL_SAVE_EVERY + 1]
+    splash_shapes = sorted({shape for b in shapes1
+                            for shape, n in splash_levels(b, UNetConfig.sdxl()) if n})
+    return {"steps": SDXL_STEPS, "groups": groups, "trainable_params": trainables,
+            "bucket_shapes": shapes1, "splash_shapes": splash_shapes,
+            "sampling": {"interval_steps": SDXL_SAMPLE_EVERY, "num_samples": SDXL_SAMPLES,
+                         "steps": sample_steps, "events_s": sampling.events,
+                         "splash_fwd": sampled},
+            "losses": [l1[s] for s in sorted(l1)],
+            "resumed_losses": [l2[s] for s in sorted(l2)], "resume_bit_equal": True,
+            "steps_per_s": len(dts) / sum(dts), "resumed_steps_per_s": len(dts2) / sum(dts2),
+            "step_s": dts, "first_step_s": run1.steps[0][2], "save_s": run1.saves,
+            "resume_s": run2.resumes, "checkpoint_mib": ckpt_bytes / 2 ** 20,
+            "sidecar_mib": sidecar_bytes / 2 ** 20, "peak_mem_gib": peak,
+            "launches": {k: launches[k] + launches2[k] for k in launches},
+            "launches_per_step": {k: (v - (sampled if k == "splash_fwd" else 0)) / SDXL_STEPS
+                                  for k, v in launches.items()},
+            "splash_calls_per_step": calls / SDXL_STEPS, "profiled_step": profile}
+
+
+def sdxl_sample_phase(seed: int, workdir: Path, model: Path) -> dict:
+    """The sample CLI on the SDXL directory at sdxl_lora.yaml's concept (its
+    prompt and negative prompt, 24 steps, cfg 7, 1024^2, seed 114514): one
+    image per method, then the concept's method (DPM++(2M)) again, whose PNG
+    bytes must equal the first's. Each run: 24 UNet calls, splash_fwd 70 per
+    call and no other kernel, a valid PNG decoded from finite latents. Then
+    ``sampling_check`` at the concept."""
+    cfg = load_with_defaults(CONFIGS_DIR / "sdxl_lora.yaml")
+    concept, method = cfg.sampling.concepts[0], str(cfg.sampling.method)
+    steps, size = int(concept.steps), (int(concept.width), int(concept.height))
+    base = ["--model", str(model), "--prompt", concept.prompt, "--negative",
+            concept.negative_prompt, "--steps", str(steps), "--cfg", str(concept.cfg_scale),
+            "--seed", str(concept.seed), "--width", str(size[0]), "--height", str(size[1]),
+            "--device", DEVICE]
+    runs = {**{m: m for m in SAMPLE_METHODS}, "repeat": method}
+    calls = splash_calls((2, size[1], size[0], 3), UNetConfig.sdxl())
+    res: dict = {"runs": {}}
+    launches_total = dict.fromkeys(read_launches(), 0)
+    peak = 0.0
+    for name, m in runs.items():
+        out = workdir / "sdxl_samples" / name
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with SampleProbe() as probe:
+            sample_cli.main(base + ["--method", m, "--out", str(out)], standalone_mode=False)
+        launches = read_launches()
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        for k, v in launches.items():
+            launches_total[k] += v
+        pngs = sorted(out.glob("*.png"))
+        check(len(probe.calls) == len(pngs) == 1 and probe.calls[0]["finite"]
+              and probe.calls[0]["unet_calls"] == steps
+              and launches["splash_fwd"] == steps * calls
+              and sum(launches.values()) == launches["splash_fwd"],
+              f"SDXL sample {name}: {probe.calls}, {pngs}, launches {launches}, expected "
+              f"{steps} UNet calls and splash_fwd {calls} per call only")
+        pixels = png_pixels(pngs[0], size)
+        secs = probe.calls[0]["s"]
+        res["runs"][name] = {"method": m, "size": list(size), "s_per_image": secs,
+                             "unet_calls": steps, "unet_calls_per_s": steps / secs,
+                             "launches": launches, "splash_fwd_per_image": launches["splash_fwd"],
+                             "png_sha256": hashlib.sha256(pngs[0].read_bytes()).hexdigest(),
+                             "pixel_mean": float(pixels.mean())}
+    check(res["runs"][method]["png_sha256"] == res["runs"]["repeat"]["png_sha256"],
+          "SDXL: the same seed twice gave other PNG bytes")
+    res.update(deterministic=True, peak_mem_gib=peak, launches=launches_total)
+    res["check"] = sampling_check(model, seed, concept)
+    return res
+
+
+def sdxl_kernel_case(gen: torch.Generator) -> dict:
+    """adam_bf16_fused in the SDXL lora run's form: ``lora_adam_case`` over
+    lora_sdxl's groups at SDXL-base's widths (one per LoRA module of the UNet
+    and both towers) with sdxl_lora.yaml's AdamW."""
+    groups = lora_groups("lora_sdxl", sdxl_bases())
+    res, got = lora_adam_case(gen, groups, load_with_defaults(CONFIGS_DIR / "sdxl_lora.yaml")
+                              .optimizer.params)
+    res["groups_by_component"] = sdxl_groups()
+    del got
+    torch.cuda.empty_cache()
+    return res
+
+
 def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                 record: dict) -> dict:
     """The {"kernels": [...]} entry of an optimizer kernel: the numbers of its
@@ -2246,7 +2694,8 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
             "launches": record[phase]["launches"][name],
             "launches_by_phase": {p: record[p]["launches"][name] for p in PHASES},
             "max_abs_err": max([r["err"]["out"] for r in cases] + [grouped["err"]["out"]]
-                               + ([record["lora_kernels"][name]["err"]["out"]]
+                               + ([record[k][name]["err"]["out"]
+                                   for k in ("lora_kernels", "sdxl_kernels")]
                                   if name == "adam_bf16_fused" else [])),
             "ms": grouped["ms"], "plain_ms": grouped["plain_ms"],
             "bound_ms": grouped["bound"][0], "bound_by": grouped["bound"][1],
@@ -2255,19 +2704,23 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
             **{k: v for k, v in grouped.items() if k == "library"},
             **{k: {f: v[f] for f in ("leaves", "ms", "plain_ms", "bound", "library_ms")}
                for k, v in others.items()},
-            **({"lora_groups": lora_record(record, "adam_bf16_fused")}
+            **({"lora_groups": lora_record(record, "adam_bf16_fused"),
+                "sdxl_lora_groups": lora_record(record, "adam_bf16_fused", kernels="sdxl_kernels")}
                if name == "adam_bf16_fused" else {}),
             "by_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound", "library_ms")}
                          for r in cases]}
 
 
-def lora_record(record: dict, kernel: str, shadow: str | None = None) -> dict:
-    """The kernels-line numbers of ``kernel`` in the lora phase's form (one
-    launch per LoRA group over fp32 masters; the EMA's with ``shadow``)."""
-    lk = record["lora_kernels"]
+def lora_record(record: dict, kernel: str, shadow: str | None = None,
+                kernels: str = "lora_kernels") -> dict:
+    """The kernels-line numbers of ``kernel`` in a LoRA phase's form (one
+    launch per LoRA group over fp32 masters; the EMA's with ``shadow``):
+    the lora phase's, or with ``kernels="sdxl_kernels"`` the SDXL lora
+    phase's."""
+    lk = record[kernels]
     r = lk[kernel] if shadow is None else lk[kernel][shadow]
     return {"groups": lk["groups"] if shadow is None else r["groups"],
-            **{f: r[f] for f in ("ms", "plain_ms", "bound", "library_ms")}}
+            **{f: r[f] for f in ("ms", "call_ms", "plain_ms", "bound", "library_ms")}}
 
 
 def ema_entry(source: str, replaces: str, pallas_kernel: str, record: dict) -> dict:
@@ -2291,6 +2744,53 @@ def ema_entry(source: str, replaces: str, pallas_kernel: str, record: dict) -> d
             "bf16_shadow": {f: other[f] for f in ("ms", "plain_ms", "bound", "library_ms")},
             "ms_per_step": {name: record["ema"][name]["ema_ms_per_step"] for name in EMA_DTYPES},
             "lora_groups": {name: lora_record(record, "ema_fused", name) for name in EMA_DTYPES}}
+
+
+def kernel_entries(record: dict) -> list[dict]:
+    """The {"kernels": [...]} line's entries from the run's record: each
+    splash kernel at the main path's long shape, with its other forms (ARB,
+    lora, SDXL, sampling) beside it; the optimizer and EMA kernels from
+    ``optim_entry`` and ``ema_entry``."""
+    main_shape = record["kernels"][0]
+    splash_records = (record["kernels"] + [record["kernels_arb"]] + record["kernels_lora"]
+                      + record["kernels_sdxl"])
+    sampling_records = record["kernels_sampling"] + record["kernels_sdxl_sampling"]
+    kernels = []
+    for name, (source, replaces, pallas_kernel) in KERNELS.items():
+        if name == "ema_fused":
+            kernels.append(ema_entry(source, replaces, pallas_kernel, record))
+            continue
+        if name not in SPLASH:
+            kernels.append(optim_entry(name, source, replaces, pallas_kernel, record))
+            continue
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "pallas_kernel": pallas_kernel,
+            "launches": record["train"]["launches"][name],
+            "launches_by_phase": {p: record[p]["launches"][name] for p in PHASES},
+            "max_abs_err": max([r["err"][name] for r in splash_records]
+                               + ([r["err"] for r in sampling_records]
+                                  if name == "splash_fwd" else [])),
+            "ms": main_shape["ms"][name], "plain_ms": main_shape["plain_ms"][name],
+            "bound_ms": main_shape["bound"][name][0],
+            # the exponential unit's term counts as operations (of their
+            # type, at its rate); bound_term names which term it was
+            "bound_by": "bytes" if main_shape["bound"][name][1] == "bytes" else "operations",
+            "bound_term": main_shape["bound"][name][1],
+            "library_ms": main_shape["sdpa_fwd_ms" if name == "splash_fwd" else "sdpa_bwd_ms"],
+            "library": "SDPA forward (F.scaled_dot_product_attention)" if name == "splash_fwd"
+                       else SDPA_BWD,
+            "at": main_shape["shape"],
+            **({"sampling": [{k: r[k] for k in ("shape", "ms", "plain_ms", "sdpa_fwd_ms")}
+                             | {"bound_ms": r["bound"][0]} for r in sampling_records]}
+               if name == "splash_fwd" else {"bwd_pair_ms": main_shape["bwd_pair_ms"]}),
+            "by_shape": [{"shape": r["shape"], "ms": r["ms"][name],
+                          "plain_ms": r["plain_ms"][name], "bound_ms": r["bound"][name][0],
+                          "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"],
+                          "bwd_pair_ms": r["bwd_pair_ms"]}
+                         for r in splash_records],
+        })
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -2464,6 +2964,61 @@ def main(argv=None) -> int:
             f"{db['losses']}")
         record["dreambooth"] = db
 
+        # SDXL (configs/sdxl_lora.yaml): the SD1.5 directory makes room for
+        # SDXL-base's 7 GB
+        shutil.rmtree(Path(tmp) / "model")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sdxl_images = write_sdxl_images(Path(tmp), args.seed)
+        sdxl_model = write_sdxl_dir(Path(tmp), args.seed)
+        record["sdxl_write_s"] = time.perf_counter() - t0
+        gib = sum(p.stat().st_size for p in sdxl_model.rglob("*") if p.is_file()) / 2 ** 30
+        log(f"sdxl: wrote SDXL-base ({gib:.2f} GiB, bf16) in {record['sdxl_write_s']:.1f} s")
+        phases = {"sdxl_cache": lambda: sdxl_cache_phase(args.seed, Path(tmp), sdxl_model,
+                                                         sdxl_images),
+                  "sdxl_lora": lambda: sdxl_lora_phase(args.seed, Path(tmp), sdxl_model,
+                                                       sdxl_images),
+                  "sdxl_sample": lambda: sdxl_sample_phase(args.seed, Path(tmp), sdxl_model)}
+        for name, run in phases.items():
+            t0 = time.perf_counter()
+            record[name] = run()
+            record[name]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        c = record["sdxl_cache"]
+        log(f"sdxl cache: {c['entries']} entries with pooled embeddings in {c['encode_s']:.2f} s "
+            f"({c['images_per_s']:.2f} images/s, decode included), {c['file_mib']:.2f} MiB; "
+            f"{SDXL_CACHED_STEPS} cached steps at latents {c['latent_shapes']}: losses "
+            f"{c['losses']}, peak {c['peak_mem_gib']:.2f} GiB, launches {c['launches']}; "
+            f"phase {c['seconds']:.1f} s")
+        x = record["sdxl_lora"]
+        log(f"sdxl lora: {x['steps_per_s']:.4f} steps/s (resumed {x['resumed_steps_per_s']:.4f}; "
+            f"steps {[round(t, 3) for t in x['step_s']]} s), first step after "
+            f"{x['first_step_s']:.2f} s, buckets {sorted({tuple(s) for s in x['bucket_shapes']})}, "
+            f"{x['groups']} groups, trainable {x['trainable_params']}, checkpoint "
+            f"{x['checkpoint_mib']:.2f} MiB (+ sidecar {x['sidecar_mib']:.2f} MiB) written in "
+            f"{[round(t, 3) for _, t in x['save_s']]} s, peak {x['peak_mem_gib']:.2f} GiB, "
+            f"launches per step {x['launches_per_step']} ({x['splash_calls_per_step']:.1f} "
+            f"splash calls), sampling event (step, s) {x['sampling']['events_s']} "
+            f"({x['sampling']['splash_fwd']} splash_fwd), losses {x['losses']}, resumed "
+            f"{x['resumed_losses']} (bit-equal checkpoint); phase {x['seconds']:.1f} s")
+        log(f"sdxl lora profiled step: {json.dumps(x['profiled_step'])}")
+        x = record["sdxl_sample"]
+        for name, r in x["runs"].items():
+            log(f"sdxl sample {name} ({r['method']}, {r['size'][0]}x{r['size'][1]}): "
+                f"{r['s_per_image']:.3f} s per image, {r['unet_calls_per_s']:.2f} UNet calls per "
+                f"s, splash_fwd {r['splash_fwd_per_image']} per image")
+        c = x["check"]
+        log(f"sdxl sample: deterministic {x['deterministic']}, peak {x['peak_mem_gib']:.2f} GiB, "
+            f"DDIM kernel path vs plain: first step {c['first_step_rel_err']:.3e} (bound "
+            f"{CHECK_TOL}), final latents {c['final_rel_err']:.3e} relative L2 (bound "
+            f"{SAMPLE_FINAL_TOL}; max-abs {c['final_rel_max_abs_err']:.3e}); one UNet call on "
+            f"the CFG pair: device {c['unet_device_ms']:.3f} ms, host {c['unet_host_ms']:.3f} ms, "
+            f"{c['unet_ops']} CUDA operations ({c['unet_ops_device_ms']:.3f} ms traced); VAE "
+            f"decode {c['vae_decode_ms']:.3f} ms, both towers (pair) {c['clip_ms']:.3f} ms "
+            f"(device); phase {x['seconds']:.1f} s")
+
     # the kernels in the forms and at the shapes the lora phase ran them
     record["kernels_lora"] = [kernel_phase(tuple(sh), gen, rate) for sh in lora["splash_shapes"]]
     for r in record["kernels_lora"]:
@@ -2489,44 +3044,29 @@ def main(argv=None) -> int:
             f"{r['bound'][1]}), plain {r['plain_ms']:.2f} ms, torch._foreach_lerp_ "
             f"{r['library_ms']:.4f} ms, bit-equal {r['bit_equal']}")
     torch.cuda.empty_cache()
+    # the kernels in SDXL's forms: head dim 64 (DP = 64), the lora run's buckets
+    sdxl_shapes = sorted({tuple(sh) for sh in SDXL_KERNEL_SHAPES}
+                         | {tuple(sh) for sh in record["sdxl_lora"]["splash_shapes"]})
+    record["kernels_sdxl"] = [kernel_phase(sh, gen, rate) for sh in sdxl_shapes]
+    for r in record["kernels_sdxl"]:
+        log(f"kernels (sdxl) {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
+    record["kernels_sdxl_sampling"] = [sampling_kernel_case(sh, gen, rate)
+                                       for sh in SDXL_SAMPLING_SHAPES]
+    for r in record["kernels_sdxl_sampling"]:
+        log(f"kernels (sdxl sampling, inference) {r['shape']}: splash_fwd {r['ms']:.4f} ms (bound "
+            f"{r['bound'][0]:.4f} ms by {r['bound'][1]}), plain {r['plain_ms']:.3f} ms, SDPA "
+            f"forward {r['sdpa_fwd_ms']:.4f} ms, max-abs err {r['err']:.3e}")
+    record["sdxl_kernels"] = sdxl_kernel_case(gen)
+    sk = record["sdxl_kernels"]
+    a = sk["adam_bf16_fused"]
+    log(f"sdxl kernels: adam_bf16_fused over {sk['groups']} groups {sk['groups_by_component']} "
+        f"({sk['leaves']} fp32 leaves, {sk['elements']} elements): kernels {a['ms']:.4f} ms per "
+        f"step, calls {a['call_ms']:.4f} ms (bound {a['bound'][0]:.4f} ms by {a['bound'][1]}), "
+        f"plain {a['plain_ms']:.2f} ms, torch._fused_adamw_ {a['library_ms']:.4f} ms, bit-equal "
+        f"{a['err']}")
+    torch.cuda.empty_cache()
 
-    main_shape = record["kernels"][0]
-    splash_records = record["kernels"] + [record["kernels_arb"]] + record["kernels_lora"]
-    kernels = []
-    for name, (source, replaces, pallas_kernel) in KERNELS.items():
-        if name == "ema_fused":
-            kernels.append(ema_entry(source, replaces, pallas_kernel, record))
-            continue
-        if name not in SPLASH:
-            kernels.append(optim_entry(name, source, replaces, pallas_kernel, record))
-            continue
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "pallas_kernel": pallas_kernel,
-            "launches": record["train"]["launches"][name],
-            "launches_by_phase": {p: record[p]["launches"][name] for p in PHASES},
-            "max_abs_err": max([r["err"][name] for r in splash_records]
-                               + ([r["err"] for r in record["kernels_sampling"]]
-                                  if name == "splash_fwd" else [])),
-            "ms": main_shape["ms"][name], "plain_ms": main_shape["plain_ms"][name],
-            "bound_ms": main_shape["bound"][name][0],
-            # the exponential unit's term counts as operations (of their
-            # type, at its rate); bound_term names which term it was
-            "bound_by": "bytes" if main_shape["bound"][name][1] == "bytes" else "operations",
-            "bound_term": main_shape["bound"][name][1],
-            "library_ms": main_shape["sdpa_fwd_ms" if name == "splash_fwd" else "sdpa_bwd_ms"],
-            "library": "SDPA forward (F.scaled_dot_product_attention)" if name == "splash_fwd"
-                       else SDPA_BWD,
-            "at": main_shape["shape"],
-            **({"sampling": [{k: r[k] for k in ("shape", "ms", "plain_ms", "sdpa_fwd_ms")}
-                             | {"bound_ms": r["bound"][0]} for r in record["kernels_sampling"]]}
-               if name == "splash_fwd" else {"bwd_pair_ms": main_shape["bwd_pair_ms"]}),
-            "by_shape": [{"shape": r["shape"], "ms": r["ms"][name],
-                          "plain_ms": r["plain_ms"][name], "bound_ms": r["bound"][name][0],
-                          "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"],
-                          "bwd_pair_ms": r["bwd_pair_ms"]}
-                         for r in splash_records],
-        })
+    kernels = kernel_entries(record)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

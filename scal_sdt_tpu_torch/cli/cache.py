@@ -2,7 +2,9 @@
 
 One pass of VAE encode (and CLIP encode of the prompts) over the training
 set on one device, written as a single safetensors file keyed
-``{id}.latent.{g}`` / ``{id}.cond`` with the reference's metadata schema
+``{id}.latent.{g}`` / ``{id}.cond`` (and for SDXL ``{id}.pooled``, tower 2's
+pooled projected embedding, beside the concatenated penultimate states of
+both towers in ``{id}.cond``) with the reference's metadata schema
 {sizes, entries, total_entries, aug_group_size}: the file the JAX package
 writes, which either package's ``LatentCache`` reads. Latents are stored
 (h, w, c) HWC, in the dtype of the VAE weights (the encode runs in it).
@@ -13,8 +15,8 @@ data-dependent, so augmentation + ARB caching is rejected.
 
 Run it as ``python -m scal_sdt_tpu_torch.cli.cache --config cfg.yaml``
 (``--device cpu`` without a card). Not ported yet: the multi-process
-all-gather of the shards (a run with ``WORLD_SIZE`` > 1 raises), and the
-SDXL / SD3 conditionings (their layouts are refused by the loader).
+all-gather of the shards (a run with ``WORLD_SIZE`` > 1 raises, ROADMAP
+1.17), and the SD3 conditionings (the loader refuses its layout, 1.16).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from ..conf import Config, load_with_defaults
 from ..data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
 from ..device import resolve_device
-from ..models.clip import clip_text_apply
+from ..models.clip import clip_text_apply, encode_sdxl
 from ..models.vae import encoder_apply, latent_noise, sample_latents
 from ..utils.state import save_state_dict
 
@@ -81,7 +83,8 @@ def build_local_shard(config: Config, models, tokenizer, *,
     """Encode this process's dataset shard on ``device``.
 
     Returns {'ids': (N,) int64, 'latents': G lists of N (h, w, c) CPU
-    tensors, 'conds': (N, L, D) CPU tensor or None}. The shard is padded up
+    tensors, 'conds': (N, L, D) CPU tensor or None, 'pooled': (N, D2) CPU
+    tensor (SDXL) or None}. The shard is padded up
     to whole batches by repeating its last entry, so no tail entry is
     dropped. ``noise`` gives each batch's latent noise (default
     ``latent_noise_source`` seeded with ``config.seed``)."""
@@ -109,12 +112,25 @@ def build_local_shard(config: Config, models, tokenizer, *,
     if noise is None:
         noise = latent_noise_source(int(config.get("seed") or 0), dev)
 
+    if models.clip2 is not None:
+        # SDXL: the live-encode conditioning of training/step.py
+        clip2_params = {k: v.to(dev) for k, v in models.clip2.items()}
+
+        def encode_conds(input_ids):
+            return encode_sdxl(clip_params, clip2_params, input_ids, models.clip_config,
+                               models.clip2_config)
+    else:
+        def encode_conds(input_ids):
+            return clip_text_apply(clip_params, input_ids, models.clip_config,
+                                   stop_at_layer), None
+
     groups: list[list[torch.Tensor]] = []
     ids: Optional[np.ndarray] = None
     conds: Optional[torch.Tensor] = None
+    pooled: Optional[torch.Tensor] = None
     for group in range(aug_group_size):
         lat_images: list[torch.Tensor] = []
-        id_batches, cond_batches = [], []
+        id_batches, cond_batches, pooled_batches = [], [], []
         for batch in itertools.islice(iter(pipeline), n_batches):
             on_dev = to_device(batch, dev)
             moments = encoder_apply(vae_params, on_dev["images"].to(vae_dtype),
@@ -124,8 +140,10 @@ def build_local_shard(config: Config, models, tokenizer, *,
             lat_images.extend(lat.permute(0, 2, 3, 1).cpu().unbind(0))
             id_batches.append(np.asarray(batch["ids"], np.int64))
             if group == 0 and not no_conds and "input_ids" in batch:
-                cond_batches.append(clip_text_apply(clip_params, on_dev["input_ids"],
-                                                    models.clip_config, stop_at_layer).cpu())
+                c, p = encode_conds(on_dev["input_ids"])
+                cond_batches.append(c.cpu())
+                if p is not None:
+                    pooled_batches.append(p.cpu())
         group_ids = np.concatenate(id_batches)
         if ids is None:
             ids = group_ids
@@ -134,8 +152,10 @@ def build_local_shard(config: Config, models, tokenizer, *,
         groups.append(lat_images)
         if cond_batches:
             conds = torch.cat(cond_batches)
+        if pooled_batches:
+            pooled = torch.cat(pooled_batches)
 
-    return {"ids": ids, "latents": groups, "conds": conds}
+    return {"ids": ids, "latents": groups, "conds": conds, "pooled": pooled}
 
 
 def assemble_cache(merged: dict) -> tuple[dict, dict]:
@@ -156,6 +176,9 @@ def assemble_cache(merged: dict) -> tuple[dict, dict]:
     if conds is not None:
         for i, id_ in enumerate(ids):
             cache[f"{int(id_)}.cond"] = conds[i].clone()
+    if merged.get("pooled") is not None:
+        for i, id_ in enumerate(ids):
+            cache[f"{int(id_)}.pooled"] = merged["pooled"][i].clone()
 
     # Padding repeats ids; the per-key overwrites above already dedup the
     # tensors, and total_entries must be the UNIQUE count (it is consumed as

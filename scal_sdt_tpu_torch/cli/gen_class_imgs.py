@@ -76,10 +76,12 @@ def main(config_file: IO[str], device: str):
     tokenizer = resolve_tokenizer(config)
     spec = SamplerSpec(unet_config=models.unet_config, vae_config=models.vae_config,
                        clip_config=models.clip_config, schedule=models.schedule,
-                       clip_stop_at_layer=int(config.get("clip_stop_at_layer", 1)))
+                       clip_stop_at_layer=int(config.get("clip_stop_at_layer", 1)),
+                       clip2_config=models.clip2_config)
     # onto the device once, in the sampling dtype
     unet, vae_params, clip = (cast_params(p, spec.dtype, dev)
                               for p in (models.unet, models.vae, models.clip))
+    clip2 = cast_params(models.clip2, spec.dtype, dev) if models.clip2 is not None else None
     del models
     seed = int(config.get("seed") or 0)
 
@@ -122,6 +124,7 @@ def main(config_file: IO[str], device: str):
                     generator=torch.Generator(device=dev).manual_seed(
                         fold_seed(seed, rng_counter)),
                     device=dev,
+                    clip2_params=clip2,
                 )
                 rng_counter += 1
                 for img in images:

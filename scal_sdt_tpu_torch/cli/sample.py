@@ -4,7 +4,8 @@
         --steps 28 --cfg 7.5 --out out/ [--ckpt run/step8.safetensors] [--device cuda]
 
 Runs ``diffusion/sampler.py`` (DDIM, Euler, Euler-a, DPM++(2M), with CFG
-rescale and img2img) on a diffusers directory the trainer can load,
+rescale and img2img) on a diffusers directory the trainer can load (SD1.x,
+SD2.x or SDXL),
 optionally overlaying a training checkpoint: a full fine-tune's tensors or
 LoRA factors (which the UNet forward consumes as run-time deltas) from
 either package's ``.safetensors`` file, or a kohya / AddNet LoRA file; the
@@ -35,13 +36,17 @@ def merge_checkpoint(models, ckpt_path: Path) -> dict:
     for trained TI keywords)."""
     from ..convert.kohya import from_kohya_format, is_kohya_lora
     from ..training.checkpoint import load_checkpoint_tensors
-    from ..training.step import TE_PREFIX, UNET_PREFIX, VAE_PREFIX
+    from ..training.step import TE2_PREFIX, TE_PREFIX, UNET_PREFIX, VAE_PREFIX
 
     tensors, meta = load_checkpoint_tensors(ckpt_path)
     if is_kohya_lora(tensors):
         logger.info("Checkpoint is a kohya/AddNet LoRA file; importing")
-        tensors = from_kohya_format(tensors, models.unet.keys(), models.clip.keys())
+        tensors = from_kohya_format(
+            tensors, models.unet.keys(), models.clip.keys(),
+            te2_names=models.clip2.keys() if models.clip2 is not None else None)
     targets = {UNET_PREFIX: models.unet, TE_PREFIX: models.clip, VAE_PREFIX: models.vae}
+    if models.clip2 is not None:
+        targets[TE2_PREFIX] = models.clip2
     merged = {p: 0 for p in targets}
     for key, value in tensors.items():
         if key.startswith("unet_ema."):
@@ -131,11 +136,12 @@ def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, se
 
     spec = SamplerSpec(unet_config=models.unet_config, vae_config=models.vae_config,
                        clip_config=models.clip_config, schedule=models.schedule,
-                       clip_stop_at_layer=int(clip_skip))
+                       clip_stop_at_layer=int(clip_skip), clip2_config=models.clip2_config)
     # onto the device once, in the sampling dtype: sample_images' own cast is
     # then a no-op for every call
     unet, vae_params, clip = (cast_params(p, spec.dtype, dev)
                               for p in (models.unet, models.vae, models.clip))
+    clip2 = cast_params(models.clip2, spec.dtype, dev) if models.clip2 is not None else None
     del models
 
     init_arr = None
@@ -152,7 +158,7 @@ def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, se
             unet, vae_params, clip, tokenizer, batch, negative, spec, steps=int(steps),
             cfg_scale=float(cfg), width=int(width), height=int(height), seed=int(seed) + rep,
             method=method, init_image=init_arr, strength=float(strength),
-            guidance_rescale=float(guidance_rescale), device=dev)
+            guidance_rescale=float(guidance_rescale), device=dev, clip2_params=clip2)
         dt = time.perf_counter() - t0   # images come back on the host: the loop is done
         for i, img in enumerate(images):
             path = out / f"{i:02d}_{rep:02d}.png"

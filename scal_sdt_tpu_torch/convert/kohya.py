@@ -7,14 +7,15 @@ ecosystem, not just the trainer's own checkpoints. The flattened underscore
 names (``lora_unet_down_blocks_0_attentions_...``) are resolved back to
 dotted module paths by matching against the loaded model's parameter names
 (inversion by string surgery alone is ambiguous: path segments contain
-underscores). SDXL's second text tower (``lora_te2_``) is a later slice
-(ROADMAP 1.15); its keys do not resolve.
+underscores). SDXL files name the second text tower ``lora_te2_`` and the
+UNet in the LDM dialect (``lora_unet_input_blocks_4_1_...``), since kohya's
+SDXL UNet is sgm-style.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -58,19 +59,21 @@ def _unet_module_paths(param_names: Iterable[str]) -> dict[str, str]:
     return out
 
 
-def from_kohya_format(state: dict, unet_names: Iterable[str],
-                      te_names: Iterable[str]) -> dict:
+def from_kohya_format(state: dict, unet_names: Iterable[str], te_names: Iterable[str],
+                      te2_names: Optional[Iterable[str]] = None) -> dict:
     """kohya LoRA state -> the trainer's prefixed checkpoint tensors
     (``unet.{path}.lora_A`` and so on), consumable by the same merge as
-    training checkpoints. Unresolvable modules raise (a silently skipped
-    LoRA is worse than an error)."""
-    from ..training.step import TE_PREFIX, UNET_PREFIX
+    training checkpoints; ``te2_names``: SDXL's second tower. Unresolvable
+    modules raise (a silently skipped LoRA is worse than an error)."""
+    from ..training.step import TE2_PREFIX, TE_PREFIX, UNET_PREFIX
 
     maps = {
         "lora_unet": (UNET_PREFIX, _unet_module_paths(unet_names)),
         "lora_te1": (TE_PREFIX, _module_paths(te_names)),
         "lora_te": (TE_PREFIX, _module_paths(te_names)),
     }
+    if te2_names is not None:
+        maps["lora_te2"] = (TE2_PREFIX, _module_paths(te2_names))
 
     out: dict = {}
     unresolved = []

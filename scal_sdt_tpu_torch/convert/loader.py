@@ -1,15 +1,18 @@
 """Model loading: a diffusers directory -> flat param dicts (port of
-``scal_sdt_tpu/convert/loader.py``, the SD1.x/2.x directory layout).
+``scal_sdt_tpu/convert/loader.py``, the SD1.x/2.x and SDXL directory
+layouts).
 
 A diffusers directory holds ``unet/``, ``vae/``, ``text_encoder/`` and
-``scheduler/``, each with a ``config.json`` and a weights file; an external
-VAE directory may replace the bundled one. Each component is validated
-against its shape template. The dicts hold CPU tensors in the files' dtypes,
-keyed by the diffusers / transformers names; the caller moves them to its
-device.
+``scheduler/``, each with a ``config.json`` and a weights file, and for SDXL
+``text_encoder_2/`` (OpenCLIP bigG as ``CLIPTextModelWithProjection``); an
+external VAE directory may replace the bundled one. Each component is
+validated against its shape template. The dicts hold CPU tensors in the
+files' dtypes, keyed by the diffusers / transformers names; the caller moves
+them to its device.
 
-Not ported yet, and refused with an error: single-file LDM checkpoints, the
-SDXL (``text_encoder_2/``) and SD3 (``transformer/``) layouts, and hub ids.
+Not ported yet, and refused with an error: single-file checkpoints (LDM and
+SDXL's sgm layout, ROADMAP 1.18), the SD3 layout (``transformer/``, 1.16)
+and hub ids.
 """
 
 from __future__ import annotations
@@ -44,6 +47,13 @@ class LoadedModels:
     clip: Params
     clip_config: CLIPTextConfig
     schedule: NoiseSchedule
+    # SDXL's second text tower (pooled projection); None for SD1.x/2.x
+    clip2: Optional[Params] = None
+    clip2_config: Optional[CLIPTextConfig] = None
+
+    @property
+    def is_sdxl(self) -> bool:
+        return self.unet_config.addition_embed_type == "text_time"
 
 
 def _validate(params: dict, shapes: dict, what: str):
@@ -121,11 +131,14 @@ def _vae_config_from_df(cfg: dict) -> VAEConfig:
     )
 
 
-def _clip_config_from_df(cfg: dict) -> CLIPTextConfig:
+def _clip_config_from_df(cfg: dict, with_projection: bool = False) -> CLIPTextConfig:
     if not cfg:
         return CLIPTextConfig.vit_l()
-    # a plain CLIPTextModel config may name a projection_dim that has no
-    # weights; only SDXL's second tower uses one
+    # only CLIPTextModelWithProjection components (SDXL's text_encoder_2)
+    # carry a used projection head; a plain CLIPTextModel config may still
+    # name a projection_dim that has no weights
+    projection_dim = (int(cfg["projection_dim"])
+                      if with_projection and cfg.get("projection_dim") else None)
     return CLIPTextConfig(
         vocab_size=cfg.get("vocab_size", 49408),
         hidden_size=cfg.get("hidden_size", 768),
@@ -134,6 +147,7 @@ def _clip_config_from_df(cfg: dict) -> CLIPTextConfig:
         num_attention_heads=cfg.get("num_attention_heads", 12),
         max_position_embeddings=cfg.get("max_position_embeddings", 77),
         hidden_act=cfg.get("hidden_act", "quick_gelu"),
+        projection_dim=projection_dim,
         eos_token_id=int(cfg.get("eos_token_id") or 49407),
     )
 
@@ -143,9 +157,6 @@ def load_diffusers_dir(path: Path, vae_override: Optional[str] = None) -> Loaded
     if (path / "transformer").is_dir() and not (path / "unet").is_dir():
         raise NotImplementedError(f"{path}: the SD3 layout (transformer/) is not ported yet "
                                   "(ROADMAP 1.16)")
-    if (path / "text_encoder_2").is_dir():
-        raise NotImplementedError(f"{path}: the SDXL layout (text_encoder_2/) is not ported yet "
-                                  "(ROADMAP 1.15)")
 
     unet_dir = path / "unet"
     unet_config = _unet_config_from_df(_load_df_component_config(unet_dir))
@@ -165,6 +176,14 @@ def load_diffusers_dir(path: Path, vae_override: Optional[str] = None) -> Loaded
     clip = load_state_dict(_find_weights_file(te_dir))
     clip.pop("text_model.embeddings.position_ids", None)
 
+    clip2 = clip2_config = None
+    te2_dir = path / "text_encoder_2"
+    if te2_dir.is_dir():
+        clip2_config = _clip_config_from_df(_load_df_component_config(te2_dir),
+                                            with_projection=True)
+        clip2 = load_state_dict(_find_weights_file(te2_dir))
+        clip2.pop("text_model.embeddings.position_ids", None)
+
     sched_file = path / "scheduler" / "scheduler_config.json"
     schedule = (NoiseSchedule.from_diffusers_scheduler_config(json.loads(sched_file.read_text()))
                 if sched_file.exists() else NoiseSchedule())
@@ -172,7 +191,18 @@ def load_diffusers_dir(path: Path, vae_override: Optional[str] = None) -> Loaded
     _validate(unet, unet_param_shapes(unet_config), "unet")
     _validate(vae, vae_param_shapes(vae_config), "vae")
     _validate(clip, clip_param_shapes(clip_config), "text_encoder")
-    return LoadedModels(unet, unet_config, vae, vae_config, clip, clip_config, schedule)
+    if clip2 is not None:
+        _validate(clip2, clip_param_shapes(clip2_config), "text_encoder_2")
+    if unet_config.addition_embed_type == "text_time":
+        if clip2 is None:
+            raise ValueError("SDXL UNet (addition_embed_type=text_time) requires a "
+                             "text_encoder_2/ directory with the pooled-projection tower")
+        if clip2_config.projection_dim is None:
+            raise ValueError("text_encoder_2 has no projection head (projection_dim missing "
+                             "from its config.json / no text_projection.weight): the SDXL "
+                             "text_time conditioning needs the pooled projected embedding")
+    return LoadedModels(unet, unet_config, vae, vae_config, clip, clip_config, schedule,
+                        clip2=clip2, clip2_config=clip2_config)
 
 
 def load_components(config: Config) -> LoadedModels:
@@ -186,8 +216,8 @@ def load_components(config: Config) -> LoadedModels:
     p = Path(str(name))
     if p.is_file():
         raise NotImplementedError(
-            f"{p}: single-file (LDM) checkpoints are not ported yet (ROADMAP 1.18); pass a "
-            "diffusers directory")
+            f"{p}: single-file (LDM / sgm) checkpoints are not ported yet (ROADMAP 1.18); "
+            "pass a diffusers directory")
     if not p.is_dir():
         raise NotImplementedError(
             f"model {name!r} is not a local directory: hub ids are not ported yet")

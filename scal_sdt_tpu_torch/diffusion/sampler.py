@@ -1,5 +1,5 @@
 """Sampling with classifier-free guidance (port of
-``scal_sdt_tpu/diffusion/sampler.py``, the SD1.x/2.x samplers).
+``scal_sdt_tpu/diffusion/sampler.py``, the SD1.x/2.x and SDXL samplers).
 
 The replacement for the diffusers ``StableDiffusionPipeline`` the reference
 samples with: tokenize and encode the prompts, run the denoising loop with
@@ -21,8 +21,14 @@ Random numbers come from an explicit ``torch.Generator`` on the sampling
 device (JAX splits and folds its PRNG key, which torch cannot reproduce);
 in ``sample_images`` the order is img2img's latent noise, the initial noise,
 then Euler-a's per-step noise. ``SamplerDraws`` replaces them, which is how
-the tests feed both packages the same numbers. The SDXL and SD3 branches
-(``flow_euler_sample_latents``) are later slices of the port.
+the tests feed both packages the same numbers.
+
+SDXL (a text_time UNet, ``clip2_params``): the prompts are encoded as in
+training (both towers' raw penultimate states concatenated, tower 2's pooled
+projected embedding), and every UNet call of the CFG pair takes
+``added_cond``: the pooled pair (uncond first) and ``time_ids`` of
+``[h, w, 0, 0, h, w]`` at the target size. The SD3 branch
+(``flow_euler_sample_latents``) is a later slice (ROADMAP 1.16).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.clip import CLIPTextConfig, clip_text_apply
+from ..models.clip import CLIPTextConfig, clip_text_apply, encode_sdxl
 from ..models.functional import Params, scaled
 from ..models.unet import UNetConfig, unet_apply
 from ..models.vae import VAEConfig, decoder_apply, encoder_apply, latent_noise, sample_latents
@@ -69,14 +75,21 @@ def fold_seed(seed: int, data: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:
-    # None for the SD3 family's MMDiT denoiser, a later slice (ROADMAP 1.16);
-    # a text_time UNet is SDXL's (1.15). sample_images refuses both.
+    # None for the SD3 family's MMDiT denoiser, a later slice (ROADMAP 1.16)
+    # that sample_images refuses
     unet_config: Optional[UNetConfig]
     vae_config: VAEConfig
     clip_config: CLIPTextConfig
     schedule: NoiseSchedule
     clip_stop_at_layer: int = 1
     dtype: torch.dtype = torch.bfloat16
+    # SDXL's second text tower (pooled projection); None for SD1.x/2.x
+    clip2_config: Optional[CLIPTextConfig] = None
+
+    @property
+    def sdxl(self) -> bool:
+        return (self.unet_config is not None
+                and self.unet_config.addition_embed_type == "text_time")
 
 
 def cast_params(params: Params, dtype: torch.dtype, device) -> Params:
@@ -152,13 +165,16 @@ def _pred_to_eps_x0(pred: torch.Tensor, x: torch.Tensor, sa: torch.Tensor, sb: t
 
 def _cfg_pred(unet_params: Params, x_in: torch.Tensor, t: int, context: torch.Tensor,
               spec: SamplerSpec, cfg_scale: float, guidance_rescale: float,
-              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              dtype: Optional[torch.dtype] = None,
+              added_cond: Optional[dict] = None) -> torch.Tensor:
     """One UNet call on the CFG pair (uncond first, cond second) at timestep
-    ``t``, the two predictions (widened to ``dtype`` when given) combined."""
+    ``t``, the two predictions (widened to ``dtype`` when given) combined.
+    ``added_cond``: SDXL's text_time inputs of the pair."""
     batch = x_in.shape[0]
     pair = torch.cat([x_in, x_in], dim=0)
     t_b = torch.full((2 * batch,), int(t), dtype=torch.int64, device=x_in.device)
-    pred = unet_apply(unet_params, pair, t_b, context, spec.unet_config)
+    pred = unet_apply(unet_params, pair, t_b, context, spec.unet_config,
+                      added_cond=added_cond)
     if dtype is not None:
         pred = pred.to(dtype)
     pred_u, pred_c = pred.chunk(2, dim=0)
@@ -170,7 +186,8 @@ def ddim_sample_latents(unet_params: Params, cond: torch.Tensor, uncond: torch.T
                         cfg_scale: float, height: int, width: int, batch: int,
                         init_latents: Optional[torch.Tensor] = None, t_start_index: int = 0,
                         guidance_rescale: float = 0.0,
-                        draws: Optional[SamplerDraws] = None) -> torch.Tensor:
+                        draws: Optional[SamplerDraws] = None,
+                        added_cond: Optional[dict] = None) -> torch.Tensor:
     """Run the DDIM loop; returns the final latents (B, 4, h/8, w/8), unscaled.
 
     img2img: pass scaled ``init_latents`` and ``t_start_index`` (the index
@@ -198,7 +215,8 @@ def ddim_sample_latents(unet_params: Params, cond: torch.Tensor, uncond: torch.T
     for t in ts:
         t = int(t)
         prev_t = t - schedule.num_train_timesteps // num_steps
-        pred = _cfg_pred(unet_params, x, t, context, spec, cfg_scale, guidance_rescale)
+        pred = _cfg_pred(unet_params, x, t, context, spec, cfg_scale, guidance_rescale,
+                         added_cond=added_cond)
         eps, x0 = _pred_to_eps_x0(pred, x, sqrt_acp[t], sqrt_1m_acp[t],
                                   schedule.prediction_type)
         if schedule.clip_sample:
@@ -247,7 +265,8 @@ def euler_sample_latents(unet_params: Params, cond: torch.Tensor, uncond: torch.
                          cfg_scale: float, height: int, width: int, batch: int,
                          ancestral: bool = False, init_latents: Optional[torch.Tensor] = None,
                          t_start_index: int = 0, guidance_rescale: float = 0.0,
-                         draws: Optional[SamplerDraws] = None) -> torch.Tensor:
+                         draws: Optional[SamplerDraws] = None,
+                        added_cond: Optional[dict] = None) -> torch.Tensor:
     """Euler / Euler-ancestral (k-diffusion style on the discrete VP sigmas,
     diffusers EulerDiscreteScheduler semantics), the WebUI ecosystem's
     default samplers.
@@ -269,7 +288,7 @@ def euler_sample_latents(unet_params: Params, cond: torch.Tensor, uncond: torch.
         sig, sig_n = sigmas[i], sigmas_next[i]
         x_in = (x / torch.sqrt(sig ** 2 + 1.0)).to(spec.dtype)
         pred = _cfg_pred(unet_params, x_in, t, context, spec, cfg_scale, guidance_rescale,
-                         dtype=torch.float32)
+                         dtype=torch.float32, added_cond=added_cond)
         denoised = _denoised_from_pred(x, sig, pred, schedule.prediction_type)
         d = (x - denoised) / sig
         if ancestral:
@@ -293,7 +312,8 @@ def dpmpp_2m_sample_latents(unet_params: Params, cond: torch.Tensor, uncond: tor
                             cfg_scale: float, height: int, width: int, batch: int,
                             init_latents: Optional[torch.Tensor] = None,
                             t_start_index: int = 0, guidance_rescale: float = 0.0,
-                            draws: Optional[SamplerDraws] = None) -> torch.Tensor:
+                            draws: Optional[SamplerDraws] = None,
+                        added_cond: Optional[dict] = None) -> torch.Tensor:
     """DPM-Solver++(2M) (arXiv:2211.01095; k-diffusion ``sample_dpmpp_2m``):
     second-order multistep on log-sigma, one UNet call per step, reusing
     the previous step's denoised estimate."""
@@ -310,7 +330,7 @@ def dpmpp_2m_sample_latents(unet_params: Params, cond: torch.Tensor, uncond: tor
         sig, sig_n = sigmas[i], sigmas_next[i]
         x_in = (x / torch.sqrt(sig ** 2 + 1.0)).to(spec.dtype)
         pred = _cfg_pred(unet_params, x_in, t, context, spec, cfg_scale, guidance_rescale,
-                         dtype=torch.float32)
+                         dtype=torch.float32, added_cond=added_cond)
         denoised = _denoised_from_pred(x, sig, pred, schedule.prediction_type)
 
         # t(sigma) = -log(sigma); at the final step sigma_next = 0 so h = inf
@@ -351,7 +371,8 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
                   seed: Optional[int] = None, generator: Optional[torch.Generator] = None,
                   method: str = "ddim", init_image: Optional[np.ndarray] = None,
                   strength: float = 0.75, guidance_rescale: float = 0.0,
-                  draws: Optional[SamplerDraws] = None, device="cuda") -> np.ndarray:
+                  draws: Optional[SamplerDraws] = None, device="cuda",
+                  clip2_params: Optional[Params] = None) -> np.ndarray:
     """Full text -> image path on ``device``. Returns uint8 (B, H, W, 3).
 
     Every floating parameter is cast to ``spec.dtype`` on ``device`` (a
@@ -362,12 +383,13 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
     img2img: ``init_image`` is (H, W, 3) or (B, H, W, 3) float in [-1, 1];
     ``strength`` in (0, 1] controls how much of the denoising ladder runs
     (1.0 ignores the init, like diffusers' Img2ImgPipeline).
+
+    SDXL: pass ``clip2_params`` (the text_encoder_2 tower).
     """
     if spec.unet_config is None or method == "flow_euler":
         raise NotImplementedError("SD3 sampling (flow_euler): not ported yet (ROADMAP 1.16)")
-    if spec.unet_config.addition_embed_type == "text_time":
-        raise NotImplementedError("SDXL sampling (a second text tower, text_time "
-                                  "conditioning): not ported yet (ROADMAP 1.15)")
+    if spec.sdxl and clip2_params is None:
+        raise ValueError("SDXL sampling requires clip2_params (the text_encoder_2 tower)")
     if method not in _LOOPS:
         raise ValueError(f"Unknown sampler method {method!r}; choose from {SAMPLER_METHODS}")
     dev = resolve_device(device)
@@ -383,8 +405,22 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
         neg_ids = torch.from_numpy(np.asarray(tokenizer([negative_prompt] * batch),
                                               np.int64)).to(dev)
         clip_c = cast(clip_params)
-        cond = clip_text_apply(clip_c, ids, spec.clip_config, spec.clip_stop_at_layer)
-        uncond = clip_text_apply(clip_c, neg_ids, spec.clip_config, spec.clip_stop_at_layer)
+        added_cond = None
+        if spec.sdxl:
+            clip2_c = cast(clip2_params)
+            cond, pooled_c = encode_sdxl(clip_c, clip2_c, ids, spec.clip_config,
+                                         spec.clip2_config)
+            uncond, pooled_u = encode_sdxl(clip_c, clip2_c, neg_ids, spec.clip_config,
+                                           spec.clip2_config)
+            del clip2_c
+            time_ids = torch.tensor([height, width, 0, 0, height, width], dtype=torch.float32,
+                                    device=dev).expand(2 * batch, 6)
+            added_cond = {"text_embeds": torch.cat([pooled_u, pooled_c]).to(spec.dtype),
+                          "time_ids": time_ids}
+        else:
+            cond = clip_text_apply(clip_c, ids, spec.clip_config, spec.clip_stop_at_layer)
+            uncond = clip_text_apply(clip_c, neg_ids, spec.clip_config,
+                                     spec.clip_stop_at_layer)
         del clip_c
         vae_c = cast(vae_params)
 
@@ -405,7 +441,8 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
         latents = _LOOPS[method](cast(unet_params), cond, uncond, generator, spec, int(steps),
                                  float(cfg_scale), int(height), int(width), batch,
                                  init_latents=init_latents, t_start_index=t_start,
-                                 guidance_rescale=float(guidance_rescale), draws=draws)
+                                 guidance_rescale=float(guidance_rescale), draws=draws,
+                                 added_cond=added_cond)
         z = latents / latents.new_full((), spec.vae_config.scaling_factor)
         if spec.vae_config.shift_factor:
             z = z + z.new_full((), spec.vae_config.shift_factor)

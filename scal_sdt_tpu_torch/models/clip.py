@@ -1,5 +1,5 @@
-"""CLIP text encoder (ViT-L/14 text tower) over a flat param dict (port of
-``scal_sdt_tpu/models/clip.py``).
+"""CLIP text encoders (ViT-L/14, and SDXL's OpenCLIP bigG tower) over a flat
+param dict (port of ``scal_sdt_tpu/models/clip.py``).
 
 Equivalent of ``transformers.CLIPTextModel`` as the reference's
 ``CLIPTextEncoder`` uses it. CLIP-skip is the call-time ``stop_at_layer``
@@ -11,8 +11,11 @@ Parameter keys are the transformers state-dict names under ``text_model.``.
 The causal self-attention goes through ``ops/attention.py`` and takes its
 math path (causal, L = 77), as it takes XLA's on the TPU. Textual-inversion
 rows trained beside the frozen table (``token_embedding.trained_extra``,
-``text/ti.py``) are appended below it, so only they take gradients. Not
-ported yet: the SDXL / SD3 encode (``clip_text_encode_sdxl``).
+``text/ti.py``) are appended below it, so only they take gradients.
+``clip_text_encode_sdxl`` is SDXL's encode: the raw penultimate hidden state
+and, for a tower with a projection head (``text_projection.weight``), the
+pooled projected embedding at the first EOS; ``encode_sdxl`` is SDXL's
+conditioning through both towers.
 """
 
 from __future__ import annotations
@@ -45,6 +48,14 @@ class CLIPTextConfig:
     @classmethod
     def vit_l(cls) -> "CLIPTextConfig":
         return cls()
+
+    @classmethod
+    def sdxl_g(cls) -> "CLIPTextConfig":
+        """SDXL text encoder 2 (OpenCLIP ViT-bigG in transformers layout,
+        CLIPTextModelWithProjection)."""
+        return cls(hidden_size=1280, intermediate_size=5120,
+                   num_hidden_layers=32, num_attention_heads=20,
+                   hidden_act="gelu", projection_dim=1280)
 
     @classmethod
     def sd21(cls) -> "CLIPTextConfig":
@@ -97,6 +108,48 @@ def _encoder_layer(p: Params, i: int, x: torch.Tensor,
     h = linear(p, f"{pre}.mlp.fc1", n)
     h = quick_gelu(h) if config.hidden_act == "quick_gelu" else gelu(h)
     return x + linear(p, f"{pre}.mlp.fc2", h)
+
+
+def clip_text_encode_sdxl(params: Params, input_ids: torch.Tensor, config: CLIPTextConfig
+                          ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """SDXL's encode (diffusers ``StableDiffusionXLPipeline.encode_prompt``):
+    (the penultimate hidden state without the final layer norm, the pooled
+    projected embedding or None). The pooled vector runs the whole stack,
+    the final layer norm, the gather at each row's EOS, then
+    ``text_projection`` (towers with a projection head only)."""
+    x = _embed(params, input_ids)
+    last = config.num_hidden_layers - 1
+    for i in range(last):
+        x = _encoder_layer(params, i, x, config)
+    penult, pooled = x, None
+    if config.projection_dim is not None:
+        # a tower without a projection head never reads its last layer
+        x = layer_norm(params, "text_model.final_layer_norm",
+                       _encoder_layer(params, last, x, config))
+        eos = eos_positions(input_ids, config.eos_token_id)
+        gathered = x[torch.arange(x.shape[0], device=x.device), eos]
+        pooled = gathered @ params["text_projection.weight"].to(gathered.dtype).T
+    return penult, pooled
+
+
+def second_tower_ids(input_ids: torch.Tensor, eos_token_id: int) -> torch.Tensor:
+    """SDXL tower 2's ids: SDXL's second tokenizer pads with 0 after the
+    first EOS (the first pads with EOS)."""
+    first_eos = eos_positions(input_ids, eos_token_id)
+    pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+    return torch.where(pos > first_eos[:, None], torch.zeros_like(input_ids), input_ids)
+
+
+def encode_sdxl(clip_params: Params, clip2_params: Params, input_ids: torch.Tensor,
+                clip_config: CLIPTextConfig, clip2_config: CLIPTextConfig
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SDXL's conditioning of ``input_ids`` (diffusers' SDXL encode_prompt):
+    (both towers' raw penultimate states concatenated on features, tower 2's
+    pooled projected embedding)."""
+    penult1, _ = clip_text_encode_sdxl(clip_params, input_ids, clip_config)
+    penult2, pooled = clip_text_encode_sdxl(
+        clip2_params, second_tower_ids(input_ids, clip_config.eos_token_id), clip2_config)
+    return torch.cat([penult1, penult2], dim=-1), pooled
 
 
 def eos_positions(input_ids: torch.Tensor, eos_token_id: int) -> torch.Tensor:

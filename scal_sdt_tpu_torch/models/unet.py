@@ -1,4 +1,4 @@
-"""SD1.x conditional UNet over a flat param dict (port of
+"""SD1.x/2.x/SDXL conditional UNet over a flat param dict (port of
 ``scal_sdt_tpu/models/unet.py``), NCHW activations.
 
 Same parameter names and shapes as the JAX package (diffusers'
@@ -9,8 +9,10 @@ gate sends the long self-attention of the high-resolution levels to the
 splash kernels on CUDA. ``remat`` mirrors the JAX modes with
 ``torch.utils.checkpoint``.
 
-SDXL's text_time conditioning is a later slice of the port; a config asking
-for it is refused.
+SDXL's text_time conditioning (``addition_embed_type="text_time"``): the six
+``time_ids`` (original size, crop offsets, target size) are fourier-embedded
+at ``addition_time_embed_dim`` each, concatenated after the pooled text
+embedding and added to the time embedding through ``add_embedding``.
 """
 
 from __future__ import annotations
@@ -39,9 +41,7 @@ class UNetConfig:
     use_linear_projection: bool = False
     cross_attention_dim: int = 768
     transformer_layers_per_block: int | tuple[int, ...] = 1
-    addition_embed_type: Optional[str] = None
-    # SDXL's text_time fields, read from a diffusers config (the branch that
-    # uses them comes with the SDXL slice)
+    addition_embed_type: Optional[str] = None    # SDXL: "text_time"
     addition_time_embed_dim: int = 256
     projection_class_embeddings_input_dim: Optional[int] = None
     down_block_types: tuple[str, ...] = (
@@ -62,6 +62,45 @@ class UNetConfig:
     @classmethod
     def sd15(cls) -> "UNetConfig":
         return cls()
+
+    @classmethod
+    def sdxl(cls) -> "UNetConfig":
+        """SDXL-base (diffusers stabilityai/stable-diffusion-xl-base-1.0
+        unet/config.json): 3 levels, transformer depths (1, 2, 10), context
+        width 2048 (both text towers), text_time micro-conditioning."""
+        return cls(
+            block_out_channels=(320, 640, 1280),
+            num_attention_heads=(5, 10, 20),
+            use_linear_projection=True,
+            cross_attention_dim=2048,
+            transformer_layers_per_block=(1, 2, 10),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+            up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+            addition_embed_type="text_time",
+            addition_time_embed_dim=256,
+            projection_class_embeddings_input_dim=2816,
+            sample_size=128,
+        )
+
+    @classmethod
+    def tiny_sdxl(cls) -> "UNetConfig":
+        """Miniature SDXL-shaped variant for CPU tests (same as the JAX
+        package's)."""
+        return cls(
+            block_out_channels=(32, 64),
+            layers_per_block=1,
+            num_attention_heads=(2, 4),
+            use_linear_projection=True,
+            cross_attention_dim=64,
+            transformer_layers_per_block=(1, 2),
+            down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+            up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+            addition_embed_type="text_time",
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=32 + 6 * 8,  # pooled 32 + ids
+            norm_num_groups=8,
+            sample_size=8,
+        )
 
     @classmethod
     def tiny(cls) -> "UNetConfig":
@@ -149,22 +188,44 @@ def _spatial_transformer(p: Params, pre: str, x: torch.Tensor, context: torch.Te
 # Forward
 # ---------------------------------------------------------------------------
 
+def _text_time_embedding(params: Params, added_cond: Optional[dict], config: UNetConfig,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """SDXL's addition embedding: fourier features of each of the six fp32
+    ``time_ids``, after the pooled ``text_embeds``, through
+    ``add_embedding.linear_1`` -> SiLU -> ``linear_2``."""
+    if added_cond is None:
+        raise ValueError("this UNet uses text_time conditioning: pass "
+                         "added_cond={'text_embeds': (B, D), 'time_ids': (B, 6)}")
+    time_ids = added_cond["time_ids"]
+    b = time_ids.shape[0]
+    ids_emb = timestep_embedding(
+        time_ids.reshape(-1), config.addition_time_embed_dim,
+        flip_sin_to_cos=config.flip_sin_to_cos,
+        downscale_freq_shift=float(config.freq_shift),
+        dtype=dtype,
+    ).reshape(b, -1)
+    add = torch.cat([added_cond["text_embeds"].to(dtype), ids_emb], dim=-1)
+    return linear(params, "add_embedding.linear_2",
+                  silu(linear(params, "add_embedding.linear_1", add)))
+
+
 def unet_apply(params: Params, sample: torch.Tensor, timesteps: torch.Tensor,
                context: torch.Tensor, config: UNetConfig,
-               remat: bool | str = False) -> torch.Tensor:
+               remat: bool | str = False, added_cond: Optional[dict] = None) -> torch.Tensor:
     """Denoising forward pass.
 
     sample: (B, C_in, H, W) latents; timesteps: (B,) integer;
     context: (B, L, cross_attention_dim). Returns (B, C_out, H, W).
+    added_cond (text_time UNets): {'text_embeds': (B, D) pooled embedding,
+    'time_ids': (B, 6) fp32}.
 
     remat: False | True | 'high' | 'top', as in the JAX package: True
     checkpoints every block, 'high' the highest-resolution blocks (first
     down level, last two up levels), 'top' the first down and the last up
     level only.
     """
-    if config.addition_embed_type is not None:
-        raise NotImplementedError(
-            f"addition_embed_type={config.addition_embed_type!r} (SDXL): not ported yet")
+    if config.addition_embed_type not in (None, "text_time"):
+        raise ValueError(f"addition_embed_type={config.addition_embed_type!r} is not supported")
     g = config.norm_num_groups
     n_down = len(config.down_block_types)
     n_up = len(config.up_block_types)
@@ -184,6 +245,8 @@ def unet_apply(params: Params, sample: torch.Tensor, timesteps: torch.Tensor,
     )
     temb = linear(params, "time_embedding.linear_2",
                   silu(linear(params, "time_embedding.linear_1", t_feat)))
+    if config.addition_embed_type == "text_time":
+        temb = temb + _text_time_embedding(params, added_cond, config, sample.dtype)
 
     h = conv2d(params, "conv_in", sample)
     skips = [h]
@@ -295,9 +358,6 @@ def _transformer_shapes(pre: str, dim: int, context_dim: int, linear_proj: bool,
 
 
 def unet_param_shapes(config: UNetConfig) -> dict[str, tuple[int, ...]]:
-    if config.addition_embed_type is not None:
-        raise NotImplementedError(
-            f"addition_embed_type={config.addition_embed_type!r} (SDXL): not ported yet")
     s: dict[str, tuple[int, ...]] = {}
     ch = config.block_out_channels
     temb_dim = config.time_embed_dim
@@ -305,6 +365,13 @@ def unet_param_shapes(config: UNetConfig) -> dict[str, tuple[int, ...]]:
 
     s.update(_linear_shapes("time_embedding.linear_1", ch[0], temb_dim))
     s.update(_linear_shapes("time_embedding.linear_2", temb_dim, temb_dim))
+    if config.addition_embed_type == "text_time":
+        add_in = config.projection_class_embeddings_input_dim
+        if add_in is None:
+            raise ValueError("text_time conditioning requires "
+                             "projection_class_embeddings_input_dim")
+        s.update(_linear_shapes("add_embedding.linear_1", add_in, temb_dim))
+        s.update(_linear_shapes("add_embedding.linear_2", temb_dim, temb_dim))
     s.update(_conv_shapes("conv_in", config.in_channels, ch[0]))
 
     out_c = ch[0]

@@ -4,7 +4,8 @@ Two files per checkpoint:
 
 * ``<name>.safetensors``: the file both packages read and write, with the same
   keys, dtypes and metadata. Trainable tensors under their natural names
-  (``unet.*``, ``condition_model.encoder.*``) in the masters' dtype, stored
+  (``unet.*``, ``condition_model.encoder.*``, SDXL's
+  ``condition_model.encoder_2.*``) in the masters' dtype, stored
   LoRA alphas from the frozen dict, the EMA shadow (when EMA is on) under
   ``unet_ema.shadow_params.*`` in the shadow's dtype, and metadata
   ``{"json": {"step", "ema_decay", "ema_num_updates", "epoch",

@@ -17,7 +17,8 @@ from typing import Iterable, Optional
 from ..conf import Config, merge
 
 # Checkpoint namespace of each component, as in the JAX training step.
-COMPONENT_PREFIX = {"unet": "unet", "text_encoder": "condition_model.encoder"}
+COMPONENT_PREFIX = {"unet": "unet", "text_encoder": "condition_model.encoder",
+                    "text_encoder_2": "condition_model.encoder_2"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,23 +123,29 @@ def resolve_targets(component_targets: list, param_keys: Iterable[str]) -> Targe
 
 
 def resolve_optim_target(optim_target: Config, unet_keys: Iterable[str],
-                         text_encoder_keys: Iterable[str]) -> dict[str, TargetResolution]:
-    """Resolve the full optim-target spec; components absent from the spec
-    get an empty resolution (frozen). SDXL's second text tower is a later
-    slice: a spec that addresses it is refused."""
-    if optim_target.get("text_encoder_2"):
-        raise NotImplementedError("optim target addresses text_encoder_2 (SDXL): not ported yet")
+                         text_encoder_keys: Iterable[str],
+                         text_encoder_2_keys: Optional[Iterable[str]] = None
+                         ) -> dict[str, TargetResolution]:
+    """Resolve the full optim-target spec: 'unet' / 'text_encoder' (and, for
+    SDXL models, 'text_encoder_2') resolutions; components absent from the
+    spec get an empty resolution (frozen)."""
+    components = [("unet", unet_keys), ("text_encoder", text_encoder_keys)]
+    if text_encoder_2_keys is not None:
+        components.append(("text_encoder_2", text_encoder_2_keys))
     out = {}
-    for name, keys in (("unet", unet_keys), ("text_encoder", text_encoder_keys)):
+    for name, keys in components:
         section = optim_target.get(name)
         out[name] = (TargetResolution(trainable=[], groups=[]) if section is None
                      else resolve_targets(section.targets, keys))
+    if text_encoder_2_keys is None and optim_target.get("text_encoder_2"):
+        raise ValueError("optim target addresses text_encoder_2 but the loaded model has no "
+                         "second text tower (not SDXL)")
     return out
 
 
 def group_labels(resolutions: dict[str, TargetResolution]) -> dict[str, str]:
-    """Prefixed trainable key ('unet.' / 'condition_model.encoder.') ->
-    group label 'g<N>'."""
+    """Prefixed trainable key ('unet.' / 'condition_model.encoder.' /
+    'condition_model.encoder_2.') -> group label 'g<N>'."""
     labels: dict[str, str] = {}
     g = 0
     for comp, res in resolutions.items():

@@ -1,11 +1,18 @@
 """The training step (port of ``scal_sdt_tpu/training/step.py``, SD1.x/2.x
-branches).
+and SDXL branches).
 
 ``compute_loss`` takes latents from the batch (cached) or from the VAE
 encoder and a sample of its Gaussian (``images``), conditionings from the
 batch (cached) or from CLIP (``input_ids``) with CFG dropout (``uncond``:
 one draw per batch drops the whole batch, to the empty prompt's ids in mode
-'eos' or to zero conds in mode 'zeros'); then q-sample (with the optional
+'eos' or to zero conds in mode 'zeros'). SDXL (a text_time UNet,
+``StepSpec.clip2_config``): the conds are both towers' raw penultimate
+states concatenated (tower 2's ids zeroed after the first EOS, as SDXL's
+second tokenizer pads), the pooled projected embedding of tower 2 and the
+size ids (``size_cond`` of the batch, or the target size with zero crop)
+feed the UNet's text_time embedding; CFG dropout 'zeros' drops the pooled
+embedding with the conds; a cached SDXL batch carries ``pooled``. Then
+q-sample (with the optional
 noise offset and multires noise), UNet, MSE against the schedule target in
 fp32, optional min-SNR weighting and prior preservation. ``make_train_step``
 takes gradients with respect to a compute-dtype copy of the trainable dict
@@ -30,9 +37,9 @@ both the same numbers. The generator's order: the LoRA dropout's base seed
 encode), the CFG-dropout scalar, then noise, timesteps, offset and octaves.
 Each LoRA layer draws its dropout mask from a generator of its own seeded
 from the base seed and its name (``models/functional.py`` ``LoRADropout``),
-so the recompute of a checkpointed block draws the same mask; UNet and CLIP
-share the base seed, as they share JAX's ``rng_lora``. The SDXL and SD3
-branches are later slices.
+so the recompute of a checkpointed block draws the same mask; the UNet and
+both text towers share the base seed, as they share JAX's ``rng_lora``. The
+SD3 branches are a later slice (ROADMAP 1.16).
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import torch.nn.functional as F
 
 from ..conf import Config
 from ..diffusion.schedule import NoiseSchedule
-from ..models.clip import CLIPTextConfig, clip_text_apply
+from ..models.clip import CLIPTextConfig, clip_text_apply, encode_sdxl
 from ..models.functional import LORA_DROPOUT, LoRADropout, Params, lora_dropout_rates, scaled
 from ..models.unet import UNetConfig, unet_apply
 from ..models.vae import VAEConfig, encoder_apply, latent_noise, sample_latents
@@ -55,6 +62,7 @@ from .optim_targets import COMPONENT_PREFIX
 
 UNET_PREFIX = COMPONENT_PREFIX["unet"]
 TE_PREFIX = COMPONENT_PREFIX["text_encoder"]
+TE2_PREFIX = COMPONENT_PREFIX["text_encoder_2"]
 VAE_PREFIX = "vae"
 UNCOND_MODES = ("zeros", "eos")
 
@@ -89,18 +97,25 @@ class StepSpec:
     uncond_p: float = 0.1
     uncond_mode: str = "zeros"        # 'zeros' | 'eos'
     train_text_encoder: bool = False
+    # SDXL's second text tower (None for SD1.x/2.x)
+    clip2_config: Optional[CLIPTextConfig] = None
 
     def __post_init__(self):
         if self.uncond_mode not in UNCOND_MODES:
             raise ValueError(f"uncond.cond must be one of {UNCOND_MODES}, "
                              f"got {self.uncond_mode!r}")
 
+    @property
+    def sdxl(self) -> bool:
+        return self.unet_config.addition_embed_type == "text_time"
+
     @classmethod
     def from_config(cls, config: Config, unet_config: UNetConfig,
                     schedule: Optional[NoiseSchedule] = None, *,
                     vae_config: Optional[VAEConfig] = None,
                     clip_config: Optional[CLIPTextConfig] = None,
-                    train_text_encoder: bool = False) -> "StepSpec":
+                    train_text_encoder: bool = False,
+                    clip2_config: Optional[CLIPTextConfig] = None) -> "StepSpec":
         precision = config.trainer.get("precision", "bf16")
         loss = config.get("loss") or {}
         gc = config.get("gradient_checkpointing", False)
@@ -124,6 +139,7 @@ class StepSpec:
             uncond_p=float(uncond.get("p", 0.1)),
             uncond_mode=uncond.get("cond", "zeros"),
             train_text_encoder=train_text_encoder,
+            clip2_config=clip2_config,
         )
 
 
@@ -225,24 +241,52 @@ def lora_dropout(generator: Optional[torch.Generator], draws: Optional[Draws]
 
 
 def _encode_conds(trainable: Params, frozen: Params, batch: dict, spec: StepSpec,
-                  uncond_u: Optional[torch.Tensor],
-                  dropout: Optional[LoRADropout] = None) -> torch.Tensor:
-    """CLIP conditionings of ``input_ids`` with CFG dropout: when
-    ``uncond_u < p`` the whole batch is dropped, to the empty prompt's ids
-    ('eos') or to zero conds ('zeros')."""
-    if spec.clip_config is None:
-        raise ValueError("a batch of input_ids needs StepSpec.clip_config")
-    te_params = _merged_component(trainable, frozen, TE_PREFIX, spec.compute_dtype)
+                  uncond_u: Optional[torch.Tensor], dropout: Optional[LoRADropout] = None
+                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(conds, pooled) of ``input_ids`` with CFG dropout: when ``uncond_u <
+    p`` the whole batch is dropped, to the empty prompt's ids ('eos', before
+    any tower sees them) or to zero conds and pooled embedding ('zeros').
+    SD1.x/2.x: CLIP at ``clip_stop_at_layer``, no pooled embedding; SDXL:
+    both towers (``encode_sdxl``)."""
+    if spec.clip_config is None or (spec.sdxl and spec.clip2_config is None):
+        raise ValueError("a batch of input_ids needs StepSpec.clip_config (and for SDXL "
+                         "clip2_config)")
+    dt = spec.compute_dtype
+    te_params = _merged_component(trainable, frozen, TE_PREFIX, dt)
     if dropout is not None:
         te_params[LORA_DROPOUT] = dropout
     input_ids = batch["input_ids"]
     drop = uncond_u < spec.uncond_p if spec.uncond_enabled else None
     if drop is not None and spec.uncond_mode == "eos":
         input_ids = torch.where(drop, batch["uncond_ids"].expand_as(input_ids), input_ids)
-    conds = clip_text_apply(te_params, input_ids, spec.clip_config, spec.clip_stop_at_layer)
+    if spec.sdxl:
+        te2_params = _merged_component(trainable, frozen, TE2_PREFIX, dt)
+        if dropout is not None:
+            te2_params[LORA_DROPOUT] = dropout
+        conds, pooled = encode_sdxl(te_params, te2_params, input_ids, spec.clip_config,
+                                    spec.clip2_config)
+    else:
+        conds = clip_text_apply(te_params, input_ids, spec.clip_config, spec.clip_stop_at_layer)
+        pooled = None
     if drop is not None and spec.uncond_mode == "zeros":
         conds = torch.where(drop, torch.zeros_like(conds), conds)
-    return conds
+        if pooled is not None:
+            pooled = torch.where(drop, torch.zeros_like(pooled), pooled)
+    return conds, pooled
+
+
+def size_time_ids(latents: torch.Tensor, spec: StepSpec,
+                  size_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SDXL's (B, 6) fp32 ``time_ids``: [orig_h, orig_w, crop_top,
+    crop_left] from ``size_cond`` (else the target size and zero crop), then
+    the target size, the image size of ``latents``."""
+    f = 2 ** (len(spec.vae_config.block_out_channels) - 1)
+    h, w = latents.shape[2] * f, latents.shape[3] * f
+    b, dev = latents.shape[0], latents.device
+    target = torch.tensor([h, w], dtype=torch.float32, device=dev).expand(b, 2)
+    if size_cond is None:
+        size_cond = torch.tensor([h, w, 0, 0], dtype=torch.float32, device=dev).expand(b, 4)
+    return torch.cat([size_cond.to(torch.float32), target], dim=-1)
 
 
 def compute_loss(trainable: Params, frozen: Params, batch: dict,
@@ -266,10 +310,17 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
         uncond_u = draws.uncond_u
     elif spec.uncond_enabled and "conds" not in batch:
         uncond_u = torch.rand((), generator=generator, device=latents.device)
+    added_cond = None
     if "conds" in batch:
         conds = batch["conds"].to(dt)
+        if spec.sdxl:
+            added_cond = {"text_embeds": batch["pooled"].to(dt),
+                          "time_ids": size_time_ids(latents, spec)}
     else:
-        conds = _encode_conds(trainable, frozen, batch, spec, uncond_u, dropout)
+        conds, pooled = _encode_conds(trainable, frozen, batch, spec, uncond_u, dropout)
+        if spec.sdxl:
+            added_cond = {"text_embeds": pooled.to(dt),
+                          "time_ids": size_time_ids(latents, spec, batch.get("size_cond"))}
     if draws is None:
         draws = draw(generator, spec, latents, latent_noise_, uncond_u)
 
@@ -285,7 +336,8 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
     unet_params = _merged_component(trainable, frozen, UNET_PREFIX, dt)
     if dropout is not None:
         unet_params[LORA_DROPOUT] = dropout
-    pred = unet_apply(unet_params, noisy, timesteps, conds, spec.unet_config, remat=spec.remat)
+    pred = unet_apply(unet_params, noisy, timesteps, conds, spec.unet_config, remat=spec.remat,
+                      added_cond=added_cond)
 
     target = spec.schedule.training_target(latents, noise, timesteps)
     per_elem = torch.square(pred.float() - target.float())

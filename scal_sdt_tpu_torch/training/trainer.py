@@ -10,12 +10,14 @@ fp32``) on its device, builds the data pipeline, the per-group optimizer
 the train step (with the EMA), and runs the epoch loop with logging,
 checkpoints, mid-epoch resume, the NaN tripwire, the SIGTERM autosave, the
 profiler and the in-training sample callback (``training/sample_callback.py``,
-fed by ``merged_inference_params``).
+fed by ``merged_inference_params``). An SDXL model's second text tower is a
+third component (``condition_model.encoder_2``), frozen unless the optim
+target's ``text_encoder_2`` section addresses it; an SDXL run from a cache
+needs its pooled embeddings (``{id}.pooled``).
 
-What the port has no counterpart for yet is refused when the trainer is
-built, naming its ROADMAP item (``refuse_later_slices``): SDXL and SD3
-models (1.15, 1.16; the loader refuses their layouts, the optim-target
-resolution a ``text_encoder_2`` section) and more than one device (1.17).
+What the port has no counterpart for yet is refused, naming its ROADMAP
+item: more than one device (1.17, ``refuse_later_slices``, when the trainer
+is built) and SD3 models (1.16; the loader refuses their layout).
 The trainer keys of the JAX package that steer XLA (compile caches, bucket
 warm-up, buffer donation, slab packing) are accepted and do nothing in eager
 PyTorch; the trainer says so once.
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from ..conf import Config, load_optim_target
+from ..data.datasets import LatentCache
 from ..data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
 from ..device import resolve_device
 from ..models.functional import set_lora_dropout_rates
@@ -49,8 +52,8 @@ from .checkpoint import CheckpointManager, load_loop_state, restore_train_state
 from .lora import init_lora_params
 from .optim_targets import COMPONENT_PREFIX, group_labels, resolve_optim_target
 from .optimizers import build_optimizer
-from .step import (TE_PREFIX, UNET_PREFIX, VAE_PREFIX, Draws, StepSpec, init_train_state,
-                   make_train_step)
+from .step import (TE2_PREFIX, TE_PREFIX, UNET_PREFIX, VAE_PREFIX, Draws, StepSpec,
+                   init_train_state, make_train_step)
 
 logger = logging.getLogger("trainer")
 
@@ -122,13 +125,18 @@ class Trainer:
                 models.clip_config, vocab_size=models.clip[TOKEN_EMBEDDING_KEY].shape[0])
         self.models = models
 
-        self.resolutions = resolve_optim_target(load_optim_target(config.optim_target),
-                                                models.unet.keys(), models.clip.keys())
+        self.resolutions = resolve_optim_target(
+            load_optim_target(config.optim_target), models.unet.keys(), models.clip.keys(),
+            text_encoder_2_keys=models.clip2.keys() if models.clip2 is not None else None)
         self.train_text_encoder = bool(self.resolutions["text_encoder"].trainable)
 
         # -- LoRA factors, drawn path by path from one CPU generator ---------------
         seed_gen = torch.Generator().manual_seed(seed)
         components = {"unet": dict(models.unet), "text_encoder": models.clip}
+        if models.clip2 is not None:
+            # SDXL's tower 2 trains through the same optim-target engine
+            # (section `text_encoder_2:`); frozen when unaddressed
+            components["text_encoder_2"] = dict(models.clip2)
         for comp, res in self.resolutions.items():
             if res.lora:
                 components[comp].update(init_lora_params(seed_gen, components[comp], res.lora))
@@ -162,11 +170,23 @@ class Trainer:
                   False: torch.bfloat16 if compute_bf16 and str(
                       config.trainer.get("frozen_dtype", "compute")) != "fp32"
                   else torch.float32}
+        if models.is_sdxl and config.data.get("cache"):
+            # the pooled embedding feeds the text_time conditioning: a cache
+            # built against an SD1.x model cannot feed an SDXL one
+            probe = LatentCache(config.data.cache)
+            first = probe.entries[0] if probe.entries else None
+            if (first is not None and probe.cond(int(first)) is not None
+                    and probe.pooled(int(first)) is None):
+                raise ValueError("SDXL training needs a cache with pooled embeddings "
+                                 "({id}.pooled): rebuild it with cli.cache against this model")
         trainable: dict = {}
         frozen: dict = {}
-        for k, v in {**_prefixed(components["unet"], UNET_PREFIX),
-                     **_prefixed(components["text_encoder"], TE_PREFIX),
-                     **_prefixed(models.vae, VAE_PREFIX)}.items():
+        params = {**_prefixed(components["unet"], UNET_PREFIX),
+                  **_prefixed(components["text_encoder"], TE_PREFIX),
+                  **_prefixed(models.vae, VAE_PREFIX)}
+        if models.clip2 is not None:
+            params.update(_prefixed(components["text_encoder_2"], TE2_PREFIX))
+        for k, v in params.items():
             is_trainable = k in trainable_keys
             dtype = dtypes[is_trainable] if v.is_floating_point() else v.dtype
             # a copy: the masters change in place, the loaded models stay
@@ -196,7 +216,8 @@ class Trainer:
         self.spec = StepSpec.from_config(config, models.unet_config, models.schedule,
                                          vae_config=models.vae_config,
                                          clip_config=models.clip_config,
-                                         train_text_encoder=self.train_text_encoder)
+                                         train_text_encoder=self.train_text_encoder,
+                                         clip2_config=models.clip2_config)
         ema = config.get("ema") or {}
         ema_enabled = bool(ema.get("enabled", False))
         self.train_step = make_train_step(self.spec, self.tx, self.lr_fn, ema_enabled)

@@ -21,5 +21,5 @@ for side in parent change change parent; do
   log="$out/ab_${n}_${side}.log"
   (cd "$dir" && python3 chip_smoke.py > "$log" 2>&1)
   echo "== $n $side rc=$?"
-  grep -E '^(train|int8|uncached|trainer|ema|lora)[: ]' "$log" | cut -c1-200
+  grep -E '^(train|int8|uncached|trainer|ema|lora|sdxl lora)[: ]' "$log" | cut -c1-200
 done

@@ -30,7 +30,7 @@ from scal_sdt_tpu_torch.models import clip as tclip
 from scal_sdt_tpu_torch.models import functional as tF
 from scal_sdt_tpu_torch.models import vae as tvae
 
-from torch_port_helpers import rand_unet_params, tiny_model_dir, to_np
+from torch_port_helpers import rand_unet_params, tiny_model_dir, tiny_sdxl_dir, to_np
 
 TOL = 1e-5   # max-abs error, relative to the reference's largest entry
 DECODER_BF16_TOL = 2.0 ** -5
@@ -216,9 +216,22 @@ def test_load_diffusers_dir_matches_jax(tmp_path):
                          (tmp_path / "absent", "hub ids")):
         with pytest.raises(NotImplementedError, match=match):
             tloader.load_components(tconf.merge(cfg, tconf.Config({"model": str(model)})))
+    # SDXL's second tower (ROADMAP 1.15): an empty text_encoder_2/ raises as
+    # JAX's loader does; a real one loads as JAX loads it
+    import shutil
+
     (d / "text_encoder_2").mkdir()
-    with pytest.raises(NotImplementedError, match="SDXL"):
-        tloader.load_diffusers_dir(d)
+    for loader in (jloader, tloader):
+        with pytest.raises(FileNotFoundError, match="No weights file"):
+            loader.load_diffusers_dir(d)
+    d.joinpath("text_encoder_2").rmdir()
+    shutil.copytree(tiny_sdxl_dir(tmp_path / "sdxl") / "text_encoder_2", d / "text_encoder_2")
+    jm, tm = jloader.load_diffusers_dir(d), tloader.load_diffusers_dir(d)
+    assert tm.clip2_config.__dict__ == jm.clip2_config.__dict__
+    assert tm.clip2_config.projection_dim == 32 and not tm.is_sdxl
+    assert tm.clip2.keys() == jm.clip2.keys()
+    for k in jm.clip2:
+        np.testing.assert_array_equal(to_np(tm.clip2[k]), np.asarray(jm.clip2[k]), err_msg=k)
 
 
 def test_loader_validates_shapes(tmp_path):

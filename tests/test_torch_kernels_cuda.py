@@ -4,7 +4,8 @@ update and the int8 Adam update, each in its single-leaf update-only form
 and its grouped form (Adam, decay, schedule and master apply over a leaf
 table in one launch; with bf16 gradients, and with the fp32 gradients of
 gradient accumulation); the grouped EMA update (ema_fused); the splash
-forward in sampling's inference form; and the
+forward in sampling's inference form; splash in SDXL's forms (head dim 64);
+and the
 attention gate: `FORCE_MATH` keeps a
 full-width UNet off the splash kernels.
 
@@ -90,6 +91,48 @@ def test_splash_forward_in_the_sampling_forms_on_cuda(shape):
     assert S.launches == {"splash_fwd": 1, "splash_dq": 0, "splash_dkv": 0}
     assert out.is_inference() and out.shape == shape
     assert float((out.float() - want.float()).abs().max()) < 5e-3
+
+
+SDXL_TRAIN_SHAPES = [(1, 10, 4096, 64), (1, 20, 1024, 64), (1, 10, 4032, 64)]
+SDXL_SAMPLE_SHAPES = [(2, 10, 4096, 64), (2, 20, 1024, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SDXL_TRAIN_SHAPES + SDXL_SAMPLE_SHAPES)
+def test_splash_in_the_sdxl_forms_on_cuda(shape):
+    """SDXL's head dim 64 (the kernels' DP = 64 instances) on head-split
+    views: at 1024^2 training's levels 1 and 2 at batch 1 and the ragged ARB
+    length 72 x 56 = 4032, forward and backward against autograd of the
+    plain version (forward 5e-3 max-abs, gradients 1.5e-2 relative);
+    sampling's CFG pair (batch 2) under inference mode, the forward alone."""
+    _need_card()
+    r = np.random.RandomState(11)
+    b, h, l, d = shape
+    base = [torch.from_numpy(r.randn(b, l, h * d).astype(np.float32)).cuda().bfloat16()
+            for _ in range(3)]
+    scale = d ** -0.5
+    if shape in SDXL_SAMPLE_SHAPES:
+        with torch.inference_mode():
+            views = [_heads(t, shape, "heads") for t in base]
+            S.reset_launches()
+            out = S.splash_attention(*views, scale)
+            assert S.launches == {"splash_fwd": 1, "splash_dq": 0, "splash_dkv": 0}
+            want = S.splash_attention_reference(*views, scale)
+        assert float((out.float() - want.float()).abs().max()) < 5e-3
+        return
+    g = torch.from_numpy(r.randn(*shape).astype(np.float32)).cuda().bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in base]
+    refs = [t.clone().requires_grad_(True) for t in base]
+    S.reset_launches()
+    out = S.splash_attention(*(_heads(t, shape, "heads") for t in leaves), scale)
+    out.backward(g)
+    assert S.launches == {"splash_fwd": 1, "splash_dq": 1, "splash_dkv": 1}
+    want = S.splash_attention_reference(*(_heads(t, shape, "heads") for t in refs), scale)
+    want.backward(g)
+    assert float((out.float() - want.float()).abs().max()) < 5e-3
+    for got, ref in zip(leaves, refs):
+        err = (got.grad.float() - ref.grad.float()).abs().max() / ref.grad.float().abs().max()
+        assert float(err) < 1.5e-2
 
 
 @pytest.mark.cuda

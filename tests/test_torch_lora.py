@@ -15,8 +15,8 @@ against the JAX package's, on the CPU.
   another order), bf16 weights within one bf16 ulp.
 * ``resolve_targets`` on every shipped ``lora*.yaml`` but the SDXL and SD3
   ones, over SD1.5's UNet and CLIP keys: the same trainable keys, groups,
-  LoRA specs and group labels as JAX; a ``text_encoder_2`` section still
-  raises (ROADMAP 1.15).
+  LoRA specs and group labels as JAX; a ``text_encoder_2`` section resolves
+  over a second tower's keys and raises without one, as in JAX.
 * ``compute_loss`` of a tiny UNet with LoRA at dropout 0.25, JAX's masks
   for every layer injected through ``Draws.lora_masks`` (with its noise and
   timesteps): loss and gradients within 1e-3 relative, the tolerance of
@@ -216,9 +216,19 @@ def test_resolve_lora_targets_matches_jax(name):
 
 
 def test_text_encoder_2_section_still_raises():
+    """A text_encoder_2 section resolves over a second tower's keys, as JAX
+    resolves it (tests/test_torch_sdxl.py holds lora_sdxl over SDXL's keys),
+    and still raises, as in JAX, for a model without one."""
     unet_keys, clip_keys = _sd15_keys()
-    with pytest.raises(NotImplementedError, match="text_encoder_2"):
-        ttargets.resolve_optim_target(tconf.load_optim_target("lora_sdxl"), unet_keys, clip_keys)
+    spec = tconf.load_optim_target("lora_sdxl")
+    got = ttargets.resolve_optim_target(spec, unet_keys, clip_keys, clip_keys)
+    want = jtargets.resolve_optim_target(jconf.load_optim_target("lora_sdxl"), unet_keys,
+                                         clip_keys, text_encoder_2_keys=clip_keys)
+    assert got["text_encoder_2"].trainable == want["text_encoder_2"].trainable
+    assert len(got["text_encoder_2"].lora) == 72
+    assert ttargets.group_labels(got) == jtargets.group_labels(want)
+    with pytest.raises(ValueError, match="text_encoder_2"):
+        ttargets.resolve_optim_target(spec, unet_keys, clip_keys)
 
 
 # --- remat under dropout -----------------------------------------------------------------

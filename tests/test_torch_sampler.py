@@ -283,18 +283,37 @@ def test_sample_images_draws_from_its_generator(tiny_models):
                                        method="euler_a"))
 
 
+def _sdxl_case(ts):
+    """SDXL is ported (ROADMAP 1.15): the tiny SDXL models sample with their
+    second tower; the spec and params for the call that lacks it."""
+    from torch_port_helpers import tiny_sdxl_models
+
+    m = tiny_sdxl_models(vocab_size=1000)
+    ts = dataclasses.replace(ts, unet_config=tunet.UNetConfig(**m.unet_config.__dict__),
+                             clip_config=tclip.CLIPTextConfig(**m.clip_config.__dict__),
+                             clip2_config=tclip.CLIPTextConfig(**m.clip2_config.__dict__))
+    tp = {n: params_from_jax(getattr(m, n), device="cpu") for n in ("unet", "vae", "clip",
+                                                                     "clip2")}
+    images = tsampler.sample_images(tp["unet"], tp["vae"], tp["clip"], _tokenize, PROMPTS,
+                                    NEGATIVE, ts, steps=2, cfg_scale=CFG, width=W, height=H,
+                                    device="cpu", clip2_params=tp["clip2"])
+    assert images.shape == (BATCH, H, W, 3) and images.dtype == np.uint8
+    return ts, {"unet": m.unet, "vae": m.vae, "clip": m.clip}
+
+
 @pytest.mark.parametrize("case", ["sdxl", "sd3", "flow_euler", "unknown", "cuda"])
 def test_sample_images_refuses_what_is_not_ported(case, tiny_models):
+    """SD3 and unknown methods raise; SDXL samples (tests/test_torch_sdxl.py
+    holds it against JAX) and refuses a call without its second tower."""
     _, ts = _specs("eps", "float32")
     kw = {}
     if case == "sdxl":
-        ts = dataclasses.replace(ts, unet_config=dataclasses.replace(
-            ts.unet_config, addition_embed_type="text_time"))
+        ts, tiny_models = _sdxl_case(ts)
     elif case == "sd3":
         ts = dataclasses.replace(ts, unet_config=None)
     elif case in ("flow_euler", "unknown"):
         kw["method"] = case
-    err = {"sdxl": (NotImplementedError, "1.15"), "sd3": (NotImplementedError, "1.16"),
+    err = {"sdxl": (ValueError, "clip2_params"), "sd3": (NotImplementedError, "1.16"),
            "flow_euler": (NotImplementedError, "1.16"), "unknown": (ValueError, "unknown"),
            "cuda": (RuntimeError, "CUDA")}[case]
     with pytest.raises(err[0], match=err[1]):

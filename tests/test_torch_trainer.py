@@ -20,7 +20,7 @@
   trainer moves the masters on emit steps only.
 * Behaviour: the NaN tripwire, the SIGTERM autosave, SSDT_STEP_TIMINGS and
   the profiler trace, the ``xformers`` switch, the configs that need later
-  slices (and those of item 1.12, which build now).
+  slices (and those of items 1.12, 1.13 and 1.15, which build now).
 * The CLI with ``--device cpu``: run dir and ``config.yaml`` snapshot, the
   usage and config errors, ``--resume`` from the snapshot.
 """
@@ -57,8 +57,8 @@ from scal_sdt_tpu_torch.utils import state as tstate
 
 from helpers import make_image_dataset
 from test_torch_data import write_vocab
-from torch_port_helpers import (assert_bf16_ulp, bf16_ulp, jax_draws, nchw, tiny_model_dir, to_np,
-                                to_torch)
+from torch_port_helpers import (assert_bf16_ulp, bf16_ulp, jax_draws, nchw, tiny_model_dir,
+                                tiny_sdxl_dir, to_np, to_torch)
 
 BATCH, IMAGES, RES = 8, 16, 32      # 2 steps per epoch: 3 steps cross an epoch
 LATENTS = (BATCH, RES // 2, RES // 2, 4)   # the tiny VAE downsamples 2x
@@ -406,11 +406,19 @@ def test_xformers_switch_gates_the_kernels(tiny_run, tmp_path, xformers):
     assert tattention.use_kernel(shape, shape, torch.bfloat16, False, True) is xformers
 
 
-def _sdxl_dir(tmp_path, tiny_run, sub):
+def _model_dir(tmp_path, tiny_run, sub):
+    """A tiny SDXL directory ('sdxl', with the run's vocab), or the run's
+    SD1.x directory with an empty text_encoder_2/ ('sdxl_empty_te2') or its
+    UNet moved to transformer/ ('sd3')."""
     import shutil
 
     d = tmp_path / sub
-    shutil.copytree(tiny_run[1]["model"], d)
+    model = tiny_run[1]["model"]
+    if sub == "sdxl":
+        tiny_sdxl_dir(d)
+        shutil.copytree(f"{model}/tokenizer", d / "tokenizer")
+        return str(d)
+    shutil.copytree(model, d)
     if sub == "sd3":
         shutil.move(d / "unet", d / "transformer")
     else:
@@ -419,46 +427,53 @@ def _sdxl_dir(tmp_path, tiny_run, sub):
 
 
 LATER_SLICES = {
+    # (overrides, the error's type and text; None: the config builds)
     # items 1.12 and 1.13 are ported: these build now (TI from a cache raises
     # as in JAX)
     "ema": ({"ema": {"enabled": True}}, None),
     "lora": ({"optim_target": "lora_no-te"}, None),
     "custom_embeddings": ({"custom_embeddings": {"enabled": True}}, None),
     "textual_inversion": ({"custom_embeddings": {"train": {
-        "enabled": True, "tokens": [{"keyword": "my-cat"}]}}}, "live text encoding"),
+        "enabled": True, "tokens": [{"keyword": "my-cat"}]}}},
+        (ValueError, "live text encoding")),
     "sampling": ({"sampling": {"concepts": [{"prompt": "a cat"}], "interval_steps": 1}}, None),
-    "sdxl": ("sdxl", "1.15"),
-    "sd3": ("sd3", "1.16"),
-    "mesh": ({"trainer": {"mesh": {"data": 2}}}, "1.17"),
-    "world_size": ({}, "1.17"),
+    # item 1.15 is ported: an SDXL directory builds uncached; from a cache
+    # it needs pooled embeddings (the run's cache is SD1.x's), and an empty
+    # text_encoder_2/ raises as JAX's loader does
+    "sdxl": ({"model": "sdxl", "data": {"cache": None}}, None),
+    "sdxl_cache_without_pooled": ({"model": "sdxl"}, (ValueError, "pooled")),
+    "sdxl_empty_text_encoder_2": ({"model": "sdxl_empty_te2"},
+                                  (FileNotFoundError, "No weights file")),
+    "sd3": ({"model": "sd3"}, (NotImplementedError, "ROADMAP 1.16")),
+    "mesh": ({"trainer": {"mesh": {"data": 2}}}, (NotImplementedError, "ROADMAP 1.17")),
+    "world_size": ({}, (NotImplementedError, "ROADMAP 1.17")),
 }
 
 
 @pytest.mark.parametrize("case", list(LATER_SLICES))
 def test_later_slice_configs_raise(tiny_run, tmp_path, monkeypatch, case):
     """Configs that need a later slice raise naming its ROADMAP item; those of
-    items 1.12 (EMA, LoRA, custom embeddings) and 1.13 (sampling concepts)
-    build, and textual inversion from a condition cache raises as the JAX
-    trainer does."""
-    overrides, item = LATER_SLICES[case]
+    items 1.12 (EMA, LoRA, custom embeddings), 1.13 (sampling concepts) and
+    1.15 (SDXL) build, and textual inversion from a condition cache, an SDXL
+    run from a cache without pooled embeddings and an SDXL directory with an
+    empty text_encoder_2/ raise as the JAX trainer does."""
+    overrides, error = LATER_SLICES[case]
     if case == "world_size":
         monkeypatch.setenv("WORLD_SIZE", "2")
     if case == "custom_embeddings":
         (tmp_path / "emb").mkdir()
         overrides = {"custom_embeddings": {"enabled": True, "path": str(tmp_path / "emb")}}
-    if isinstance(overrides, str):
-        overrides = {"model": _sdxl_dir(tmp_path, tiny_run, overrides)}
+    if "model" in overrides:
+        overrides = dict(overrides, model=_model_dir(tmp_path, tiny_run, overrides["model"]))
     cfg = _cached_config(tiny_run, **overrides)
-    if item is None:
+    if error is None:
         trainer = TTrainer(cfg, tmp_path / "run", device="cpu")
         assert (trainer.state.ema is not None) == (case == "ema")
         assert any(k.endswith(".lora_A") for k in trainer.state.trainable) == (case == "lora")
+        assert trainer.spec.sdxl == any(k.startswith("condition_model.encoder_2.")
+                                        for k in trainer.frozen) == (case == "sdxl")
         return
-    if case == "textual_inversion":
-        with pytest.raises(ValueError, match=item):
-            TTrainer(cfg, tmp_path / "run", device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    with pytest.raises(error[0], match=error[1]):
         TTrainer(cfg, tmp_path / "run", device="cpu")
 
 

@@ -110,3 +110,36 @@ def tiny_model_dir(path, vocab_size: int = 640, seed: int = 0, scheduler_overrid
         clip=rand_unet_params(clip_param_shapes(clip), seed + 2), clip_config=clip,
         schedule=NoiseSchedule())
     return write_diffusers_dir(models, path, scheduler_overrides)
+
+
+def tiny_sdxl_models(vocab_size: int = 640, seed: int = 0):
+    """The JAX package's tiny SDXL models (the configs of tests/helpers.py
+    ``tiny_sdxl_models``: a text_time UNet, two 32-wide towers, tower 2 with
+    a 32-wide projection) with seeded numpy weights from
+    ``rand_unet_params``, as JAX ``LoadedModels``."""
+    from scal_sdt_tpu.convert.loader import LoadedModels
+    from scal_sdt_tpu.diffusion.schedule import NoiseSchedule
+    from scal_sdt_tpu.models.clip import CLIPTextConfig, clip_param_shapes
+    from scal_sdt_tpu.models.unet import UNetConfig, unet_param_shapes
+    from scal_sdt_tpu.models.vae import VAEConfig, vae_param_shapes
+
+    unet, vae = UNetConfig.tiny_sdxl(), VAEConfig.tiny()
+    clip = CLIPTextConfig(vocab_size=vocab_size, hidden_size=32, intermediate_size=64,
+                          num_hidden_layers=2, num_attention_heads=2)
+    clip2 = CLIPTextConfig(vocab_size=vocab_size, hidden_size=32, intermediate_size=64,
+                           num_hidden_layers=2, num_attention_heads=2, hidden_act="gelu",
+                           projection_dim=32)
+    return LoadedModels(
+        unet=rand_unet_params(unet_param_shapes(unet), seed), unet_config=unet,
+        vae=rand_unet_params(vae_param_shapes(vae), seed + 1), vae_config=vae,
+        clip=rand_unet_params(clip_param_shapes(clip), seed + 2), clip_config=clip,
+        schedule=NoiseSchedule(),
+        clip2=rand_unet_params(clip_param_shapes(clip2), seed + 3), clip2_config=clip2)
+
+
+def tiny_sdxl_dir(path, vocab_size: int = 640, seed: int = 0):
+    """``tiny_sdxl_models`` as a diffusers directory (tests/helpers.py
+    ``write_diffusers_dir``: ``text_encoder_2/`` with its projection)."""
+    from helpers import write_diffusers_dir
+
+    return write_diffusers_dir(tiny_sdxl_models(vocab_size, seed), path)
