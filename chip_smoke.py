@@ -204,6 +204,27 @@ Phases (any failure raises and the script exits non-zero):
               splash_fwd in sampling's form at (2,10,4096,64) and
               (2,20,1024,64); adam_bf16_fused over lora_sdxl's 986 groups of
               fp32 factors at SDXL widths, bit for bit.
+15. lora_prodigy -- (after lora) configs/lora.yaml through the train CLI with
+              optimizer prodigyopt.Prodigy at lr 1.0, sampling off: 4 steps
+              with a checkpoint at 2, then a run resumed from it that must
+              end on the same checkpoint and sidecar bytes and losses
+              (Prodigy's params0, moments and 0-dim estim_lr in the
+              sidecar); splash launches as the buckets give them, no
+              optimizer kernel.
+16. families -- (last) the train phase's step under each optimizer family:
+              adamw (the reference), adam, lion, adafactor (blocks from the
+              JAX trainer's default slabs), prodigyopt.Prodigy and
+              dadaptation.DAdaptAdam (lr 1.0), sgd (lr 1e-3), 2 warm-up and
+              --steps timed steps each: splash 10 launches per step each,
+              adam_bf16_fused 7 under adam and adamw and 0 under the others,
+              losses finite, masters moved; Prodigy's and D-Adapt's
+              estim_lr above d0 (up to 20 more untimed steps); the first
+              update of three SD1.5 leaves on the card against the same
+              chain on the CPU (bit for bit for elementwise chains, 1e-6 of
+              the largest entry for the Adam kernel, 1e-5 with reductions).
+              Prints steps/s, the optimizer's device ms (a torch.profiler
+              trace of one update_and_apply) and host ms per step beside
+              AdamW's, its CUDA launches, peak memory.
 
 The optim phase also runs both grouped kernels with fp32 gradients, the mean
 that gradient accumulation hands them, at the same bounds.
@@ -264,7 +285,7 @@ from scal_sdt_tpu_torch.training.optimizers import AccumulationState, GradientAc
 from scal_sdt_tpu_torch.training.quantized import Adam8bit, bias_corrections
 from scal_sdt_tpu_torch.training.sample_callback import SampleCallback
 from scal_sdt_tpu_torch.training.step import (StepSpec, compute_loss, draw, init_train_state,
-                                              make_train_step)
+                                              loss_and_grads, make_train_step)
 from scal_sdt_tpu_torch.training.trainer import Trainer
 from scal_sdt_tpu_torch.utils.state import (load_metadata, load_state_dict, save_json_metadata,
                                            save_state_dict)
@@ -323,8 +344,8 @@ KERNELS = {
                   "scal_sdt_tpu/training/ema.py:141", "none (ema_update runs in XLA)"),
 }
 SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
-PHASES = ("train", "train_int8", "uncached", "cache", "trainer", "ema",
-          "sample", "lora", "dreambooth", "sdxl_cache", "sdxl_lora",
+PHASES = ("train", "train_int8", "families", "uncached", "cache", "trainer", "ema",
+          "sample", "lora", "lora_prodigy", "dreambooth", "sdxl_cache", "sdxl_lora",
           "sdxl_sample")   # the phases that run a main path
 COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
@@ -933,6 +954,233 @@ def run_steps(state, step_fn, frozen: dict, next_batch, steps: int, warmup: int,
             "losses": losses, "launches": launches, "state": state}
 
 
+# the families phase: (config name, params over setup_train's), with AdamW
+# first as the reference the others are printed beside
+FAMILIES = (("adamw", {}), ("adam", {}), ("lion", {}), ("adafactor", {}),
+            ("prodigyopt.Prodigy", {"lr": 1.0}), ("dadaptation.DAdaptAdam", {"lr": 1.0}),
+            ("sgd", {"lr": 1e-3}))   # SGD's step is lr * g: 2e-6 would move no bf16 master
+# the leaves whose first update on the card is held against the CPU's
+FAMILY_PROBE = ("unet.conv_in.weight",
+                "unet.down_blocks.1.attentions.0.transformer_blocks.0.attn2.to_k.weight",
+                "unet.up_blocks.3.resnets.2.norm2.bias")
+# card vs CPU, first update of FAMILY_PROBE: elementwise chains bit for bit;
+# the Adam kernel against its plain version 1e-6 relative (phase 3's bound);
+# chains with reductions (another summation order) 1e-5 of the largest entry
+FAMILY_FIRST_TOL = {"adamw": 1e-6, "adam": 1e-6, "lion": 0.0, "sgd": 0.0, "adafactor": 1e-5,
+                    "prodigyopt.Prodigy": 1e-5, "dadaptation.DAdaptAdam": 1e-5}
+FAMILY_MORE_STEPS = 20   # untimed steps Prodigy / D-Adapt may take until estim_lr > d0
+
+
+def sd15_pack_spec(config, labels: dict):
+    """The slab spec the JAX trainer's default packing gives the full_unet
+    trainables (fp32 at load), which Adafactor treats as blocks."""
+    from scal_sdt_tpu_torch.training.trainer import jax_pack_spec
+
+    shapes = {f"unet.{k}": torch.empty(s, device="meta")
+              for k, s in unet_param_shapes(UNetConfig.sd15()).items()}
+    return jax_pack_spec(config, {k: v for k, v in shapes.items() if k in labels}, labels)
+
+
+def first_update_check(name: str, config, labels: dict, overrides: dict, masters: dict,
+                       grads: dict) -> dict:
+    """The family's first update of FAMILY_PROBE's leaves on the card and on
+    the CPU, from the same fresh state, masters and gradients."""
+    sub = {k: labels[k] for k in FAMILY_PROBE}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tx, _ = build_optimizer(config, sub, {g: overrides[g] for g in set(sub.values())
+                                              if g in overrides}, 1000, 1)
+        p = {k: masters[k].to(dev, copy=True) for k in FAMILY_PROBE}
+        g = {k: grads[k].to(dev, copy=True) for k in FAMILY_PROBE}
+        u, _ = tx.update(g, tx.init(p), p)
+        out[dev] = {k: v.float().cpu() for k, v in u.items()}
+    err = {k: max_abs(out["cuda"][k], out["cpu"][k])
+           / max(out["cpu"][k].abs().max().item(), 1e-30) for k in FAMILY_PROBE}
+    tol = FAMILY_FIRST_TOL[name]
+    check(all(e <= tol for e in err.values()),
+          f"{name}: first update on the card vs the CPU, relative to the largest entry {err} > "
+          f"{tol}")
+    return {"rel_err": err, "tol": tol}
+
+
+def optimizer_cost(tx, state, frozen: dict, batch: dict, step_fn_spec) -> dict:
+    """The optimizer's share of a step: ``tx.update_and_apply`` on one set of
+    gradients, its host ms (the call's return, after a synchronize before
+    it; median of 3), its device ms and CUDA launches per call (a
+    torch.profiler trace of one call: the sum of its kernels' times; None
+    when no trace held any)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, grads = loss_and_grads(step_fn_spec, state.trainable, frozen, batch, state.generator)
+    opt, host = state.opt_state, []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt = tx.update_and_apply(grads, opt, state.trainable, state.step + i)
+        host.append((time.perf_counter() - t0) * 1e3)
+    # a trace may miss the card's work of a call now and then, the launches
+    # of the ops/ kernels most often: the fullest of up to 3 traces counts
+    traces = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            opt = tx.update_and_apply(grads, opt, state.trainable, state.step + 3 + i)
+            torch.cuda.synchronize()
+        traces.append([e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA])
+        if len(traces) > 1 and traces[-1] and len(traces[-1]) == len(traces[-2]):
+            break
+    del grads
+    kernels = max(traces, key=len)
+    return {"host_ms": sorted(host)[1],
+            "device_ms": sum(kernels) / 1e3 if kernels else None,
+            "launches": len(kernels), "traced_launches": [len(t) for t in traces],
+            "opt_state": opt}
+
+
+def families_phase(seed: int, steps: int, per_step: dict[str, int], warmup: int = 2) -> dict:
+    """The train phase's step (SD1.5 full fine-tune, bf16 masters and
+    moments) under each optimizer family: ``warmup`` steps, then ``steps``
+    timed steps; each splash kernel 10 launches per step, adam_bf16_fused 7
+    under adam (and the AdamW reference) and 0 under the others; loss finite,
+    masters moved. Prodigy's and D-Adapt's estim_lr must rise above d0 (up
+    to FAMILY_MORE_STEPS more untimed steps). The first update of three
+    leaves is held against the CPU's; the optimizer's host and device ms
+    and launches per step are measured apart (``optimizer_cost``)."""
+    out: dict = {"families": {}}
+    launches = {k: 0 for k in read_launches()}
+    first_masters = first_grads = None
+    for name, params in FAMILIES:
+        extra = {"optimizer": {"params": params}} if params else None
+        setup = setup_train(seed, name, extra)
+        tx, state, step_fn, batch = (setup[k] for k in ("tx", "state", "step_fn", "batch"))
+        config, spec = setup["config"], setup["spec"]
+        labels = dict(tx.labels)
+        overrides = {f"g{i}": g.optimizer for i, g in enumerate(resolve_optim_target(
+            load_optim_target("full_unet"), unet_param_shapes(UNetConfig.sd15()), [])
+            ["unet"].groups)}
+        if name == "adafactor":   # the JAX trainer's default slabs are its blocks
+            pack = sd15_pack_spec(config, labels)
+            tx, _ = build_optimizer(config, labels, overrides, 1000, 1, pack_spec=pack)
+            state = state._replace(opt_state=tx.init(state.trainable))
+            step_fn = make_train_step(spec, tx, setup["lr_fn"])
+        del setup
+        if first_masters is None:   # the same seed gives every family the same start
+            _, g = loss_and_grads(spec, state.trainable, {}, batch,
+                                  torch.Generator(device="cuda").manual_seed(seed + 7))
+            first_masters = {k: state.trainable[k].clone() for k in FAMILY_PROBE}
+            first_grads = {k: g[k].clone() for k in FAMILY_PROBE}
+            del g
+        first = first_update_check(name, config, labels, overrides, first_masters, first_grads)
+        groups = len(tx.transforms)
+        want = {**per_step, "adam_bf16_fused": groups if name in ("adamw", "adam") else 0,
+                "adam8_fused": 0, "ema_fused": 0}
+        res = run_steps(state, step_fn, {}, lambda: batch, steps, warmup, want)
+        for k, v in res["launches"].items():
+            launches[k] += v
+        state = res.pop("state")
+        extra_steps = 0
+        if name in ("prodigyopt.Prodigy", "dadaptation.DAdaptAdam"):
+            d0 = float(config.optimizer.params.get("d0", 1e-6))
+
+            def estimates():
+                return [float(s.estim_lr) for s in state.opt_state.values()]
+
+            while min(estimates()) <= d0 and extra_steps < FAMILY_MORE_STEPS:
+                state, _ = step_fn(state, {}, batch)
+                extra_steps += 1
+            check(min(estimates()) > d0, f"{name}: estim_lr {estimates()} still at d0 {d0} after "
+                                         f"{warmup + steps + extra_steps} steps")
+            res["estim_lr"] = estimates()
+        cost = optimizer_cost(tx, state, {}, batch, spec)
+        state = state._replace(opt_state=cost.pop("opt_state"))
+        out["families"][name] = {**{k: v for k, v in res.items() if k != "launches"},
+                                 "launches": res["launches"], "param_groups": groups,
+                                 "first_update": first, "optimizer": cost,
+                                 "extra_steps_to_move_estim_lr": extra_steps}
+        del state, tx, step_fn, batch, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def lora_prodigy_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
+    """configs/lora.yaml through the train CLI with optimizer
+    prodigyopt.Prodigy at lr 1.0 (the community's LoRA recipe), sampling off:
+    LORA_PRODIGY_STEPS steps with a checkpoint at LORA_PRODIGY_SAVE; a run
+    resumed from it must end on run 1's checkpoint and sidecar bit for bit
+    (Prodigy's params0, moments and 0-dim estim_lr in the sidecar). Splash
+    launches as the buckets give them, no adam_bf16_fused launch."""
+    runs, timings = workdir / "lora_prodigy_runs", workdir / "lora_prodigy_timings.jsonl"
+    base = load_with_defaults(CONFIGS_DIR / "lora.yaml")
+    config = merge(base, Config({
+        "model": str(model), "output_dir": str(runs), "project": "lora_prodigy", "seed": seed,
+        "num_workers": NUM_WORKERS,
+        "data": {"concepts": [{"instance_set": {"path": str(images), "prompt": "{TXT_PROMPT}"}}]},
+        "sampling": {"interval_steps": 10 ** 6},
+        # lr 1.0 as the recipe gives it: lora.yaml's sqrt lr scaling would double it
+        "optimizer": {"name": "prodigyopt.Prodigy", "params": {"lr": 1.0},
+                      "lr_scale": {"enabled": False}},
+        "trainer": {"max_steps": LORA_PRODIGY_STEPS, "log_every_n_steps": 1},
+        "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
+                       "every_n_train_steps": LORA_PRODIGY_SAVE, "monitor": None},
+        "loggers": {"tensorboard": None}}))
+    cfg_path = workdir / "lora_prodigy.yaml"
+    cfg_path.write_text(json.dumps(config))
+    unet_config = UNetConfig.sd15()
+    os.environ["SSDT_STEP_TIMINGS"] = str(timings)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run1 = TrainerProbe()
+        with run1:
+            train_cli.main(["--config", str(cfg_path), "--run-id", "run1", "--device", DEVICE],
+                           standalone_mode=False)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gc.collect()
+        torch.cuda.empty_cache()
+        shapes1 = step_shapes(timings)
+        l1 = run1.losses()
+        check(sorted(l1) == list(range(1, LORA_PRODIGY_STEPS + 1))
+              and all(math.isfinite(x) for x in l1.values()), f"lora prodigy losses {l1}")
+        expect_train_splash(shapes1, launches, "lora prodigy run 1", unet_config)
+        check(launches["adam_bf16_fused"] == 0 and launches["ema_fused"] == 0
+              and launches["adam8_fused"] == 0, f"lora prodigy launches {launches}")
+        dir1 = runs / "lora_prodigy" / "run1"
+        mid, last = (f"epoch=0-step={n}" for n in (LORA_PRODIGY_SAVE, LORA_PRODIGY_STEPS))
+        side = load_state_dict(dir1 / f"{mid}.safetensors.torchstate", "safetensors")
+        estim = {k: float(v) for k, v in side.items() if k.endswith(".estim_lr")}
+        check(bool(estim) and any(".params0." in k for k in side),
+              f"the sidecar lacks Prodigy's state: {sorted(side)[:5]}")
+        want = file_digests(checkpoint_files(dir1, last))
+        reset_launches()
+        run2 = TrainerProbe()
+        with run2:
+            train_cli.main(["--resume", str(dir1 / f"{mid}.safetensors"), "--run-id", "run2",
+                            "--device", DEVICE], standalone_mode=False)
+        launches2 = read_launches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        expect_train_splash(step_shapes(timings), launches2, "lora prodigy run 2", unet_config)
+        got = file_digests(checkpoint_files(runs / "lora_prodigy" / "run2", last))
+        check(got == want, f"the resumed Prodigy LoRA run's checkpoint differs: {got} {want}")
+        l2 = run2.losses()
+        check(sorted(l2) == list(range(LORA_PRODIGY_SAVE + 1, LORA_PRODIGY_STEPS + 1))
+              and all(l2[s] == l1[s] for s in l2), f"resumed losses {l2} != run 1's {l1}")
+    finally:
+        os.environ.pop("SSDT_STEP_TIMINGS", None)
+    logged = [t for s, _, t in run1.steps]
+    timed = [b - a for a, b in zip(logged[1:], logged[2:])]   # the first step left out
+    return {"steps": LORA_PRODIGY_STEPS, "losses": l1, "resumed_losses": l2,
+            "steps_per_s": len(timed) / sum(timed) if timed else float("nan"),
+            "estim_lr_at_save": estim, "peak_mem_gib": peak, "launches": launches,
+            "launches_per_step": {k: v / LORA_PRODIGY_STEPS for k, v in launches.items()},
+            "bucket_shapes": shapes1}
+
+
 @torch.no_grad()
 def check_phase(train: dict) -> dict:
     """One sample through the UNet with the kernels, then with the plain
@@ -1532,6 +1780,7 @@ def ema_accumulation(setup: dict, state, batch: dict, groups: int, n_leaves: int
 
 LORA_STEPS, LORA_SAVE_EVERY = 6, 4   # run 1, and its mid-epoch checkpoint that run 2 resumes
 LORA_EMA_STEPS, LORA_DROPOUT = 2, 0.1  # run 3: dropout and a bf16 EMA shadow
+LORA_PRODIGY_STEPS, LORA_PRODIGY_SAVE = 4, 2   # the lora_prodigy phase's run 1 and its resume
 
 
 def splash_levels(shape_bhwc, unet_config: UNetConfig, vae_factor: int = 8
@@ -2856,6 +3105,7 @@ def main(argv=None) -> int:
     del int8
     torch.cuda.empty_cache()
 
+
     ema = ema_phase(args.seed, args.steps, splash_per_step, record["train"]["steps_per_s"])
     for name, r in ema["kernel"].items():
         log(f"ema kernel, {name} shadows over {r['leaves']} leaves: {r['ms']:.4f} ms (bound "
@@ -2953,6 +3203,17 @@ def main(argv=None) -> int:
             f"{ls['num_samples']} images, events (step, s) {ls['events_s']}, splash_fwd "
             f"{ls['splash_fwd']}")
         record["lora"] = lora
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        lp = lora_prodigy_phase(args.seed, Path(tmp), Path(tmp) / "model", Path(tmp) / "images")
+        lp["seconds"] = time.perf_counter() - t0
+        log(f"lora prodigy: {lp['steps_per_s']:.4f} steps/s, peak {lp['peak_mem_gib']:.2f} GiB, "
+            f"launches per step {lp['launches_per_step']}, estim_lr at step {LORA_PRODIGY_SAVE} "
+            f"{sorted(lp['estim_lr_at_save'].values())[:3]}..., losses {lp['losses']}, resumed "
+            f"{lp['resumed_losses']} (bit-equal checkpoint); phase {lp['seconds']:.1f} s")
+        record["lora_prodigy"] = lp
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3064,6 +3325,28 @@ def main(argv=None) -> int:
         f"step, calls {a['call_ms']:.4f} ms (bound {a['bound'][0]:.4f} ms by {a['bound'][1]}), "
         f"plain {a['plain_ms']:.2f} ms, torch._fused_adamw_ {a['library_ms']:.4f} ms, bit-equal "
         f"{a['err']}")
+    torch.cuda.empty_cache()
+
+    # last: its torch.profiler traces of ~20,000 launches come after every
+    # kernel_device_ms trace of the other phases
+    t0 = time.perf_counter()
+    families = families_phase(args.seed, args.steps, splash_per_step)
+    families["seconds"] = time.perf_counter() - t0
+    ref = families["families"]["adamw"]["optimizer"]
+    for name, r in families["families"].items():
+        o = r["optimizer"]
+        log(f"family {name}: {r['steps_per_s']:.4f} steps/s, optimizer {o['device_ms']} ms "
+            f"device / {o['host_ms']:.2f} ms host per step (AdamW {ref['device_ms']} / "
+            f"{ref['host_ms']:.2f}), {o['launches']} CUDA launches per optimizer step (traces "
+            f"{o['traced_launches']}), "
+            f"peak {r['peak_mem_gib']:.2f} GiB, {r['param_groups']} groups, launches "
+            f"{r['launches']}, losses {r['losses']}, first update card vs CPU "
+            f"{r['first_update']['rel_err']} (bound {r['first_update']['tol']})"
+            + (f", estim_lr {r['estim_lr']} after {r['extra_steps_to_move_estim_lr']} more "
+               f"steps" if "estim_lr" in r else ""))
+    log(f"families: phase {families['seconds']:.1f} s")
+    record["families"] = families
+    gc.collect()
     torch.cuda.empty_cache()
 
     kernels = kernel_entries(record)

@@ -7,10 +7,25 @@ the array type changes. JAX hands bf16 arrays over as numpy arrays of the
 ``ml_dtypes`` bfloat16 type, which ``torch.from_numpy`` refuses; they are
 reinterpreted bit for bit through int16.
 
-An optimizer state is found by its field names, so no optax type is needed:
-a ``ScaleByAdamState`` (count, mu, nu) becomes an ``AdamState`` and a
-``ScaleByAdam8bitState`` (count, mu_q, mu_s, nu_q, nu_s) an
-``Adam8bitState``, with the same shapes and dtypes.
+An optimizer state is found by its field names, so no optax type is needed,
+and the same code reads a live optax state (named tuples) and the tree that
+``utils/msgpack.py`` reads from a ``.trainstate`` (maps keyed by field name,
+tuples as maps keyed "0", "1", ...). Each family's optax state becomes the
+port's, with the same shapes and dtypes:
+
+* ``ScaleByAdamState`` (count, mu, nu) -> ``AdamState`` (AdamW, Adam);
+* ``ScaleByAdam8bitState`` (count, mu_q, mu_s, nu_q, nu_s) -> ``Adam8bitState``;
+* ``ScaleByLionState`` (count, mu) -> ``LionState``;
+* ``FactoredState`` (count, v_row, v_col, v) -> ``FactoredState``, per block
+  under JAX's keys (slab keys included: the port's Adafactor keeps them);
+* ``ProdigyState`` / ``DAdaptAdamWState`` -> ``ProdigyState`` /
+  ``DAdaptState``, their scalars as 0-dim tensors;
+* SGD's chain, which holds only ``scale_by_schedule``'s count -> ``SGDState``;
+* the accumulation wrapper's ``(mini, inner, acc)`` -> ``AccumulationState``.
+
+A JAX run that packed its small leaves (``trainer.param_packing``) keeps
+their moments in slabs and stacks; given the run's ``PackSpec``, they are
+unpacked into the port's per-leaf moments (``training/packing.py``).
 """
 
 from __future__ import annotations
@@ -21,11 +36,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..training.optimizers import AdamState
+from ..training.families import DAdaptState, FactoredState, LionState, ProdigyState, SGDState
+from ..training.optimizers import AccumulationState, AdamState
+from ..training.packing import PackSpec, unpack_host
 from ..training.quantized import Adam8bitState
 
 _ADAM_FIELDS = ("count", "mu", "nu")
 _ADAM8_FIELDS = ("count", "mu_q", "mu_s", "nu_q", "nu_s")
+_LION_FIELDS = ("count", "mu")
+_FACTORED_FIELDS = ("count", "v_row", "v_col", "v")
+_PRODIGY_FIELDS = ("exp_avg", "exp_avg_sq", "grad_sum", "params0", "estim_lr",
+                   "numerator_weighted", "count")
+_DADAPT_FIELDS = ("exp_avg", "exp_avg_sq", "grad_sum", "estim_lr", "numerator_weighted",
+                  "count")
+_SCHEDULE_FIELDS = ("count",)
 
 
 def _array_to_tensor(a) -> torch.Tensor:
@@ -62,36 +86,108 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]
     return out
 
 
-def _find_state(node, fields):
-    """The first named tuple with ``fields`` inside a (chain) state."""
-    if tuple(getattr(node, "_fields", ())) == fields:
-        return node
+def _fields(node) -> tuple:
+    """A named tuple's fields, or a state map's keys (flax writes a named
+    tuple as a map keyed by field name)."""
+    if hasattr(node, "_fields"):
+        return tuple(node._fields)
+    if isinstance(node, dict):
+        return tuple(node)
+    return ()
+
+
+def _get(node, name: str):
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
+def _children(node) -> list:
+    if isinstance(node, dict):
+        return list(node.values())
     if isinstance(node, (tuple, list)):
-        for child in node:
-            found = _find_state(child, fields)
-            if found is not None:
-                return found
+        return list(node)
+    return []
+
+
+def _find_state(node, fields):
+    """The first state with exactly ``fields`` inside a (chain) state."""
+    if set(_fields(node)) == set(fields):
+        return node
+    for child in _children(node):
+        found = _find_state(child, fields)
+        if found is not None:
+            return found
     return None
 
 
-def _moments(d: Mapping[str, object], dev: torch.device) -> dict[str, torch.Tensor]:
-    # multi_transform masks other groups' keys with shapeless placeholders
-    return {k: _array_to_tensor(v).to(dev) for k, v in d.items() if hasattr(v, "shape")}
+def _is_array(v) -> bool:
+    # multi_transform masks other groups' keys: MaskedNode live, {} on disk
+    return hasattr(v, "shape")
 
 
-def group_state_from_jax(state, device="cuda"):
-    """One group's JAX Adam state (or the chain state holding it) ->
-    ``AdamState`` or ``Adam8bitState`` on ``device``."""
+def _tensors(d: Mapping[str, object], dev: torch.device, spec: Optional[PackSpec] = None
+             ) -> dict[str, torch.Tensor]:
+    """A {key: array} field as tensors on ``dev``, unpacked by ``spec``."""
+    arrays = {k: v if isinstance(v, torch.Tensor) else _array_to_tensor(v)
+              for k, v in d.items() if _is_array(v)}
+    if spec is not None:
+        arrays = unpack_host(arrays, spec)
+    return {k: v.contiguous().clone().to(dev) for k, v in arrays.items()}
+
+
+def _scalar(v, dev: torch.device) -> torch.Tensor:
+    t = v if isinstance(v, torch.Tensor) else _array_to_tensor(v)
+    return t.reshape(()).clone().to(dev)
+
+
+def _count(v) -> int:
+    return int(v.item() if isinstance(v, torch.Tensor) else np.asarray(v))
+
+
+def group_state_from_jax(state, device="cuda", pack_spec: Optional[PackSpec] = None):
+    """One group's JAX optimizer state (or the chain state holding it) ->
+    the port's state of that family on ``device``. ``pack_spec``: the JAX
+    run's packing, whose slab and stack moments are unpacked per leaf
+    (Adafactor keeps its blocks)."""
     dev = resolve_device(device)
-    for fields, cls in ((_ADAM8_FIELDS, Adam8bitState), (_ADAM_FIELDS, AdamState)):
+    found = _find_state(state, _ADAM8_FIELDS)
+    if found is not None:
+        if pack_spec is not None and pack_spec.nontrivial:
+            raise NotImplementedError("AdamW8bit state of a packed JAX run: its int8 blocks "
+                                      "span the slab; resume with param_packing: false")
+        return Adam8bitState(_count(_get(found, "count")),
+                             *(_tensors(_get(found, f), dev) for f in _ADAM8_FIELDS[1:]))
+    for fields, cls in ((_PRODIGY_FIELDS, ProdigyState), (_DADAPT_FIELDS, DAdaptState)):
         found = _find_state(state, fields)
         if found is not None:
-            count = int(np.asarray(found.count))
-            return cls(count, *(_moments(getattr(found, f), dev) for f in fields[1:]))
-    raise ValueError("no ScaleByAdamState or ScaleByAdam8bitState in the given state")
+            moments = [f for f in fields if f not in ("estim_lr", "numerator_weighted", "count")]
+            return cls(_count(_get(found, "count")),
+                       *(_tensors(_get(found, f), dev, pack_spec) for f in moments),
+                       _scalar(_get(found, "estim_lr"), dev),
+                       _scalar(_get(found, "numerator_weighted"), dev))
+    found = _find_state(state, _FACTORED_FIELDS)
+    if found is not None:
+        return FactoredState(_count(_get(found, "count")),
+                             *(_tensors(_get(found, f), dev) for f in _FACTORED_FIELDS[1:]))
+    for fields, cls in ((_ADAM_FIELDS, AdamState), (_LION_FIELDS, LionState)):
+        found = _find_state(state, fields)
+        if found is not None:
+            return cls(_count(_get(found, "count")),
+                       *(_tensors(_get(found, f), dev, pack_spec) for f in fields[1:]))
+    found = _find_state(state, _SCHEDULE_FIELDS)
+    if found is not None:
+        return SGDState(_count(_get(found, "count")))
+    raise ValueError("no optimizer state of a known family in the given state")
 
 
-def opt_state_from_jax(state, device="cuda") -> dict[str, object]:
-    """A JAX ``optax.multi_transform`` state -> the port's ``MultiTransform``
-    state: {group label: AdamState | Adam8bitState}."""
-    return {label: group_state_from_jax(s, device) for label, s in state.inner_states.items()}
+def opt_state_from_jax(state, device="cuda", pack_spec: Optional[PackSpec] = None):
+    """A JAX ``optax.multi_transform`` state (or the accumulation wrapper's
+    ``(mini, inner, acc)`` around it) -> the port's ``MultiTransform`` state
+    {group label: state} (or its ``AccumulationState``)."""
+    if "inner_states" not in _fields(state):
+        mini, inner, acc = (_children(state) if isinstance(state, (tuple, list))
+                            else [state[str(i)] for i in range(3)])
+        dev = resolve_device(device)
+        return AccumulationState(_count(mini), opt_state_from_jax(inner, device, pack_spec),
+                                 _tensors(acc, dev, pack_spec))
+    return {label: group_state_from_jax(s, device, pack_spec)
+            for label, s in _get(state, "inner_states").items()}

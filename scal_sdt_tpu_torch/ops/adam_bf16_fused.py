@@ -38,7 +38,7 @@ import torch
 
 from . import _build
 from .sr import (MASTER_SALT, NU_SALT, apply_update_reference, dither_seed, leaf_salt,
-                 stochastic_round_bf16_cheap)
+                 sqrt_rn, stochastic_round_bf16_cheap)
 
 # Storage dtypes the kernel reads and writes, by the code it takes.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -77,11 +77,11 @@ def adam_bf16_fused_update_reference(g: torch.Tensor, mu: torch.Tensor, nu: torc
     m = mu.float() * b1 + g32 * (1.0 - b1)
     v = nu.float() * b2 + (g32 * g32) * (1.0 - b2)
     if recip_bc:
-        out = (m * c1) / (torch.sqrt(v * c2) + eps)
+        out = (m * c1) / (sqrt_rn(v * c2) + eps)
     else:
         # by 0-dim tensors: torch on CUDA multiplies by the reciprocal of a
         # python divisor, which is not the division the kernel computes
-        out = (m / m.new_full((), c1)) / (torch.sqrt(v / v.new_full((), c2)) + eps)
+        out = (m / m.new_full((), c1)) / (sqrt_rn(v / v.new_full((), c2)) + eps)
     mu.copy_(m)
     nu.copy_(v if sr_step is None else stochastic_round_bf16_cheap(v, sr_step, sr_salt))
     return out.to(out_dtype), mu, nu

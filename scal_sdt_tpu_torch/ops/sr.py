@@ -100,6 +100,16 @@ def stochastic_round_bf16_cheap(x: torch.Tensor, step: int, salt: int) -> torch.
     return stochastic_round_bf16_bits(x, cheap_dither_u16(x.shape, step, salt, x.device))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root in x's dtype, as a card's ``sqrtf``
+    and XLA compute it: torch's vectorized CPU sqrt misses it by an ulp now
+    and then (about 7e-3 of fp32 inputs), so on the CPU it runs in fp64 and
+    rounds through fp32 (exact: fp64 has more than twice fp32's bits)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return x.double().sqrt().float().to(x.dtype)
+
+
 def apply_update_reference(p: torch.Tensor, u: torch.Tensor, step: int, salt: int
                            ) -> torch.Tensor:
     """A master plus its update, as a new tensor: bf16 masters add in fp32

@@ -11,14 +11,18 @@ Two files per checkpoint:
   ``{"json": {"step", "ema_decay", "ema_num_updates", "epoch",
   "batch_in_epoch", "ti_tokens", ...}}``.
 * ``<name>.safetensors.torchstate``: the port's exact-resume sidecar, itself
-  a safetensors file: the optimizer state (per group: Adam's moments, or
-  Adam8bit's payloads and scales, plus the accumulation sum under gradient
-  accumulation) under dotted paths, the generator's state as a uint8 tensor,
-  and the step counts in the JSON metadata. Only tensors and plain numbers,
-  no pickled objects. The JAX package's sidecar is ``.trainstate`` (flax
-  msgpack of its optimizer state), which the port does not read: from a JAX
-  checkpoint it restores the parameters and the loop state and warns that
-  the optimizer state starts fresh.
+  a safetensors file: the optimizer state (per group: Adam's moments,
+  Adam8bit's payloads and scales, Lion's momentum, Adafactor's statistics,
+  Prodigy's and D-Adapt's moments and 0-dim scalars, plus the accumulation
+  sum under gradient accumulation) under dotted paths, the generator's state
+  as a uint8 tensor, and the step counts in the JSON metadata. Only tensors
+  and plain ints, no pickled objects. The JAX package's sidecar is
+  ``.trainstate`` (flax msgpack of its optimizer state, step and PRNG key):
+  from a JAX checkpoint without the port's sidecar the port reads it
+  (``utils/msgpack.py``), unpacks slab moments with the JAX run's pack spec
+  and maps each family's optax state onto its own (``convert/from_jax.py``);
+  the JAX PRNG key does not carry over (the port draws from a
+  ``torch.Generator``, difference (b)).
 
 Restores copy into the template state's tensors in place (the EMA shadow
 too), so the optimizer's and the EMA's cached leaf tables stay valid after
@@ -41,7 +45,9 @@ from typing import Any, Optional
 import torch
 
 from ..utils.logging import is_main_process
+from ..utils.msgpack import read_flax_state
 from ..utils.state import load_metadata, load_state_dict, save_state_dict
+from .packing import PackSpec
 from .step import UNET_PREFIX, TrainState
 
 logger = logging.getLogger("checkpoint")
@@ -171,17 +177,37 @@ def split_checkpoint(tensors: dict, meta: dict) -> tuple[dict, Optional[dict]]:
     return trainable, ema
 
 
+def restore_jax_opt_state(ts_path: Path, template: Any,
+                          pack_spec: Optional[PackSpec] = None) -> tuple[Any, int]:
+    """(optimizer state, step) from a JAX ``.trainstate``: each family's
+    optax state mapped onto the port's, slab moments unpacked by
+    ``pack_spec`` (the JAX run's packing), copied into ``template``'s
+    tensors in place (shapes and dtypes must agree)."""
+    from ..convert.from_jax import opt_state_from_jax
+
+    tree = read_flax_state(Path(ts_path).read_bytes())
+    opt = opt_state_from_jax(tree["opt_state"], device="cpu", pack_spec=pack_spec)
+    tensors: dict = {}
+    numbers: dict = {}
+    _flatten(opt, "opt_state", tensors, numbers)
+    return (_restore(template, "opt_state", tensors, numbers),
+            int(tree["step"].item() if isinstance(tree["step"], torch.Tensor)
+                else tree["step"]))
+
+
 @torch.no_grad()
-def restore_train_state(path: Path, template_state: TrainState) -> TrainState:
+def restore_train_state(path: Path, template_state: TrainState,
+                        pack_spec: Optional[PackSpec] = None) -> TrainState:
     """Exact resume: the parameters from the checkpoint, and the optimizer
     state, step and generator from the port's sidecar, each copied into the
     template state's tensors in place (cast to the template's dtype: a
     bf16-master state takes bf16 whatever the file holds). With EMA on, the
     file's shadow, decay and count replace the template's (a file without
     one leaves the template's); with EMA off the file's shadow is ignored.
-    Without the port's sidecar the optimizer state and generator stay the
-    template's and the step is the file's; a JAX sidecar next to the file is
-    not read, with a warning."""
+    Without the port's sidecar, a JAX sidecar next to the file gives the
+    optimizer state and the step (``restore_jax_opt_state``; ``pack_spec``:
+    the packing the JAX run's config implies) and the generator stays the
+    template's; without either the step is the file's."""
     path = Path(path)
     tensors, meta = load_checkpoint_tensors(path)
     trainable_file, ema_file = split_checkpoint(tensors, meta)
@@ -209,10 +235,15 @@ def restore_train_state(path: Path, template_state: TrainState) -> TrainState:
 
     side = sidecar_path(path)
     if not side.exists():
-        if Path(str(path) + JAX_SIDECAR_SUFFIX).exists():
-            logger.warning(f"{path}: the optimizer state was not restored (a JAX "
-                           f"{JAX_SIDECAR_SUFFIX} file, which the port does not read); "
-                           "the moments start fresh")
+        jax_side = Path(str(path) + JAX_SIDECAR_SUFFIX)
+        if jax_side.exists():
+            opt_state, step = restore_jax_opt_state(jax_side, template_state.opt_state,
+                                                    pack_spec)
+            logger.info(f"Restored the JAX run's optimizer state at step {step} from "
+                        f"{jax_side.name}")
+            logger.warning("the JAX run's PRNG key does not carry over: noise and "
+                           "timesteps continue from this run's torch.Generator")
+            return template_state._replace(step=step, opt_state=opt_state)
         return template_state._replace(step=int(meta.get("step", template_state.step)))
     side_tensors = load_state_dict(side, "safetensors")
     numbers = json.loads((load_metadata(side) or {}).get("json", "{}"))

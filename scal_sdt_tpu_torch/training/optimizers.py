@@ -1,7 +1,6 @@
-"""Per-group optimizers over the trainable flat dict (port of the AdamW and
-AdamW8bit branches of ``scal_sdt_tpu/training/optimizers.py``).
-
-Each group runs the JAX chain in the same order and precision.
+"""Per-group optimizers over the trainable flat dict (port of
+``scal_sdt_tpu/training/optimizers.py``): every name the JAX package accepts,
+each group running the JAX chain in the same order and precision.
 
 * AdamW: ``scale_by_adam_low_memory`` (fp32 moment math, configured moment
   storage, bf16 nu stored by stochastic rounding with the counter-hash
@@ -9,30 +8,37 @@ Each group runs the JAX chain in the same order and precision.
   computes it (``wd * p`` in the param dtype, added to the fp32 update),
   then the lr schedule (``-lr * schedule(count)``). This is not
   ``torch.optim.AdamW``, whose storage and rounding differ.
+* Adam: AdamW's chain without the decay, whatever ``weight_decay`` says (the
+  JAX chain has none), on the same kernel with the decay switched off.
 * AdamW8bit: ``Adam8bit`` (``training/quantized.py``; the update in the
   gradient's dtype), then the decay in the update's dtype
   (``u + (wd * p).to(u.dtype)``), then the schedule with the step size cast
   to the update's dtype first, as optax's ``scale_by_schedule`` does.
+* Lion, Adafactor, Prodigy, D-Adapt AdamW and SGD: plain PyTorch chains
+  (``training/families.py``). Prodigy and D-Adapt carry the lr and the
+  schedule inside; Adafactor sees the JAX trainer's slabs (``pack_spec``).
 
 Two ways to run a group:
 
-* ``update`` returns the updates (optax's ``tx.update``), one kernel launch
-  per leaf on the card (``ops/adam_bf16_fused.py``, ``ops/adam8_fused.py``);
-  ``training/step.py``'s ``apply_updates`` then applies them;
-* ``update_and_apply`` (the train step's) runs Adam, decay, schedule and the
-  master apply of every leaf in one launch per kernel over the group's leaf
-  table, built on first use and cached on the transform while the state
-  holds the same tensors; the masters are updated in place. Its numbers are
-  those of ``update`` then ``apply_updates``, bit for bit.
+* ``update`` returns the updates (optax's ``tx.update``); for the Adam
+  families one kernel launch per leaf on the card (``ops/adam_bf16_fused.py``,
+  ``ops/adam8_fused.py``); ``training/step.py``'s ``apply_updates`` then
+  applies them;
+* ``update_and_apply`` (the train step's) runs the chain and the master
+  apply; the masters are updated in place. The Adam families run Adam,
+  decay, schedule and the master apply of every leaf in one launch per
+  kernel over the group's leaf table, built on first use and cached on the
+  transform while the state holds the same tensors; the other families run
+  ``update`` and then the apply. Its numbers are those of ``update`` then
+  ``apply_updates``, bit for bit.
 
 On the CPU both run the kernels' plain versions. The state is host-side
-Python (one step count per group) plus the moment tensors per key, which
-both change in place.
+Python (one step count per group), the tensors per key, and for Prodigy and
+D-Adapt their 0-dim scalars on the device, all of which change in place.
 
 ``GradientAccumulation`` (``trainer.accumulate_grad_batches`` > 1) wraps the
 groups: an fp32 running sum of the micro-steps' gradients, and every k-th
-micro-step the groups' update of their mean. Other optimizer families are a
-later slice.
+micro-step the groups' update of their mean.
 """
 
 from __future__ import annotations
@@ -48,11 +54,22 @@ from ..conf import Config
 from ..ops.adam_bf16_fused import (adam_bf16_fused_apply, adam_bf16_fused_update,
                                    build_adam_table, decay_and_schedule_reference)
 from ..ops.sr import NU_SALT, leaf_salt
+from .families import SGD, Adafactor, DAdaptAdamW, Lion, Prodigy, int_pow_f32, step_size_of
+from .packing import PackSpec
 from .quantized import Adam8bit, Adam8bitState, bias_corrections
 from .schedules import Schedule, build_lr_schedule
 
 _ADAMW_NAMES = {"adamw", "torch.optim.adamw", "bitsandbytes.optim.adamw"}
 _ADAMW_8BIT_NAMES = {"adamw8bit", "bitsandbytes.optim.adamw8bit"}
+_ADAM_NAMES = {"adam", "torch.optim.adam"}
+_SGD_NAMES = {"sgd", "torch.optim.sgd"}
+_LION_NAMES = {"lion", "lion_pytorch.lion", "bitsandbytes.optim.lion"}
+_ADAFACTOR_NAMES = {"adafactor", "transformers.optimization.adafactor"}
+_PRODIGY_NAMES = {"prodigy", "prodigyopt.prodigy"}
+_DADAPT_NAMES = {"dadaptadam", "dadaptation.dadaptadam", "dadaptation.dadaptadamw",
+                 "dadaptation.experimental.dadaptadamw"}
+OPTIMIZER_NAMES = (_ADAMW_NAMES | _ADAMW_8BIT_NAMES | _ADAM_NAMES | _SGD_NAMES | _LION_NAMES
+                   | _ADAFACTOR_NAMES | _PRODIGY_NAMES | _DADAPT_NAMES)
 _DTYPE_MAP = {"fp16": torch.float16, "fp32": torch.float32, "bf16": torch.bfloat16}
 
 Tensors = dict[str, torch.Tensor]
@@ -100,17 +117,22 @@ def _adam_moment_dtype(moment_dtype: Optional[str], reduced_masters: bool
     return None
 
 
+def _lion_mu_dtype(moment_dtype: Optional[str], reduced_masters: bool
+                   ) -> Optional[torch.dtype]:
+    """Lion's momentum dtype as the JAX package picks it: bf16 for
+    ``bf16`` / ``mixed``, fp32 under reduced masters otherwise, else None
+    (the param dtype; ``fp16`` lands here too)."""
+    md = str(moment_dtype) if moment_dtype else None
+    if md in ("bf16", "mixed"):
+        return torch.bfloat16
+    return torch.float32 if reduced_masters else None
+
+
 @dataclasses.dataclass
 class AdamState:
     count: int        # updates applied so far (optax's count)
     mu: Tensors
     nu: Tensors
-
-
-def _step_size(lr: float, schedule: Schedule, count: int) -> float:
-    """-lr * schedule(count) in fp32; optax's scale_by_schedule sees the
-    count before the update."""
-    return float(np.float32(-lr) * np.float32(schedule(count)))
 
 
 def _cache_field() -> dict:
@@ -129,6 +151,15 @@ class AdamW:
     moment_dtypes: Optional[tuple[torch.dtype, torch.dtype]] = None
     _tables: dict = _cache_field()   # the group's leaf table, built on first use
 
+    def _bias_corrections(self, count: int) -> tuple[np.float32, np.float32]:
+        """(1 - b1^count, 1 - b2^count) in fp32: the low-memory chain raises
+        to the count as fp32, plain ``optax.scale_by_adam`` (no moment
+        dtypes) to the int32 count, by repeated squaring."""
+        if self.moment_dtypes:
+            return bias_corrections(self.b1, self.b2, count)
+        one = np.float32(1.0)
+        return one - int_pow_f32(self.b1, count), one - int_pow_f32(self.b2, count)
+
     def init(self, params: Tensors) -> AdamState:
         def zeros(i):
             return {k: torch.zeros_like(p, dtype=self.moment_dtypes[i] if self.moment_dtypes
@@ -139,8 +170,8 @@ class AdamW:
     def update(self, grads: Tensors, state: AdamState, params: Tensors
                ) -> tuple[Tensors, AdamState]:
         count = state.count + 1
-        bc = bias_corrections(self.b1, self.b2, count)
-        step_size = _step_size(self.lr, self.schedule, state.count)
+        bc = self._bias_corrections(count)
+        step_size = step_size_of(self.lr, self.schedule, state.count)
         updates = {}
         for k in sorted(grads):
             nu = state.nu[k]
@@ -164,10 +195,10 @@ class AdamW:
             table = self._tables["adam"] = build_adam_table(keys, ps, mu, nu)
         count = state.count + 1
         adam_bf16_fused_apply(
-            table, [grads[k] for k in keys], bias_corrections(self.b1, self.b2, count),
+            table, [grads[k] for k in keys], self._bias_corrections(count),
             b1=self.b1, b2=self.b2, eps=self.eps, recip_bc=False, count=count, step=step,
             weight_decay=self.weight_decay,
-            step_size=_step_size(self.lr, self.schedule, state.count),
+            step_size=step_size_of(self.lr, self.schedule, state.count),
             update_dtype=torch.float32)
         return AdamState(count=count, mu=state.mu, nu=state.nu)
 
@@ -192,7 +223,7 @@ class AdamW8bit:
 
     def update(self, grads: Tensors, state: Adam8bitState, params: Tensors
                ) -> tuple[Tensors, Adam8bitState]:
-        step_size = _step_size(self.lr, self.schedule, state.count)
+        step_size = step_size_of(self.lr, self.schedule, state.count)
         updates, state = self._adam().update(grads, state)
         for k, u in updates.items():
             updates[k] = decay_and_schedule_reference(u, params[k], self.weight_decay,
@@ -206,13 +237,13 @@ class AdamW8bit:
         the int8 leaves and one for the fp32-moment leaves."""
         return self._adam().update_and_apply(
             grads, state, params, step=step, weight_decay=self.weight_decay,
-            step_size=_step_size(self.lr, self.schedule, state.count), tables=self._tables)
+            step_size=step_size_of(self.lr, self.schedule, state.count), tables=self._tables)
 
 
 @dataclasses.dataclass(frozen=True)
 class MultiTransform:
     """optax.multi_transform over group labels: key -> label -> group chain."""
-    transforms: dict[str, Union[AdamW, AdamW8bit]]
+    transforms: dict[str, object]
     labels: dict[str, str]
 
     def _split(self, tree: Tensors) -> dict[str, Tensors]:
@@ -294,36 +325,74 @@ class GradientAccumulation:
         return AccumulationState(mini, inner, state.acc)
 
 
+def _group_transform(name: str, lr: float, betas: tuple[float, float], eps: float,
+                     weight_decay: float, schedule: Schedule, moment_dtype: Optional[str],
+                     extra: dict, reduced_masters: bool, pack_spec: Optional[PackSpec]):
+    """One group's chain, as the JAX package's ``_group_transform`` builds it."""
+    b1, b2 = float(betas[0]), float(betas[1])
+    if name in _ADAMW_NAMES or name in _ADAM_NAMES:
+        # Adam: no decay at all in the JAX chain, whatever weight_decay says
+        return AdamW(lr=lr, b1=b1, b2=b2, eps=eps,
+                     weight_decay=weight_decay if name in _ADAMW_NAMES else 0.0,
+                     schedule=schedule,
+                     moment_dtypes=_adam_moment_dtype(moment_dtype, reduced_masters))
+    if name in _ADAMW_8BIT_NAMES:
+        # stores its moments int8 whatever moment_dtype says, as in JAX
+        return AdamW8bit(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                         schedule=schedule)
+    if name in _LION_NAMES:
+        # the config's betas, (0.9, 0.999) by default, as the JAX package passes them
+        return Lion(lr=lr, b1=b1, b2=b2, weight_decay=weight_decay, schedule=schedule,
+                    mu_dtype=_lion_mu_dtype(moment_dtype, reduced_masters))
+    if name in _ADAFACTOR_NAMES:
+        return Adafactor(lr=lr, decay_rate=b2, weight_decay=weight_decay, schedule=schedule,
+                         pack_spec=pack_spec)
+    if name in _PRODIGY_NAMES:
+        beta3 = extra.get("beta3")
+        return Prodigy(lr=lr, schedule=schedule, b1=b1, b2=b2,
+                       beta3=float(beta3) if beta3 is not None else None, eps=eps,
+                       estim_lr0=float(extra.get("d0", 1e-6)),
+                       estim_lr_coef=float(extra.get("d_coef", 1.0)),
+                       weight_decay=weight_decay,
+                       safeguard_warmup=bool(extra.get("safeguard_warmup", False)))
+    if name in _DADAPT_NAMES:
+        return DAdaptAdamW(lr=lr, schedule=schedule, b1=b1, b2=b2, eps=eps,
+                           estim_lr0=float(extra.get("d0", 1e-6)), weight_decay=weight_decay)
+    if name in _SGD_NAMES:
+        return SGD(lr=lr, weight_decay=weight_decay, schedule=schedule)
+    raise ValueError(f"Unknown optimizer: {name}")
+
+
 def build_optimizer(config: Config, labels: dict[str, str],
                     group_overrides: dict[str, dict], steps_per_epoch: int,
-                    num_processes: int
+                    num_processes: int, pack_spec: Optional[PackSpec] = None
                     ) -> tuple[Union[MultiTransform, GradientAccumulation],
                                Callable[[int], float]]:
     """(tx, lr_fn) for the trainable flat dict; lr_fn(step) is the first
-    group's lr, for logging. With ``trainer.accumulate_grad_batches`` k > 1
-    the groups run under ``GradientAccumulation`` and lr_fn reports the
-    schedule at optimizer step ``step // k``."""
+    group's ``lr * schedule(step)``, for logging (for every family, Prodigy
+    and D-Adapt too). With ``trainer.accumulate_grad_batches`` k > 1 the
+    groups run under ``GradientAccumulation`` and lr_fn reports the
+    schedule at optimizer step ``step // k``. ``pack_spec``: the slabs the
+    JAX trainer would pack (``training/packing.py``), which Adafactor treats
+    as blocks; the other families ignore it."""
     name = str(config.optimizer.name).lower()
-    if name not in _ADAMW_NAMES | _ADAMW_8BIT_NAMES:
-        raise NotImplementedError(
-            f"optimizer {name!r}: the port runs AdamW and AdamW8bit only so far")
+    if name not in OPTIMIZER_NAMES:
+        raise ValueError(f"Unknown optimizer: {name}")
     base = _base_hparams(config)
     coeff = lr_scale_coeff(config, num_processes)
     reduced_masters = str(config.optimizer.get("master_dtype", "fp32")) in ("bf16", "bfloat16")
-    moment_dtypes = _adam_moment_dtype(config.optimizer.get("moment_dtype"), reduced_masters)
+    extra = {k: v for k, v in base.items() if k not in ("lr", "betas", "eps", "weight_decay")}
 
-    transforms: dict[str, Union[AdamW, AdamW8bit]] = {}
+    transforms: dict[str, object] = {}
     first_lr_fn: Optional[Callable[[int], float]] = None
     for label in sorted(set(labels.values()) | set(group_overrides)):
         over = dict(group_overrides.get(label, {}))
         lr = float(over.get("lr", base["lr"])) * coeff
         wd = float(over.get("weight_decay", base["weight_decay"])) / coeff
         schedule = build_lr_schedule(config.optimizer, lr, steps_per_epoch)
-        hp = dict(lr=lr, b1=base["betas"][0], b2=base["betas"][1], eps=float(base["eps"]),
-                  weight_decay=wd, schedule=schedule)
-        # AdamW8bit stores its moments int8 whatever moment_dtype says, as in JAX
-        transforms[label] = (AdamW8bit(**hp) if name in _ADAMW_8BIT_NAMES
-                             else AdamW(**hp, moment_dtypes=moment_dtypes))
+        transforms[label] = _group_transform(
+            name, lr, base["betas"], float(base["eps"]), wd, schedule,
+            config.optimizer.get("moment_dtype"), extra, reduced_masters, pack_spec)
         if first_lr_fn is None:
             def first_lr_fn(step, _lr=lr, _s=schedule):
                 return float(np.float32(_lr) * np.float32(_s(step)))

@@ -80,9 +80,16 @@ def _dequantize(payload: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tens
 
 
 def bias_corrections(b1: float, b2: float, count: int) -> tuple[np.float32, np.float32]:
-    """Adam's fp32 bias corrections (1 - b1^count, 1 - b2^count)."""
-    c = np.float32(count)
-    return (np.float32(1.0) - np.float32(b1) ** c, np.float32(1.0) - np.float32(b2) ** c)
+    """Adam's fp32 bias corrections (1 - b1^count, 1 - b2^count), the power
+    of fp32 operands taken in fp64 and rounded to fp32: XLA's pow on the CPU
+    rounds so (one miss in 6000 counts up to 3000), numpy's fp32 pow does
+    not."""
+    c = np.float64(np.float32(count))
+
+    def pow32(b):
+        return np.float32(np.float64(np.float32(b)) ** c)
+
+    return np.float32(1.0) - pow32(b1), np.float32(1.0) - pow32(b2)
 
 
 def _min_8bit_size() -> int:

@@ -19,8 +19,12 @@ What the port has no counterpart for yet is refused, naming its ROADMAP
 item: more than one device (1.17, ``refuse_later_slices``, when the trainer
 is built) and SD3 models (1.16; the loader refuses their layout).
 The trainer keys of the JAX package that steer XLA (compile caches, bucket
-warm-up, buffer donation, slab packing) are accepted and do nothing in eager
-PyTorch; the trainer says so once.
+warm-up, buffer donation) are accepted and do nothing in eager PyTorch; the
+trainer says so once. Its packing keys (``param_packing``, ``pack_min_size``,
+``pack_stacks``) pack nothing here either, but the trainer builds the spec
+they imply (``training/packing.py``): Adafactor treats its slabs and stacks
+as blocks, as the JAX package's numbers depend on them, and a JAX run's
+optimizer state is unpacked by it on ``--resume``.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from .checkpoint import CheckpointManager, load_loop_state, restore_train_state
 from .lora import init_lora_params
 from .optim_targets import COMPONENT_PREFIX, group_labels, resolve_optim_target
 from .optimizers import build_optimizer
+from .packing import DEFAULT_MIN_SLAB_SIZE, PackSpec, build_pack_spec
 from .step import (TE2_PREFIX, TE_PREFIX, UNET_PREFIX, VAE_PREFIX, Draws, StepSpec,
                    init_train_state, make_train_step)
 
@@ -59,7 +64,9 @@ logger = logging.getLogger("trainer")
 
 # trainer keys of the JAX package with nothing to steer in eager PyTorch
 INERT_TRAINER_KEYS = ("compilation_cache", "compilation_cache_dir", "aot_bucket_warmup",
-                      "donate_state", "param_packing", "pack_stacks", "pack_min_size")
+                      "donate_state")
+# the JAX trainer's packing: here only Adafactor's blocks and a JAX resume
+PACKING_KEYS = ("param_packing", "pack_min_size", "pack_stacks")
 _BF16_NAMES = ("16", "bf16", "bfloat16")
 
 
@@ -74,6 +81,21 @@ def refuse_later_slices(config: Config) -> None:
         refuse(f"trainer.mesh {dict(mesh)} (more than one device)", "1.17")
     if world_size() > 1:
         refuse(f"WORLD_SIZE={world_size()} (more than one process)", "1.17")
+
+
+def jax_pack_spec(config: Config, shapes: dict, labels: dict) -> Optional[PackSpec]:
+    """The slabs and stacks the JAX trainer packs the trainables into under
+    this config (None with ``trainer.param_packing: false`` or nothing to
+    pack): fp32 leaves under ``pack_min_size`` elements per (component,
+    group), and with ``pack_stacks`` the big ones of one shape. ``shapes``:
+    the trainables before a bf16 master cast, as the JAX trainer packs them."""
+    if not bool(config.trainer.get("param_packing", True)):
+        return None
+    spec = build_pack_spec(shapes, labels,
+                           min_slab_size=int(config.trainer.get("pack_min_size")
+                                             or DEFAULT_MIN_SLAB_SIZE),
+                           stack_big=bool(config.trainer.get("pack_stacks", False)))
+    return spec if spec.nontrivial else None
 
 
 def _prefixed(params: dict, prefix: str) -> dict:
@@ -94,6 +116,10 @@ class Trainer:
         if inert:
             logger.info(f"trainer keys {inert} steer XLA in the JAX package; they do nothing "
                         "here")
+        packing = [k for k in PACKING_KEYS if k in config.trainer]
+        if packing:
+            logger.info(f"trainer keys {packing} pack no parameters here; they steer "
+                        "Adafactor's blocks and the reading of a JAX run's optimizer state")
 
         # the reference's seed_everything: data-path randomness is seeded per
         # item, stray global draws get determinism too
@@ -181,6 +207,7 @@ class Trainer:
                                  "({id}.pooled): rebuild it with cli.cache against this model")
         trainable: dict = {}
         frozen: dict = {}
+        jax_shapes: dict = {}   # the trainables as the JAX trainer packs them
         params = {**_prefixed(components["unet"], UNET_PREFIX),
                   **_prefixed(components["text_encoder"], TE_PREFIX),
                   **_prefixed(models.vae, VAE_PREFIX)}
@@ -188,6 +215,8 @@ class Trainer:
             params.update(_prefixed(components["text_encoder_2"], TE2_PREFIX))
         for k, v in params.items():
             is_trainable = k in trainable_keys
+            if is_trainable:
+                jax_shapes[k] = v
             dtype = dtypes[is_trainable] if v.is_floating_point() else v.dtype
             # a copy: the masters change in place, the loaded models stay
             (trainable if is_trainable else frozen)[k] = v.to(self.device, dtype, copy=True)
@@ -212,7 +241,10 @@ class Trainer:
             # its own group: a much higher lr than fine-tuning, no weight decay
             labels[f"{TE_PREFIX}.{TRAINED_EXTRA_KEY}"] = "ti"
             overrides["ti"] = {"lr": float(ti_conf.get("lr", 5e-3)), "weight_decay": 0.0}
-        self.tx, self.lr_fn = build_optimizer(config, labels, overrides, self.steps_per_epoch, 1)
+        self.pack_spec = jax_pack_spec(config, jax_shapes, labels)
+        del jax_shapes
+        self.tx, self.lr_fn = build_optimizer(config, labels, overrides, self.steps_per_epoch, 1,
+                                              pack_spec=self.pack_spec)
         self.spec = StepSpec.from_config(config, models.unet_config, models.schedule,
                                          vae_config=models.vae_config,
                                          clip_config=models.clip_config,
@@ -269,7 +301,7 @@ class Trainer:
     # ---------------------------------------------------------------- loop
 
     def resume(self, ckpt_path: Path) -> None:
-        self.state = restore_train_state(Path(ckpt_path), self.state)
+        self.state = restore_train_state(Path(ckpt_path), self.state, pack_spec=self.pack_spec)
         self.global_step = int(self.state.step)
         loop = load_loop_state(Path(ckpt_path))
         if loop.get("epoch") is not None:

@@ -6,8 +6,9 @@
   ``restore_train_state`` reads a port checkpoint ("Restored N/N", parameters
   bit-equal, its fresh optimizer state kept: there is no ``.trainstate``);
   the port reads a JAX checkpoint (parameters bit-equal, the step and loop
-  state JAX would restore, one warning that the optimizer state starts
-  fresh); ``ckpt_tool prune`` makes the same file from either.
+  state JAX would restore, the optimizer state from its ``.trainstate``, one
+  warning that the PRNG key does not carry over); ``ckpt_tool prune`` makes
+  the same file from either.
 * Exact resume in the port: 3 steps, save mid-epoch, resume in a new
   Trainer, 3 more steps: masters, optimizer state and losses equal a
   continuous 6-step run bit for bit, with AdamW and AdamW8bit. A restore
@@ -126,13 +127,19 @@ def test_port_restores_a_jax_checkpoint(pair, caplog):
         restored = tckpt.restore_train_state(jpath, template)
     n = len(params)
     assert f"Restored {n}/{n} trainable params ({n} tensors on disk)" in caplog.text
+    # the JAX sidecar is read (ROADMAP difference (i), repaired): the
+    # optimizer state and step come from it, the PRNG key does not carry over
+    assert f"Restored the JAX run's optimizer state at step {STEP}" in caplog.text
     warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
-    assert len(warnings) == 1 and "optimizer state was not restored" in warnings[0].message
+    assert len(warnings) == 1 and "PRNG key does not carry over" in warnings[0].message
     for k, v in params.items():
         assert restored.trainable[k] is tensors[k]   # restored in place
         assert torch.equal(restored.trainable[k], to_torch(v)), k
     assert restored.step == int(json.loads(jstate.load_metadata(jpath)["json"])["step"])
     assert restored.opt_state["g0"].count == 0
+    for k, v in params.items():   # JAX's fresh moments, in the masters' dtype
+        for m in (restored.opt_state["g0"].mu[k], restored.opt_state["g0"].nu[k]):
+            assert m.dtype == to_torch(v).dtype and not m.any(), k
     assert tckpt.load_loop_state(jpath) == jckpt.load_loop_state(jpath) == LOOP
 
 

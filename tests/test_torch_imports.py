@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 scal_sdt_tpu_torch, and chip_smoke.py, loads neither JAX nor the JAX
-package; and an entry point asked for the default device raises when there
+package, nor optax, flax or msgpack (the card's machine has none of them: the
+port reads a JAX ``.trainstate`` with its own msgpack reader); and an entry point asked for the default device raises when there
 is no CUDA card instead of running on the CPU."""
 
 import pkgutil
@@ -26,8 +27,8 @@ def test_every_module_imports_without_jax():
         "import importlib, sys",
         f"mods = {_modules()!r} + ['chip_smoke']",
         "for m in mods: importlib.import_module(m)",
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')",
-        "             or m == 'scal_sdt_tpu' or m.startswith('scal_sdt_tpu.'))",
+        "banned = ('jax', 'scal_sdt_tpu', 'optax', 'flax', 'msgpack')",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)",
         "print(len(mods), bad)",
         "sys.exit(1 if bad else 0)",
     ])
@@ -35,14 +36,16 @@ def test_every_module_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 49
-    # the sampling slice's modules are among those imported
+    # the sampling slice's modules and the optimizer slice's are among those imported
     assert {"scal_sdt_tpu_torch.diffusion.sampler", "scal_sdt_tpu_torch.convert.kohya",
             "scal_sdt_tpu_torch.cli.sample", "scal_sdt_tpu_torch.cli.gen_class_imgs",
-            "scal_sdt_tpu_torch.training.sample_callback"} <= set(_modules())
+            "scal_sdt_tpu_torch.training.sample_callback", "scal_sdt_tpu_torch.training.families",
+            "scal_sdt_tpu_torch.training.packing",
+            "scal_sdt_tpu_torch.utils.msgpack"} <= set(_modules())
 
 
 def test_sources_name_no_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)|scal_sdt_tpu\.", re.M)
+    pattern = re.compile(r"^\s*(import|from) (jax|optax|flax|msgpack)\b|scal_sdt_tpu\.", re.M)
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     hits = [f"{p.relative_to(ROOT)}" for p in files if pattern.search(p.read_text())]
     assert not hits

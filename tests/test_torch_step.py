@@ -163,8 +163,10 @@ def test_adam_update_with_bf16_moments_matches_jax():
 
 
 def test_optimizer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        topt.build_optimizer(_opt_config(tconf, name="lion"), {"w": "g0"}, {}, 10, 1)
+    """Every name the JAX package accepts is ported (tests/test_torch_optimizers.py);
+    any other raises as JAX does."""
+    with pytest.raises(ValueError, match="Unknown optimizer: rmsprop"):
+        topt.build_optimizer(_opt_config(tconf, name="rmsprop"), {"w": "g0"}, {}, 10, 1)
     assert topt._adam_moment_dtype("mixed", True) == (torch.bfloat16, torch.float32)
     assert topt._adam_moment_dtype(None, True) == (torch.float32, torch.float32)
     assert topt._adam_moment_dtype(None, False) is None
