@@ -35,10 +35,13 @@ Phases (any failure raises and the script exits non-zero):
               adam_bf16_fused at (1280, 23040) with bf16 moments and the nu
               SR store (AdamW's form) and at (320,) with fp32 moments (the
               int8 path's small leaves): moments bit for bit, step within
-              1e-6 relative. Grouped (Adam, decay, schedule and the master
-              apply in one launch over a leaf table), over all 686 SD1.5
-              leaves with bf16 masters: AdamW's adam_bf16_fused (bf16
-              moments) with masters and moments bit for bit; AdamW8bit's
+              1e-6 relative; and at (1280, 23040) in its xla mode (the
+              default AdamW: fp32 moments, XLA's rounding of plain
+              scale_by_adam), step and moments bit for bit. Grouped (Adam,
+              decay, schedule and the master apply in one launch over a
+              leaf table), over all 686 SD1.5 leaves: AdamW's
+              adam_bf16_fused with bf16 masters and moments, and in the xla
+              mode with fp32 ones, masters and moments bit for bit; AdamW8bit's
               adam8_fused over its 227 int8 leaves (payloads and scales as
               above, masters at most one bf16 ulp apart in under 1e-3 of
               them) and adam_bf16_fused over its 459 fp32-moment leaves (bit
@@ -225,6 +228,33 @@ Phases (any failure raises and the script exits non-zero):
               Prints steps/s, the optimizer's device ms (a torch.profiler
               trace of one update_and_apply) and host ms per step beside
               AdamW's, its CUDA launches, peak memory.
+17. sd3    -- (after the SDXL phases, whose directory it deletes) SD3-Medium
+              at its published widths, random weights from --seed, frozen
+              parts in bf16, no tokenizer package needed:
+              (a) splash fwd, dq, dkv at (2,24,4250,64) and (2,24,1178,64),
+              the joint attention's ragged lengths at 1024^2 and 512^2, and
+              (2,24,4096,64), SD3.5's attn2, as in phase 2 (same bounds);
+              (b) the cached step at 1024^2, batch 2 (latents
+              (2,16,128,128), conds (2,154,4096), pooled (2,2048)), full
+              MMDiT under the JAX package's default AdamW (fp32 masters and
+              moments: adam_bf16_fused's xla mode), 2 warm-up and --steps
+              timed steps: each splash kernel 24 launches per step,
+              adam_bf16_fused once per param group (6); one MMDiT forward
+              against the plain attention path within the check phase's
+              bound;
+              (c) the triple-encoder step at batch 1: CLIP-L and CLIP-G
+              (projected) and T5-XXL v1.1's encoder frozen, fed ids drawn
+              from the generator, CFG dropout 'eos', the MMDiT as in (b):
+              2 warm-up and 3 timed steps, the same launches;
+              (d) an SD3-Medium diffusers directory without text_encoder_3/
+              written here: the train CLI with optim_target lora_sd3 (285
+              groups) uncached at 1024^2, batch 1, 3 steps ending on a
+              checkpoint (24 launches of each splash kernel and 285 of
+              adam_bf16_fused per step), then the sample CLI with that
+              checkpoint: one 1024^2 image by flow_euler at 28 steps, 672
+              splash_fwd and nothing else; then adam_bf16_fused's xla mode
+              in one grouped launch over the MMDiT's 682 fp32 leaves, bit
+              for bit against its plain chain.
 
 The optim phase also runs both grouped kernels with fp32 gradients, the mean
 that gradient accumulation hands them, at the same bounds.
@@ -268,8 +298,12 @@ from scal_sdt_tpu_torch.convert.loader import LoadedModels, load_components
 from scal_sdt_tpu_torch.data.datasets import LatentCache
 from scal_sdt_tpu_torch.data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
 from scal_sdt_tpu_torch.diffusion import sampler
+from scal_sdt_tpu_torch.diffusion.flow import FlowSchedule
 from scal_sdt_tpu_torch.models.clip import (CLIPTextConfig, clip_param_shapes, clip_text_apply,
                                             encode_sdxl, init_clip_params)
+from scal_sdt_tpu_torch.models.mmdit import (POS_EMBED_KEY, MMDiTConfig, init_mmdit_params,
+                                             mmdit_apply, mmdit_param_shapes)
+from scal_sdt_tpu_torch.models.t5 import T5Config, init_t5_params
 from scal_sdt_tpu_torch.models.unet import (UNetConfig, init_unet_params, unet_apply,
                                             unet_param_shapes)
 from scal_sdt_tpu_torch.models.vae import (VAEConfig, decoder_apply, encoder_apply,
@@ -301,8 +335,10 @@ ARB_SHAPE = (1, 8, 1344, 40)
 CALLS_PER_STEP = 10      # 5 self-attentions at L=4096 + 5 at L=1024
 SD15_LEAVES, SD15_INT8_LEAVES = 686, 227
 INT8_SHAPES = [(1280, 23040), (320, 2880)]    # (1280,2560,3,3) and (320,320,3,3) views
-ADAM_CASES = [  # (shape, moment dtype, nu SR): AdamW's largest leaf; an int8-path small leaf
-    ((1280, 23040), torch.bfloat16, True), ((320,), torch.float32, False)]
+ADAM_CASES = [  # (shape, moment dtype, nu SR, xla): AdamW's largest leaf; an int8-path
+    # small leaf; the largest leaf under the default AdamW (fp32 moments, XLA's rounding)
+    ((1280, 23040), torch.bfloat16, True, False), ((320,), torch.float32, False, False),
+    ((1280, 23040), torch.float32, False, True)]
 # fp32 operations per element (dequantize 2, moments 7, step 5, requantize
 # 2 x 6; fused Adam: moments 7, step 5; the grouped epilogue: decay multiply
 # and add, schedule multiply, master add) against the CUDA-core fp32 peak
@@ -346,7 +382,7 @@ KERNELS = {
 SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
 PHASES = ("train", "train_int8", "families", "uncached", "cache", "trainer", "ema",
           "sample", "lora", "lora_prodigy", "dreambooth", "sdxl_cache", "sdxl_lora",
-          "sdxl_sample")   # the phases that run a main path
+          "sdxl_sample", "sd3_cached", "sd3_triple", "sd3_cli")   # the phases that run a main path
 COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
 
@@ -597,30 +633,34 @@ def adam8_case(shape, gen: torch.Generator) -> dict:
             "bytes": nbytes, "bound": list(bound(nbytes, ADAM8_OPS * nq)), "library_ms": None}
 
 
-def adam_case(shape, m_dtype: torch.dtype, sr: bool, gen: torch.Generator) -> dict:
+def adam_case(shape, m_dtype: torch.dtype, sr: bool, xla: bool, gen: torch.Generator) -> dict:
     """adam_bf16_fused against its plain version: AdamW's form (divide, fp32
     step, SR nu) for bf16 moments, the int8 path's (reciprocal, step in the
-    gradient's dtype) for fp32 moments."""
+    gradient's dtype) for fp32 moments, and with ``xla`` the default AdamW's
+    (fp32 moments, XLA's rounding of plain scale_by_adam; the step bit for
+    bit too)."""
     g = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).bfloat16()
     mu = (torch.randn(shape, generator=gen, device="cuda") * 1e-4).to(m_dtype)
     nu = (torch.rand(shape, generator=gen, device="cuda") * 1e-7).to(m_dtype)
     t = 3
     bc = tuple(1.0 - b ** t for b in (B1, B2))
-    kw = dict(b1=B1, b2=B2, eps=EPS, out_dtype=torch.float32 if sr else g.dtype,
-              recip_bc=not sr, **({"sr_step": t, "sr_salt": 0x5EED} if sr else {}))
+    kw = dict(b1=B1, b2=B2, eps=EPS, out_dtype=torch.float32 if sr or xla else g.dtype,
+              recip_bc=not (sr or xla), **({"sr_step": t, "sr_salt": 0x5EED} if sr else {}))
+    if xla:
+        kw["xla"] = True
     # both sides update their own copy of the moments in place
     got = adam_bf16_fused.adam_bf16_fused_update(g, mu.clone(), nu.clone(), bc, **kw)
     want = adam_bf16_fused.adam_bf16_fused_update_reference(g, mu.clone(), nu.clone(), bc, **kw)
     torch.cuda.synchronize()
     err = {"out": max_abs(got[0], want[0]), "out_rel": rel_err(got[0], want[0]),
            "mu_equal": torch.equal(got[1], want[1]), "nu_equal": torch.equal(got[2], want[2])}
-    check(err["mu_equal"] and err["nu_equal"] and err["out_rel"] <= OPT_TOL,
-          f"adam_bf16_fused disagrees at {shape} {m_dtype}: {err}")
+    check(err["mu_equal"] and err["nu_equal"] and err["out_rel"] <= (0.0 if xla else OPT_TOL),
+          f"adam_bf16_fused disagrees at {shape} {m_dtype} xla={xla}: {err}")
     del got, want
     n = g.numel()
     out_size = torch.empty((), dtype=kw["out_dtype"]).element_size()
     nbytes = n * (g.element_size() + 4 * mu.element_size() + out_size)
-    res = {"shape": list(shape), "moments": str(m_dtype), "sr": sr, "err": err,
+    res = {"shape": list(shape), "moments": str(m_dtype), "sr": sr, "xla": xla, "err": err,
            "ms": time_ms(lambda: adam_bf16_fused.adam_bf16_fused_update(g, mu, nu, bc, **kw)),
            "plain_ms": time_ms(lambda: adam_bf16_fused.adam_bf16_fused_update_reference(
                g, mu, nu, bc, **kw), iters=3),
@@ -668,15 +708,17 @@ def group_bytes(table, g_size: int = 2) -> int:
 
 
 def group_record(got, want, run, plain, kernel: str, ops: int, err: dict,
-                 g_size: int = 2) -> dict:
+                 g_size: int = 2, traced: bool = True) -> dict:
     """Times, bytes and bound of a grouped launch ``run()`` over ``got``
-    (device time of ``kernel``; beside it the call's time by CUDA events,
-    which holds the host's upload of the gradient addresses), its plain
-    chain ``plain()`` over ``want``; ``g_size``: bytes per gradient element."""
+    (device time of ``kernel`` from a trace, or with ``traced`` false the
+    call's time by CUDA events, which also holds the host's upload of the
+    gradient addresses, as "call_ms" always does), its plain chain
+    ``plain()`` over ``want``; ``g_size``: bytes per gradient element."""
     n = sum(p.numel() for p in got.params)
     nbytes = group_bytes(got, g_size)
+    call_ms = time_ms(run)
     return {"leaves": len(got.keys), "elements": n, "chunks": len(got.chunks), "err": err,
-            "ms": kernel_device_ms(run, kernel), "call_ms": time_ms(run),
+            "ms": kernel_device_ms(run, kernel) if traced else call_ms, "call_ms": call_ms,
             "plain_ms": time_ms(plain, iters=1, warmup=0),
             "bytes": nbytes, "bound": list(bound(nbytes, ops * n)), "library_ms": None}
 
@@ -691,19 +733,23 @@ def master_flips(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 
 def adamw_group_case(gen: torch.Generator, keys, shapes,
-                     g_dtype: torch.dtype = torch.bfloat16) -> dict:
+                     g_dtype: torch.dtype = torch.bfloat16, xla: bool = False,
+                     traced: bool = True) -> dict:
     """AdamW's grouped adam_bf16_fused over every SD1.5 leaf (bf16 masters
     and moments, nu by SR, decay and schedule, master SR) against its plain
     chain leaf by leaf: masters and moments bit for bit. ``g_dtype``: the
-    gradients' (fp32: gradient accumulation's mean)."""
-    params = [rand(s, gen, 2e-2) for s in shapes]
-    mu = [rand(s, gen, 1e-4) for s in shapes]
-    nu = [rand(s, gen, 1e-7, positive=True) for s in shapes]
+    gradients' (fp32: gradient accumulation's mean). ``xla``: the default
+    AdamW's form instead (fp32 masters and moments, XLA's rounding)."""
+    m_dtype = torch.float32 if xla else torch.bfloat16
+    params = [rand(s, gen, 2e-2, m_dtype) for s in shapes]
+    mu = [rand(s, gen, 1e-4, m_dtype) for s in shapes]
+    nu = [rand(s, gen, 1e-7, m_dtype, positive=True) for s in shapes]
     grads = [rand(s, gen, 1e-3, g_dtype) for s in shapes]
     count = 3
     bc = bias_corrections(B1, B2, count)
     kw = dict(b1=B1, b2=B2, eps=EPS, recip_bc=False, count=count, step=count - 1,
-              weight_decay=GROUP_WD, step_size=GROUP_STEP_SIZE, update_dtype=torch.float32)
+              weight_decay=GROUP_WD, step_size=GROUP_STEP_SIZE, update_dtype=torch.float32,
+              xla=xla)
     got = adam_bf16_fused.build_adam_table(keys, clones(params), clones(mu), clones(nu))
     adam_bf16_fused.adam_bf16_fused_apply(got, grads, bc, **kw)
     want = adam_bf16_fused.build_adam_table(keys, params, mu, nu)  # updated in place
@@ -716,8 +762,9 @@ def adamw_group_case(gen: torch.Generator, keys, shapes,
           f"grouped adam_bf16_fused (AdamW) disagrees with its plain chain: {err}")
     res = group_record(got, want, lambda: adam_bf16_fused.adam_bf16_fused_apply(got, grads, bc, **kw),
                        lambda: adam_bf16_fused.adam_bf16_fused_apply_reference(want, grads, bc, **kw),
-                       "adam_bf16_group", ADAM_OPS + EPILOGUE_OPS, err, grads[0].element_size())
-    if g_dtype != torch.bfloat16:   # torch's fused AdamW takes gradients of the params' dtype
+                       "adam_bf16_group", ADAM_OPS + EPILOGUE_OPS, err, grads[0].element_size(),
+                       traced)
+    if g_dtype != torch.bfloat16 or xla:   # torch's fused AdamW: gradients of the params' dtype
         return res
     # nearest library call, not the same function: torch's fused AdamW over
     # the same 686 bf16 params, gradients and moments
@@ -815,9 +862,12 @@ def adamw8bit_group_case(gen: torch.Generator, keys, shapes,
 
 def optim_phase(gen: torch.Generator) -> dict:
     res = {"adam8_fused": [adam8_case(s, gen) for s in INT8_SHAPES],
-           "adam_bf16_fused": [adam_case(s, dt, sr, gen) for s, dt, sr in ADAM_CASES]}
+           "adam_bf16_fused": [adam_case(s, dt, sr, xla, gen) for s, dt, sr, xla in ADAM_CASES]}
     keys, shapes = sd15_leaves()
     res["grouped"] = {"adam_bf16_fused": adamw_group_case(gen, keys, shapes)}
+    torch.cuda.empty_cache()
+    # the default AdamW (fp32 masters and moments): XLA's rounding
+    res["grouped_xla"] = {"adam_bf16_fused": adamw_group_case(gen, keys, shapes, xla=True)}
     torch.cuda.empty_cache()
     res["grouped_int8"] = adamw8bit_group_case(gen, keys, shapes)
     torch.cuda.empty_cache()
@@ -914,13 +964,16 @@ def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
 
 
 def run_steps(state, step_fn, frozen: dict, next_batch, steps: int, warmup: int,
-              per_step: dict[str, int]) -> dict:
+              per_step: dict[str, int], probe: list[str] | None = None) -> dict:
     """``warmup`` steps, then ``steps`` timed steps on ``next_batch()``'s
     batches, the launch counts reset just before them: each kernel in
     ``per_step`` must launch that many times per timed step, the losses be
-    finite and the params move. Host clock around the timed steps, ending in
-    a synchronize; peak memory over them."""
-    probe = [k for k in sorted(state.trainable) if "attn1.to_q" in k][:3] + ["unet.conv_in.weight"]
+    finite and the params move (the ``probe`` keys; default three UNet
+    attention projections and conv_in). Host clock around the timed steps,
+    ending in a synchronize; peak memory over them."""
+    if probe is None:
+        probe = ([k for k in sorted(state.trainable) if "attn1.to_q" in k][:3]
+                 + ["unet.conv_in.weight"])
     before = {k: state.trainable[k].clone() for k in probe}
 
     t0 = time.perf_counter()
@@ -2919,6 +2972,369 @@ def sdxl_kernel_case(gen: torch.Generator) -> dict:
     return res
 
 
+# --- SD3 (the MMDiT) ----------------------------------------------------------------------
+
+# splash in SD3's forms (D = 64, 24 heads): the joint attention at 1024^2
+# (4096 latent + 154 text tokens) and 512^2 (1024 + 154), lengths no kernel
+# tile divides (the TPU version's padded branch), and SD3.5-Medium's
+# latent-only attn2 at 1024^2
+SD3_KERNEL_SHAPES = [(2, 24, 4250, 64), (2, 24, 1178, 64), (2, 24, 4096, 64)]
+SD3_RESOLUTION = 1024
+SD3_CONTEXT = 154                 # 77 CLIP tokens, then 77 T5 tokens
+SD3_BATCH, SD3_TRIPLE_BATCH = 2, 1
+SD3_TRIPLE_STEPS = 3
+SD3_CLI_STEPS, SD3_IMAGES, SD3_SAMPLE_STEPS = 3, 3, 28
+SD3_LR = 1e-5
+# stabilityai/stable-diffusion-3-medium's vae/config.json (16 latent
+# channels, no quant convs) and scheduler/scheduler_config.json
+SD3_VAE = dataclasses.replace(VAEConfig.sd15(), latent_channels=16, scaling_factor=1.5305,
+                              shift_factor=0.0609, use_quant_conv=False,
+                              use_post_quant_conv=False)
+SD3_SCHEDULER = {"_class_name": "FlowMatchEulerDiscreteScheduler",
+                 "num_train_timesteps": 1000, "shift": 3.0}
+
+
+def sd3_towers(eos: int | None = None) -> tuple[CLIPTextConfig, CLIPTextConfig]:
+    """SD3's two CLIP towers, both CLIPTextModelWithProjection: ViT-L (768)
+    and OpenCLIP bigG (1280); ``eos``: their EOS id."""
+    extra = {"eos_token_id": eos} if eos is not None else {}
+    return (dataclasses.replace(CLIPTextConfig.vit_l(), projection_dim=768, **extra),
+            dataclasses.replace(CLIPTextConfig.sdxl_g(), **extra))
+
+
+def sd3_full_setup(seed: int, batch_size: int, t5: bool = False) -> dict:
+    """SD3-Medium's MMDiT at its published widths (2.03 B parameters, random
+    from ``seed``) as the full_unet target under the JAX package's default
+    optimizer (AdamW, fp32 masters, no moment dtype: the kernel's xla
+    rounding), the pos_embed table frozen in bf16; with ``t5`` the two CLIP
+    towers and T5-XXL v1.1's encoder frozen in bf16 beside it."""
+    mm = MMDiTConfig.sd3_medium()
+    config = merge(default(), Config({
+        "batch_size": batch_size, "trainer": {"precision": "bf16"},
+        "uncond": {"enabled": t5, "p": 0.1, "cond": "eos"},
+        "optimizer": {"name": "adamw", "params": {"lr": SD3_LR, "weight_decay": 1e-2},
+                      "lr_scale": {"enabled": False}}}))
+    params = init_mmdit_params(mm, seed=seed + 40, device=DEVICE)
+    resolutions = resolve_optim_target(load_optim_target("full_unet"), params.keys(), [])
+    trainable = {f"unet.{k}": params.pop(k) for k in resolutions["unet"].trainable}
+    frozen = {f"unet.{k}": v.bfloat16() for k, v in params.items()}
+    check(list(frozen) == ["unet." + POS_EMBED_KEY], f"frozen MMDiT leaves {list(frozen)}")
+    del params
+    labels = group_labels(resolutions)
+    overrides = {f"g{i}": g.optimizer for i, g in enumerate(resolutions["unet"].groups)}
+    tx, lr_fn = build_optimizer(config, labels, overrides, steps_per_epoch=1000, num_processes=1)
+    check(all(t.xla for t in tx.transforms.values()), "the default AdamW is not in xla mode")
+    clip1 = clip2 = t5_config = None
+    if t5:
+        clip1, clip2 = sd3_towers()
+        t5_config = T5Config.t5_xxl()
+        for i, (prefix, p) in enumerate((
+                ("condition_model.encoder", init_clip_params(clip1, seed + 41, DEVICE,
+                                                             torch.bfloat16)),
+                ("condition_model.encoder_2", init_clip_params(clip2, seed + 42, DEVICE,
+                                                               torch.bfloat16)),
+                ("condition_model.encoder_3", init_t5_params(t5_config, seed + 43, DEVICE,
+                                                             torch.bfloat16)))):
+            frozen.update({f"{prefix}.{k}": v for k, v in p.items()})
+    spec = StepSpec.from_config(config, None, FlowSchedule(), clip_config=clip1,
+                                clip2_config=clip2, mmdit_config=mm, t5_config=t5_config)
+    state = init_train_state(trainable, tx, seed=seed)
+    return {"state": state, "frozen": frozen, "tx": tx, "spec": spec,
+            "step_fn": make_train_step(spec, tx, lr_fn), "mmdit": mm}
+
+
+def sd3_latents(gen: torch.Generator, batch: int) -> torch.Tensor:
+    lat = SD3_RESOLUTION // 8
+    return torch.randn(batch, 16, lat, lat, generator=gen, device=DEVICE)
+
+
+def sd3_splash_per_step(mm: MMDiTConfig) -> dict[str, int]:
+    """Each splash kernel once per block per step: the joint attention at
+    L = 4096 + the context, which the gate admits (no remat)."""
+    return {name: mm.num_layers for name in SPLASH}
+
+
+@torch.no_grad()
+def sd3_check_forward(state, frozen: dict, batch: dict, mm: MMDiTConfig) -> dict:
+    """One MMDiT forward on one sample with the kernels and with the plain
+    attention path (FORCE_MATH), on the trained masters in bf16: within the
+    check phase's bound."""
+    params = {k[len("unet."):]: v.bfloat16() for k, v in {**frozen, **state.trainable}.items()
+              if k.startswith("unet.")}
+    x, ctx, pooled = (batch[k][:1].bfloat16() for k in ("latents", "conds", "pooled"))
+    t = torch.tensor([500.0], device=DEVICE)
+    with_kernels = mmdit_apply(params, x, t, ctx, pooled, mm)
+    attention.FORCE_MATH = True
+    try:
+        plain = mmdit_apply(params, x, t, ctx, pooled, mm)
+    finally:
+        attention.FORCE_MATH = False
+    check(with_kernels.shape == x.shape and bool(torch.isfinite(with_kernels).all()),
+          f"MMDiT output {tuple(with_kernels.shape)}, finite {torch.isfinite(with_kernels).all()}")
+    err = rel_err(with_kernels, plain)
+    check(err <= CHECK_TOL, f"MMDiT output, kernel path vs plain path: {err}")
+    return {"mmdit_rel_err": err}
+
+
+def sd3_cached_phase(seed: int, steps: int, gen: torch.Generator) -> dict:
+    """The cached SD3 step at 1024^2, batch 2: latents (2, 16, 128, 128),
+    conds (2, 154, 4096) and pooled (2, 2048) from the generator; 2 warm-up
+    and ``steps`` timed steps, the launches counted over the timed ones
+    (each splash kernel 24 per step, adam_bf16_fused once per param group);
+    then one MMDiT forward against the plain attention path."""
+    s = sd3_full_setup(seed, SD3_BATCH)
+    mm, state = s["mmdit"], s["state"]
+    batch = {"latents": sd3_latents(gen, SD3_BATCH),
+             "conds": torch.randn(SD3_BATCH, SD3_CONTEXT, mm.joint_attention_dim,
+                                  generator=gen, device=DEVICE),
+             "pooled": torch.randn(SD3_BATCH, mm.pooled_projection_dim, generator=gen,
+                                   device=DEVICE)}
+    per_step = {**sd3_splash_per_step(mm), **optimizer_launches(state.opt_state),
+                "ema_fused": 0}
+    probe = [k for k in sorted(state.trainable) if k.endswith("attn.to_q.weight")][:3]
+    res = run_steps(state, s["step_fn"], s["frozen"], lambda: batch, steps, 2, per_step,
+                    probe=probe + ["unet.proj_out.weight"])
+    res["param_groups"] = len(s["tx"].transforms)
+    res["trainable_params"] = sum(v.numel() for v in res["state"].trainable.values())
+    res["check"] = sd3_check_forward(res.pop("state"), s["frozen"], batch, mm)
+    del s, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sd3_ids(gen: torch.Generator, batch: int) -> dict[str, torch.Tensor]:
+    """Prompt ids of both tokenizers' forms from the generator: CLIP's BOS,
+    words, EOS padding (77); T5's words, EOS 1, pad 0 (77); the empty
+    prompts' ids of each."""
+    clip = torch.full((batch, 77), 49407, dtype=torch.int64, device=DEVICE)
+    t5 = torch.zeros((batch, 77), dtype=torch.int64, device=DEVICE)
+    for b in range(batch):
+        n = int(torch.randint(5, 60, (), generator=gen, device=DEVICE))
+        clip[b, 0] = 49406
+        clip[b, 1:n + 1] = torch.randint(0, 49406, (n,), generator=gen, device=DEVICE)
+        t5[b, :n] = torch.randint(3, 32100, (n,), generator=gen, device=DEVICE)
+        t5[b, n] = 1
+    uncond = torch.full((1, 77), 49407, dtype=torch.int64, device=DEVICE)
+    uncond[0, 0] = 49406
+    t5_uncond = torch.zeros((1, 77), dtype=torch.int64, device=DEVICE)
+    t5_uncond[0, 0] = 1
+    return {"input_ids": clip, "uncond_ids": uncond, "t5_ids": t5, "t5_uncond_ids": t5_uncond}
+
+
+def sd3_triple_phase(seed: int, steps: int, gen: torch.Generator) -> dict:
+    """The triple-encoder SD3 step at 1024^2, batch 1: CLIP-L, CLIP-G and
+    T5-XXL v1.1's encoder at published widths, frozen in bf16, encode ids
+    drawn from the generator (no tokenizer), CFG dropout 'eos' at 0.1; the
+    MMDiT trains under the default AdamW (fp32 masters and moments). 2
+    warm-up and ``steps`` timed steps: splash 24 per step each (CLIP's
+    causal and T5's biased attention take the math path), adam_bf16_fused
+    once per group."""
+    s = sd3_full_setup(seed, SD3_TRIPLE_BATCH, t5=True)
+    mm, state = s["mmdit"], s["state"]
+    batch = {"latents": sd3_latents(gen, SD3_TRIPLE_BATCH), **sd3_ids(gen, SD3_TRIPLE_BATCH)}
+    per_step = {**sd3_splash_per_step(mm), **optimizer_launches(state.opt_state),
+                "ema_fused": 0}
+    probe = [k for k in sorted(state.trainable) if k.endswith("attn.to_q.weight")][:3]
+    res = run_steps(state, s["step_fn"], s["frozen"], lambda: batch, steps, 2, per_step,
+                    probe=probe + ["unet.context_embedder.weight"])
+    del res["state"]
+    res["frozen_params"] = sum(v.numel() for v in s["frozen"].values())
+    res["ran"] = (f"batch {SD3_TRIPLE_BATCH} at {SD3_RESOLUTION}^2, MMDiT trained with fp32 "
+                  "masters and moments (AdamW, no moment dtype), CLIP-L + CLIP-G + T5-XXL "
+                  "frozen in bf16 (T5 computes in fp32), context 154 tokens")
+    del s, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def write_sd3_images(root: Path, seed: int) -> Path:
+    """SD3_IMAGES PNGs of random pixels at 1024x1024, with captions."""
+    from PIL import Image
+
+    d = root / "sd3_images"
+    d.mkdir(parents=True)
+    r = np.random.RandomState(seed + 50)
+    for i in range(SD3_IMAGES):
+        Image.fromarray(r.randint(0, 256, (SD3_RESOLUTION, SD3_RESOLUTION, 3), np.uint8)).save(
+            d / f"img_{i:03d}.png")
+        (d / f"img_{i:03d}.txt").write_text(f"a photo of the cat number {i}")
+    return d
+
+
+def write_sd3_dir(root: Path, seed: int) -> Path:
+    """A diffusers directory of SD3-Medium at its published widths in bf16
+    without text_encoder_3/ (SD3 without T5), random weights from ``seed``:
+    transformer/ (the MMDiT), the 16-channel VAE, both projected CLIP towers
+    (EOS the synthetic vocab's), the flow scheduler and the synthetic
+    vocab."""
+    d = root / "sd3"
+    tok = write_vocab(d / "tokenizer")
+    clip1, clip2 = sd3_towers(eos=len(json.loads((tok / "vocab.json").read_text())) - 1)
+    mm = MMDiTConfig.sd3_medium()
+    parts = {"transformer": (mm, init_mmdit_params), "vae": (SD3_VAE, init_vae_params),
+             "text_encoder": (clip1, init_clip_params),
+             "text_encoder_2": (clip2, init_clip_params)}
+    for i, (name, (cfg, init)) in enumerate(parts.items()):
+        params = init(cfg, seed=seed + 50 + i, device=DEVICE, dtype=torch.bfloat16)
+        (d / name).mkdir()
+        save_state_dict(params, d / name / "diffusion_pytorch_model.safetensors")
+        (d / name / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+        del params
+    torch.cuda.empty_cache()
+    (d / "scheduler").mkdir()
+    (d / "scheduler" / "scheduler_config.json").write_text(json.dumps(SD3_SCHEDULER))
+    return d
+
+
+def sd3_cli_phase(seed: int, workdir: Path) -> dict:
+    """SD3 through the CLIs: an SD3-Medium directory without T5 (written
+    here), ``python -m scal_sdt_tpu_torch.cli.train`` with optim_target
+    lora_sd3 (rank 16 on every joint-block projection: 285 groups) uncached
+    at 1024^2, batch 1, SD3_CLI_STEPS steps ending on a checkpoint; then
+    ``cli.sample`` with that checkpoint: one 1024^2 image by flow_euler at
+    28 steps. Each train step launches each splash kernel 24 times (L = 4096
+    + 77), adam_bf16_fused 285; the image 672 splash_fwd and nothing else."""
+    t0 = time.perf_counter()
+    model, images = write_sd3_dir(workdir, seed), write_sd3_images(workdir, seed)
+    write_s = time.perf_counter() - t0
+    gib = sum(p.stat().st_size for p in model.rglob("*") if p.is_file()) / 2 ** 30
+    mm, (clip1, _) = MMDiTConfig.sd3_medium(), sd3_towers()
+    groups = len(lora_groups("lora_sd3", {"unet": mmdit_param_shapes(mm),
+                                          "text_encoder": clip_param_shapes(clip1)}))
+    config = merge(default(), Config({
+        "model": str(model), "output_dir": str(workdir / "sd3_runs"), "project": "sd3_lora",
+        "seed": seed, "num_workers": NUM_WORKERS, "batch_size": 1,
+        "optim_target": "lora_sd3",
+        "data": {"resolution": SD3_RESOLUTION, "concepts": [
+            {"instance_set": {"path": str(images), "prompt": "{TXT_PROMPT}"}}]},
+        "trainer": {"precision": "bf16", "max_steps": SD3_CLI_STEPS, "log_every_n_steps": 1},
+        "optimizer": {"lr_scale": {"enabled": False}},
+        "loggers": {"tensorboard": None},
+        "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
+                       "every_n_train_steps": None, "monitor": None}}))
+    cfg_path = workdir / "sd3_lora.yaml"
+    cfg_path.write_text(json.dumps(config))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with TrainerProbe() as run:
+        train_cli.main(["--config", str(cfg_path), "--run-id", "r", "--device", DEVICE],
+                       standalone_mode=False)
+    launches = read_launches()
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = run.losses()
+    check(sorted(losses) == list(range(1, SD3_CLI_STEPS + 1))
+          and all(math.isfinite(x) for x in losses.values()), f"SD3 lora losses {losses}")
+    want = {**{k: mm.num_layers * SD3_CLI_STEPS for k in SPLASH},
+            "adam_bf16_fused": groups * SD3_CLI_STEPS, "adam8_fused": 0, "ema_fused": 0}
+    check(launches == want, f"SD3 lora launches {launches}, expected {want}")
+    (ckpt,) = (workdir / "sd3_runs" / "sd3_lora" / "r").glob("*.safetensors")
+    factors = [k for k in load_state_dict(ckpt) if k.endswith((".lora_A", ".lora_B"))]
+    check(len(factors) == 2 * groups, f"the SD3 LoRA checkpoint holds {len(factors)} factors")
+    dts = [1.0 / m["steps_per_sec"] for s, m, _ in run.steps if s != 1]
+
+    out = workdir / "sd3_samples"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    sample_cli.main(["--model", str(model), "--ckpt", str(ckpt), "--prompt",
+                     "a photo of the cat number 1", "--negative", "blurry", "--steps",
+                     str(SD3_SAMPLE_STEPS), "--cfg", "7", "--seed", "114514", "--width",
+                     str(SD3_RESOLUTION), "--height", str(SD3_RESOLUTION), "--method",
+                     "flow_euler", "--out", str(out), "--device", DEVICE], standalone_mode=False)
+    sample_s = time.perf_counter() - t0
+    sample_launches = read_launches()
+    sample_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (png,) = sorted(out.glob("*.png"))
+    pixels = png_pixels(png, (SD3_RESOLUTION, SD3_RESOLUTION))
+    per_image = SD3_SAMPLE_STEPS * mm.num_layers
+    check(sample_launches["splash_fwd"] == per_image
+          and sum(sample_launches.values()) == per_image,
+          f"SD3 sample launches {sample_launches}, expected splash_fwd {per_image} only")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"write_s": write_s, "dir_gib": gib, "groups": groups,
+            "losses": [losses[s] for s in sorted(losses)],
+            "steps_per_s": len(dts) / sum(dts) if dts else float("nan"),
+            "first_step_s": run.steps[0][2], "train_peak_mem_gib": train_peak,
+            "launches": launches,
+            "launches_per_step": {k: v / SD3_CLI_STEPS for k, v in launches.items()},
+            "checkpoint_mib": ckpt.stat().st_size / 2 ** 20,
+            "sample_s": sample_s, "sample_launches": sample_launches,
+            "sample_peak_mem_gib": sample_peak, "pixel_mean": float(pixels.mean())}
+
+
+def sd3_adam_case(gen: torch.Generator) -> dict:
+    """adam_bf16_fused in the cached SD3 step's form: one grouped launch in
+    the xla mode over SD3-Medium's MMDiT leaves (fp32 masters and moments,
+    bf16 gradients), bit for bit against its plain chain. Timed by CUDA
+    events: the 18 ms launch dwarfs the host's upload of 682 addresses, and
+    a torch.profiler trace after the SDXL phases' held none of its kernels."""
+    shapes = mmdit_param_shapes(MMDiTConfig.sd3_medium())
+    del shapes[POS_EMBED_KEY]
+    keys = sorted(shapes)
+    res = adamw_group_case(gen, [f"unet.{k}" for k in keys], [tuple(shapes[k]) for k in keys],
+                           xla=True, traced=False)
+    torch.cuda.empty_cache()
+    return res
+
+
+def sd3_phases(record: dict, args, gen: torch.Generator, rate: tuple[int, float],
+               workdir: Path) -> None:
+    """The sd3 phase in its parts, each timed and printed: (a) the splash
+    kernels in SD3's forms, (b) the cached step at 1024^2, batch 2, (c) the
+    triple-encoder step with T5, (d) the train and sample CLIs, then
+    adam_bf16_fused in the cached step's form."""
+    t0 = time.perf_counter()
+    record["kernels_sd3"] = [kernel_phase(s, gen, rate) for s in SD3_KERNEL_SHAPES]
+    for r in record["kernels_sd3"]:
+        log(f"kernels (sd3) {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
+    log(f"sd3 kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    c = record["sd3_cached"] = sd3_cached_phase(args.seed, args.steps, gen)
+    c["seconds"] = time.perf_counter() - t0
+    log(f"sd3 cached step (SD3-Medium MMDiT, {c['trainable_params']} trainable, 1024^2, batch "
+        f"{SD3_BATCH}, AdamW fp32 masters and moments): {c['steps_per_s']:.4f} steps/s over "
+        f"{c['steps']} steps after 2 warm-up ({c['warmup_s']:.2f} s), peak "
+        f"{c['peak_mem_gib']:.2f} GiB, launches per step "
+        f"{ {k: v / c['steps'] for k, v in c['launches'].items()} } ({c['param_groups']} "
+        f"groups), losses {c['losses']}, MMDiT kernel path vs plain {c['check']['mmdit_rel_err']:.3e} "
+        f"(bound {CHECK_TOL}); phase {c['seconds']:.1f} s")
+
+    t0 = time.perf_counter()
+    x = record["sd3_triple"] = sd3_triple_phase(args.seed, SD3_TRIPLE_STEPS, gen)
+    x["seconds"] = time.perf_counter() - t0
+    log(f"sd3 triple-encoder step ({x['ran']}; {x['frozen_params']} frozen): "
+        f"{x['steps_per_s']:.4f} steps/s over {x['steps']} steps, peak "
+        f"{x['peak_mem_gib']:.2f} GiB, launches per step "
+        f"{ {k: v / x['steps'] for k, v in x['launches'].items()} }, losses {x['losses']}; "
+        f"phase {x['seconds']:.1f} s")
+
+    t0 = time.perf_counter()
+    d = record["sd3_cli"] = sd3_cli_phase(args.seed, workdir)
+    d["seconds"] = time.perf_counter() - t0
+    log(f"sd3 cli: wrote SD3-Medium without T5 ({d['dir_gib']:.2f} GiB, bf16) in "
+        f"{d['write_s']:.1f} s; cli.train lora_sd3 ({d['groups']} groups) at 1024^2, batch 1: "
+        f"{d['steps_per_s']:.4f} steps/s, first step after {d['first_step_s']:.2f} s, peak "
+        f"{d['train_peak_mem_gib']:.2f} GiB, launches per step {d['launches_per_step']}, "
+        f"losses {d['losses']}, checkpoint {d['checkpoint_mib']:.2f} MiB; cli.sample one 1024^2 "
+        f"image by flow_euler at {SD3_SAMPLE_STEPS} steps in {d['sample_s']:.2f} s, launches "
+        f"{d['sample_launches']}, peak {d['sample_peak_mem_gib']:.2f} GiB; phase "
+        f"{d['seconds']:.1f} s")
+
+    a = record["sd3_adam"] = sd3_adam_case(gen)
+    log(f"sd3 kernels: adam_bf16_fused (xla mode) over the MMDiT's {a['leaves']} fp32 leaves "
+        f"({a['elements']} elements): {a['ms']:.4f} ms (bound {a['bound'][0]:.4f} ms by "
+        f"{a['bound'][1]}, {a['bytes'] / 1e9:.3f} GB), call {a['call_ms']:.4f} ms, plain "
+        f"{a['plain_ms']:.2f} ms, bit-equal {a['err']}")
+
+
 def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                 record: dict) -> dict:
     """The {"kernels": [...]} entry of an optimizer kernel: the numbers of its
@@ -2935,6 +3351,8 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
               if name == "adam8_fused" else
               {"grouped_int8_fp32_leaves": opt["grouped_int8"]["adam_bf16_fused_fp32_leaves"],
                "grouped_fp32_grads": opt["grouped_fp32_grads"]["adam_bf16_fused"],
+               "grouped_xla": opt["grouped_xla"]["adam_bf16_fused"],
+               "sd3_grouped_xla": record["sd3_adam"],
                "grouped_int8_fp32_leaves_fp32_grads":
                    opt["grouped_int8_fp32_grads"]["adam_bf16_fused_fp32_leaves"]})
     phase = "train_int8" if name == "adam8_fused" else "train"
@@ -2945,6 +3363,7 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
             "max_abs_err": max([r["err"]["out"] for r in cases] + [grouped["err"]["out"]]
                                + ([record[k][name]["err"]["out"]
                                    for k in ("lora_kernels", "sdxl_kernels")]
+                                  + [record["sd3_adam"]["err"]["out"]]
                                   if name == "adam_bf16_fused" else [])),
             "ms": grouped["ms"], "plain_ms": grouped["plain_ms"],
             "bound_ms": grouped["bound"][0], "bound_by": grouped["bound"][1],
@@ -3002,7 +3421,7 @@ def kernel_entries(record: dict) -> list[dict]:
     ``optim_entry`` and ``ema_entry``."""
     main_shape = record["kernels"][0]
     splash_records = (record["kernels"] + [record["kernels_arb"]] + record["kernels_lora"]
-                      + record["kernels_sdxl"])
+                      + record["kernels_sdxl"] + record["kernels_sd3"])
     sampling_records = record["kernels_sampling"] + record["kernels_sdxl_sampling"]
     kernels = []
     for name, (source, replaces, pallas_kernel) in KERNELS.items():
@@ -3081,7 +3500,8 @@ def main(argv=None) -> int:
     for name in ("adam8_fused", "adam_bf16_fused"):
         for r in record["optim"][name]:
             log(f"optim {name} {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
-    for form in ("grouped", "grouped_int8", "grouped_fp32_grads", "grouped_int8_fp32_grads"):
+    for form in ("grouped", "grouped_xla", "grouped_int8", "grouped_fp32_grads",
+                 "grouped_int8_fp32_grads"):
         for name, r in record["optim"][form].items():
             log(f"optim {form} {name}: {json.dumps(r)}")
     torch.cuda.empty_cache()
@@ -3279,6 +3699,12 @@ def main(argv=None) -> int:
             f"{c['unet_ops']} CUDA operations ({c['unet_ops_device_ms']:.3f} ms traced); VAE "
             f"decode {c['vae_decode_ms']:.3f} ms, both towers (pair) {c['clip_ms']:.3f} ms "
             f"(device); phase {x['seconds']:.1f} s")
+
+        # SD3 (the MMDiT): SDXL-base's directory makes room for SD3-Medium's
+        shutil.rmtree(sdxl_model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sd3_phases(record, args, gen, rate, Path(tmp))
 
     # the kernels in the forms and at the shapes the lora phase ran them
     record["kernels_lora"] = [kernel_phase(tuple(sh), gen, rate) for sh in lora["splash_shapes"]]

@@ -4,7 +4,10 @@ One pass of VAE encode (and CLIP encode of the prompts) over the training
 set on one device, written as a single safetensors file keyed
 ``{id}.latent.{g}`` / ``{id}.cond`` (and for SDXL ``{id}.pooled``, tower 2's
 pooled projected embedding, beside the concatenated penultimate states of
-both towers in ``{id}.cond``) with the reference's metadata schema
+both towers in ``{id}.cond``; for SD3 ``{id}.cond`` holds the whole prompt
+embedding of ``models/mmdit.encode_sd3``, T5's states included when the
+model has T5, and ``{id}.pooled`` both towers' pooled projections) with the
+reference's metadata schema
 {sizes, entries, total_entries, aug_group_size}: the file the JAX package
 writes, which either package's ``LatentCache`` reads. Latents are stored
 (h, w, c) HWC, in the dtype of the VAE weights (the encode runs in it).
@@ -14,9 +17,10 @@ training samples one uniformly. With ARB on, the epoch order is
 data-dependent, so augmentation + ARB caching is rejected.
 
 Run it as ``python -m scal_sdt_tpu_torch.cli.cache --config cfg.yaml``
-(``--device cpu`` without a card). Not ported yet: the multi-process
-all-gather of the shards (a run with ``WORLD_SIZE`` > 1 raises, ROADMAP
-1.17), and the SD3 conditionings (the loader refuses its layout, 1.16).
+(``--device cpu`` without a card). An SD3 model with T5 needs
+``tokenizer_3/tokenizer.json`` to cache conditions (or ``--no-conds``). Not
+ported yet: the multi-process all-gather of the shards (a run with
+``WORLD_SIZE`` > 1 raises, ROADMAP 1.17).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..conf import Config, load_with_defaults
 from ..data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
 from ..device import resolve_device
 from ..models.clip import clip_text_apply, encode_sdxl
+from ..models.mmdit import encode_sd3
 from ..models.vae import encoder_apply, latent_noise, sample_latents
 from ..utils.state import save_state_dict
 
@@ -84,7 +89,7 @@ def build_local_shard(config: Config, models, tokenizer, *,
 
     Returns {'ids': (N,) int64, 'latents': G lists of N (h, w, c) CPU
     tensors, 'conds': (N, L, D) CPU tensor or None, 'pooled': (N, D2) CPU
-    tensor (SDXL) or None}. The shard is padded up
+    tensor (SDXL, SD3) or None}. The shard is padded up
     to whole batches by repeating its last entry, so no tail entry is
     dropped. ``noise`` gives each batch's latent noise (default
     ``latent_noise_source`` seeded with ``config.seed``)."""
@@ -102,8 +107,16 @@ def build_local_shard(config: Config, models, tokenizer, *,
         logger.info(f"Rank {global_rank}: padding shard of {len(sampler)} "
                     f"entries with {pad} repeats to fill {n_batches} batches")
     sampler = _PaddedSampler(sampler, target)
+    tokenizer_3 = None
+    if models.t5 is not None and not no_conds:
+        from ..text.tokenizer import resolve_t5_tokenizer
+
+        tokenizer_3 = resolve_t5_tokenizer(config)
+        if tokenizer_3 is None:
+            raise ValueError("SD3 model has a T5 tower: caching conditions needs "
+                             "tokenizer_3/tokenizer.json (or pass --no-conds)")
     pipeline = DataPipeline(dataset, sampler, batch_size, tokenizer,
-                            num_workers=config.get("num_workers") or 4)
+                            num_workers=config.get("num_workers") or 4, tokenizer_3=tokenizer_3)
 
     vae_params = {k: v.to(dev) for k, v in models.vae.items()}
     clip_params = {k: v.to(dev) for k, v in models.clip.items()}
@@ -112,7 +125,19 @@ def build_local_shard(config: Config, models, tokenizer, *,
     if noise is None:
         noise = latent_noise_source(int(config.get("seed") or 0), dev)
 
-    if models.clip2 is not None:
+    if models.is_sd3:
+        # SD3: the live-encode conditioning of training/step.py
+        clip2_params = {k: v.to(dev) for k, v in models.clip2.items()}
+        t5_params = ({k: v.to(dev) for k, v in models.t5.items()}
+                     if models.t5 is not None else None)
+
+        def encode_conds(input_ids, t5_ids=None):
+            t5 = ({"t5_params": t5_params, "t5_ids": t5_ids, "t5_config": models.t5_config}
+                  if t5_params is not None else {})
+            return encode_sd3(clip_params, clip2_params, input_ids, models.clip_config,
+                              models.clip2_config, models.mmdit_config.joint_attention_dim,
+                              **t5)
+    elif models.clip2 is not None:
         # SDXL: the live-encode conditioning of training/step.py
         clip2_params = {k: v.to(dev) for k, v in models.clip2.items()}
 
@@ -140,7 +165,8 @@ def build_local_shard(config: Config, models, tokenizer, *,
             lat_images.extend(lat.permute(0, 2, 3, 1).cpu().unbind(0))
             id_batches.append(np.asarray(batch["ids"], np.int64))
             if group == 0 and not no_conds and "input_ids" in batch:
-                c, p = encode_conds(on_dev["input_ids"])
+                c, p = (encode_conds(on_dev["input_ids"], on_dev["t5_ids"])
+                        if "t5_ids" in on_dev else encode_conds(on_dev["input_ids"]))
                 cond_batches.append(c.cpu())
                 if p is not None:
                     pooled_batches.append(p.cpu())

@@ -65,7 +65,7 @@ def main(config_file: IO[str], device: str):
 
     from ..convert.loader import load_components
     from ..diffusion.sampler import SamplerSpec, cast_params, fold_seed, sample_images
-    from ..text.tokenizer import resolve_tokenizer
+    from ..text.tokenizer import resolve_t5_tokenizer, resolve_tokenizer
 
     config = load_with_defaults(config_file)
     if not config.prior_preservation.get("enabled", False):
@@ -77,11 +77,18 @@ def main(config_file: IO[str], device: str):
     spec = SamplerSpec(unet_config=models.unet_config, vae_config=models.vae_config,
                        clip_config=models.clip_config, schedule=models.schedule,
                        clip_stop_at_layer=int(config.get("clip_stop_at_layer", 1)),
-                       clip2_config=models.clip2_config)
+                       clip2_config=models.clip2_config, mmdit_config=models.mmdit_config,
+                       t5_config=models.t5_config if models.t5 is not None else None)
+    tokenizer_3 = None
+    if models.t5 is not None:
+        tokenizer_3 = resolve_t5_tokenizer(config)
+        if tokenizer_3 is None:
+            raise click.UsageError("SD3 model has a T5 tower but no tokenizer_3/tokenizer.json")
     # onto the device once, in the sampling dtype
     unet, vae_params, clip = (cast_params(p, spec.dtype, dev)
                               for p in (models.unet, models.vae, models.clip))
-    clip2 = cast_params(models.clip2, spec.dtype, dev) if models.clip2 is not None else None
+    clip2, t5 = (cast_params(p, spec.dtype, dev) if p is not None else None
+                 for p in (models.clip2, models.t5))
     del models
     seed = int(config.get("seed") or 0)
 
@@ -125,6 +132,8 @@ def main(config_file: IO[str], device: str):
                         fold_seed(seed, rng_counter)),
                     device=dev,
                     clip2_params=clip2,
+                    t5_params=t5,
+                    tokenizer_3=tokenizer_3,
                 )
                 rng_counter += 1
                 for img in images:

@@ -4,15 +4,18 @@
         --steps 28 --cfg 7.5 --out out/ [--ckpt run/step8.safetensors] [--device cuda]
 
 Runs ``diffusion/sampler.py`` (DDIM, Euler, Euler-a, DPM++(2M), with CFG
-rescale and img2img) on a diffusers directory the trainer can load (SD1.x,
-SD2.x or SDXL),
+rescale and img2img; SD3 by the flow-matching Euler ODE, which ``ddim`` also
+selects there) on a diffusers directory the trainer can load (SD1.x,
+SD2.x, SDXL or SD3, whose T5 tokenizer is ``--tokenizer-3`` or the
+directory's ``tokenizer_3/``),
 optionally overlaying a training checkpoint: a full fine-tune's tensors or
 LoRA factors (which the UNet forward consumes as run-time deltas) from
 either package's ``.safetensors`` file, or a kohya / AddNet LoRA file; the
 checkpoint's trained textual-inversion keywords are registered with the
 tokenizer. Samples run on a card unless ``--device cpu`` asks for the CPU.
-Not ported yet: single-file LDM models (ROADMAP 1.18) and the SD3 options
-``--tokenizer-3``, ``--mmdit-head-dim`` and ``--pos-embed-max-size`` (1.16).
+Not ported yet: single-file models (LDM, sgm and SD3, ROADMAP 1.18) and the
+options that only they read, ``--mmdit-head-dim`` and
+``--pos-embed-max-size``, which raise when given.
 """
 
 from __future__ import annotations
@@ -76,8 +79,9 @@ def merge_checkpoint(models, ckpt_path: Path) -> dict:
 @click.option("--height", default=512, show_default=True)
 @click.option("--seed", default=42, show_default=True)
 @click.option("--method", default="ddim", show_default=True,
-              type=click.Choice(["ddim", "euler", "euler_a", "dpmpp_2m"]),
-              help="Sampler (euler/euler_a/dpmpp_2m are k-diffusion style)")
+              type=click.Choice(["ddim", "euler", "euler_a", "dpmpp_2m", "flow_euler"]),
+              help="Sampler (euler/euler_a/dpmpp_2m are k-diffusion style; SD3 models "
+                   "sample with flow_euler, which ddim selects there)")
 @click.option("--guidance-rescale", default=0.0, show_default=True,
               help="CFG rescale phi (arXiv:2305.08891; ~0.7 for zero-terminal-SNR "
                    "v-prediction models)")
@@ -90,11 +94,13 @@ def merge_checkpoint(models, ckpt_path: Path) -> dict:
 @click.option("--tokenizer", "tokenizer_src", default=None,
               help="Tokenizer assets dir ('hash' for the test stand-in)")
 @click.option("--tokenizer-3", "tokenizer_3_src", default=None,
-              help="T5 tokenizer.json of SD3 models (not ported yet)")
+              help="T5 tokenizer.json (or its directory) of SD3 models with T5 (default: "
+                   "the model directory's tokenizer_3/)")
 @click.option("--mmdit-head-dim", type=int, default=None,
-              help="MMDiT head dim of SD3 single-file models (not ported yet)")
+              help="MMDiT head dim of SD3 single-file models (not ported yet, ROADMAP 1.18)")
 @click.option("--pos-embed-max-size", type=int, default=None,
-              help="MMDiT sincos grid size of SD3 single-file models (not ported yet)")
+              help="MMDiT sincos grid size of SD3 single-file models (not ported yet, "
+                   "ROADMAP 1.18)")
 @click.option("--out", type=click.Path(path_type=Path), default=Path("samples"),
               show_default=True)
 @click.option("--device", default="cuda", show_default=True,
@@ -102,12 +108,12 @@ def merge_checkpoint(models, ckpt_path: Path) -> dict:
 def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, seed, method,
          guidance_rescale, init_image, strength, clip_skip, tokenizer_src, tokenizer_3_src,
          mmdit_head_dim, pos_embed_max_size, out, device):
-    sd3 = {"--tokenizer-3": tokenizer_3_src, "--mmdit-head-dim": mmdit_head_dim,
-           "--pos-embed-max-size": pos_embed_max_size}
-    given = [name for name, value in sd3.items() if value is not None]
+    single_file = {"--mmdit-head-dim": mmdit_head_dim,
+                   "--pos-embed-max-size": pos_embed_max_size}
+    given = [name for name, value in single_file.items() if value is not None]
     if given:
-        raise NotImplementedError(f"{', '.join(given)}: SD3 models are not ported yet "
-                                  "(ROADMAP 1.16)")
+        raise NotImplementedError(f"{', '.join(given)}: options of single-file SD3 models, "
+                                  "which are not ported yet (ROADMAP 1.18)")
     dev = resolve_device(device)
 
     from PIL import Image
@@ -115,11 +121,12 @@ def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, se
     from ..conf import Config, default, merge
     from ..convert.loader import load_components
     from ..diffusion.sampler import SamplerSpec, cast_params, sample_images
-    from ..text.tokenizer import resolve_tokenizer
+    from ..text.tokenizer import resolve_t5_tokenizer, resolve_tokenizer
 
     config = merge(default(), Config({
         "model": str(model), "vae": vae, "clip_stop_at_layer": int(clip_skip),
         **({"tokenizer": tokenizer_src} if tokenizer_src else {}),
+        **({"tokenizer_3": tokenizer_3_src} if tokenizer_3_src else {}),
     }))
     models = load_components(config)
     tokenizer = resolve_tokenizer(config, allow_hash=tokenizer_src == "hash")
@@ -136,12 +143,21 @@ def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, se
 
     spec = SamplerSpec(unet_config=models.unet_config, vae_config=models.vae_config,
                        clip_config=models.clip_config, schedule=models.schedule,
-                       clip_stop_at_layer=int(clip_skip), clip2_config=models.clip2_config)
+                       clip_stop_at_layer=int(clip_skip), clip2_config=models.clip2_config,
+                       mmdit_config=models.mmdit_config,
+                       t5_config=models.t5_config if models.t5 is not None else None)
+    tokenizer_3 = None
+    if models.t5 is not None:
+        tokenizer_3 = resolve_t5_tokenizer(config)
+        if tokenizer_3 is None:
+            raise click.UsageError("SD3 model has a T5 tower but no tokenizer_3/tokenizer.json "
+                                   "(pass --tokenizer-3 or remove text_encoder_3/)")
     # onto the device once, in the sampling dtype: sample_images' own cast is
     # then a no-op for every call
     unet, vae_params, clip = (cast_params(p, spec.dtype, dev)
                               for p in (models.unet, models.vae, models.clip))
-    clip2 = cast_params(models.clip2, spec.dtype, dev) if models.clip2 is not None else None
+    clip2, t5 = (cast_params(p, spec.dtype, dev) if p is not None else None
+                 for p in (models.clip2, models.t5))
     del models
 
     init_arr = None
@@ -158,7 +174,8 @@ def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, se
             unet, vae_params, clip, tokenizer, batch, negative, spec, steps=int(steps),
             cfg_scale=float(cfg), width=int(width), height=int(height), seed=int(seed) + rep,
             method=method, init_image=init_arr, strength=float(strength),
-            guidance_rescale=float(guidance_rescale), device=dev, clip2_params=clip2)
+            guidance_rescale=float(guidance_rescale), device=dev, clip2_params=clip2,
+            t5_params=t5, tokenizer_3=tokenizer_3)
         dt = time.perf_counter() - t0   # images come back on the host: the loop is done
         for i, img in enumerate(images):
             path = out / f"{i:02d}_{rep:02d}.png"

@@ -5,7 +5,9 @@ Both packages key parameters by diffusers names in torch layouts (Linear
 ``(out, in)``, Conv ``(out, in, kh, kw)``), so no remapping is needed: only
 the array type changes. JAX hands bf16 arrays over as numpy arrays of the
 ``ml_dtypes`` bfloat16 type, which ``torch.from_numpy`` refuses; they are
-reinterpreted bit for bit through int16.
+reinterpreted bit for bit through int16. The same holds for every tree of
+the JAX package's models: the UNet's, the text towers', SD3's MMDiT (its
+fp32 sincos ``pos_embed`` buffer stays fp32 beside bf16 weights) and T5's.
 
 An optimizer state is found by its field names, so no optax type is needed,
 and the same code reads a live optax state (named tuples) and the tree that

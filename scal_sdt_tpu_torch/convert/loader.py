@@ -1,18 +1,20 @@
 """Model loading: a diffusers directory -> flat param dicts (port of
-``scal_sdt_tpu/convert/loader.py``, the SD1.x/2.x and SDXL directory
+``scal_sdt_tpu/convert/loader.py``, the SD1.x/2.x, SDXL and SD3 directory
 layouts).
 
 A diffusers directory holds ``unet/``, ``vae/``, ``text_encoder/`` and
 ``scheduler/``, each with a ``config.json`` and a weights file, and for SDXL
 ``text_encoder_2/`` (OpenCLIP bigG as ``CLIPTextModelWithProjection``); an
-external VAE directory may replace the bundled one. Each component is
-validated against its shape template. The dicts hold CPU tensors in the
-files' dtypes, keyed by the diffusers / transformers names; the caller moves
-them to its device.
+external VAE directory may replace the bundled one. An SD3 directory holds
+``transformer/`` (the MMDiT, whose sincos ``pos_embed`` is synthesized when
+the file lacks it) in place of ``unet/``, the 16-channel VAE, two projected
+CLIP towers, an optional ``text_encoder_3/`` (T5) and a flow-matching
+``scheduler/``. Each component is validated against its shape template. The
+dicts hold CPU tensors in the files' dtypes, keyed by the diffusers /
+transformers names; the caller moves them to its device.
 
-Not ported yet, and refused with an error: single-file checkpoints (LDM and
-SDXL's sgm layout, ROADMAP 1.18), the SD3 layout (``transformer/``, 1.16)
-and hub ids.
+Not ported yet, and refused with an error: single-file checkpoints (LDM,
+SDXL's sgm layout and single-file SD3, ROADMAP 1.18) and hub ids.
 """
 
 from __future__ import annotations
@@ -26,8 +28,11 @@ from typing import Optional
 import torch
 
 from ..conf import Config
+from ..diffusion.flow import FlowSchedule
 from ..diffusion.schedule import NoiseSchedule
 from ..models.clip import CLIPTextConfig, clip_param_shapes
+from ..models.mmdit import POS_EMBED_KEY, MMDiTConfig, mmdit_param_shapes, sincos_pos_embed_2d
+from ..models.t5 import T5Config, t5_param_shapes
 from ..models.unet import UNetConfig, unet_param_shapes
 from ..models.vae import VAEConfig, vae_param_shapes
 from ..utils.state import load_state_dict
@@ -40,20 +45,30 @@ Params = dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class LoadedModels:
+    # the denoiser: a UNet, or for SD3 the MMDiT (unet_config None,
+    # mmdit_config set)
     unet: Params
-    unet_config: UNetConfig
+    unet_config: Optional[UNetConfig]
     vae: Params
     vae_config: VAEConfig
     clip: Params
     clip_config: CLIPTextConfig
-    schedule: NoiseSchedule
-    # SDXL's second text tower (pooled projection); None for SD1.x/2.x
+    schedule: NoiseSchedule        # a FlowSchedule for SD3
+    # SDXL's and SD3's second text tower (pooled projection); None for SD1.x/2.x
     clip2: Optional[Params] = None
     clip2_config: Optional[CLIPTextConfig] = None
+    # SD3: the MMDiT's config and the optional T5 tower (text_encoder_3/)
+    mmdit_config: Optional[MMDiTConfig] = None
+    t5: Optional[Params] = None
+    t5_config: Optional[T5Config] = None
 
     @property
     def is_sdxl(self) -> bool:
-        return self.unet_config.addition_embed_type == "text_time"
+        return self.unet_config is not None and self.unet_config.addition_embed_type == "text_time"
+
+    @property
+    def is_sd3(self) -> bool:
+        return self.mmdit_config is not None
 
 
 def _validate(params: dict, shapes: dict, what: str):
@@ -152,22 +167,71 @@ def _clip_config_from_df(cfg: dict, with_projection: bool = False) -> CLIPTextCo
     )
 
 
+def _vae_dir(path: Path, vae_override: Optional[str]) -> Path:
+    if not vae_override:
+        return path / "vae"
+    vae_dir = Path(vae_override)
+    if not vae_dir.is_dir():
+        raise FileNotFoundError(f"VAE override not found: {vae_override}")
+    return vae_dir
+
+
+def _load_sd3_diffusers_dir(path: Path, vae_override: Optional[str]) -> LoadedModels:
+    """An SD3-family directory: transformer/ (the MMDiT), the 16-channel VAE,
+    two projected CLIP towers, the optional text_encoder_3/ (T5) and a
+    FlowSchedule from scheduler/."""
+    tr_dir = path / "transformer"
+    mmdit_config = MMDiTConfig.from_json(_load_df_component_config(tr_dir))
+    mmdit = load_state_dict(_find_weights_file(tr_dir))
+    if POS_EMBED_KEY not in mmdit:
+        # a non-persistent buffer in some exports: the fixed sincos table
+        mmdit[POS_EMBED_KEY] = sincos_pos_embed_2d(mmdit_config.inner_dim,
+                                                   mmdit_config.pos_embed_max_size)
+
+    vae_dir = _vae_dir(path, vae_override)
+    vae_config = _vae_config_from_df(_load_df_component_config(vae_dir))
+    vae = normalize_df_vae_attention(load_state_dict(_find_weights_file(vae_dir)))
+
+    clips = []
+    for sub in ("text_encoder", "text_encoder_2"):
+        d = path / sub
+        cfg = _clip_config_from_df(_load_df_component_config(d), with_projection=True)
+        state = load_state_dict(_find_weights_file(d))
+        state.pop("text_model.embeddings.position_ids", None)
+        if cfg.projection_dim is None:
+            raise ValueError(f"SD3 {sub} must carry a text_projection head")
+        clips.append((state, cfg))
+
+    t5 = t5_config = None
+    te3_dir = path / "text_encoder_3"
+    if te3_dir.is_dir():
+        t5_config = T5Config.from_json(_load_df_component_config(te3_dir))
+        t5 = load_state_dict(_find_weights_file(te3_dir))
+        _validate(t5, t5_param_shapes(t5_config), "text_encoder_3")
+
+    sched_file = path / "scheduler" / "scheduler_config.json"
+    schedule = (FlowSchedule.from_diffusers_scheduler_config(json.loads(sched_file.read_text()))
+                if sched_file.exists() else FlowSchedule())
+
+    _validate(mmdit, mmdit_param_shapes(mmdit_config), "transformer")
+    _validate(vae, vae_param_shapes(vae_config), "vae")
+    _validate(clips[0][0], clip_param_shapes(clips[0][1]), "text_encoder")
+    _validate(clips[1][0], clip_param_shapes(clips[1][1]), "text_encoder_2")
+    return LoadedModels(mmdit, None, vae, vae_config, clips[0][0], clips[0][1], schedule,
+                        clip2=clips[1][0], clip2_config=clips[1][1],
+                        mmdit_config=mmdit_config, t5=t5, t5_config=t5_config)
+
+
 def load_diffusers_dir(path: Path, vae_override: Optional[str] = None) -> LoadedModels:
     path = Path(path)
     if (path / "transformer").is_dir() and not (path / "unet").is_dir():
-        raise NotImplementedError(f"{path}: the SD3 layout (transformer/) is not ported yet "
-                                  "(ROADMAP 1.16)")
+        return _load_sd3_diffusers_dir(path, vae_override)
 
     unet_dir = path / "unet"
     unet_config = _unet_config_from_df(_load_df_component_config(unet_dir))
     unet = load_state_dict(_find_weights_file(unet_dir))
 
-    if vae_override:
-        vae_dir = Path(vae_override)
-        if not vae_dir.is_dir():
-            raise FileNotFoundError(f"VAE override not found: {vae_override}")
-    else:
-        vae_dir = path / "vae"
+    vae_dir = _vae_dir(path, vae_override)
     vae_config = _vae_config_from_df(_load_df_component_config(vae_dir))
     vae = normalize_df_vae_attention(load_state_dict(_find_weights_file(vae_dir)))
 

@@ -8,7 +8,8 @@ decodes/resizes images (PIL releases the GIL for the hot parts), and a
 bounded queue prefetches batches ahead of the device step so host IO
 overlaps device compute. The numpy batches are those of the JAX package
 (NHWC images, HWC latents); ``to_device`` alone moves them to the port's
-NCHW layout. SD3's T5 token ids come with the SD3 slice.
+NCHW layout. An SD3 model with T5 tokenizes the same prompts a second time
+with ``tokenizer_3`` (``t5_ids``, and the empty prompt's ``t5_uncond_ids``).
 
 Collate semantics mirror the reference exactly (``collate_fn``,
 modules/dataset/__init__.py:54-98): DreamBooth class items are appended
@@ -129,19 +130,23 @@ class DataPipeline:
 
     `tokenizer` converts prompts to `input_ids`; `uncond_ids` (the empty
     prompt) is attached once per batch for CFG-dropout's 'eos' mode.
+    `tokenizer_3` (SD3's T5) adds `t5_ids` and `t5_uncond_ids` likewise.
     """
 
     def __init__(self, dataset, sampler, batch_size: int, tokenizer=None,
-                 num_workers: int = 2, prefetch: int = 2):
+                 num_workers: int = 2, prefetch: int = 2, tokenizer_3=None):
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = batch_size
         self.tokenizer = tokenizer
+        self.tokenizer_3 = tokenizer_3
         self.num_workers = max(num_workers, 1)
         self.prefetch = max(prefetch, 1)
-        self._uncond_ids = None
+        self._uncond_ids = self._t5_uncond_ids = None
         if tokenizer is not None:
             self._uncond_ids = tokenizer([""])
+        if tokenizer_3 is not None:
+            self._t5_uncond_ids = tokenizer_3([""])
         self._epoch = 0
         self._skip_batches = 0
 
@@ -169,6 +174,9 @@ class DataPipeline:
         if prompts is not None and self.tokenizer is not None:
             batch["input_ids"] = self.tokenizer(prompts)
             batch["uncond_ids"] = self._uncond_ids
+            if self.tokenizer_3 is not None:
+                batch["t5_ids"] = self.tokenizer_3(prompts)
+                batch["t5_uncond_ids"] = self._t5_uncond_ids
         return batch
 
     def _index_batches(self) -> Iterator[list]:

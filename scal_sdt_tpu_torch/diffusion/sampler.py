@@ -1,11 +1,12 @@
 """Sampling with classifier-free guidance (port of
-``scal_sdt_tpu/diffusion/sampler.py``, the SD1.x/2.x and SDXL samplers).
+``scal_sdt_tpu/diffusion/sampler.py``: the SD1.x/2.x, SDXL and SD3 samplers).
 
 The replacement for the diffusers ``StableDiffusionPipeline`` the reference
 samples with: tokenize and encode the prompts, run the denoising loop with
 the CFG pair batched into one UNet call (uncond first, cond second), decode
-with the VAE. Four methods: DDIM, Euler, Euler-ancestral and DPM-Solver++(2M),
-each with guidance rescale and img2img.
+with the VAE. Four methods for the UNet models: DDIM, Euler,
+Euler-ancestral and DPM-Solver++(2M), each with guidance rescale and img2img;
+the SD3 family samples with the flow-matching Euler ODE (``flow_euler``).
 
 The JAX samplers are one ``lax.scan`` program each; here each is a Python
 loop over the timestep ladder, run under ``torch.inference_mode()`` with the
@@ -27,8 +28,16 @@ SDXL (a text_time UNet, ``clip2_params``): the prompts are encoded as in
 training (both towers' raw penultimate states concatenated, tower 2's pooled
 projected embedding), and every UNet call of the CFG pair takes
 ``added_cond``: the pooled pair (uncond first) and ``time_ids`` of
-``[h, w, 0, 0, h, w]`` at the target size. The SD3 branch
-(``flow_euler_sample_latents``) is a later slice (ROADMAP 1.16).
+``[h, w, 0, 0, h, w]`` at the target size.
+
+SD3 (an MMDiT, ``spec.mmdit_config``): the prompts are encoded as in
+training (``models/mmdit.encode_sd3``: both projected CLIP towers, and T5 on
+``tokenizer_3``'s ids when the model has it), and ``flow_euler`` (``ddim``,
+the default method, selects it too, as in JAX) integrates diffusers'
+FlowMatchEulerDiscreteScheduler in ``spec.dtype``: ``x += (sigma_next -
+sigma) * v`` over the shifted sigma ladder, the CFG pair and its pooled
+embeddings batched into one MMDiT call per step, the model timestep
+``sigma * N`` taken in ``spec.dtype``.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ import torch
 from ..device import resolve_device
 from ..models.clip import CLIPTextConfig, clip_text_apply, encode_sdxl
 from ..models.functional import Params, scaled
+from ..models.mmdit import MMDiTConfig, encode_sd3, mmdit_apply
+from ..models.t5 import T5Config
 from ..models.unet import UNetConfig, unet_apply
 from ..models.vae import VAEConfig, decoder_apply, encoder_apply, latent_noise, sample_latents
 from .schedule import NoiseSchedule
@@ -75,21 +86,26 @@ def fold_seed(seed: int, data: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:
-    # None for the SD3 family's MMDiT denoiser, a later slice (ROADMAP 1.16)
-    # that sample_images refuses
-    unet_config: Optional[UNetConfig]
+    unet_config: Optional[UNetConfig]   # None for the SD3 family (mmdit_config)
     vae_config: VAEConfig
     clip_config: CLIPTextConfig
-    schedule: NoiseSchedule
+    schedule: NoiseSchedule             # a FlowSchedule for SD3
     clip_stop_at_layer: int = 1
     dtype: torch.dtype = torch.bfloat16
-    # SDXL's second text tower (pooled projection); None for SD1.x/2.x
+    # SDXL's and SD3's second text tower (pooled projection); None for SD1.x/2.x
     clip2_config: Optional[CLIPTextConfig] = None
+    # SD3: the MMDiT denoiser and the optional T5 tower
+    mmdit_config: Optional[MMDiTConfig] = None
+    t5_config: Optional[T5Config] = None
 
     @property
     def sdxl(self) -> bool:
         return (self.unet_config is not None
                 and self.unet_config.addition_embed_type == "text_time")
+
+    @property
+    def sd3(self) -> bool:
+        return self.mmdit_config is not None
 
 
 def cast_params(params: Params, dtype: torch.dtype, device) -> Params:
@@ -112,7 +128,8 @@ class SamplerDraws:
 def _latent_shape(spec: SamplerSpec, batch: int, height: int, width: int) -> tuple:
     # spatial factor 2^(levels-1): 8 for SD VAEs, smaller for tiny test VAEs
     f = 2 ** (len(spec.vae_config.block_out_channels) - 1)
-    return (batch, spec.unet_config.in_channels, height // f, width // f)
+    channels = (spec.mmdit_config if spec.sd3 else spec.unet_config).in_channels
+    return (batch, channels, height // f, width // f)
 
 
 def _initial_noise(draws: Optional[SamplerDraws], generator: torch.Generator, shape,
@@ -352,9 +369,40 @@ def dpmpp_2m_sample_latents(unet_params: Params, cond: torch.Tensor, uncond: tor
     return x.to(spec.dtype)
 
 
-def flow_euler_sample_latents(*args, **kwargs) -> torch.Tensor:
-    """The SD3 family's flow-matching Euler ODE: a later slice."""
-    raise NotImplementedError("flow_euler sampling (SD3): not ported yet (ROADMAP 1.16)")
+def flow_euler_sample_latents(mmdit_params: Params, cond: torch.Tensor, uncond: torch.Tensor,
+                              pooled: torch.Tensor, pooled_u: torch.Tensor,
+                              generator: torch.Generator, spec: SamplerSpec, num_steps: int,
+                              cfg_scale: float, height: int, width: int, batch: int,
+                              init_latents: Optional[torch.Tensor] = None,
+                              t_start_index: int = 0, guidance_rescale: float = 0.0,
+                              draws: Optional[SamplerDraws] = None) -> torch.Tensor:
+    """The SD3 family's flow-matching Euler ODE (diffusers
+    FlowMatchEulerDiscreteScheduler.step): ``x <- x + (sigma_next - sigma)
+    * v`` in ``spec.dtype``, with the CFG pair batched through the MMDiT.
+    img2img: ``init_latents`` (scaled) start at ``sigma[t_start_index]``,
+    ``(1 - sigma) init + sigma noise``."""
+    device = cond.device
+    sigmas = spec.schedule.sampling_sigmas(num_steps).to(device, spec.dtype)
+    noise = _initial_noise(draws, generator, _latent_shape(spec, batch, height, width),
+                           spec.dtype, device)
+    if init_latents is None:
+        x = noise  # sigma(0) = 1: pure noise
+    else:
+        sig0 = sigmas[t_start_index]
+        x = (1.0 - sig0) * init_latents.to(spec.dtype) + sig0 * noise
+
+    context = torch.cat([uncond, cond], dim=0).to(spec.dtype)
+    pooled_all = torch.cat([pooled_u, pooled], dim=0).to(spec.dtype)
+    n = spec.schedule.num_train_timesteps
+    for i in range(t_start_index, num_steps):
+        sig, sig_next = sigmas[i], sigmas[i + 1]
+        t = (sig * n).float().expand(2 * batch)
+        v = mmdit_apply(mmdit_params, torch.cat([x, x], dim=0), t, context, pooled_all,
+                        spec.mmdit_config)
+        v_u, v_c = v.chunk(2, dim=0)
+        v = _cfg_combine(v_u, v_c, cfg_scale, guidance_rescale)
+        x = x + (sig_next - sig) * v.to(x.dtype)
+    return x
 
 
 _LOOPS = {
@@ -372,7 +420,8 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
                   method: str = "ddim", init_image: Optional[np.ndarray] = None,
                   strength: float = 0.75, guidance_rescale: float = 0.0,
                   draws: Optional[SamplerDraws] = None, device="cuda",
-                  clip2_params: Optional[Params] = None) -> np.ndarray:
+                  clip2_params: Optional[Params] = None, t5_params: Optional[Params] = None,
+                  tokenizer_3=None) -> np.ndarray:
     """Full text -> image path on ``device``. Returns uint8 (B, H, W, 3).
 
     Every floating parameter is cast to ``spec.dtype`` on ``device`` (a
@@ -384,14 +433,22 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
     ``strength`` in (0, 1] controls how much of the denoising ladder runs
     (1.0 ignores the init, like diffusers' Img2ImgPipeline).
 
-    SDXL: pass ``clip2_params`` (the text_encoder_2 tower).
+    SDXL: pass ``clip2_params`` (the text_encoder_2 tower). SD3: pass
+    ``clip2_params`` and, for a model with T5, ``t5_params`` and
+    ``tokenizer_3``; the method is ``flow_euler`` (or ``ddim``, which
+    selects it).
     """
-    if spec.unet_config is None or method == "flow_euler":
-        raise NotImplementedError("SD3 sampling (flow_euler): not ported yet (ROADMAP 1.16)")
-    if spec.sdxl and clip2_params is None:
-        raise ValueError("SDXL sampling requires clip2_params (the text_encoder_2 tower)")
-    if method not in _LOOPS:
-        raise ValueError(f"Unknown sampler method {method!r}; choose from {SAMPLER_METHODS}")
+    if (spec.sdxl or spec.sd3) and clip2_params is None:
+        raise ValueError("SDXL and SD3 sampling require clip2_params (the text_encoder_2 "
+                         "tower)")
+    if spec.sd3:
+        if method not in ("flow_euler", "ddim"):
+            raise ValueError(f"SD3 models sample with method 'flow_euler' (got {method!r})")
+        if t5_params is not None and tokenizer_3 is None:
+            raise ValueError("SD3 model has a T5 tower: pass tokenizer_3")
+    elif method not in _LOOPS:
+        raise ValueError(f"Unknown sampler method {method!r}; choose from "
+                         f"{SAMPLER_METHODS[:-1]} (flow_euler is SD3's)")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0 if seed is None else int(seed))
@@ -406,7 +463,24 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
                                               np.int64)).to(dev)
         clip_c = cast(clip_params)
         added_cond = None
-        if spec.sdxl:
+        if spec.sd3:
+            clip2_c = cast(clip2_params)
+            t5_c = cast(t5_params) if t5_params is not None else None
+
+            def encode(ids_, prompts_):
+                t5 = {}
+                if t5_c is not None:
+                    t5_ids = torch.from_numpy(np.asarray(tokenizer_3(prompts_), np.int64)).to(dev)
+                    t5 = {"t5_params": t5_c, "t5_ids": t5_ids, "t5_config": spec.t5_config}
+                emb, pooled = encode_sd3(clip_c, clip2_c, ids_, spec.clip_config,
+                                         spec.clip2_config, spec.mmdit_config.joint_attention_dim,
+                                         **t5)
+                return emb.to(spec.dtype), pooled.to(spec.dtype)
+
+            cond, pooled_c = encode(ids, list(prompts))
+            uncond, pooled_u = encode(neg_ids, [negative_prompt] * batch)
+            del clip2_c, t5_c
+        elif spec.sdxl:
             clip2_c = cast(clip2_params)
             cond, pooled_c = encode_sdxl(clip_c, clip2_c, ids, spec.clip_config,
                                          spec.clip2_config)
@@ -438,11 +512,16 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
                                           spec.vae_config.shift_factor)
             t_start = min(int(steps * (1.0 - float(strength))), steps - 1)
 
-        latents = _LOOPS[method](cast(unet_params), cond, uncond, generator, spec, int(steps),
-                                 float(cfg_scale), int(height), int(width), batch,
-                                 init_latents=init_latents, t_start_index=t_start,
-                                 guidance_rescale=float(guidance_rescale), draws=draws,
-                                 added_cond=added_cond)
+        loop_args = dict(init_latents=init_latents, t_start_index=t_start,
+                         guidance_rescale=float(guidance_rescale), draws=draws)
+        if spec.sd3:
+            latents = flow_euler_sample_latents(
+                cast(unet_params), cond, uncond, pooled_c, pooled_u, generator, spec,
+                int(steps), float(cfg_scale), int(height), int(width), batch, **loop_args)
+        else:
+            latents = _LOOPS[method](cast(unet_params), cond, uncond, generator, spec,
+                                     int(steps), float(cfg_scale), int(height), int(width),
+                                     batch, added_cond=added_cond, **loop_args)
         z = latents / latents.new_full((), spec.vae_config.scaling_factor)
         if spec.vae_config.shift_factor:
             z = z + z.new_full((), spec.vae_config.shift_factor)

@@ -9,7 +9,15 @@ back in place. Two switches make it compute each caller's chain exactly:
   ``bc = (1 - b1^t, 1 - b2^t)`` (the lab kernel; the int8 path's fp32-moment
   leaves), or divide by them (``scale_by_adam_low_memory``, the AdamW path);
 * ``sr_step`` / ``sr_salt``: store nu by the counter-hash stochastic rounding
-  to bf16 (``ops/sr.py``) instead of rounding to nearest.
+  to bf16 (``ops/sr.py``) instead of rounding to nearest;
+* ``xla``: round as XLA's fusion of plain ``optax.scale_by_adam`` does under
+  the JAX trainer's jit (the AdamW / Adam path without a moment dtype):
+  ``1-b1``, ``1-b2`` and ``g*g`` rounded to the gradient's dtype, each
+  moment's multiply-add as the one fma XLA contracts it into, and
+  ``m / (bc1 * (sqrt(v / bc2) + eps))`` with the bias corrections of
+  ``bias_corrections`` (the fp32 power taken in fp64); in the grouped entry
+  also the decay as one fma, ``u + p * wd``. It takes fp32 moments, and in the
+  grouped entry fp32 masters and updates.
 
 Two entry points:
 
@@ -37,8 +45,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .sr import (MASTER_SALT, NU_SALT, apply_update_reference, dither_seed, leaf_salt,
-                 sqrt_rn, stochastic_round_bf16_cheap)
+from .sr import (MASTER_SALT, NU_SALT, apply_update_reference, dither_seed, fma_f32,
+                 leaf_salt, sqrt_rn, stochastic_round_bf16_cheap)
 
 # Storage dtypes the kernel reads and writes, by the code it takes.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -64,16 +72,43 @@ def _factors(bc, recip_bc: bool) -> tuple[float, float]:
     return float(c1), float(c2)
 
 
+def _one_minus(b: float, dtype: torch.dtype) -> float:
+    """``1 - b`` (python's double) as a weak-typed scalar of ``dtype`` in JAX:
+    rounded to fp32, then to ``dtype``."""
+    return float(torch.tensor(1.0 - b, dtype=torch.float32).to(dtype).float())
+
+
+def _xla_moments(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, b1: float, b2: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The moments as XLA's fused ``scale_by_adam`` rounds them (see the
+    kernel's ``xla_mu`` / ``xla_nu``)."""
+    omb1, omb2 = _one_minus(b1, g.dtype), _one_minus(b2, g.dtype)
+    g32 = g.float()
+    gg = g32 * g32
+    if g.dtype == torch.float32:
+        return fma_f32(omb1, g32, mu.float() * b1), fma_f32(omb2, gg, nu.float() * b2)
+    # 2-byte gradient: omb * g and omb * round(g * g) are exact in fp32
+    return (fma_f32(b1, mu.float(), g32 * omb1),
+            fma_f32(b2, nu.float(), gg.to(g.dtype).float() * omb2))
+
+
 def adam_bf16_fused_update_reference(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                                      bc, *, b1: float, b2: float, eps: float,
                                      out_dtype: torch.dtype, recip_bc: bool,
                                      sr_step: Optional[int] = None,
-                                     sr_salt: Optional[int] = None
+                                     sr_salt: Optional[int] = None, xla: bool = False
                                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version: (out, mu, nu), every operation rounded to fp32 on its
-    own; mu stored rounded to nearest, nu by SR when ``sr_step`` is given."""
+    own (``xla``: as XLA's fusion rounds); mu stored rounded to nearest, nu
+    by SR when ``sr_step`` is given."""
     c1, c2 = _factors(bc, recip_bc)
     g32 = g.float()
+    if xla:
+        m, v = _xla_moments(g, mu, nu, b1, b2)
+        out = m / (c1 * (sqrt_rn(v / v.new_full((), c2)) + eps))
+        mu.copy_(m)
+        nu.copy_(v)
+        return out.to(out_dtype), mu, nu
     m = mu.float() * b1 + g32 * (1.0 - b1)
     v = nu.float() * b2 + (g32 * g32) * (1.0 - b2)
     if recip_bc:
@@ -85,6 +120,13 @@ def adam_bf16_fused_update_reference(g: torch.Tensor, mu: torch.Tensor, nu: torc
     mu.copy_(m)
     nu.copy_(v if sr_step is None else stochastic_round_bf16_cheap(v, sr_step, sr_salt))
     return out.to(out_dtype), mu, nu
+
+
+def _check_xla(xla: bool, recip_bc: bool, sr: bool, mu_dtype: torch.dtype,
+               nu_dtype: torch.dtype) -> None:
+    if xla and (recip_bc or sr or mu_dtype != torch.float32 or nu_dtype != torch.float32):
+        raise ValueError("adam_bf16_fused: xla rounding takes fp32 moments, no SR and "
+                         "recip_bc=False")
 
 
 def _check(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, out_dtype: torch.dtype) -> None:
@@ -105,19 +147,21 @@ def _check(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, out_dtype: torch
 def adam_bf16_fused_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, bc, *,
                            b1: float, b2: float, eps: float, out_dtype: torch.dtype,
                            recip_bc: bool, sr_step: Optional[int] = None,
-                           sr_salt: Optional[int] = None
+                           sr_salt: Optional[int] = None, xla: bool = False
                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Adam step over a leaf: (out in ``out_dtype``, mu, nu), the
     moments updated in place.
 
     g, mu, nu: tensors of one shape, each fp32, bf16 or fp16 (the moments in
-    their storage dtype). bc: the fp32 bias corrections (1 - b1^t, 1 - b2^t)."""
+    their storage dtype). bc: the fp32 bias corrections (1 - b1^t, 1 - b2^t).
+    xla: XLA's rounding of plain ``scale_by_adam`` (fp32 moments)."""
     if (sr_step is None) != (sr_salt is None):
         raise ValueError("adam_bf16_fused: give both sr_step and sr_salt, or neither")
+    _check_xla(xla, recip_bc, sr_step is not None, mu.dtype, nu.dtype)
     if not g.is_cuda:
         return adam_bf16_fused_update_reference(
             g, mu, nu, bc, b1=b1, b2=b2, eps=eps, out_dtype=out_dtype, recip_bc=recip_bc,
-            sr_step=sr_step, sr_salt=sr_salt)
+            sr_step=sr_step, sr_salt=sr_salt, xla=xla)
     _check(g, mu, nu, out_dtype)
     out = torch.empty(g.shape, dtype=out_dtype, device=g.device)
     if g.numel() == 0:
@@ -125,29 +169,43 @@ def adam_bf16_fused_update(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, 
     c1, c2 = _factors(bc, recip_bc)
     sr = sr_step is not None
     seed = dither_seed(sr_step, sr_salt) if sr else 0
+    omb1, omb2 = _one_minus_args(b1, b2, g.dtype, xla)
     f32 = ctypes.c_float
     lib = _build.load_library()
     with torch.cuda.device(g.device):
         err = lib.ssdt_adam_bf16_fused(
             g.data_ptr(), mu.data_ptr(), nu.data_ptr(), out.data_ptr(), g.numel(),
             DTYPE_CODES[g.dtype], DTYPE_CODES[mu.dtype],
-            DTYPE_CODES[nu.dtype], DTYPE_CODES[out_dtype], f32(b1), f32(b2), f32(1.0 - b1),
-            f32(1.0 - b2), f32(eps), f32(c1), f32(c2), int(recip_bc), int(sr), seed,
+            DTYPE_CODES[nu.dtype], DTYPE_CODES[out_dtype], f32(b1), f32(b2), f32(omb1),
+            f32(omb2), f32(eps), f32(c1), f32(c2), int(recip_bc), int(sr), int(xla), seed,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "adam_bf16_fused", err)
     launches["adam_bf16_fused"] += 1
     return out, mu, nu
 
 
+def _one_minus_args(b1: float, b2: float, g_dtype: torch.dtype, xla: bool
+                    ) -> tuple[float, float]:
+    """The kernel's omb1, omb2: 1 - b (a float32 argument), rounded to the
+    gradient's dtype under ``xla``."""
+    if xla:
+        return _one_minus(b1, g_dtype), _one_minus(b2, g_dtype)
+    return 1.0 - b1, 1.0 - b2
+
+
 # ---- the grouped entry ----------------------------------------------------------
 
 def decay_and_schedule_reference(u: torch.Tensor, p: torch.Tensor, weight_decay: float,
-                                 step_size: float) -> torch.Tensor:
+                                 step_size: float, fma_decay: bool = False) -> torch.Tensor:
     """The decoupled weight decay and the schedule of one leaf's update, as
     the optimizers' chains round them: ``wd * p`` in the master's dtype (the
     python scalar rounded to it first, as JAX does), added in the update's
-    dtype, then times the step size rounded to the update's dtype."""
-    if weight_decay:
+    dtype (``fma_decay``: ``u + p * wd`` rounded once, as XLA contracts it;
+    fp32 masters and updates), then times the step size rounded to the
+    update's dtype."""
+    if weight_decay and fma_decay:
+        u = fma_f32(p, weight_decay, u)
+    elif weight_decay:
         u = u + (p * p.new_full((), weight_decay)).to(u.dtype)
     return u * u.new_full((), step_size)
 
@@ -272,7 +330,8 @@ def adam_bf16_fused_apply_reference(table: AdamTable, grads: Sequence[torch.Tens
                                     b1: float, b2: float, eps: float, recip_bc: bool,
                                     count: int, step: int, weight_decay: float,
                                     step_size: float,
-                                    update_dtype: Optional[torch.dtype] = None) -> None:
+                                    update_dtype: Optional[torch.dtype] = None,
+                                    xla: bool = False) -> None:
     """Plain version: the optimizer's chain leaf by leaf -- Adam (nu stored
     by SR at ``count`` where it is narrower than fp32), the update in
     ``update_dtype`` (None: the gradient's), decay and schedule, then the
@@ -284,15 +343,15 @@ def adam_bf16_fused_apply_reference(table: AdamTable, grads: Sequence[torch.Tens
               else {})
         out = adam_bf16_fused_update_reference(
             g.contiguous(), table.mu[i], nu, bc, b1=b1, b2=b2, eps=eps,
-            out_dtype=update_dtype or g.dtype, recip_bc=recip_bc, **sr)[0]
-        u = decay_and_schedule_reference(out, p, weight_decay, step_size)
+            out_dtype=update_dtype or g.dtype, recip_bc=recip_bc, xla=xla, **sr)[0]
+        u = decay_and_schedule_reference(out, p, weight_decay, step_size, fma_decay=xla)
         p.copy_(apply_update_reference(p, u, step, table.master_salts[i]))
 
 
 def adam_bf16_fused_apply(table: AdamTable, grads: Sequence[torch.Tensor], bc, *, b1: float,
                           b2: float, eps: float, recip_bc: bool, count: int, step: int,
                           weight_decay: float, step_size: float,
-                          update_dtype: Optional[torch.dtype] = None) -> None:
+                          update_dtype: Optional[torch.dtype] = None, xla: bool = False) -> None:
     """One Adam step and master apply over every leaf of ``table``, in one
     launch on a card; masters and moments are updated in place.
 
@@ -300,9 +359,16 @@ def adam_bf16_fused_apply(table: AdamTable, grads: Sequence[torch.Tensor], bc, *
     at ``count`` (the optimizer's count after this update); ``step``: the
     train step (the master SR's seed); step_size: ``-lr * schedule``;
     update_dtype: the update's dtype before the apply (None: the
-    gradients')."""
+    gradients'); xla: XLA's rounding of plain ``scale_by_adam`` and of the
+    decay (fp32 moments, masters and updates)."""
     kw = dict(b1=b1, b2=b2, eps=eps, recip_bc=recip_bc, count=count, step=step,
-              weight_decay=weight_decay, step_size=step_size, update_dtype=update_dtype)
+              weight_decay=weight_decay, step_size=step_size, update_dtype=update_dtype,
+              xla=xla)
+    if xla:
+        dtypes = {t.dtype for ts in (table.params, table.mu, table.nu) for t in ts}
+        if recip_bc or dtypes - {torch.float32} or update_dtype not in (None, torch.float32):
+            raise ValueError("adam_bf16_fused: xla rounding takes fp32 masters, moments and "
+                             "updates, and recip_bc=False")
     if table.device.type != "cuda":
         adam_bf16_fused_apply_reference(table, grads, bc, **kw)
         return
@@ -325,8 +391,9 @@ def adam_bf16_fused_apply(table: AdamTable, grads: Sequence[torch.Tensor], bc, *
             table.dev_records.data_ptr(), table.grads.upload(gs), table.dev_chunks.data_ptr(),
             len(table.chunks), CHUNK, DTYPE_CODES[g_dtype], DTYPE_CODES[mu_dtype],
             DTYPE_CODES[nu_dtype], DTYPE_CODES[p_dtype], DTYPE_CODES[u_dtype], f32(b1), f32(b2),
-            f32(1.0 - b1), f32(1.0 - b2), f32(eps), f32(c1), f32(c2), int(recip_bc),
-            int(nu_dtype.itemsize < 4), dither_seed(count, 0), int(bool(weight_decay)),
+            *map(f32, _one_minus_args(b1, b2, g_dtype, xla)), f32(eps), f32(c1), f32(c2),
+            int(recip_bc), int(nu_dtype.itemsize < 4), int(xla), dither_seed(count, 0),
+            int(bool(weight_decay)),
             f32(wd_p), f32(step_u), dither_seed(step, 0),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "adam_bf16_fused", err)

@@ -288,7 +288,7 @@ int ssdt_adam8_group(const void* leaves, const void* grads, const void* chunks, 
   using namespace ssdt;
   if (nchunks <= 0) return 0;
   const Adam8Hyper h{b1, b2, omb1, omb2, eps, inv_bc1, inv_bc2, g_dtype};
-  const ApplyArgs a{p_dtype, u_dtype, has_wd, wd_p, step_u, step_mix};
+  const ApplyArgs a{p_dtype, u_dtype, has_wd, 0, wd_p, step_u, step_mix};
   auto kernel = adam8_group_kernel<kAny, kAny, kAny>;
   if (g_dtype == kBF16 && p_dtype == kBF16 && u_dtype == kBF16)
     kernel = adam8_group_kernel<kBF16, kBF16, kBF16>;  // AdamW8bit, bf16 masters

@@ -9,7 +9,13 @@
 //             fp32-moment leaves) or divide by it (scale_by_adam_low_memory);
 //   sr     -- store nu by the counter-hash stochastic rounding to bf16 (the
 //             bf16-nu store of scale_by_adam_low_memory) instead of rounding
-//             to nearest (the lab kernel).
+//             to nearest (the lab kernel);
+//   xla    -- round as XLA's fusion of plain optax.scale_by_adam does (the
+//             moment-dtype-less AdamW / Adam under the JAX trainer's jit:
+//             1-b1, 1-b2 and g*g in the gradient's dtype, fmas where XLA
+//             contracts, one division by the folded bias corrections; in the
+//             grouped entry also the decay as one fma). adam_common.cuh,
+//             xla_mu / xla_nu / xla_step.
 // mu is always stored round-to-nearest.
 //
 // Two entry points share one body (adam_chunk):
@@ -43,7 +49,7 @@ constexpr long long kChunk = 8192;  // elements per CTA of the single-leaf entry
 
 struct AdamHyper {
   float b1, b2, omb1, omb2, eps, c1, c2;
-  int recip, sr;
+  int recip, sr, xla;
   int g_dtype, mu_dtype, nu_dtype;
 };
 
@@ -59,6 +65,12 @@ static_assert(sizeof(AdamLeaf) == 40, "AdamLeaf layout must match ops/adam_bf16_
 
 __device__ __forceinline__ void adam_core(float g, float m0, float v0, const AdamHyper& h,
                                           float& m, float& v, float& out) {
+  if (h.xla) {
+    m = xla_mu(m0, g, h.b1, h.omb1, h.g_dtype);
+    v = xla_nu(v0, g, h.b2, h.omb2, h.g_dtype);
+    out = xla_step(m, v, h.c1, h.c2, h.eps);
+    return;
+  }
   m = adam_mu(m0, g, h.b1, h.omb1);
   v = adam_nu(v0, g, h.b2, h.omb2);
   out = adam_step(m, v, h.c1, h.c2, h.eps, h.recip != 0);
@@ -161,14 +173,15 @@ extern "C" {
 
 // dtypes: 0 fp32, 1 bf16, 2 fp16. c1, c2: bias corrections (recip = 0) or
 // their fp32 reciprocals (recip = 1). seed: step * 0x9E3779B9 ^ salt (sr = 1).
-// mu and nu are updated in place.
+// xla = 1: XLA's rounding of plain scale_by_adam (recip = 0, omb1 and omb2
+// rounded to the gradient's dtype). mu and nu are updated in place.
 int ssdt_adam_bf16_fused(const void* g, void* mu, void* nu, void* out, long long n, int g_dtype,
                          int mu_dtype, int nu_dtype, int out_dtype, float b1, float b2,
                          float omb1, float omb2, float eps, float c1, float c2, int recip, int sr,
-                         unsigned int seed, void* stream) {
+                         int xla, unsigned int seed, void* stream) {
   using namespace ssdt;
   if (n <= 0) return 0;
-  const AdamHyper h{b1, b2, omb1, omb2, eps, c1, c2, recip, sr, g_dtype, mu_dtype, nu_dtype};
+  const AdamHyper h{b1, b2, omb1, omb2, eps, c1, c2, recip, sr, xla, g_dtype, mu_dtype, nu_dtype};
   const WriteUpdate epi{static_cast<char*>(out), out_dtype};
   const unsigned int blocks = (unsigned int)((n + kChunk - 1) / kChunk);
   auto kernel = adam_bf16_fused_kernel<kAny, kAny, kAny, kAny>;
@@ -188,20 +201,25 @@ int ssdt_adam_bf16_fused(const void* g, void* mu, void* nu, void* out, long long
 // (a multiple of 8). nu_mix = count * 0x9E3779B9 and step_mix = step *
 // 0x9E3779B9 (uint32), each xored with a leaf's salt. wd_p: weight decay
 // rounded to p_dtype; step_u: the schedule's step size rounded to u_dtype.
-// Moments and masters are updated in place.
+// xla = 1: XLA's rounding of plain scale_by_adam and of the decay (fp32
+// masters and updates). Moments and masters are updated in place.
 int ssdt_adam_bf16_group(const void* leaves, const void* grads, const void* chunks, int nchunks,
                          long long chunk, int g_dtype, int mu_dtype, int nu_dtype, int p_dtype,
                          int u_dtype, float b1, float b2, float omb1, float omb2, float eps,
-                         float c1, float c2, int recip, int sr, unsigned int nu_mix, int has_wd,
-                         float wd_p, float step_u, unsigned int step_mix, void* stream) {
+                         float c1, float c2, int recip, int sr, int xla, unsigned int nu_mix,
+                         int has_wd, float wd_p, float step_u, unsigned int step_mix,
+                         void* stream) {
   using namespace ssdt;
   if (nchunks <= 0) return 0;
-  const AdamHyper h{b1, b2, omb1, omb2, eps, c1, c2, recip, sr, g_dtype, mu_dtype, nu_dtype};
-  const ApplyArgs a{p_dtype, u_dtype, has_wd, wd_p, step_u, step_mix};
+  const AdamHyper h{b1, b2, omb1, omb2, eps, c1, c2, recip, sr, xla, g_dtype, mu_dtype, nu_dtype};
+  const ApplyArgs a{p_dtype, u_dtype, has_wd, xla, wd_p, step_u, step_mix};
   auto kernel = adam_bf16_group_kernel<kAny, kAny, kAny, kAny, kAny>;
   if (g_dtype == kBF16 && mu_dtype == kBF16 && nu_dtype == kBF16 && p_dtype == kBF16 &&
       u_dtype == kF32)
     kernel = adam_bf16_group_kernel<kBF16, kBF16, kBF16, kBF16, kF32>;  // AdamW
+  else if (g_dtype == kBF16 && mu_dtype == kF32 && nu_dtype == kF32 && p_dtype == kF32 &&
+           u_dtype == kF32)
+    kernel = adam_bf16_group_kernel<kBF16, kF32, kF32, kF32, kF32>;  // AdamW, the default
   else if (g_dtype == kBF16 && mu_dtype == kF32 && nu_dtype == kF32 && p_dtype == kBF16 &&
            u_dtype == kBF16)
     kernel = adam_bf16_group_kernel<kBF16, kF32, kF32, kBF16, kBF16>;  // AdamW8bit

@@ -31,7 +31,9 @@
 //   p = SR_bf16(p + u) for bf16 masters, round_P(p + round_P(u)) otherwise,
 // with U the update's dtype (fp32 for AdamW, the gradient's for AdamW8bit),
 // P the master's, wd_P = round_P(wd) and step_U = round_U(-lr * schedule)
-// computed on the host. The update-only entries store round_out(out).
+// computed on the host; under XLA rounding (fp32 masters and updates) the
+// decay is one fma, u = fma(p, wd_P, u). The update-only entries store
+// round_out(out).
 
 #pragma once
 
@@ -207,6 +209,29 @@ __device__ __forceinline__ float adam_step(float m, float v, float c1, float c2,
   return __fdiv_rn(mh, __fadd_rn(__fsqrt_rn(vh), eps));
 }
 
+// Adam as XLA fuses plain optax.scale_by_adam (the moment-dtype-less path,
+// under the JAX trainer's jit): 1-b1 and 1-b2 (omb1, omb2) rounded to the
+// gradient's dtype on the host, g*g rounded to it here; each moment's two
+// products and sum contracted into one fma, the one XLA's CPU backend
+// contracts (the moment's product for a 2-byte gradient, whose own product is
+// then exact, the gradient's for an fp32 one); and the two divisions by the
+// bias corrections folded into one, m / (c1 * (sqrt(v / c2) + eps)), as XLA's
+// simplifier folds (a / b) / c.
+__device__ __forceinline__ float xla_mu(float m, float g, float b1, float omb1, int g_dtype) {
+  return g_dtype == kF32 ? __fmaf_rn(omb1, g, __fmul_rn(b1, m))
+                         : __fmaf_rn(b1, m, __fmul_rn(omb1, g));
+}
+
+__device__ __forceinline__ float xla_nu(float v, float g, float b2, float omb2, int g_dtype) {
+  const float gg = __fmul_rn(g, g);
+  return g_dtype == kF32 ? __fmaf_rn(omb2, gg, __fmul_rn(b2, v))
+                         : __fmaf_rn(b2, v, __fmul_rn(omb2, round_to(g_dtype, gg)));
+}
+
+__device__ __forceinline__ float xla_step(float m, float v, float c1, float c2, float eps) {
+  return __fdiv_rn(m, __fmul_rn(c1, __fadd_rn(__fsqrt_rn(__fdiv_rn(v, c2)), eps)));
+}
+
 // ---- epilogues -----------------------------------------------------------------
 //
 // An epilogue takes Adam's step `out` of element i and stores what the
@@ -229,6 +254,7 @@ struct WriteUpdate {
 // The scalars of the master apply that every leaf of a launch shares.
 struct ApplyArgs {
   int p_dtype, u_dtype, has_wd;
+  int fma_decay;      // the decay as one fma, u + p * wd (XLA's contraction)
   float wd_p;         // weight decay rounded to the master's dtype
   float step_u;       // -lr * schedule(count), rounded to the update's dtype
   uint32_t step_mix;  // step * 0x9E3779B9; a leaf's seed is step_mix ^ its salt
@@ -242,7 +268,9 @@ struct ApplyToMaster {
 
   __device__ __forceinline__ float update(float out, float pv) const {
     float u = round_to(a.u_dtype, out);
-    if (a.has_wd)
+    if (a.has_wd && a.fma_decay)
+      u = round_to(a.u_dtype, __fmaf_rn(pv, a.wd_p, u));
+    else if (a.has_wd)
       u = round_to(a.u_dtype,
                    __fadd_rn(u, round_to(a.u_dtype, round_to(a.p_dtype, __fmul_rn(pv, a.wd_p)))));
     return round_to(a.u_dtype, __fmul_rn(u, a.step_u));

@@ -110,6 +110,35 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return x.double().sqrt().float().to(x.dtype)
 
 
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to fp32, as a card's ``fmaf`` and XLA's
+    contracted multiply-adds compute it; operands are fp32 tensors or python
+    floats (rounded to fp32 first). In fp64 the product is exact and the sum
+    is rounded once; only where that rounded sum lies exactly halfway
+    between two fp32 values could a second rounding go the wrong way, and
+    there it is moved one fp64 ulp toward the exact sum (TwoSum's error
+    term) first."""
+    ref = next(t for t in (a, b, c) if torch.is_tensor(t))
+
+    def f64(t):
+        if torch.is_tensor(t):
+            return t.float().double()
+        return torch.tensor(float(torch.tensor(t, dtype=torch.float32)), dtype=torch.float64,
+                            device=ref.device)
+
+    a, b, c = f64(a), f64(b), f64(c)
+    s = a * b
+    t = s + c
+    bb = t - s
+    err = (s - (t - bb)) + (c - bb)
+    r = t.float()
+    inf = torch.full_like(r, math.inf)
+    side = torch.nextafter(r, torch.where(t > r.double(), inf, -inf))
+    tie = (t != r.double()) & (t == (r.double() + side.double()) * 0.5)
+    toward = torch.where(err > 0, inf.double(), -inf.double())
+    return torch.where(tie & (err != 0), torch.nextafter(t, toward).float(), r)
+
+
 def apply_update_reference(p: torch.Tensor, u: torch.Tensor, step: int, salt: int
                            ) -> torch.Tensor:
     """A master plus its update, as a new tensor: bf16 masters add in fp32

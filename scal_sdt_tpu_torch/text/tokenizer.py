@@ -13,8 +13,11 @@ A directory with ``vocab.json`` and ``merges.txt`` loads the native CLIP-BPE
 tokenizer (``text/bpe.py``). Not ported yet, and refused with an error: the
 ``tokenizer_backend: transformers`` route, a vocab directory without
 ``merges.txt`` (which only transformers reads), and a hub id as
-``config.model`` (the JAX package downloads its tokenizer). SD3's T5
-tokenizer comes with the SD3 slice.
+``config.model`` (the JAX package downloads its tokenizer).
+
+SD3's third tokenizer (T5's SentencePiece unigram, ``T5TokenizerWrapper``,
+found by ``resolve_t5_tokenizer``) runs on the ``tokenizers`` package over
+``tokenizer_3/tokenizer.json``, imported only when such a file is found.
 
 Tokenization is host-side: the device step consumes int32 ids.
 """
@@ -47,6 +50,66 @@ class PromptTokenizer:
 
     def add_tokens(self, tokens: list[str]) -> int:
         raise NotImplementedError
+
+
+class T5TokenizerWrapper(PromptTokenizer):
+    """SD3's third tokenizer (T5's SentencePiece unigram) on the
+    ``tokenizers`` runtime over ``tokenizer_3/tokenizer.json``.
+
+    T5's rules: no BOS; EOS (``</s>``, id 1) appended by the file's own
+    post-processor; padded with id 0 to ``max_length``; truncated. diffusers
+    calls this length ``max_sequence_length`` (77 in the SD3 fine-tuning
+    recipes, 256 at inference); the config key is ``t5_max_length``."""
+
+    def __init__(self, tokenizer, max_length: int = MODEL_MAX_LENGTH, pad_id: int = 0):
+        self.tokenizer = tokenizer
+        self.max_length = int(max_length)
+        self.vocab_size = tokenizer.get_vocab_size()
+        tokenizer.enable_truncation(self.max_length)
+        tokenizer.enable_padding(length=self.max_length, pad_id=pad_id)
+
+    @classmethod
+    def from_file(cls, path, max_length: int = MODEL_MAX_LENGTH) -> "T5TokenizerWrapper":
+        try:
+            from tokenizers import Tokenizer
+        except ImportError as e:
+            raise ImportError(
+                f"{path}: the T5 tokenizer (tokenizer_3) needs the `tokenizers` package, "
+                "which is not installed; install it, train from a condition cache, or "
+                "remove text_encoder_3/ from the model directory") from e
+        return cls(Tokenizer.from_file(str(path)), max_length=max_length)
+
+    def add_tokens(self, tokens: list[str]) -> int:
+        n = self.tokenizer.add_tokens(list(tokens))
+        self.vocab_size = self.tokenizer.get_vocab_size()
+        return n
+
+    def __call__(self, prompts: Sequence[str]) -> np.ndarray:
+        encs = self.tokenizer.encode_batch(list(prompts))
+        return np.asarray([e.ids for e in encs], np.int32)
+
+
+def resolve_t5_tokenizer(config, t5_max_length: int = MODEL_MAX_LENGTH
+                         ) -> Optional[T5TokenizerWrapper]:
+    """``tokenizer_3/tokenizer.json`` under the model directory (or the
+    ``tokenizer_3:`` config key). None when absent: the caller decides
+    whether T5 conditioning without a tokenizer is an error (live training)
+    or fine (cache-backed runs). Raises, naming the package, when a file is
+    found and ``tokenizers`` is not installed."""
+    candidates = []
+    declared = config.get("tokenizer_3")
+    if declared:
+        candidates.append(Path(str(declared)))
+    model = config.get("model")
+    if model and Path(str(model)).is_dir():
+        candidates.append(Path(str(model)) / "tokenizer_3")
+    for cand in candidates:
+        f = cand / "tokenizer.json" if cand.is_dir() else cand
+        if f.exists():
+            logger.info(f"Loading T5 tokenizer from {f}")
+            return T5TokenizerWrapper.from_file(
+                f, max_length=int(config.get("t5_max_length") or t5_max_length))
+    return None
 
 
 class HashTokenizer(PromptTokenizer):

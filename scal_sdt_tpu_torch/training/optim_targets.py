@@ -6,7 +6,9 @@ schema) resolves against the dotted keys of the flat param dict: "submodule"
 is "key prefix". The result is the trainable keys, ordered param groups with
 optimizer overrides, and the LoRA specs of the modules a ``lora:`` node
 names: such a module trains its ``lora_A`` / ``lora_B`` factors (injected by
-``training/lora.py``), one group per module.
+``training/lora.py``), one group per module. The fixed buffers in
+``BUFFERS`` (the MMDiT's sincos ``pos_embed``) never become trainable, even
+under a target that selects their module.
 """
 
 from __future__ import annotations
@@ -18,7 +20,13 @@ from ..conf import Config, merge
 
 # Checkpoint namespace of each component, as in the JAX training step.
 COMPONENT_PREFIX = {"unet": "unet", "text_encoder": "condition_model.encoder",
-                    "text_encoder_2": "condition_model.encoder_2"}
+                    "text_encoder_2": "condition_model.encoder_2",
+                    "text_encoder_3": "condition_model.encoder_3"}
+
+# Fixed buffers that never train even when a target's subtree selects them
+# (torch registers them as buffers, not parameters): the MMDiT's sincos
+# positional table (diffusers PatchEmbed.pos_embed).
+BUFFERS = ("pos_embed.pos_embed",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +87,8 @@ def resolve_targets(component_targets: list, param_keys: Iterable[str]) -> Targe
                                            dropout=float(lora.get("dropout", 0.0)))
             keys = [f"{prefix}.lora_A", f"{prefix}.lora_B"]
         else:
-            keys = _module_param_keys(param_keys, prefix)
+            keys = [k for k in _module_param_keys(param_keys, prefix)
+                    if k not in BUFFERS and not k.endswith(tuple("." + b for b in BUFFERS))]
             if not keys:
                 raise KeyError(f"Optim target {prefix} matches no parameters")
         result.trainable.extend(keys)

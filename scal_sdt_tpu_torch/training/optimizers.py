@@ -6,8 +6,13 @@ each group running the JAX chain in the same order and precision.
   storage, bf16 nu stored by stochastic rounding with the counter-hash
   dither), then decoupled weight decay as ``optax.add_decayed_weights``
   computes it (``wd * p`` in the param dtype, added to the fp32 update),
-  then the lr schedule (``-lr * schedule(count)``). This is not
-  ``torch.optim.AdamW``, whose storage and rounding differ.
+  then the lr schedule (``-lr * schedule(count)``). Without a moment dtype
+  and with fp32 masters (the default config) the JAX chain is plain
+  ``optax.scale_by_adam``, and the kernel runs in its ``xla`` mode: the
+  rounding of that chain, and of the decay, as XLA fuses them in the JAX
+  trainer's jitted step (``1-b1``, ``1-b2`` and ``g^2`` in the gradient's
+  dtype, fmas where XLA contracts). This is not ``torch.optim.AdamW``, whose
+  storage and rounding differ.
 * Adam: AdamW's chain without the decay, whatever ``weight_decay`` says (the
   JAX chain has none), on the same kernel with the decay switched off.
 * AdamW8bit: ``Adam8bit`` (``training/quantized.py``; the update in the
@@ -54,7 +59,7 @@ from ..conf import Config
 from ..ops.adam_bf16_fused import (adam_bf16_fused_apply, adam_bf16_fused_update,
                                    build_adam_table, decay_and_schedule_reference)
 from ..ops.sr import NU_SALT, leaf_salt
-from .families import SGD, Adafactor, DAdaptAdamW, Lion, Prodigy, int_pow_f32, step_size_of
+from .families import SGD, Adafactor, DAdaptAdamW, Lion, Prodigy, step_size_of
 from .packing import PackSpec
 from .quantized import Adam8bit, Adam8bitState, bias_corrections
 from .schedules import Schedule, build_lr_schedule
@@ -151,14 +156,11 @@ class AdamW:
     moment_dtypes: Optional[tuple[torch.dtype, torch.dtype]] = None
     _tables: dict = _cache_field()   # the group's leaf table, built on first use
 
-    def _bias_corrections(self, count: int) -> tuple[np.float32, np.float32]:
-        """(1 - b1^count, 1 - b2^count) in fp32: the low-memory chain raises
-        to the count as fp32, plain ``optax.scale_by_adam`` (no moment
-        dtypes) to the int32 count, by repeated squaring."""
-        if self.moment_dtypes:
-            return bias_corrections(self.b1, self.b2, count)
-        one = np.float32(1.0)
-        return one - int_pow_f32(self.b1, count), one - int_pow_f32(self.b2, count)
+    @property
+    def xla(self) -> bool:
+        """Plain ``optax.scale_by_adam`` in JAX (no moment dtypes): the
+        kernel's ``xla`` rounding."""
+        return self.moment_dtypes is None
 
     def init(self, params: Tensors) -> AdamState:
         def zeros(i):
@@ -170,7 +172,7 @@ class AdamW:
     def update(self, grads: Tensors, state: AdamState, params: Tensors
                ) -> tuple[Tensors, AdamState]:
         count = state.count + 1
-        bc = self._bias_corrections(count)
+        bc = bias_corrections(self.b1, self.b2, count)
         step_size = step_size_of(self.lr, self.schedule, state.count)
         updates = {}
         for k in sorted(grads):
@@ -179,9 +181,9 @@ class AdamW:
                   if nu.dtype.itemsize < 4 else {})
             out = adam_bf16_fused_update(
                 grads[k].contiguous(), state.mu[k], nu, bc, b1=self.b1, b2=self.b2,
-                eps=self.eps, out_dtype=torch.float32, recip_bc=False, **sr)[0]
+                eps=self.eps, out_dtype=torch.float32, recip_bc=False, xla=self.xla, **sr)[0]
             updates[k] = decay_and_schedule_reference(out, params[k], self.weight_decay,
-                                                      step_size)
+                                                      step_size, fma_decay=self.xla)
         return updates, AdamState(count=count, mu=state.mu, nu=state.nu)
 
     def update_and_apply(self, grads: Tensors, state: AdamState, params: Tensors,
@@ -195,11 +197,11 @@ class AdamW:
             table = self._tables["adam"] = build_adam_table(keys, ps, mu, nu)
         count = state.count + 1
         adam_bf16_fused_apply(
-            table, [grads[k] for k in keys], self._bias_corrections(count),
+            table, [grads[k] for k in keys], bias_corrections(self.b1, self.b2, count),
             b1=self.b1, b2=self.b2, eps=self.eps, recip_bc=False, count=count, step=step,
             weight_decay=self.weight_decay,
             step_size=step_size_of(self.lr, self.schedule, state.count),
-            update_dtype=torch.float32)
+            update_dtype=torch.float32, xla=self.xla)
         return AdamState(count=count, mu=state.mu, nu=state.nu)
 
 

@@ -26,7 +26,7 @@ import torch
 from ..diffusion.sampler import SamplerSpec, fold_seed, sample_images
 from ..models.functional import sub_params
 from ..utils.logging import is_main_process
-from .step import TE2_PREFIX, TE_PREFIX, UNET_PREFIX, VAE_PREFIX
+from .step import TE2_PREFIX, TE3_PREFIX, TE_PREFIX, UNET_PREFIX, VAE_PREFIX
 
 logger = logging.getLogger("sampling")
 
@@ -48,13 +48,15 @@ class SampleCallback:
         unet_params = sub_params(merged, UNET_PREFIX)
         vae_params = sub_params(merged, VAE_PREFIX)
         clip_params = sub_params(merged, TE_PREFIX)
-        clip2_params = (sub_params(merged, TE2_PREFIX) if trainer.models.clip2 is not None
-                        else None)
+        models = trainer.models
+        clip2_params = sub_params(merged, TE2_PREFIX) if models.clip2 is not None else None
+        t5_params = sub_params(merged, TE3_PREFIX) if models.t5 is not None else None
         spec = SamplerSpec(
-            unet_config=trainer.models.unet_config, vae_config=trainer.models.vae_config,
-            clip_config=trainer.models.clip_config, schedule=trainer.models.schedule,
+            unet_config=models.unet_config, vae_config=models.vae_config,
+            clip_config=models.clip_config, schedule=models.schedule,
             clip_stop_at_layer=int(trainer.config.get("clip_stop_at_layer", 1)),
-            clip2_config=trainer.models.clip2_config)
+            clip2_config=models.clip2_config, mmdit_config=models.mmdit_config,
+            t5_config=models.t5_config if models.t5 is not None else None)
 
         save_dir = self.sample_dir / str(global_step)
         save_dir.mkdir(parents=True, exist_ok=True)
@@ -83,6 +85,8 @@ class SampleCallback:
                         "guidance_rescale", sampling.get("guidance_rescale", 0.0))),
                     device=trainer.device,
                     clip2_params=clip2_params,
+                    t5_params=t5_params,
+                    tokenizer_3=trainer.pipeline.tokenizer_3,
                 )
                 images.extend(out)
                 remaining -= n

@@ -1,5 +1,5 @@
-"""The training step (port of ``scal_sdt_tpu/training/step.py``, SD1.x/2.x
-and SDXL branches).
+"""The training step (port of ``scal_sdt_tpu/training/step.py``: the
+SD1.x/2.x, SDXL and SD3 branches).
 
 ``compute_loss`` takes latents from the batch (cached) or from the VAE
 encoder and a sample of its Gaussian (``images``), conditionings from the
@@ -11,10 +11,16 @@ states concatenated (tower 2's ids zeroed after the first EOS, as SDXL's
 second tokenizer pads), the pooled projected embedding of tower 2 and the
 size ids (``size_cond`` of the batch, or the target size with zero crop)
 feed the UNet's text_time embedding; CFG dropout 'zeros' drops the pooled
-embedding with the conds; a cached SDXL batch carries ``pooled``. Then
-q-sample (with the optional
-noise offset and multires noise), UNet, MSE against the schedule target in
-fp32, optional min-SNR weighting and prior preservation. ``make_train_step``
+embedding with the conds; a cached SDXL batch carries ``pooled``. SD3 (an
+MMDiT, ``StepSpec.mmdit_config``, under a ``FlowSchedule``): the conds are
+``models/mmdit.encode_sd3`` of both projected CLIP towers and, when the
+model has it (``t5_config``), T5 on ``t5_ids`` (T5's own empty-prompt ids
+under 'eos'); the pooled embedding feeds the MMDiT's adaLN; a cached SD3
+batch carries ``pooled``; CFG dropout 'zeros' zeroes both. Then q-sample
+(with the optional noise offset and multires noise), the denoiser (the UNet
+or the MMDiT), MSE against the schedule target in fp32 (the flow velocity
+for SD3), optional min-SNR weighting (refused under flow) and prior
+preservation. ``make_train_step``
 takes gradients with respect to a compute-dtype copy of the trainable dict
 (bf16 gradients, as in the JAX step), then runs the optimizer and applies
 the update to the masters in one fused call per group
@@ -38,8 +44,9 @@ encode), the CFG-dropout scalar, then noise, timesteps, offset and octaves.
 Each LoRA layer draws its dropout mask from a generator of its own seeded
 from the base seed and its name (``models/functional.py`` ``LoRADropout``),
 so the recompute of a checkpointed block draws the same mask; the UNet and
-both text towers share the base seed, as they share JAX's ``rng_lora``. The
-SD3 branches are a later slice (ROADMAP 1.16).
+both text towers share the base seed, as they share JAX's ``rng_lora`` (SD3's
+T5 takes no LoRA dropout, as in JAX). Timesteps are integers under a DDPM
+schedule and fp32 floats under the flow schedule.
 """
 
 from __future__ import annotations
@@ -54,6 +61,8 @@ from ..conf import Config
 from ..diffusion.schedule import NoiseSchedule
 from ..models.clip import CLIPTextConfig, clip_text_apply, encode_sdxl
 from ..models.functional import LORA_DROPOUT, LoRADropout, Params, lora_dropout_rates, scaled
+from ..models.mmdit import MMDiTConfig, encode_sd3, mmdit_apply
+from ..models.t5 import T5Config
 from ..models.unet import UNetConfig, unet_apply
 from ..models.vae import VAEConfig, encoder_apply, latent_noise, sample_latents
 from ..ops.sr import MASTER_SALT, apply_update_reference, leaf_salt
@@ -63,6 +72,7 @@ from .optim_targets import COMPONENT_PREFIX
 UNET_PREFIX = COMPONENT_PREFIX["unet"]
 TE_PREFIX = COMPONENT_PREFIX["text_encoder"]
 TE2_PREFIX = COMPONENT_PREFIX["text_encoder_2"]
+TE3_PREFIX = COMPONENT_PREFIX["text_encoder_3"]
 VAE_PREFIX = "vae"
 UNCOND_MODES = ("zeros", "eos")
 
@@ -78,8 +88,8 @@ class TrainState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class StepSpec:
     """Static configuration of the step."""
-    unet_config: UNetConfig
-    schedule: NoiseSchedule
+    unet_config: Optional[UNetConfig]   # None for SD3 (mmdit_config)
+    schedule: NoiseSchedule             # a FlowSchedule for SD3
     compute_dtype: torch.dtype
     remat: object = False     # False | True | 'high' | 'top' (see unet_apply)
     prior_preservation: bool = False
@@ -97,8 +107,11 @@ class StepSpec:
     uncond_p: float = 0.1
     uncond_mode: str = "zeros"        # 'zeros' | 'eos'
     train_text_encoder: bool = False
-    # SDXL's second text tower (None for SD1.x/2.x)
+    # SDXL's and SD3's second text tower (None for SD1.x/2.x)
     clip2_config: Optional[CLIPTextConfig] = None
+    # SD3: the MMDiT denoiser and the optional T5 tower
+    mmdit_config: Optional[MMDiTConfig] = None
+    t5_config: Optional[T5Config] = None
 
     def __post_init__(self):
         if self.uncond_mode not in UNCOND_MODES:
@@ -107,15 +120,22 @@ class StepSpec:
 
     @property
     def sdxl(self) -> bool:
-        return self.unet_config.addition_embed_type == "text_time"
+        return (self.unet_config is not None
+                and self.unet_config.addition_embed_type == "text_time")
+
+    @property
+    def sd3(self) -> bool:
+        return self.mmdit_config is not None
 
     @classmethod
-    def from_config(cls, config: Config, unet_config: UNetConfig,
+    def from_config(cls, config: Config, unet_config: Optional[UNetConfig],
                     schedule: Optional[NoiseSchedule] = None, *,
                     vae_config: Optional[VAEConfig] = None,
                     clip_config: Optional[CLIPTextConfig] = None,
                     train_text_encoder: bool = False,
-                    clip2_config: Optional[CLIPTextConfig] = None) -> "StepSpec":
+                    clip2_config: Optional[CLIPTextConfig] = None,
+                    mmdit_config: Optional[MMDiTConfig] = None,
+                    t5_config: Optional[T5Config] = None) -> "StepSpec":
         precision = config.trainer.get("precision", "bf16")
         loss = config.get("loss") or {}
         gc = config.get("gradient_checkpointing", False)
@@ -140,6 +160,8 @@ class StepSpec:
             uncond_mode=uncond.get("cond", "zeros"),
             train_text_encoder=train_text_encoder,
             clip2_config=clip2_config,
+            mmdit_config=mmdit_config,
+            t5_config=t5_config,
         )
 
 
@@ -147,7 +169,7 @@ class StepSpec:
 class Draws:
     """The random numbers of one ``compute_loss`` call (NCHW)."""
     noise: torch.Tensor                      # (B, C, h, w)
-    timesteps: torch.Tensor                  # (B,) integer
+    timesteps: torch.Tensor                  # (B,) integer, or fp32 under flow
     offset: Optional[torch.Tensor] = None    # (B, C, 1, 1), with noise_offset
     octaves: tuple[torch.Tensor, ...] = ()   # multires octaves, coarsest last
     latent_noise: Optional[torch.Tensor] = None  # (B, C, h, w), with 'images'
@@ -247,10 +269,11 @@ def _encode_conds(trainable: Params, frozen: Params, batch: dict, spec: StepSpec
     p`` the whole batch is dropped, to the empty prompt's ids ('eos', before
     any tower sees them) or to zero conds and pooled embedding ('zeros').
     SD1.x/2.x: CLIP at ``clip_stop_at_layer``, no pooled embedding; SDXL:
-    both towers (``encode_sdxl``)."""
-    if spec.clip_config is None or (spec.sdxl and spec.clip2_config is None):
+    both towers (``encode_sdxl``); SD3: both towers and T5 (``encode_sd3``),
+    T5's ids dropped to ``t5_uncond_ids`` in mode 'eos'."""
+    if spec.clip_config is None or ((spec.sdxl or spec.sd3) and spec.clip2_config is None):
         raise ValueError("a batch of input_ids needs StepSpec.clip_config (and for SDXL "
-                         "clip2_config)")
+                         "and SD3 clip2_config)")
     dt = spec.compute_dtype
     te_params = _merged_component(trainable, frozen, TE_PREFIX, dt)
     if dropout is not None:
@@ -259,10 +282,22 @@ def _encode_conds(trainable: Params, frozen: Params, batch: dict, spec: StepSpec
     drop = uncond_u < spec.uncond_p if spec.uncond_enabled else None
     if drop is not None and spec.uncond_mode == "eos":
         input_ids = torch.where(drop, batch["uncond_ids"].expand_as(input_ids), input_ids)
-    if spec.sdxl:
+    if spec.sdxl or spec.sd3:
         te2_params = _merged_component(trainable, frozen, TE2_PREFIX, dt)
         if dropout is not None:
             te2_params[LORA_DROPOUT] = dropout
+    if spec.sd3:
+        t5 = {}
+        if spec.t5_config is not None:
+            t5_ids = batch["t5_ids"]
+            if drop is not None and spec.uncond_mode == "eos" and "t5_uncond_ids" in batch:
+                t5_ids = torch.where(drop, batch["t5_uncond_ids"].expand_as(t5_ids), t5_ids)
+            t5 = {"t5_params": _merged_component(trainable, frozen, TE3_PREFIX, dt),
+                  "t5_ids": t5_ids, "t5_config": spec.t5_config}
+        conds, pooled = encode_sd3(te_params, te2_params, input_ids, spec.clip_config,
+                                   spec.clip2_config, spec.mmdit_config.joint_attention_dim,
+                                   **t5)
+    elif spec.sdxl:
         conds, pooled = encode_sdxl(te_params, te2_params, input_ids, spec.clip_config,
                                     spec.clip2_config)
     else:
@@ -294,10 +329,12 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
                  draws: Optional[Draws] = None) -> tuple[torch.Tensor, dict]:
     """The training loss of one batch.
 
-    batch: 'latents' (B, 4, h, w) pre-scaled or 'images' (B, 3, H, W) in
+    batch: 'latents' (B, C, h, w) pre-scaled or 'images' (B, 3, H, W) in
     [-1, 1]; 'conds' (B, L, D) or 'input_ids' (B, L) integer, with
-    'uncond_ids' (1, L) (the empty prompt's ids) for uncond mode 'eos'.
-    ``draws`` replaces the generator's draws when given."""
+    'uncond_ids' (1, L) (the empty prompt's ids) for uncond mode 'eos';
+    SDXL and SD3 caches carry 'pooled' (B, D2); SD3 with T5 takes 't5_ids'
+    (B, L3) and 't5_uncond_ids' (1, L3). ``draws`` replaces the generator's
+    draws when given."""
     dt = spec.compute_dtype
     latent_noise_ = uncond_u = None
     dropout = lora_dropout(generator, draws)
@@ -310,10 +347,12 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
         uncond_u = draws.uncond_u
     elif spec.uncond_enabled and "conds" not in batch:
         uncond_u = torch.rand((), generator=generator, device=latents.device)
-    added_cond = None
+    added_cond = pooled = None
     if "conds" in batch:
         conds = batch["conds"].to(dt)
-        if spec.sdxl:
+        if spec.sd3:
+            pooled = batch["pooled"].to(dt)
+        elif spec.sdxl:
             added_cond = {"text_embeds": batch["pooled"].to(dt),
                           "time_ids": size_time_ids(latents, spec)}
     else:
@@ -336,8 +375,12 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
     unet_params = _merged_component(trainable, frozen, UNET_PREFIX, dt)
     if dropout is not None:
         unet_params[LORA_DROPOUT] = dropout
-    pred = unet_apply(unet_params, noisy, timesteps, conds, spec.unet_config, remat=spec.remat,
-                      added_cond=added_cond)
+    if spec.sd3:
+        pred = mmdit_apply(unet_params, noisy, timesteps, conds, pooled.to(dt),
+                           spec.mmdit_config)
+    else:
+        pred = unet_apply(unet_params, noisy, timesteps, conds, spec.unet_config,
+                          remat=spec.remat, added_cond=added_cond)
 
     target = spec.schedule.training_target(latents, noise, timesteps)
     per_elem = torch.square(pred.float() - target.float())

@@ -10,14 +10,18 @@ fp32``) on its device, builds the data pipeline, the per-group optimizer
 the train step (with the EMA), and runs the epoch loop with logging,
 checkpoints, mid-epoch resume, the NaN tripwire, the SIGTERM autosave, the
 profiler and the in-training sample callback (``training/sample_callback.py``,
-fed by ``merged_inference_params``). An SDXL model's second text tower is a
-third component (``condition_model.encoder_2``), frozen unless the optim
-target's ``text_encoder_2`` section addresses it; an SDXL run from a cache
-needs its pooled embeddings (``{id}.pooled``).
+fed by ``merged_inference_params``). An SDXL or SD3 model's second text
+tower is a third component (``condition_model.encoder_2``), frozen unless
+the optim target's ``text_encoder_2`` section addresses it; an SDXL or SD3
+run from a cache needs its pooled embeddings (``{id}.pooled``). An SD3
+model's denoiser is its MMDiT, under the ``unet`` prefix, and its T5 tower
+(``condition_model.encoder_3``) is always frozen, as in the JAX package;
+live text encoding with T5 needs ``tokenizer_3/tokenizer.json`` (or the
+``tokenizer_3:`` key), which the pipeline runs beside the CLIP tokenizer.
 
 What the port has no counterpart for yet is refused, naming its ROADMAP
 item: more than one device (1.17, ``refuse_later_slices``, when the trainer
-is built) and SD3 models (1.16; the loader refuses their layout).
+is built).
 The trainer keys of the JAX package that steer XLA (compile caches, bucket
 warm-up, buffer donation) are accepted and do nothing in eager PyTorch; the
 trainer says so once. Its packing keys (``param_packing``, ``pack_min_size``,
@@ -50,15 +54,15 @@ from ..models.functional import set_lora_dropout_rates
 from ..ops import attention as attention_ops
 from ..text.embeddings import TOKEN_EMBEDDING_KEY, install_custom_embeddings, load_embeddings_dir
 from ..text.ti import TRAINED_EXTRA_KEY, parse_ti_specs, setup_ti_training
-from ..text.tokenizer import resolve_tokenizer
+from ..text.tokenizer import resolve_t5_tokenizer, resolve_tokenizer
 from ..utils.logging import is_main_process, world_size
 from .checkpoint import CheckpointManager, load_loop_state, restore_train_state
 from .lora import init_lora_params
 from .optim_targets import COMPONENT_PREFIX, group_labels, resolve_optim_target
 from .optimizers import build_optimizer
 from .packing import DEFAULT_MIN_SLAB_SIZE, PackSpec, build_pack_spec
-from .step import (TE2_PREFIX, TE_PREFIX, UNET_PREFIX, VAE_PREFIX, Draws, StepSpec,
-                   init_train_state, make_train_step)
+from .step import (TE2_PREFIX, TE3_PREFIX, TE_PREFIX, UNET_PREFIX, VAE_PREFIX, Draws,
+                   StepSpec, init_train_state, make_train_step)
 
 logger = logging.getLogger("trainer")
 
@@ -160,8 +164,8 @@ class Trainer:
         seed_gen = torch.Generator().manual_seed(seed)
         components = {"unet": dict(models.unet), "text_encoder": models.clip}
         if models.clip2 is not None:
-            # SDXL's tower 2 trains through the same optim-target engine
-            # (section `text_encoder_2:`); frozen when unaddressed
+            # SDXL's and SD3's tower 2 trains through the same optim-target
+            # engine (section `text_encoder_2:`); frozen when unaddressed
             components["text_encoder_2"] = dict(models.clip2)
         for comp, res in self.resolutions.items():
             if res.lora:
@@ -196,14 +200,15 @@ class Trainer:
                   False: torch.bfloat16 if compute_bf16 and str(
                       config.trainer.get("frozen_dtype", "compute")) != "fp32"
                   else torch.float32}
-        if models.is_sdxl and config.data.get("cache"):
-            # the pooled embedding feeds the text_time conditioning: a cache
-            # built against an SD1.x model cannot feed an SDXL one
+        if (models.is_sdxl or models.is_sd3) and config.data.get("cache"):
+            # the pooled embedding feeds SDXL's text_time conditioning and the
+            # MMDiT's adaLN: a cache built against an SD1.x model cannot feed
+            # these models
             probe = LatentCache(config.data.cache)
             first = probe.entries[0] if probe.entries else None
             if (first is not None and probe.cond(int(first)) is not None
                     and probe.pooled(int(first)) is None):
-                raise ValueError("SDXL training needs a cache with pooled embeddings "
+                raise ValueError("SDXL/SD3 training needs a cache with pooled embeddings "
                                  "({id}.pooled): rebuild it with cli.cache against this model")
         trainable: dict = {}
         frozen: dict = {}
@@ -213,6 +218,10 @@ class Trainer:
                   **_prefixed(models.vae, VAE_PREFIX)}
         if models.clip2 is not None:
             params.update(_prefixed(components["text_encoder_2"], TE2_PREFIX))
+        if models.t5 is not None:
+            # SD3's T5 conditions only: frozen, as the published SD3
+            # fine-tuning recipes and the JAX trainer keep it
+            params.update(_prefixed(models.t5, TE3_PREFIX))
         for k, v in params.items():
             is_trainable = k in trainable_keys
             if is_trainable:
@@ -229,8 +238,19 @@ class Trainer:
         dataset = get_dataset(config, use_cache=True)
         sampler = get_sampler(dataset, config, 1, 0)
         num_workers = config.get("num_workers")
+        # SD3 with T5: the third tokenizer for live text encoding; a run from
+        # a condition cache never tokenizes
+        tokenizer_3 = None
+        if models.t5 is not None:
+            tokenizer_3 = resolve_t5_tokenizer(config)
+            if tokenizer_3 is None and not config.data.get("cache"):
+                raise ValueError(
+                    "SD3 model has a T5 tower (text_encoder_3) but no tokenizer_3/tokenizer.json "
+                    "was found: provide one (config key `tokenizer_3:`), train from a "
+                    "condition cache, or drop the T5 tower from the model directory")
         self.pipeline = DataPipeline(dataset, sampler, config.batch_size, self.tokenizer,
-                                     num_workers=num_workers if num_workers is not None else 4)
+                                     num_workers=num_workers if num_workers is not None else 4,
+                                     tokenizer_3=tokenizer_3)
         self.steps_per_epoch = max(len(self.pipeline), 1)
 
         # -- optimizer and step ----------------------------------------------------
@@ -249,7 +269,10 @@ class Trainer:
                                          vae_config=models.vae_config,
                                          clip_config=models.clip_config,
                                          train_text_encoder=self.train_text_encoder,
-                                         clip2_config=models.clip2_config)
+                                         clip2_config=models.clip2_config,
+                                         mmdit_config=models.mmdit_config,
+                                         t5_config=(models.t5_config if models.t5 is not None
+                                                    else None))
         ema = config.get("ema") or {}
         ema_enabled = bool(ema.get("enabled", False))
         self.train_step = make_train_step(self.spec, self.tx, self.lr_fn, ema_enabled)

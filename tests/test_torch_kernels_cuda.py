@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 splash attention (end to end, and the dq kernel alone), the fused Adam
 update and the int8 Adam update, each in its single-leaf update-only form
-and its grouped form (Adam, decay, schedule and master apply over a leaf
+and its grouped form (the fused Adam also in its ``xla`` rounding mode) (Adam, decay, schedule and master apply over a leaf
 table in one launch; with bf16 gradients, and with the fp32 gradients of
 gradient accumulation); the grouped EMA update (ema_fused); the splash
 forward in sampling's inference form; splash in SDXL's forms (head dim 64);
@@ -315,7 +315,31 @@ def test_adam_bf16_group_takes_fp32_gradients_on_cuda(form, m_dt):
     _adam_bf16_group_case(m_dt, torch.bfloat16, form, 1e-2, torch.float32)
 
 
-def _adam_bf16_group_case(m_dt, p_dt, form, wd, g_dt):
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 1e-2], ids=["wd0", "wd"])
+@pytest.mark.parametrize("g_dt", [torch.bfloat16, torch.float32], ids=["bf16_grads", "fp32_grads"])
+def test_adam_bf16_xla_mode_matches_reference_on_cuda(g_dt, wd):
+    """The ``xla`` mode (AdamW's default path: fp32 moments and masters,
+    XLA's rounding of plain ``scale_by_adam`` and of the decay) against its
+    plain version: the single-leaf update's step and moments, and the
+    grouped launch's masters and moments, all bit for bit."""
+    _need_card()
+    r = np.random.RandomState(5)
+    shape = (1280, 2304)
+    g = torch.from_numpy(r.randn(*shape).astype(np.float32) * 1e-3).cuda().to(g_dt)
+    mu = torch.from_numpy(r.randn(*shape).astype(np.float32) * 1e-4).cuda()
+    nu = torch.from_numpy(np.abs(r.randn(*shape)).astype(np.float32) * 1e-7).cuda()
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, out_dtype=torch.float32, recip_bc=False, xla=True)
+    bc = (np.float32(1) - np.float32(0.9) ** 7, np.float32(1) - np.float32(0.999) ** 7)
+    want = AF.adam_bf16_fused_update_reference(g, mu.clone(), nu.clone(), bc, **kw)
+    got = AF.adam_bf16_fused_update(g, mu, nu, bc, **kw)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, want, ("out", "mu", "nu")):
+        assert torch.equal(a, b), what
+    _adam_bf16_group_case(torch.float32, torch.float32, "adamw", wd, g_dt, xla=True)
+
+
+def _adam_bf16_group_case(m_dt, p_dt, form, wd, g_dt, xla=False):
     _need_card()
     r = np.random.RandomState(3)
     keys = [f"unet.l{i}.weight" for i in range(len(GROUP_SIZES))]
@@ -326,7 +350,7 @@ def _adam_bf16_group_case(m_dt, p_dt, form, wd, g_dt):
     bc = (np.float32(1) - np.float32(0.9) ** 4, np.float32(1) - np.float32(0.999) ** 4)
     kw = dict(b1=0.9, b2=0.999, eps=1e-8, recip_bc=form != "adamw", count=4, step=9,
               weight_decay=wd, step_size=-1e-3 * 0.7,
-              update_dtype=torch.float32 if form == "adamw" else None)
+              update_dtype=torch.float32 if form == "adamw" else None, xla=xla)
     results = []
     for _ in range(2):
         t = AF.build_adam_table(keys, _copies(params), _copies(mu), _copies(nu))

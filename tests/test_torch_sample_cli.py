@@ -19,6 +19,7 @@
 
 import json
 import logging
+import sys
 
 import numpy as np
 import pytest
@@ -53,7 +54,7 @@ from scal_sdt_tpu_torch.training import step as tstep
 from scal_sdt_tpu_torch.utils import state as tstate
 
 from test_torch_data import write_vocab
-from torch_port_helpers import tiny_model_dir, to_np, to_torch
+from torch_port_helpers import tiny_model_dir, tiny_sd3_dir, to_np, to_torch
 
 # LoRA factors of the tiny UNet (a Linear and a 1x1 proj_in conv) and CLIP
 LORA_MODULES = {
@@ -276,16 +277,28 @@ def test_sample_cli_img2img_and_ti_keywords(model_dir, checkpoints, tmp_path, ca
     assert not np.array_equal(bare["00_00.png"], ti["00_00.png"])
 
 
-@pytest.mark.parametrize("case", ["tokenizer-3", "mmdit-head-dim", "single-file", "cuda"])
-def test_sample_cli_refuses_what_is_not_ported(model_dir, tmp_path, case):
+@pytest.mark.parametrize("case", ["tokenizer-3", "mmdit-head-dim", "pos-embed-max-size",
+                                  "single-file", "cuda"])
+def test_sample_cli_refuses_what_is_not_ported(model_dir, tmp_path, monkeypatch, case):
+    """The single-file SD3 options raise naming ROADMAP 1.18; an SD3 model
+    with T5 whose tokenizer_3 needs the `tokenizers` package raises naming
+    it when the package does not import (SD3 itself is ported:
+    tests/test_torch_sd3.py)."""
     args = ["--model", str(model_dir), "--prompt", "a cat", "--out", str(tmp_path)]
-    want = {"tokenizer-3": (NotImplementedError, "1.16"),
-            "mmdit-head-dim": (NotImplementedError, "1.16"),
+    want = {"tokenizer-3": (ImportError, "`tokenizers` package"),
+            "mmdit-head-dim": (NotImplementedError, "1.18"),
+            "pos-embed-max-size": (NotImplementedError, "1.18"),
             "single-file": (NotImplementedError, "1.18"), "cuda": (RuntimeError, "CUDA")}[case]
     if case == "tokenizer-3":
-        args += ["--tokenizer-3", "t5.json", "--device", "cpu"]
+        sd3, _ = tiny_sd3_dir(tmp_path / "sd3")
+        monkeypatch.setitem(sys.modules, "tokenizers", None)   # import raises
+        args = ["--model", str(sd3), "--prompt", "a cat", "--out", str(tmp_path),
+                "--tokenizer", "hash", "--tokenizer-3", str(sd3 / "tokenizer_3"),
+                "--device", "cpu"]
     elif case == "mmdit-head-dim":
         args += ["--mmdit-head-dim", "64", "--device", "cpu"]
+    elif case == "pos-embed-max-size":
+        args += ["--pos-embed-max-size", "192", "--device", "cpu"]
     elif case == "single-file":
         f = tmp_path / "sd15.safetensors"
         f.write_bytes(b"")

@@ -42,6 +42,7 @@ from scal_sdt_tpu.models import vae as jvae
 from scal_sdt_tpu_torch.convert.from_jax import params_from_jax
 from scal_sdt_tpu_torch.diffusion.schedule import NoiseSchedule as TSchedule
 from scal_sdt_tpu_torch.models import clip as tclip
+from scal_sdt_tpu_torch.models import mmdit as tmmdit
 from scal_sdt_tpu_torch.models import unet as tunet
 from scal_sdt_tpu_torch.models import vae as tvae
 
@@ -303,18 +304,19 @@ def _sdxl_case(ts):
 
 @pytest.mark.parametrize("case", ["sdxl", "sd3", "flow_euler", "unknown", "cuda"])
 def test_sample_images_refuses_what_is_not_ported(case, tiny_models):
-    """SD3 and unknown methods raise; SDXL samples (tests/test_torch_sdxl.py
-    holds it against JAX) and refuses a call without its second tower."""
+    """Unknown methods raise, and flow_euler on a UNet model; SDXL and SD3
+    sample (tests/test_torch_sdxl.py and tests/test_torch_sd3.py hold them
+    against JAX) and refuse a call without their second tower."""
     _, ts = _specs("eps", "float32")
     kw = {}
     if case == "sdxl":
         ts, tiny_models = _sdxl_case(ts)
     elif case == "sd3":
-        ts = dataclasses.replace(ts, unet_config=None)
+        ts = dataclasses.replace(ts, unet_config=None, mmdit_config=tmmdit.MMDiTConfig.tiny())
     elif case in ("flow_euler", "unknown"):
         kw["method"] = case
-    err = {"sdxl": (ValueError, "clip2_params"), "sd3": (NotImplementedError, "1.16"),
-           "flow_euler": (NotImplementedError, "1.16"), "unknown": (ValueError, "unknown"),
+    err = {"sdxl": (ValueError, "clip2_params"), "sd3": (ValueError, "clip2_params"),
+           "flow_euler": (ValueError, "flow_euler is SD3's"), "unknown": (ValueError, "unknown"),
            "cuda": (RuntimeError, "CUDA")}[case]
     with pytest.raises(err[0], match=err[1]):
         if case == "cuda":

@@ -58,7 +58,7 @@ from scal_sdt_tpu_torch.utils import state as tstate
 from helpers import make_image_dataset
 from test_torch_data import write_vocab
 from torch_port_helpers import (assert_bf16_ulp, bf16_ulp, jax_draws, nchw, tiny_model_dir,
-                                tiny_sdxl_dir, to_np, to_torch)
+                                tiny_sd3_dir, tiny_sdxl_dir, to_np, to_torch)
 
 BATCH, IMAGES, RES = 8, 16, 32      # 2 steps per epoch: 3 steps cross an epoch
 LATENTS = (BATCH, RES // 2, RES // 2, 4)   # the tiny VAE downsamples 2x
@@ -407,22 +407,19 @@ def test_xformers_switch_gates_the_kernels(tiny_run, tmp_path, xformers):
 
 
 def _model_dir(tmp_path, tiny_run, sub):
-    """A tiny SDXL directory ('sdxl', with the run's vocab), or the run's
-    SD1.x directory with an empty text_encoder_2/ ('sdxl_empty_te2') or its
-    UNet moved to transformer/ ('sd3')."""
+    """A tiny SDXL directory ('sdxl') or SD3 directory with T5 and its
+    tokenizer_3/ ('sd3'), each with the run's vocab, or the run's SD1.x
+    directory with an empty text_encoder_2/ ('sdxl_empty_te2')."""
     import shutil
 
     d = tmp_path / sub
     model = tiny_run[1]["model"]
-    if sub == "sdxl":
-        tiny_sdxl_dir(d)
+    if sub in ("sdxl", "sd3"):
+        tiny_sdxl_dir(d) if sub == "sdxl" else tiny_sd3_dir(d)
         shutil.copytree(f"{model}/tokenizer", d / "tokenizer")
         return str(d)
     shutil.copytree(model, d)
-    if sub == "sd3":
-        shutil.move(d / "unet", d / "transformer")
-    else:
-        (d / "text_encoder_2").mkdir()
+    (d / "text_encoder_2").mkdir()
     return str(d)
 
 
@@ -444,7 +441,9 @@ LATER_SLICES = {
     "sdxl_cache_without_pooled": ({"model": "sdxl"}, (ValueError, "pooled")),
     "sdxl_empty_text_encoder_2": ({"model": "sdxl_empty_te2"},
                                   (FileNotFoundError, "No weights file")),
-    "sd3": ({"model": "sd3"}, (NotImplementedError, "ROADMAP 1.16")),
+    # item 1.16 is ported: an SD3 directory builds uncached (its T5 with the
+    # tokenizer_3/ beside it); from a cache it needs pooled embeddings
+    "sd3": ({"model": "sd3", "data": {"cache": None}}, None),
     "mesh": ({"trainer": {"mesh": {"data": 2}}}, (NotImplementedError, "ROADMAP 1.17")),
     "world_size": ({}, (NotImplementedError, "ROADMAP 1.17")),
 }
@@ -453,10 +452,10 @@ LATER_SLICES = {
 @pytest.mark.parametrize("case", list(LATER_SLICES))
 def test_later_slice_configs_raise(tiny_run, tmp_path, monkeypatch, case):
     """Configs that need a later slice raise naming its ROADMAP item; those of
-    items 1.12 (EMA, LoRA, custom embeddings), 1.13 (sampling concepts) and
-    1.15 (SDXL) build, and textual inversion from a condition cache, an SDXL
-    run from a cache without pooled embeddings and an SDXL directory with an
-    empty text_encoder_2/ raise as the JAX trainer does."""
+    items 1.12 (EMA, LoRA, custom embeddings), 1.13 (sampling concepts),
+    1.15 (SDXL) and 1.16 (SD3) build, and textual inversion from a condition
+    cache, an SDXL run from a cache without pooled embeddings and an SDXL
+    directory with an empty text_encoder_2/ raise as the JAX trainer does."""
     overrides, error = LATER_SLICES[case]
     if case == "world_size":
         monkeypatch.setenv("WORLD_SIZE", "2")
@@ -470,8 +469,11 @@ def test_later_slice_configs_raise(tiny_run, tmp_path, monkeypatch, case):
         trainer = TTrainer(cfg, tmp_path / "run", device="cpu")
         assert (trainer.state.ema is not None) == (case == "ema")
         assert any(k.endswith(".lora_A") for k in trainer.state.trainable) == (case == "lora")
-        assert trainer.spec.sdxl == any(k.startswith("condition_model.encoder_2.")
-                                        for k in trainer.frozen) == (case == "sdxl")
+        assert (trainer.spec.sdxl or trainer.spec.sd3) == any(
+            k.startswith("condition_model.encoder_2.") for k in trainer.frozen) == (
+            case in ("sdxl", "sd3"))
+        assert trainer.spec.sd3 == any(k.startswith("condition_model.encoder_3.")
+                                       for k in trainer.frozen) == (case == "sd3")
         return
     with pytest.raises(error[0], match=error[1]):
         TTrainer(cfg, tmp_path / "run", device="cpu")

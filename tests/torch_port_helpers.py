@@ -66,8 +66,10 @@ def jax_draws(rng, spec, latents_shape):
             octaves.append(jax.random.normal(k, (b, hi, wi, c), dt))
             if hi == 1 and wi == 1:
                 break
-    t = spec.schedule.sample_timesteps(rng_t, b)
-    return Draws(noise=nchw(noise), timesteps=torch.from_numpy(np.asarray(t, np.int64)),
+    # integers from a DDPM schedule, fp32 floats from the flow schedule
+    t = np.asarray(spec.schedule.sample_timesteps(rng_t, b))
+    t = t.astype(np.int64) if np.issubdtype(t.dtype, np.integer) else t.astype(np.float32)
+    return Draws(noise=nchw(noise), timesteps=torch.from_numpy(t),
                  offset=None if offset is None else nchw(offset),
                  octaves=tuple(nchw(o) for o in octaves))
 
@@ -143,3 +145,22 @@ def tiny_sdxl_dir(path, vocab_size: int = 640, seed: int = 0):
     from helpers import write_diffusers_dir
 
     return write_diffusers_dir(tiny_sdxl_models(vocab_size, seed), path)
+
+
+def tiny_sd3_dir(path, models=None, with_t5: bool = True):
+    """The JAX package's tiny SD3 models (``models``, default tests/helpers.py
+    ``tiny_sd3_models`` with 640 token rows: an MMDiT, two projected CLIP
+    towers, T5) as a diffusers directory, T5 left out without ``with_t5``,
+    with a T5 tokenizer (``make_t5_tokenizer_file``) in ``tokenizer_3/``
+    beside T5. Returns (the directory, the JAX ``LoadedModels`` written)."""
+    import dataclasses
+
+    from helpers import make_t5_tokenizer_file, tiny_sd3_models, write_diffusers_dir
+
+    models = models if models is not None else tiny_sd3_models(vocab_size=640)
+    if not with_t5:
+        models = dataclasses.replace(models, t5=None, t5_config=None)
+    d = write_diffusers_dir(models, path)
+    if with_t5:
+        make_t5_tokenizer_file(d / "tokenizer_3" / "tokenizer.json")
+    return d, models
