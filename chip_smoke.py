@@ -255,6 +255,39 @@ Phases (any failure raises and the script exits non-zero):
               splash_fwd and nothing else; then adam_bf16_fused's xla mode
               in one grouped launch over the MMDiT's 682 fp32 leaves, bit
               for bit against its plain chain.
+18. single_file -- (after sd3, whose directory it deletes) single-file
+              checkpoints and the checkpoint toolchain:
+              (a) the trainer phase's SD1.5 directory as a training-layout
+              file published by the port's ckpt_tool prune --text-encoder
+              --df-vae in fp32; load_components of the file (the bundled v1
+              YAML) gives every tensor of the directory; the train CLI from
+              the file, 2 cached steps at 512^2, batch 8 (10 launches of
+              each splash kernel per step); the sample CLI from the file,
+              one 512^2 image at the shipped concept: 280 splash_fwd only,
+              the PNG equal to the directory's;
+              (b) SD2.1-768-v at its published widths from --seed (the
+              UNet with heads 5, 10, 20, 20 and linear projections, context
+              1024; OpenCLIP-H with 24 resblocks; SD's VAE) as one fp32
+              file with Stability AI's v2-inference-v YAML: load_components
+              with that YAML and schedule.prediction_type v gives
+              UNetConfig.sd21 and a 23-layer tower; the train CLI uncached
+              at 768^2, batch 2, the default AdamW (fp32 masters and
+              moments: the xla mode), v-prediction, 2 warm-up and --steps
+              timed steps ending on a checkpoint: per step 5 launches of
+              each splash kernel at (2,5,9216,64) and at (2,10,2304,64)
+              (counted by form), adam_bf16_fused once per group; losses
+              finite, masters moved; the checkpoint with the tower bundled
+              through ckpt_tool prune --arch sd2 --text-encoder at fp32 and
+              fp16 reloads as the masters bit for bit and their fp16 cast;
+              one 768^2 image by DDIM at 28 steps, cfg 7.5, through
+              sampler.sample_images (140 splash_fwd at each form);
+              (c) splash fwd, dq, dkv at (2,5,9216,64), (2,10,2304,64),
+              (2,5,4096,64), (2,10,1024,64) as in phase 2 (same bounds);
+              (d) the extract_lora CLI between (b)'s pruned file and the
+              base (lora_no-te.yaml, rank 16, fp32), its SVDs on the card,
+              each timed; three leaves' (alpha/rank) up @ down within 1e-4
+              of the delta's largest entry of a float64 CPU SVD's rank-16
+              truncation, the Frobenius errors within 1e-3 relative.
 
 The optim phase also runs both grouped kernels with fp32 gradients, the mean
 that gradient accumulation hands them, at the same bounds.
@@ -382,7 +415,8 @@ KERNELS = {
 SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
 PHASES = ("train", "train_int8", "families", "uncached", "cache", "trainer", "ema",
           "sample", "lora", "lora_prodigy", "dreambooth", "sdxl_cache", "sdxl_lora",
-          "sdxl_sample", "sd3_cached", "sd3_triple", "sd3_cli")   # the phases that run a main path
+          "sdxl_sample", "sd3_cached", "sd3_triple", "sd3_cli",
+          "single_file")   # the phases that run a main path
 COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
 
@@ -3149,16 +3183,15 @@ def sd3_triple_phase(seed: int, steps: int, gen: torch.Generator) -> dict:
     return res
 
 
-def write_sd3_images(root: Path, seed: int) -> Path:
-    """SD3_IMAGES PNGs of random pixels at 1024x1024, with captions."""
+def write_square_images(root: Path, name: str, n: int, size: int, seed: int) -> Path:
+    """``n`` PNGs of random pixels at size x size, with captions."""
     from PIL import Image
 
-    d = root / "sd3_images"
+    d = root / name
     d.mkdir(parents=True)
-    r = np.random.RandomState(seed + 50)
-    for i in range(SD3_IMAGES):
-        Image.fromarray(r.randint(0, 256, (SD3_RESOLUTION, SD3_RESOLUTION, 3), np.uint8)).save(
-            d / f"img_{i:03d}.png")
+    r = np.random.RandomState(seed)
+    for i in range(n):
+        Image.fromarray(r.randint(0, 256, (size, size, 3), np.uint8)).save(d / f"img_{i:03d}.png")
         (d / f"img_{i:03d}.txt").write_text(f"a photo of the cat number {i}")
     return d
 
@@ -3197,7 +3230,8 @@ def sd3_cli_phase(seed: int, workdir: Path) -> dict:
     28 steps. Each train step launches each splash kernel 24 times (L = 4096
     + 77), adam_bf16_fused 285; the image 672 splash_fwd and nothing else."""
     t0 = time.perf_counter()
-    model, images = write_sd3_dir(workdir, seed), write_sd3_images(workdir, seed)
+    model = write_sd3_dir(workdir, seed)
+    images = write_square_images(workdir, "sd3_images", SD3_IMAGES, SD3_RESOLUTION, seed + 50)
     write_s = time.perf_counter() - t0
     gib = sum(p.stat().st_size for p in model.rglob("*") if p.is_file()) / 2 ** 30
     mm, (clip1, _) = MMDiTConfig.sd3_medium(), sd3_towers()
@@ -3335,6 +3369,520 @@ def sd3_phases(record: dict, args, gen: torch.Generator, rate: tuple[int, float]
         f"{a['plain_ms']:.2f} ms, bit-equal {a['err']}")
 
 
+SD21_RESOLUTION, SD21_BATCH = 768, 2
+SD21_IMAGES = 4                    # 768^2 PNGs: two steps an epoch at batch 2
+SD21_WARMUP = 2                    # untimed steps before the --steps timed ones
+SD21_SAMPLE_STEPS, SD21_CFG = 28, 7.5
+# splash's forms at 768^2, batch 2 (levels 0 and 1; level 2's L = 576 takes
+# the math path), then at 512^2
+SD21_FORMS = [(2, 5, 9216, 64), (2, 10, 2304, 64)]
+SD21_KERNEL_SHAPES = SD21_FORMS + [(2, 5, 4096, 64), (2, 10, 1024, 64)]
+SINGLE_FILE_STEPS = 2              # leg (a): cached steps from the SD1.5 file
+EXTRACT_CHECKED = 3                # leg (d): leaves held against a float64 CPU SVD
+EXTRACT_TOL, EXTRACT_FRO_TOL = 1e-4, 1e-3
+# OpenCLIP ViT-H/14's text tower (SD2.x's cond_stage_model.model): 24
+# resblocks, width 1024, gelu
+OPENCLIP_H = CLIPTextConfig(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24,
+                            num_attention_heads=16, hidden_act="gelu")
+# the numbers of Stability AI's configs/stable-diffusion/v2-inference-v.yaml
+# (Stability-AI/stablediffusion) that the loader reads
+SD21_V_YAML = {"model": {"params": {
+    "parameterization": "v", "linear_start": 0.00085, "linear_end": 0.012, "timesteps": 1000,
+    "scale_factor": 0.18215,
+    "unet_config": {"params": {
+        "in_channels": 4, "out_channels": 4, "model_channels": 320,
+        "attention_resolutions": [4, 2, 1], "num_res_blocks": 2, "channel_mult": [1, 2, 4, 4],
+        "num_head_channels": 64, "use_spatial_transformer": True,
+        "use_linear_in_transformer": True, "transformer_depth": 1, "context_dim": 1024}},
+    "first_stage_config": {"params": {"embed_dim": 4, "ddconfig": {
+        "double_z": True, "z_channels": 4, "resolution": 256, "in_channels": 3, "out_ch": 3,
+        "ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2, "attn_resolutions": []}}},
+    "cond_stage_config": {"params": {"freeze": True, "layer": "penultimate"}}}}}
+
+
+class SplashFormProbe:
+    """The splash kernels' launches by form while the probe is open:
+    (kernel, (B, H, Lq, D)) -> launches, read at the wrappers."""
+
+    def __init__(self):
+        self.forms: dict = {}
+
+    def __enter__(self):
+        self._real = {name: getattr(splash, name) for name in SPLASH}
+        for name, fn in self._real.items():
+            def counted(qs, *args, _name=name, _fn=fn):
+                key = (_name, tuple(qs.shape))
+                self.forms[key] = self.forms.get(key, 0) + 1
+                return _fn(qs, *args)
+            setattr(splash, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._real.items():
+            setattr(splash, name, fn)
+
+    def by_form(self) -> dict[str, dict[str, int]]:
+        out: dict = {}
+        for (name, shape), n in sorted(self.forms.items()):
+            out.setdefault(str(list(shape)), {})[name] = n
+        return out
+
+
+def gib_of(*paths: Path) -> float:
+    return sum(p.stat().st_size for p in paths) / 2 ** 30
+
+
+def same_tensors(got: dict, want: dict, what: str) -> int:
+    """Every tensor of ``want`` in ``got`` with equal values and dtype."""
+    check(got.keys() == want.keys(), f"{what}: keys differ ({len(got)} against {len(want)})")
+    bad = [k for k in want if got[k].dtype != want[k].dtype or not torch.equal(got[k], want[k])]
+    check(not bad, f"{what}: {len(bad)} tensors differ, e.g. {bad[:3]}")
+    return len(want)
+
+
+def single_file_sd15(seed: int, workdir: Path, model: Path) -> dict:
+    """Leg (a): SD1.5 from a single file. A training-layout file of the
+    trainer phase's directory (its UNet under unet., its CLIP under
+    condition_model.encoder.), published by ``ckpt_tool prune
+    --text-encoder --df-vae <dir>/vae`` in fp32; ``load_components`` of the
+    file (the bundled v1 YAML) gives every UNet, VAE and CLIP tensor of the
+    directory, bit for bit after the exact fp32 widening. Then the train CLI
+    from the file: SINGLE_FILE_STEPS cached steps at 512^2, batch 8, as the
+    trainer phase runs them (the trainer phase's config and cache file; 10
+    launches of each splash kernel per step);
+    and the sample CLI from the file (``--tokenizer`` the directory's): one
+    512^2 image at the shipped concept's settings, 280 splash_fwd and
+    nothing else, its PNG equal to the directory's for the same seed."""
+    from scal_sdt_tpu_torch.cli import ckpt_tool
+
+    t0 = time.perf_counter()
+    d = load_components(merge(default(), Config({"model": str(model)})))
+    training = {**{f"unet.{k}": v for k, v in d.unet.items()},
+                **{f"condition_model.encoder.{k}": v for k, v in d.clip.items()}}
+    train_file, sd15_file = workdir / "sd15_train.safetensors", workdir / "sd15.safetensors"
+    save_state_dict(training, train_file)
+    del training
+    ckpt_tool.main(["prune", str(train_file), str(sd15_file), "--text-encoder", "--df-vae",
+                    str(model / "vae"), "--unet-dtype", "fp32", "--text-encoder-dtype", "fp32"],
+                   standalone_mode=False)
+    prune_s = time.perf_counter() - t0
+    train_file.unlink()
+    t0 = time.perf_counter()
+    f = load_components(merge(default(), Config({"model": str(sd15_file)})))
+    load_s = time.perf_counter() - t0
+    check(f.unet_config == UNetConfig.sd15() and f.vae_config == VAEConfig.sd15()
+          and f.clip_config == CLIPTextConfig.vit_l(), "the SD1.5 file's configs")
+    widened = lambda p: {k: v.float() for k, v in p.items()}
+    n = sum(same_tensors(getattr(f, c), widened(getattr(d, c)), f"the SD1.5 file's {c}")
+            for c in ("unet", "vae", "clip"))
+    del d, f
+
+    config = merge(load_with_defaults(workdir / "trainer.yaml"), Config({
+        "model": str(sd15_file), "output_dir": str(workdir / "sf_runs"), "project": "sf",
+        "trainer": {"max_steps": SINGLE_FILE_STEPS, "max_epochs": 1},
+        "checkpoint": {"every_n_train_steps": None, "every_n_epochs": None}}))
+    cfg_path = workdir / "sf_train.yaml"
+    cfg_path.write_text(json.dumps(config))
+    groups = len(resolve_optim_target(load_optim_target("full_unet"),
+                                      unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
+    torch.cuda.synchronize()
+    reset_launches()
+    with TrainerProbe() as run:
+        train_cli.main(["--config", str(cfg_path), "--run-id", "r", "--device", DEVICE],
+                       standalone_mode=False)
+    train_launches = read_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = run.losses()
+    check(sorted(losses) == list(range(1, SINGLE_FILE_STEPS + 1))
+          and all(math.isfinite(x) for x in losses.values()), f"SD1.5 file losses {losses}")
+    want = {**{k: CALLS_PER_STEP * SINGLE_FILE_STEPS for k in SPLASH},
+            "adam_bf16_fused": groups * SINGLE_FILE_STEPS, "adam8_fused": 0, "ema_fused": 0}
+    check(train_launches == want, f"SD1.5 file train launches {train_launches}, expected {want}")
+    shutil.rmtree(workdir / "sf_runs")
+
+    concept, clip_skip = shipped_concept()
+    pngs, sample_s, sample_launches = {}, {}, {}
+    for name, extra in (("file", ["--model", str(sd15_file), "--tokenizer",
+                                  str(model / "tokenizer")]),
+                        ("dir", ["--model", str(model)])):
+        out = workdir / "sf_samples" / name
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        sample_cli.main(extra + ["--prompt", concept.prompt, "--negative", concept.negative_prompt,
+                                 "--steps", str(concept.steps), "--cfg", str(concept.cfg_scale),
+                                 "--seed", str(concept.seed), "--clip-skip", str(clip_skip),
+                                 "--width", str(RESOLUTION), "--height", str(RESOLUTION),
+                                 "--out", str(out), "--device", DEVICE], standalone_mode=False)
+        sample_s[name] = time.perf_counter() - t0
+        sample_launches[name] = read_launches()
+        (png,) = sorted(out.glob("*.png"))
+        png_pixels(png, (RESOLUTION, RESOLUTION))
+        pngs[name] = png.read_bytes()
+    per_image = int(concept.steps) * CALLS_PER_STEP
+    check(sample_launches["file"]["splash_fwd"] == per_image
+          and sum(sample_launches["file"].values()) == per_image,
+          f"SD1.5 file sample launches {sample_launches['file']}, expected splash_fwd "
+          f"{per_image} only")
+    check(pngs["file"] == pngs["dir"], "the SD1.5 file's PNG differs from the directory's")
+    file_gib = gib_of(sd15_file)
+    sd15_file.unlink()
+    return {"file_gib": file_gib, "prune_s": prune_s, "load_s": load_s, "tensors_equal": n,
+            "train_losses": [losses[s] for s in sorted(losses)],
+            "train_launches": train_launches, "sample_s": sample_s,
+            "sample_launches": sample_launches["file"], "png_equal": True,
+            # the main path's launches: the train and sample CLIs from the file
+            "launches": {k: train_launches[k] + sample_launches["file"][k]
+                         for k in train_launches}}
+
+
+def write_sd21_file(root: Path, seed: int) -> tuple[Path, Path]:
+    """SD2.1-768-v as one LDM file in fp32 (about 5 GB), random weights from
+    ``seed`` at the published widths: the UNet (UNetConfig.sd21: heads 5, 10,
+    20, 20, linear projections, context 1024) under model.diffusion_model.,
+    SD's VAE under first_stage_model., OpenCLIP-H's text tower (24
+    resblocks, its projection and logit scale) under cond_stage_model.model.;
+    and the v2-inference-v YAML beside it."""
+    from scal_sdt_tpu_torch.convert.sd_names import (convert_transformers_text_to_openclip,
+                                                     convert_unet_state_df_to_ldm,
+                                                     convert_vae_state_df_to_ldm)
+
+    state = {}
+    unet = init_unet_params(UNetConfig.sd21(), seed=seed + 60, device=DEVICE)
+    state.update({f"model.diffusion_model.{k}": v.cpu() for k, v in
+                  convert_unet_state_df_to_ldm(unet, UNetConfig.sd21()).items()})
+    del unet
+    vae = init_vae_params(VAEConfig.sd15(), seed=seed + 61, device=DEVICE)
+    state.update({f"first_stage_model.{k}": v.cpu()
+                  for k, v in convert_vae_state_df_to_ldm(vae).items()})
+    del vae
+    tower = init_clip_params(OPENCLIP_H, seed=seed + 62, device=DEVICE)
+    oc = convert_transformers_text_to_openclip(tower)
+    del tower
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 63)
+    oc["text_projection"] = torch.randn(1024, 1024, generator=gen, device=DEVICE) / 32
+    oc["logit_scale"] = torch.tensor(4.6052, device=DEVICE)
+    state.update({f"cond_stage_model.model.{k}": v.cpu() for k, v in oc.items()})
+    del oc
+    torch.cuda.empty_cache()
+    path, yaml = root / "sd21_768_v.safetensors", root / "v2-inference-v.yaml"
+    save_state_dict(state, path)
+    yaml.write_text(json.dumps(SD21_V_YAML))
+    return path, yaml
+
+
+def single_file_sd21(seed: int, steps: int, workdir: Path, vocab: Path) -> dict:
+    """Leg (b): SD2.1-768-v from a single file at full width. ``load_components``
+    with ``ldm_config`` the v2-inference-v YAML and ``schedule:
+    {prediction_type: v}`` gives UNetConfig.sd21(), SD's VAE and a 23-layer
+    tower. The train CLI from the file, uncached at 768^2 from SD21_IMAGES
+    PNGs, batch 2, the default AdamW (fp32 masters and moments:
+    adam_bf16_fused's xla mode), v-prediction: SD21_WARMUP + ``steps`` steps
+    ending on a checkpoint; per step 5 launches of each splash kernel at
+    each of SD21_FORMS and adam_bf16_fused once per param group; losses
+    finite, masters moved. The checkpoint with the loaded tower bundled in
+    (trainable-only checkpoints leave frozen parts out) through ``ckpt_tool
+    prune --arch sd2 --text-encoder --vae <file>``: at --unet-dtype fp32 the
+    reloaded UNet is the trained masters bit for bit, at fp16 their fp16
+    cast; the tower prunes back out with 23 resblocks. Then one 768^2 image
+    by DDIM at SD21_SAMPLE_STEPS steps with CFG through
+    ``sampler.sample_images`` on the reloaded fp32 file (the sample CLI
+    takes no LDM YAML, in JAX too): 140 splash_fwd at each form. Returns the
+    record and the files leg (d) reads (the base, its YAML, the pruned fp32
+    file)."""
+    from scal_sdt_tpu_torch.cli import ckpt_tool
+
+    t0 = time.perf_counter()
+    base, yaml = write_sd21_file(workdir, seed)
+    write_s = time.perf_counter() - t0
+    file_gib = gib_of(base)
+    sd2 = {"ldm_config": str(yaml), "schedule": {"prediction_type": "v"}}
+    t0 = time.perf_counter()
+    m = load_components(merge(default(), Config({"model": str(base), **sd2})))
+    load_s = time.perf_counter() - t0
+    check(m.unet_config == UNetConfig.sd21() and m.vae_config == VAEConfig.sd15()
+          and m.clip_config == dataclasses.replace(OPENCLIP_H, num_hidden_layers=23)
+          and m.schedule.prediction_type == "v", f"the SD2.1 file's configs: {m.unet_config}, "
+          f"{m.vae_config}, {m.clip_config}, {m.schedule.prediction_type}")
+    tower = {f"condition_model.encoder.{k}": v for k, v in m.clip.items()}
+    base_unet = m.unet
+    del m
+
+    images = write_square_images(workdir, "sd21_images", SD21_IMAGES, SD21_RESOLUTION, seed + 64)
+    total = SD21_WARMUP + steps
+    config = merge(default(), Config({
+        "model": str(base), **sd2, "tokenizer": str(vocab),
+        "output_dir": str(workdir / "sd21_runs"), "project": "sd21", "seed": seed,
+        "num_workers": NUM_WORKERS, "batch_size": SD21_BATCH,
+        "data": {"resolution": SD21_RESOLUTION, "concepts": [
+            {"instance_set": {"path": str(images), "prompt": "{TXT_PROMPT}"}}]},
+        "trainer": {"precision": "bf16", "max_steps": total, "max_epochs": total,
+                    "log_every_n_steps": 1},
+        "loggers": {"tensorboard": None},
+        "checkpoint": {"filename": "last", "every_n_epochs": None, "every_n_train_steps": None,
+                       "monitor": None}}))
+    check(config.optimizer.name == "adamw" and not config.optimizer.get("master_dtype")
+          and not config.optimizer.get("moment_dtype"), "the default optimizer changed")
+    cfg_path = workdir / "sd21.yaml"
+    cfg_path.write_text(json.dumps(config))
+    groups = len(resolve_optim_target(load_optim_target("full_unet"),
+                                      unet_param_shapes(UNetConfig.sd21()), [])["unet"].groups)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with TrainerProbe() as run, SplashFormProbe() as forms:
+        train_cli.main(["--config", str(cfg_path), "--run-id", "r", "--device", DEVICE],
+                       standalone_mode=False)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = run.losses()
+    check(sorted(losses) == list(range(1, total + 1))
+          and all(math.isfinite(x) for x in losses.values()), f"SD2.1 losses {losses}")
+    want_forms = {str(list(s)): {k: 5 * total for k in SPLASH} for s in SD21_FORMS}
+    check(forms.by_form() == want_forms,
+          f"SD2.1 splash launches by form {forms.by_form()}, expected {want_forms}")
+    want = {**{k: 10 * total for k in SPLASH}, "adam_bf16_fused": groups * total,
+            "adam8_fused": 0, "ema_fused": 0}
+    check(launches == want, f"SD2.1 train launches {launches}, expected {want}")
+    dts = [1.0 / mt["steps_per_sec"] for s, mt, _ in run.steps if s > SD21_WARMUP]
+    run_dir = workdir / "sd21_runs" / "sd21" / "r"
+    ckpt = run_dir / "last.safetensors"
+    ckpt_gib = gib_of(ckpt, Path(str(ckpt) + ".torchstate"))
+    Path(str(ckpt) + ".torchstate").unlink()
+    trained = load_state_dict(ckpt)
+    masters = {k[len("unet."):]: v for k, v in trained.items() if k.startswith("unet.")}
+    check(masters.keys() == base_unet.keys()
+          and all(v.dtype == torch.float32 for v in masters.values()),
+          "the SD2.1 checkpoint holds the fp32 masters of every UNet tensor")
+    n_masters = len(masters)
+    moved = sum(not torch.equal(masters[k], base_unet[k]) for k in masters)
+    check(moved > n_masters // 2, f"SD2.1: {moved} of {n_masters} masters moved")
+    del base_unet
+
+    # a whole model to publish: the trained masters and the loaded tower
+    bundled = workdir / "sd21_bundled.safetensors"
+    save_state_dict({**trained, **tower}, bundled)
+    del trained
+    ckpt.unlink()
+    pruned = {}
+    t0 = time.perf_counter()
+    for dtype in ("fp16", "fp32"):
+        pruned[dtype] = workdir / f"sd21_pruned_{dtype}.safetensors"
+        ckpt_tool.main(["prune", str(bundled), str(pruned[dtype]), "--arch", "sd2",
+                        "--text-encoder", "--vae", str(base), "--unet-dtype", dtype,
+                        "--text-encoder-dtype", "fp32"], standalone_mode=False)
+    prune_s = time.perf_counter() - t0
+    bundled.unlink()
+    reloaded = {}
+    for dtype, path in pruned.items():
+        r = load_components(merge(default(), Config({"model": str(path), **sd2})))
+        check(r.clip_config.num_hidden_layers == 23, "the pruned tower's depth")
+        cast = {k: v.half() if dtype == "fp16" else v for k, v in masters.items()}
+        same_tensors(r.unet, cast, f"the pruned {dtype} file's UNet")
+        same_tensors(r.clip, {k[len("condition_model.encoder."):]: v for k, v in tower.items()},
+                     f"the pruned {dtype} file's tower")
+        reloaded[dtype] = r
+    pruned_gib = {k: gib_of(p) for k, p in pruned.items()}
+    pruned["fp16"].unlink()
+    del masters, tower, reloaded["fp16"]
+
+    r = reloaded.pop("fp32")
+    spec = sampler.SamplerSpec(unet_config=r.unet_config, vae_config=r.vae_config,
+                               clip_config=r.clip_config, schedule=r.schedule)
+    params = [sampler.cast_params(p, spec.dtype, DEVICE) for p in (r.unet, r.vae, r.clip)]
+    del r
+    tokenizer = CLIPBPETokenizer.from_dir(vocab)
+    kwargs = dict(steps=SD21_SAMPLE_STEPS, cfg_scale=SD21_CFG, width=SD21_RESOLUTION,
+                  height=SD21_RESOLUTION, seed=seed, method="ddim", device=DEVICE)
+    sampler.sample_images(*params, tokenizer, ["a photo of a cat"], "blurry", spec,
+                          **{**kwargs, "steps": 2})   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with SampleProbe() as probe, SplashFormProbe() as sample_forms:
+        images = sampler.sample_images(*params, tokenizer, ["a photo of a cat"], "blurry", spec,
+                                       **kwargs)
+    sample_launches = read_launches()
+    del params
+    torch.cuda.empty_cache()
+    check(images.shape == (1, SD21_RESOLUTION, SD21_RESOLUTION, 3)
+          and all(c["finite"] for c in probe.calls), f"SD2.1 image {images.shape}, {probe.calls}")
+    want_forms = {str(list(s)): {"splash_fwd": 5 * SD21_SAMPLE_STEPS} for s in SD21_FORMS}
+    check(sample_forms.by_form() == want_forms
+          and sum(sample_launches.values()) == sample_launches["splash_fwd"],
+          f"SD2.1 sampling launches {sample_launches}, by form {sample_forms.by_form()}")
+    record = {"write_s": write_s, "file_gib": file_gib, "load_s": load_s,
+              "groups": groups, "steps": steps, "warmup": SD21_WARMUP,
+              "losses": [losses[s] for s in sorted(losses)],
+              "steps_per_s": len(dts) / sum(dts), "first_step_s": run.steps[0][2],
+              "peak_mem_gib": peak,
+              "launches_per_step": {k: v / total for k, v in launches.items()},
+              "splash_by_form": forms.by_form(), "masters_moved": moved, "of": n_masters,
+              "checkpoint_gib": ckpt_gib, "prune_s": prune_s, "pruned_gib": pruned_gib,
+              "sample_s": probe.calls[0]["s"], "sample_launches": sample_launches,
+              "sample_by_form": sample_forms.by_form(),
+              # the main path's launches: the train CLI and the sampling call
+              "launches": {k: launches[k] + sample_launches[k] for k in launches}}
+    return record, (base, yaml, pruned["fp32"])
+
+
+class LoraApproxProbe:
+    """The device seconds (synchronized) of each of extract_lora's SVD calls
+    while the probe is open."""
+
+    def __init__(self):
+        self.seconds: list[float] = []
+
+    def __enter__(self):
+        from scal_sdt_tpu_torch.cli import extract_lora
+
+        self._module, self._real = extract_lora, extract_lora.lora_approx
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._real(*args)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        extract_lora.lora_approx = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._module.lora_approx = self._real
+
+
+def single_file_extract(workdir: Path, base: Path, yaml: Path, trained: Path) -> dict:
+    """Leg (d): ``python -m scal_sdt_tpu_torch.cli.extract_lora`` between leg
+    (b)'s pruned fp32 file and the base file (``--ldm-config`` the SD2 YAML,
+    lora_no-te.yaml, rank 16, fp32 factors; an SD2 file's tower is not read,
+    as in JAX), its SVDs on the card, each timed. For EXTRACT_CHECKED leaves
+    (the first, middle and last name), ``(alpha/rank) * up @ down`` of the
+    written file against a float64 CPU SVD's rank-16 truncation of the same
+    delta (read from the two files) within EXTRACT_TOL of the delta's
+    largest entry, and the two truncations' Frobenius errors within
+    EXTRACT_FRO_TOL relative of each other (Eckart-Young)."""
+    from safetensors import safe_open
+
+    from scal_sdt_tpu_torch.cli import extract_lora
+    from scal_sdt_tpu_torch.convert.sd_names import unet_name_map
+
+    out = workdir / "sd21_lora.safetensors"
+    t0 = time.perf_counter()
+    with LoraApproxProbe() as probe:
+        extract_lora.main([str(trained), str(base), str(out), "--ldm-config", str(yaml),
+                           "--layer-spec", str(CONFIGS_DIR / "optim_targets" / "lora_no-te.yaml"),
+                           "--dtype", "fp32", "--device", DEVICE], standalone_mode=False)
+    total_s = time.perf_counter() - t0
+    lora = load_state_dict(out)
+    out.unlink()
+    names = sorted(k[:-len(".lora_down.weight")] for k in lora if k.endswith(".lora_down.weight"))
+    check(len(names) == len(probe.seconds) > 0 and len(lora) == 3 * len(names),
+          f"extract_lora wrote {len(lora)} tensors for {len(names)} leaves "
+          f"({len(probe.seconds)} SVDs)")
+    shapes = unet_param_shapes(UNetConfig.sd21())
+    ldm_names = unet_name_map(UNetConfig.sd21(), shapes)
+    paths = {"lora_unet_" + k[:-len(".weight")].replace(".", "_"): k
+             for k in shapes if k.endswith(".weight")}
+    checked = []
+    for name in (names[0], names[len(names) // 2], names[-1])[:EXTRACT_CHECKED]:
+        key = "model.diffusion_model." + ldm_names[paths[name]]
+        w = []
+        for path in (trained, base):
+            with safe_open(str(path), framework="pt") as f:
+                w.append(f.get_tensor(key).float())
+        delta = (w[0] - w[1]).reshape(w[0].shape[0], -1).double()   # a 1x1 conv as 2-D
+        down, up = lora[f"{name}.lora_down.weight"], lora[f"{name}.lora_up.weight"]
+        rank, alpha = down.shape[0], float(lora[f"{name}.alpha"])
+        got = (alpha / rank) * (up.double() @ down.double())
+        u, s, vt = torch.linalg.svd(delta, full_matrices=False)
+        want = (u[:, :rank] * s[:rank]) @ vt[:rank]
+        err = float((got - want).abs().max() / delta.abs().max())
+        fro_got, fro_want = (float(torch.linalg.norm(delta - x)) for x in (got, want))
+        fro_rel = abs(fro_got - fro_want) / fro_want
+        checked.append({"leaf": name, "shape": list(delta.shape), "rank": rank,
+                        "max_abs_rel": err, "fro_rel": fro_rel,
+                        "sigma_gap": float((s[rank - 1] - s[rank]) / s[0])})
+        log(f"extract_lora check: {checked[-1]}")
+        check(err <= EXTRACT_TOL and fro_rel <= EXTRACT_FRO_TOL,
+              f"extract_lora {name}: {err:.3e} of the delta's largest entry (bound "
+              f"{EXTRACT_TOL}), Frobenius errors {fro_got:.6e} / {fro_want:.6e}")
+    return {"leaves": len(names), "total_s": total_s, "svd_s": sum(probe.seconds),
+            "svd_ms_per_leaf": 1e3 * sum(probe.seconds) / len(probe.seconds),
+            "svd_ms_max": 1e3 * max(probe.seconds), "checked": checked}
+
+
+def single_file_phase(record: dict, args, gen: torch.Generator, rate: tuple[int, float],
+                      workdir: Path) -> None:
+    """The single_file phase in its legs, each timed and printed: (a) SD1.5
+    from a single file, (b) SD2.1-768-v from a single file, (c) splash in
+    SD2.x's forms, (d) extract_lora on the card; its files are deleted as
+    it goes."""
+    t0 = time.perf_counter()
+    a = single_file_sd15(args.seed, workdir, workdir / "model")
+    a["seconds"] = time.perf_counter() - t0
+    log(f"single_file (a) SD1.5: prune --text-encoder --df-vae to a {a['file_gib']:.2f} GiB fp32 "
+        f"file in {a['prune_s']:.1f} s, load_components {a['load_s']:.2f} s, "
+        f"{a['tensors_equal']} tensors equal to the directory's; cli.train from the file: "
+        f"losses {a['train_losses']}, launches {a['train_launches']}; cli.sample one 512^2 "
+        f"image: {a['sample_s']['file']:.2f} s (directory {a['sample_s']['dir']:.2f} s), "
+        f"launches {a['sample_launches']}, PNG equal to the directory's; leg "
+        f"{a['seconds']:.1f} s")
+
+    t0 = time.perf_counter()
+    b, (base, yaml, trained) = single_file_sd21(args.seed, args.steps, workdir,
+                                                workdir / "model" / "tokenizer")
+    b["seconds"] = time.perf_counter() - t0
+    log(f"single_file (b) SD2.1-768-v: wrote a {b['file_gib']:.2f} GiB fp32 file in "
+        f"{b['write_s']:.1f} s, load_components {b['load_s']:.2f} s (UNetConfig.sd21, 23-layer "
+        f"tower, v); cli.train uncached at 768^2, batch {SD21_BATCH}, AdamW fp32 masters and "
+        f"moments ({b['groups']} groups): {b['steps_per_s']:.4f} steps/s over {b['steps']} "
+        f"steps after {b['warmup']} warm-up, first step after {b['first_step_s']:.2f} s, peak "
+        f"{b['peak_mem_gib']:.2f} GiB, launches per step {b['launches_per_step']}, splash by "
+        f"form {b['splash_by_form']}, losses {b['losses']}, {b['masters_moved']} of {b['of']} "
+        f"masters moved; checkpoint + sidecar {b['checkpoint_gib']:.2f} GiB; prune --arch sd2 "
+        f"--text-encoder fp16 and fp32 in {b['prune_s']:.1f} s ({b['pruned_gib']} GiB), "
+        f"reloaded bit for bit; DDIM {SD21_SAMPLE_STEPS} steps, cfg {SD21_CFG}, one 768^2 "
+        f"image: {b['sample_s']:.2f} s, splash_fwd by form {b['sample_by_form']}; leg "
+        f"{b['seconds']:.1f} s")
+
+    t0 = time.perf_counter()
+    record["kernels_sd21"] = [kernel_phase(s, gen, rate) for s in SD21_KERNEL_SHAPES]
+    for r in record["kernels_sd21"]:
+        log(f"kernels (sd2.x) {r['shape']}: {json.dumps({k: r[k] for k in r if k != 'shape'})}")
+    torch.cuda.empty_cache()
+    # adam_bf16_fused in (b)'s form: the xla mode over SD2.1's UNet leaves
+    shapes = unet_param_shapes(UNetConfig.sd21())
+    keys = sorted(shapes)
+    adam = record["sd21_adam"] = adamw_group_case(gen, [f"unet.{k}" for k in keys],
+                                                  [tuple(shapes[k]) for k in keys], xla=True,
+                                                  traced=False)
+    torch.cuda.empty_cache()
+    log(f"single_file (c) kernels in SD2.x's forms: adam_bf16_fused (xla mode) over SD2.1's "
+        f"{adam['leaves']} fp32 leaves ({adam['elements']} elements): {adam['ms']:.4f} ms "
+        f"(bound {adam['bound'][0]:.4f} ms by {adam['bound'][1]}), plain "
+        f"{adam['plain_ms']:.2f} ms, bit-equal {adam['err']}; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    d = single_file_extract(workdir, base, yaml, trained)
+    d["seconds"] = time.perf_counter() - t0
+    log(f"single_file (d) extract_lora (lora_no-te.yaml, rank 16) on the card: {d['leaves']} "
+        f"leaves, SVDs {d['svd_s']:.3f} s in total ({d['svd_ms_per_leaf']:.2f} ms per leaf, "
+        f"largest {d['svd_ms_max']:.2f} ms), the CLI {d['total_s']:.1f} s; against float64 CPU "
+        f"truncations: {d['checked']}")
+    for p in (base, yaml, trained):
+        p.unlink()
+    for sub in ("sd21_runs", "sd21_images", "sf_samples"):
+        shutil.rmtree(workdir / sub, ignore_errors=True)
+    record["single_file"] = {"sd15": a, "sd21": b, "extract": d,
+                             "seconds": a["seconds"] + b["seconds"] + d["seconds"],
+                             "launches": {k: a["launches"][k] + b["launches"][k]
+                                          for k in a["launches"]}}
+
+
 def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                 record: dict) -> dict:
     """The {"kernels": [...]} entry of an optimizer kernel: the numbers of its
@@ -3353,6 +3901,7 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                "grouped_fp32_grads": opt["grouped_fp32_grads"]["adam_bf16_fused"],
                "grouped_xla": opt["grouped_xla"]["adam_bf16_fused"],
                "sd3_grouped_xla": record["sd3_adam"],
+               "sd21_grouped_xla": record["sd21_adam"],
                "grouped_int8_fp32_leaves_fp32_grads":
                    opt["grouped_int8_fp32_grads"]["adam_bf16_fused_fp32_leaves"]})
     phase = "train_int8" if name == "adam8_fused" else "train"
@@ -3363,7 +3912,7 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
             "max_abs_err": max([r["err"]["out"] for r in cases] + [grouped["err"]["out"]]
                                + ([record[k][name]["err"]["out"]
                                    for k in ("lora_kernels", "sdxl_kernels")]
-                                  + [record["sd3_adam"]["err"]["out"]]
+                                  + [record[k]["err"]["out"] for k in ("sd3_adam", "sd21_adam")]
                                   if name == "adam_bf16_fused" else [])),
             "ms": grouped["ms"], "plain_ms": grouped["plain_ms"],
             "bound_ms": grouped["bound"][0], "bound_by": grouped["bound"][1],
@@ -3421,7 +3970,7 @@ def kernel_entries(record: dict) -> list[dict]:
     ``optim_entry`` and ``ema_entry``."""
     main_shape = record["kernels"][0]
     splash_records = (record["kernels"] + [record["kernels_arb"]] + record["kernels_lora"]
-                      + record["kernels_sdxl"] + record["kernels_sd3"])
+                      + record["kernels_sdxl"] + record["kernels_sd3"] + record["kernels_sd21"])
     sampling_records = record["kernels_sampling"] + record["kernels_sdxl_sampling"]
     kernels = []
     for name, (source, replaces, pallas_kernel) in KERNELS.items():
@@ -3645,9 +4194,8 @@ def main(argv=None) -> int:
             f"{db['losses']}")
         record["dreambooth"] = db
 
-        # SDXL (configs/sdxl_lora.yaml): the SD1.5 directory makes room for
-        # SDXL-base's 7 GB
-        shutil.rmtree(Path(tmp) / "model")
+        # SDXL (configs/sdxl_lora.yaml); the SD1.5 directory stays for the
+        # single_file phase
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3705,6 +4253,12 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         sd3_phases(record, args, gen, rate, Path(tmp))
+        # single-file checkpoints: SD3-Medium's directory makes room for
+        # SD2.1's files
+        shutil.rmtree(Path(tmp) / "sd3")
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_file_phase(record, args, gen, rate, Path(tmp))
 
     # the kernels in the forms and at the shapes the lora phase ran them
     record["kernels_lora"] = [kernel_phase(tuple(sh), gen, rate) for sh in lora["splash_shapes"]]

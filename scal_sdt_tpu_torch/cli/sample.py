@@ -5,17 +5,18 @@
 
 Runs ``diffusion/sampler.py`` (DDIM, Euler, Euler-a, DPM++(2M), with CFG
 rescale and img2img; SD3 by the flow-matching Euler ODE, which ``ddim`` also
-selects there) on a diffusers directory the trainer can load (SD1.x,
-SD2.x, SDXL or SD3, whose T5 tokenizer is ``--tokenizer-3`` or the
-directory's ``tokenizer_3/``),
+selects there) on a model the trainer can load: a diffusers directory
+(SD1.x, SD2.x, SDXL or SD3, whose T5 tokenizer is ``--tokenizer-3`` or the
+directory's ``tokenizer_3/``) or a single-file checkpoint (an SD1.x LDM
+file with the bundled v1 architecture, SDXL's or SD3's sgm file; an SD3
+file takes ``--mmdit-head-dim`` and ``--pos-embed-max-size``, and a single
+file needs ``--tokenizer``; an SD2.x file needs its LDM YAML, which only the
+API takes, ``load_components`` with ``ldm_config``, as in the JAX package),
 optionally overlaying a training checkpoint: a full fine-tune's tensors or
 LoRA factors (which the UNet forward consumes as run-time deltas) from
 either package's ``.safetensors`` file, or a kohya / AddNet LoRA file; the
 checkpoint's trained textual-inversion keywords are registered with the
 tokenizer. Samples run on a card unless ``--device cpu`` asks for the CPU.
-Not ported yet: single-file models (LDM, sgm and SD3, ROADMAP 1.18) and the
-options that only they read, ``--mmdit-head-dim`` and
-``--pos-embed-max-size``, which raise when given.
 """
 
 from __future__ import annotations
@@ -65,13 +66,15 @@ def merge_checkpoint(models, ckpt_path: Path) -> dict:
 
 
 @click.command()
-@click.option("--model", required=True, help="diffusers directory")
+@click.option("--model", required=True,
+              help="LDM .ckpt/.safetensors file or diffusers directory")
 @click.option("--prompt", "prompts", multiple=True, required=True,
               help="Prompt (repeat for a batch of different prompts)")
 @click.option("--negative", default="", help="Negative prompt")
 @click.option("--ckpt", type=click.Path(exists=True, path_type=Path), default=None,
               help="Training checkpoint to overlay (full-FT or LoRA, or a kohya LoRA file)")
-@click.option("--vae", default=None, help="External VAE directory")
+@click.option("--vae", default=None, help="External VAE (a directory, or a file for a "
+              "single-file model)")
 @click.option("--num", default=1, show_default=True, help="Images per prompt")
 @click.option("--steps", default=28, show_default=True)
 @click.option("--cfg", default=7.5, show_default=True)
@@ -96,11 +99,12 @@ def merge_checkpoint(models, ckpt_path: Path) -> dict:
 @click.option("--tokenizer-3", "tokenizer_3_src", default=None,
               help="T5 tokenizer.json (or its directory) of SD3 models with T5 (default: "
                    "the model directory's tokenizer_3/)")
-@click.option("--mmdit-head-dim", type=int, default=None,
-              help="MMDiT head dim of SD3 single-file models (not ported yet, ROADMAP 1.18)")
+@click.option("--mmdit-head-dim", type=int, default=64, show_default=True,
+              help="MMDiT attention head dim of SD3 single-file models (every SD3 / SD3.5 "
+                   "release uses 64; tiny fixtures differ)")
 @click.option("--pos-embed-max-size", type=int, default=None,
-              help="MMDiT sincos grid size of SD3 single-file models (not ported yet, "
-                   "ROADMAP 1.18)")
+              help="MMDiT sincos grid size of SD3 single files without the pos_embed buffer "
+                   "(default 192 = SD3-Medium)")
 @click.option("--out", type=click.Path(path_type=Path), default=Path("samples"),
               show_default=True)
 @click.option("--device", default="cuda", show_default=True,
@@ -108,12 +112,6 @@ def merge_checkpoint(models, ckpt_path: Path) -> dict:
 def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, seed, method,
          guidance_rescale, init_image, strength, clip_skip, tokenizer_src, tokenizer_3_src,
          mmdit_head_dim, pos_embed_max_size, out, device):
-    single_file = {"--mmdit-head-dim": mmdit_head_dim,
-                   "--pos-embed-max-size": pos_embed_max_size}
-    given = [name for name, value in single_file.items() if value is not None]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: options of single-file SD3 models, "
-                                  "which are not ported yet (ROADMAP 1.18)")
     dev = resolve_device(device)
 
     from PIL import Image
@@ -125,6 +123,8 @@ def main(model, prompts, negative, ckpt, vae, num, steps, cfg, width, height, se
 
     config = merge(default(), Config({
         "model": str(model), "vae": vae, "clip_stop_at_layer": int(clip_skip),
+        "mmdit_head_dim": int(mmdit_head_dim),
+        **({"mmdit_pos_embed_max_size": int(pos_embed_max_size)} if pos_embed_max_size else {}),
         **({"tokenizer": tokenizer_src} if tokenizer_src else {}),
         **({"tokenizer_3": tokenizer_3_src} if tokenizer_3_src else {}),
     }))

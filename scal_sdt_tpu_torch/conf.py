@@ -2,7 +2,8 @@
 
 A copy of the parts of ``scal_sdt_tpu/conf.py`` the port uses so far (it
 imports nothing of the JAX package), with the data it ships: the reserved
-defaults and the optim-target specs under ``configs/``.
+defaults, the optim-target specs and the bundled SD v1 LDM architecture
+config under ``configs/``.
 
 Mirrors the OmegaConf-based config semantics of the original trainer
 (MooerFoes/scal-sdt, ``modules/configs.py``): a user YAML is deep-merged over
@@ -19,12 +20,13 @@ from __future__ import annotations
 import copy
 from os import PathLike
 from pathlib import Path
-from typing import Any, IO, Optional, Union
+from typing import Any, IO, Iterator, Optional, Union
 
 import yaml
 
 CONFIGS_DIR = Path(__file__).parent / "configs"
 OPTIM_TARGETS_DIR = CONFIGS_DIR / "optim_targets"
+LDM_CONFIG_DIR = CONFIGS_DIR / "ldm"
 DEFAULT_PATH = CONFIGS_DIR / "__reserved_default__.yaml"
 
 
@@ -139,6 +141,16 @@ def load_with_defaults(config: Union[str, PathLike, IO]) -> Config:
     return merge(default(), load(config))
 
 
+def get_ldm_config(link_or_path: Optional[str] = None) -> Config:
+    """The CompVis LDM architecture config of a single-file checkpoint: the
+    bundled SD v1-inference.yaml for ``None`` or a URL (the original trainer
+    fetches that file from the CompVis repository; the port reads no
+    network), else the YAML file at ``link_or_path``."""
+    if link_or_path is None or str(link_or_path).startswith(("http://", "https://")):
+        return load(LDM_CONFIG_DIR / "v1-inference.yaml")
+    return load(link_or_path)
+
+
 def load_optim_target(target: Union[str, Config]) -> Config:
     """Resolve an optim-target spec: by name from configs/optim_targets, or inline."""
     if isinstance(target, str):
@@ -146,3 +158,18 @@ def load_optim_target(target: Union[str, Config]) -> Config:
     if not isinstance(target, Config):
         raise TypeError(f"optim target must be a name or a Config, got {type(target)}")
     return target
+
+
+def search_key(conf: ConfigLike, key: str) -> Iterator[Any]:
+    """Every value stored under ``key`` anywhere in a nested config, outer
+    first (recovers a LoRA alpha from a run config)."""
+    if isinstance(conf, Config):
+        if conf.get(key) is not None:
+            yield conf[key]
+        for v in conf.values():
+            if isinstance(v, (Config, list)):
+                yield from search_key(v, key)
+    elif isinstance(conf, list):
+        for item in conf:
+            if isinstance(item, (Config, list)):
+                yield from search_key(item, key)

@@ -1,9 +1,11 @@
-"""kohya/AddNet LoRA file import (port of the import half of
-``scal_sdt_tpu/convert/kohya.py``; the export half comes with the checkpoint
-tools, ROADMAP 1.18).
+"""kohya/AddNet LoRA files: export and import (port of
+``scal_sdt_tpu/convert/kohya.py`` and of ``to_kohya_format`` in
+``scal_sdt_tpu/cli/ckpt_tool.py``).
 
-Lets ``cli.sample --ckpt`` consume LoRA files from the wider kohya/WebUI
-ecosystem, not just the trainer's own checkpoints. The flattened underscore
+``to_kohya_format`` names the trainer's LoRA factors as AddNet does
+(``ckpt_tool lora``); ``from_kohya_format`` lets ``cli.sample --ckpt``
+consume LoRA files from the wider kohya/WebUI ecosystem, not just the
+trainer's own checkpoints. The flattened underscore
 names (``lora_unet_down_blocks_0_attentions_...``) are resolved back to
 dotted module paths by matching against the loaded model's parameter names
 (inversion by string surgery alone is ambiguous: path segments contain
@@ -23,6 +25,24 @@ logger = logging.getLogger("kohya")
 
 _LEAF_MAP = {"lora_down.weight": "lora_A", "lora_up.weight": "lora_B",
              "alpha": "lora_alpha"}
+
+
+def to_kohya_format(state: dict, prefix: str, fallback_alpha=None) -> dict:
+    """LoRA factors (``{module}.lora_A`` / ``lora_B`` / ``lora_alpha``) ->
+    AddNet names (``{prefix}_{module with _}.lora_down.weight`` / ``lora_up.weight``
+    / ``alpha``). A module without a stored alpha gets ``fallback_alpha``
+    (int32, 0-dim) when one is given; ``state`` takes it too."""
+    modules = {k.rsplit(".", 1)[0] for k in state if k.endswith((".lora_A", ".lora_B"))}
+    out = {}
+    for module in modules:
+        if f"{module}.lora_alpha" not in state and fallback_alpha is not None:
+            state[f"{module}.lora_alpha"] = torch.tensor(int(fallback_alpha), dtype=torch.int32)
+        name = "_".join([prefix] + module.split("."))
+        for kohya_leaf, leaf in _LEAF_MAP.items():
+            k = f"{module}.{leaf}"
+            if k in state:
+                out[f"{name}.{kohya_leaf}"] = state[k]
+    return out
 
 
 def is_kohya_lora(state: dict) -> bool:

@@ -1,6 +1,5 @@
-"""Model loading: a diffusers directory -> flat param dicts (port of
-``scal_sdt_tpu/convert/loader.py``, the SD1.x/2.x, SDXL and SD3 directory
-layouts).
+"""Model loading: a diffusers directory or a single-file checkpoint -> flat
+param dicts (port of ``scal_sdt_tpu/convert/loader.py``).
 
 A diffusers directory holds ``unet/``, ``vae/``, ``text_encoder/`` and
 ``scheduler/``, each with a ``config.json`` and a weights file, and for SDXL
@@ -9,13 +8,22 @@ external VAE directory may replace the bundled one. An SD3 directory holds
 ``transformer/`` (the MMDiT, whose sincos ``pos_embed`` is synthesized when
 the file lacks it) in place of ``unet/``, the 16-channel VAE, two projected
 CLIP towers, an optional ``text_encoder_3/`` (T5) and a flow-matching
-``scheduler/``. Each component is validated against its shape template. The
-dicts hold CPU tensors in the files' dtypes, keyed by the diffusers /
-transformers names; the caller moves them to its device.
+``scheduler/``.
 
-Not ported yet, and refused with an error: single-file checkpoints (LDM,
-SDXL's sgm layout and single-file SD3, ROADMAP 1.18) and hub ids.
-"""
+A single ``.ckpt`` / ``.safetensors`` file is read in the layout its keys
+name: SD3's sgm file (``model.diffusion_model.joint_blocks.*``, towers under
+``text_encoders.*``), SDXL's sgm file (``conditioner.embedders.*``), or a
+CompVis LDM file, SD1.x (``cond_stage_model.transformer.*``) or SD2.x
+(OpenCLIP under ``cond_stage_model.model.*``), whose architecture comes from
+an LDM YAML (``config.ldm_config``, the bundled v1-inference.yaml by
+default). As in the JAX package, the YAML's ``parameterization`` is not
+read: an SD2 v model needs ``schedule: {prediction_type: v}``. The VAE
+may come from another file (``config.vae``).
+
+Each component is validated against its shape template. The dicts hold CPU
+tensors in the files' dtypes, keyed by the diffusers / transformers names;
+the caller moves them to its device. Hub ids are refused (resolving one
+needs the network)."""
 
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from ..conf import Config
+from ..conf import Config, get_ldm_config
 from ..diffusion.flow import FlowSchedule
 from ..diffusion.schedule import NoiseSchedule
 from ..models.clip import CLIPTextConfig, clip_param_shapes
@@ -35,8 +43,9 @@ from ..models.mmdit import POS_EMBED_KEY, MMDiTConfig, mmdit_param_shapes, sinco
 from ..models.t5 import T5Config, t5_param_shapes
 from ..models.unet import UNetConfig, unet_param_shapes
 from ..models.vae import VAEConfig, vae_param_shapes
-from ..utils.state import load_state_dict
-from .sd_names import normalize_df_vae_attention
+from ..utils.state import load_state_dict, replace_prefix
+from .sd_names import (convert_openclip_text_to_transformers, convert_unet_state_ldm_to_df,
+                       convert_vae_state_ldm_to_df, normalize_df_vae_attention)
 
 logger = logging.getLogger("loader")
 
@@ -167,6 +176,23 @@ def _clip_config_from_df(cfg: dict, with_projection: bool = False) -> CLIPTextCo
     )
 
 
+def _clip_config_from_state(clip: Params, hidden_act: str = "gelu") -> CLIPTextConfig:
+    """The text tower's config from its transformers-layout state (single
+    files carry no config.json); heads follow OpenCLIP's width // 64."""
+    tok = clip["text_model.embeddings.token_embedding.weight"]
+    layers = 0
+    while f"text_model.encoder.layers.{layers}.layer_norm1.weight" in clip:
+        layers += 1
+    d = int(tok.shape[1])
+    return CLIPTextConfig(
+        vocab_size=int(tok.shape[0]), hidden_size=d,
+        intermediate_size=int(clip["text_model.encoder.layers.0.mlp.fc1.weight"].shape[0]),
+        num_hidden_layers=layers, num_attention_heads=max(d // 64, 1),
+        max_position_embeddings=int(
+            clip["text_model.embeddings.position_embedding.weight"].shape[0]),
+        hidden_act=hidden_act)
+
+
 def _vae_dir(path: Path, vae_override: Optional[str]) -> Path:
     if not vae_override:
         return path / "vae"
@@ -269,23 +295,222 @@ def load_diffusers_dir(path: Path, vae_override: Optional[str] = None) -> Loaded
                         clip2=clip2, clip2_config=clip2_config)
 
 
+def _vae_config_from_ldm_state(vae_ldm: Params) -> VAEConfig:
+    """The VAE's architecture from an LDM-layout first-stage state. SD3's
+    16-channel VAE is told by its latent width and its missing quant
+    convs."""
+    ch = []
+    while f"encoder.down.{len(ch)}.block.0.conv1.weight" in vae_ldm:
+        ch.append(int(vae_ldm[f"encoder.down.{len(ch)}.block.0.conv1.weight"].shape[0]))
+    layers = 0
+    while f"encoder.down.0.block.{layers}.conv1.weight" in vae_ldm:
+        layers += 1
+    z = int(vae_ldm["encoder.conv_out.weight"].shape[0]) // 2
+    sd3like = z == 16
+    return VAEConfig(
+        in_channels=int(vae_ldm["encoder.conv_in.weight"].shape[1]),
+        out_channels=int(vae_ldm["decoder.conv_out.weight"].shape[0]),
+        latent_channels=z, block_out_channels=tuple(ch), layers_per_block=layers,
+        norm_num_groups=next(g for g in (32, 8, 4, 1) if ch[0] % g == 0),
+        scaling_factor=1.5305 if sd3like else 0.18215,
+        shift_factor=0.0609 if sd3like else 0.0,
+        use_quant_conv="quant_conv.weight" in vae_ldm,
+        use_post_quant_conv="post_quant_conv.weight" in vae_ldm,
+    )
+
+
+def _t5_config_from_state(t5: Params) -> T5Config:
+    """T5Config from a transformers-layout encoder state."""
+    shared = t5["shared.weight"]
+    layers = 0
+    while f"encoder.block.{layers}.layer.0.SelfAttention.q.weight" in t5:
+        layers += 1
+    rel = t5["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"]
+    heads = int(rel.shape[1])
+    inner = int(t5["encoder.block.0.layer.0.SelfAttention.q.weight"].shape[0])
+    gated = "encoder.block.0.layer.1.DenseReluDense.wi_0.weight" in t5
+    ff_key = f"encoder.block.0.layer.1.DenseReluDense.{'wi_0' if gated else 'wi'}.weight"
+    return T5Config(
+        vocab_size=int(shared.shape[0]), d_model=int(shared.shape[1]),
+        d_kv=inner // heads, d_ff=int(t5[ff_key].shape[0]),
+        num_layers=layers, num_heads=heads,
+        relative_attention_num_buckets=int(rel.shape[0]),
+        feed_forward_proj="gated-gelu" if gated else "relu")
+
+
+def _vae_ldm_state(state: Params, vae_path: Optional[str]) -> Params:
+    """The LDM-layout VAE of the checkpoint, or of ``vae_path`` (a first
+    stage alone, or a checkpoint holding one under ``first_stage_model.``)."""
+    if vae_path is None:
+        return replace_prefix(state, "first_stage_model.")
+    vae_state = load_state_dict(Path(vae_path))
+    return replace_prefix(vae_state, "first_stage_model.") or vae_state
+
+
+def _load_sd3_single_file(state: Params, vae_path: Optional[str] = None, head_dim: int = 64,
+                          pos_embed_max_size: Optional[int] = None) -> LoadedModels:
+    """An SD3 / SD3.5 single file (the WebUI / ComfyUI distribution): the
+    MMDiT under ``model.diffusion_model.*`` in sgm naming, the towers under
+    ``text_encoders.{clip_l,clip_g,t5xxl}.transformer.*`` (transformers
+    layout), the 16-channel VAE under ``first_stage_model.*``."""
+    from .mmdit_names import convert_mmdit_state_sgm_to_df, mmdit_config_from_sgm_state
+
+    sgm = replace_prefix(state, "model.diffusion_model.")
+    mmdit_config = mmdit_config_from_sgm_state(sgm, head_dim=head_dim,
+                                               pos_embed_max_size=pos_embed_max_size)
+    mmdit = convert_mmdit_state_sgm_to_df(sgm)
+    if POS_EMBED_KEY not in mmdit:
+        # the fixed sincos buffer, non-persistent in some exports
+        mmdit[POS_EMBED_KEY] = sincos_pos_embed_2d(mmdit_config.inner_dim,
+                                                   mmdit_config.pos_embed_max_size)
+
+    vae_ldm = _vae_ldm_state(state, vae_path)
+    if not vae_ldm:
+        raise ValueError("SD3 single-file checkpoint has no bundled VAE (first_stage_model.*); "
+                         "pass one via --vae / config.vae")
+    vae_config = _vae_config_from_ldm_state(vae_ldm)
+    vae = convert_vae_state_ldm_to_df(vae_ldm, vae_config)
+
+    clips = []
+    for tower, act in (("clip_l", "quick_gelu"), ("clip_g", "gelu")):
+        st = replace_prefix(state, f"text_encoders.{tower}.transformer.")
+        if not st:
+            raise ValueError(
+                f"SD3 single-file checkpoint has no bundled {tower} tower (text_encoders.*): "
+                "use the incl-clips distribution or the diffusers directory layout")
+        st.pop("text_model.embeddings.position_ids", None)
+        proj = st.get("text_projection.weight")
+        if proj is None:
+            raise ValueError(f"SD3 {tower} tower is missing text_projection (the pooled "
+                             "conditioning needs it)")
+        cfg = dataclasses.replace(_clip_config_from_state(st, hidden_act=act),
+                                  projection_dim=int(proj.shape[0]))
+        clips.append((st, cfg))
+
+    t5 = t5_config = None
+    t5_state = replace_prefix(state, "text_encoders.t5xxl.transformer.")
+    if t5_state:
+        t5_config = _t5_config_from_state(t5_state)
+        _validate(t5_state, t5_param_shapes(t5_config), "t5xxl")
+        t5 = t5_state
+
+    _validate(mmdit, mmdit_param_shapes(mmdit_config), "transformer")
+    _validate(vae, vae_param_shapes(vae_config), "vae")
+    _validate(clips[0][0], clip_param_shapes(clips[0][1]), "clip_l")
+    _validate(clips[1][0], clip_param_shapes(clips[1][1]), "clip_g")
+    return LoadedModels(mmdit, None, vae, vae_config, clips[0][0], clips[0][1], FlowSchedule(),
+                        clip2=clips[1][0], clip2_config=clips[1][1],
+                        mmdit_config=mmdit_config, t5=t5, t5_config=t5_config)
+
+
+def _load_sdxl_single_file(state: Params, ldm_config: Optional[Config] = None,
+                           vae_path: Optional[str] = None) -> LoadedModels:
+    """A WebUI-style SDXL single file (sgm namespace): the UNet under
+    ``model.diffusion_model.*`` (SDXL-base unless an sgm YAML says
+    otherwise), CLIP-L under ``conditioner.embedders.0.transformer.*``
+    (transformers layout) and OpenCLIP bigG with its text_projection under
+    ``conditioner.embedders.1.model.*``."""
+    has_sgm_yaml = ldm_config is not None and "network_config" in ldm_config.model.params
+    unet_config = UNetConfig.from_sgm_config(ldm_config) if has_sgm_yaml else UNetConfig.sdxl()
+    unet = convert_unet_state_ldm_to_df(replace_prefix(state, "model.diffusion_model."),
+                                        unet_config)
+
+    vae_config = dataclasses.replace(
+        VAEConfig.from_ldm_config(ldm_config) if has_sgm_yaml else VAEConfig.sd15(),
+        scaling_factor=0.13025)
+    vae = convert_vae_state_ldm_to_df(_vae_ldm_state(state, vae_path), vae_config)
+
+    clip = replace_prefix(state, "conditioner.embedders.0.transformer.")
+    clip.pop("text_model.embeddings.position_ids", None)
+    # real SDXL ships the standard CLIP-L here; infer (quick_gelu) only when
+    # the tower deviates from ViT-L's depth
+    clip_config = CLIPTextConfig.vit_l()
+    if (f"text_model.encoder.layers.{clip_config.num_hidden_layers - 1}.layer_norm1.weight"
+            not in clip):
+        clip_config = _clip_config_from_state(clip, hidden_act="quick_gelu")
+
+    clip2 = convert_openclip_text_to_transformers(
+        replace_prefix(state, "conditioner.embedders.1.model."), keep_projection=True)
+    proj = clip2.get("text_projection.weight")
+    if proj is None:
+        raise ValueError("SDXL single-file checkpoint is missing the tower-2 text_projection")
+    clip2_config = dataclasses.replace(_clip_config_from_state(clip2),
+                                       projection_dim=int(proj.shape[0]))
+
+    _validate(unet, unet_param_shapes(unet_config), "unet")
+    _validate(vae, vae_param_shapes(vae_config), "vae")
+    _validate(clip, clip_param_shapes(clip_config), "text_encoder")
+    _validate(clip2, clip_param_shapes(clip2_config), "text_encoder_2")
+    # SDXL-base trains the SD default schedule
+    return LoadedModels(unet, unet_config, vae, vae_config, clip, clip_config, NoiseSchedule(),
+                        clip2=clip2, clip2_config=clip2_config)
+
+
+def load_ldm_checkpoint(path: Path, ldm_config: Optional[Config] = None,
+                        vae_path: Optional[str] = None, mmdit_head_dim: int = 64,
+                        mmdit_pos_embed_max_size: Optional[int] = None) -> LoadedModels:
+    """A single-file checkpoint, dispatched on its keys: SD3 (``joint_blocks``),
+    SDXL (``conditioner.embedders.1.model``), else a CompVis LDM file of
+    SD1.x or, with OpenCLIP under ``cond_stage_model.model``, SD2.x, shaped
+    by ``ldm_config`` (the bundled v1 YAML when None)."""
+    state = load_state_dict(Path(path))
+    if any(k.startswith("model.diffusion_model.joint_blocks.") for k in state):
+        return _load_sd3_single_file(state, vae_path, head_dim=mmdit_head_dim,
+                                     pos_embed_max_size=mmdit_pos_embed_max_size)
+    if any(k.startswith("conditioner.embedders.1.model.") for k in state):
+        return _load_sdxl_single_file(state, ldm_config, vae_path)
+    ldm_config = ldm_config if ldm_config is not None else get_ldm_config(None)
+
+    unet_config = UNetConfig.from_ldm_config(ldm_config)
+    unet = convert_unet_state_ldm_to_df(replace_prefix(state, "model.diffusion_model."),
+                                        unet_config)
+    vae_config = VAEConfig.from_ldm_config(ldm_config)
+    vae = convert_vae_state_ldm_to_df(_vae_ldm_state(state, vae_path), vae_config)
+
+    openclip = replace_prefix(state, "cond_stage_model.model.")
+    if openclip:
+        # SD2.x: OpenCLIP ViT-H (resblocks, fused in_proj)
+        clip = convert_openclip_text_to_transformers(openclip)
+        clip_config = _clip_config_from_state(clip)
+    else:
+        clip = replace_prefix(state, "cond_stage_model.transformer.")
+        clip.pop("text_model.embeddings.position_ids", None)
+        # SD1.x bundles ViT-L (quick_gelu): inferring the shapes gives
+        # CLIPTextConfig.vit_l() for real files and takes deviating towers
+        clip_config = (_clip_config_from_state(clip, hidden_act="quick_gelu")
+                       if clip else CLIPTextConfig.vit_l())
+
+    _validate(unet, unet_param_shapes(unet_config), "unet")
+    _validate(vae, vae_param_shapes(vae_config), "vae")
+    _validate(clip, clip_param_shapes(clip_config), "text_encoder")
+    return LoadedModels(unet, unet_config, vae, vae_config, clip, clip_config,
+                        NoiseSchedule.from_ldm_config(ldm_config))
+
+
 def load_components(config: Config) -> LoadedModels:
-    """Load ``config.model`` (a diffusers directory), with ``config.vae`` as
-    an external VAE directory. An optional ``schedule:`` config section
-    overrides fields of the loaded noise schedule (e.g. ``prediction_type:
-    v`` with ``rescale_zero_terminal_snr: true``)."""
+    """Load ``config.model``: a single-file checkpoint (with
+    ``config.ldm_config``, ``config.vae`` as another VAE file, and for SD3
+    ``mmdit_head_dim`` / ``mmdit_pos_embed_max_size``) or a diffusers
+    directory (``config.vae`` an external VAE directory). An optional
+    ``schedule:`` config section overrides fields of the loaded noise
+    schedule (e.g. ``prediction_type: v`` with
+    ``rescale_zero_terminal_snr: true``)."""
     name = config.model
     if name is None:
         raise ValueError("config.model is not set")
     p = Path(str(name))
     if p.is_file():
+        pe = config.get("mmdit_pos_embed_max_size")
+        models = load_ldm_checkpoint(p, get_ldm_config(config.get("ldm_config")),
+                                     config.get("vae"),
+                                     mmdit_head_dim=int(config.get("mmdit_head_dim") or 64),
+                                     mmdit_pos_embed_max_size=int(pe) if pe else None)
+    elif p.is_dir():
+        models = load_diffusers_dir(p, config.get("vae"))
+    else:
         raise NotImplementedError(
-            f"{p}: single-file (LDM / sgm) checkpoints are not ported yet (ROADMAP 1.18); "
-            "pass a diffusers directory")
-    if not p.is_dir():
-        raise NotImplementedError(
-            f"model {name!r} is not a local directory: hub ids are not ported yet")
-    models = load_diffusers_dir(p, config.get("vae"))
+            f"model {name!r} is not a local file or directory: hub ids are not ported "
+            "(resolving one needs the network)")
 
     overrides = dict(config.get("schedule") or {})
     if overrides:

@@ -67,6 +67,18 @@ class NoiseSchedule:
         return acp.astype(np.float32)
 
     @classmethod
+    def from_ldm_config(cls, ldm_config, **overrides) -> "NoiseSchedule":
+        """The betas of a CompVis LDM architecture YAML (``parameterization``
+        is not read, as in the JAX package)."""
+        params = ldm_config.model.params
+        return cls(
+            num_train_timesteps=int(params.get("timesteps", 1000)),
+            beta_start=float(params.get("linear_start", 0.00085)),
+            beta_end=float(params.get("linear_end", 0.012)),
+            **overrides,
+        )
+
+    @classmethod
     def from_diffusers_scheduler_config(cls, config: dict) -> "NoiseSchedule":
         """The fields of a diffusers ``scheduler_config.json``."""
         return cls(

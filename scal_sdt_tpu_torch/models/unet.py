@@ -64,6 +64,13 @@ class UNetConfig:
         return cls()
 
     @classmethod
+    def sd21(cls) -> "UNetConfig":
+        """SD 2.x: head dim 64 (per-level head counts), linear projections,
+        OpenCLIP-H context width."""
+        return cls(num_attention_heads=(5, 10, 20, 20), use_linear_projection=True,
+                   cross_attention_dim=1024)
+
+    @classmethod
     def sdxl(cls) -> "UNetConfig":
         """SDXL-base (diffusers stabilityai/stable-diffusion-xl-base-1.0
         unet/config.json): 3 levels, transformer depths (1, 2, 10), context
@@ -113,6 +120,71 @@ class UNetConfig:
             down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
             up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
             norm_num_groups=8,
+        )
+
+    @classmethod
+    def from_sgm_config(cls, ldm_config) -> "UNetConfig":
+        """SDXL's sgm architecture YAML (``network_config`` in place of
+        ``unet_config``; per-level ``transformer_depth``; text_time
+        micro-conditioning from ``adm_in_channels`` with sequential
+        classes)."""
+        u = ldm_config.model.params.network_config.params
+        mult = list(u.channel_mult)
+        block_out = tuple(int(u.model_channels) * m for m in mult)
+        attn_ds = {int(a) for a in u.attention_resolutions}
+        has_attn = [2 ** i in attn_ds for i in range(len(mult))]
+        depth = u.get("transformer_depth", 1)
+        depth = tuple(int(d) for d in depth) if isinstance(depth, (list, tuple)) else int(depth)
+        heads = (tuple(c // int(u.num_head_channels) for c in block_out)
+                 if "num_head_channels" in u else int(u.get("num_heads", 8)))
+        text_time = str(u.get("num_classes", "")) == "sequential" and u.get("adm_in_channels")
+        return cls(
+            in_channels=int(u.in_channels),
+            out_channels=int(u.out_channels),
+            block_out_channels=block_out,
+            layers_per_block=int(u.num_res_blocks),
+            num_attention_heads=heads,
+            use_linear_projection=bool(u.get("use_linear_in_transformer", False)),
+            cross_attention_dim=int(u.context_dim),
+            transformer_layers_per_block=depth,
+            down_block_types=tuple("CrossAttnDownBlock2D" if a else "DownBlock2D"
+                                   for a in has_attn),
+            up_block_types=tuple("CrossAttnUpBlock2D" if a else "UpBlock2D"
+                                 for a in reversed(has_attn)),
+            addition_embed_type="text_time" if text_time else None,
+            projection_class_embeddings_input_dim=int(u.adm_in_channels) if text_time else None,
+            # fixed in real SD UNets; extensions for tiny fixtures
+            addition_time_embed_dim=int(u.get("addition_time_embed_dim", 256)),
+            norm_num_groups=int(u.get("num_groups", 32)),
+        )
+
+    @classmethod
+    def from_ldm_config(cls, ldm_config) -> "UNetConfig":
+        """The shapes of a CompVis LDM architecture YAML (``unet_config``).
+        Attention sits at the levels whose downscale factor is in
+        ``attention_resolutions``; SD1.x sets ``num_heads``, SD2.x
+        ``num_head_channels`` (64), which gives per-level head counts. Like
+        the JAX package, it reads no ``parameterization``: an SD2 v model
+        needs ``schedule: {prediction_type: v}`` in the run config."""
+        u = ldm_config.model.params.unet_config.params
+        mult = list(u.channel_mult)
+        block_out = tuple(int(u.model_channels) * m for m in mult)
+        attn_res = set(u.attention_resolutions)
+        factors = [2 ** i for i in range(len(mult))]
+        heads = (tuple(c // int(u.num_head_channels) for c in block_out)
+                 if "num_head_channels" in u else int(u.get("num_heads", 8)))
+        return cls(
+            in_channels=int(u.in_channels),
+            out_channels=int(u.out_channels),
+            block_out_channels=block_out,
+            layers_per_block=int(u.num_res_blocks),
+            num_attention_heads=heads,
+            use_linear_projection=bool(u.get("use_linear_in_transformer", False)),
+            cross_attention_dim=int(u.context_dim),
+            down_block_types=tuple("CrossAttnDownBlock2D" if f in attn_res else "DownBlock2D"
+                                   for f in factors),
+            up_block_types=tuple("CrossAttnUpBlock2D" if f in attn_res else "UpBlock2D"
+                                 for f in reversed(factors)),
         )
 
     def heads_at(self, level: int) -> int:

@@ -211,11 +211,16 @@ def test_load_diffusers_dir_matches_jax(tmp_path):
     cfg = tconf.merge(tconf.default(), tconf.Config({
         "model": str(d), "schedule": {"rescale_zero_terminal_snr": True}}))
     assert tloader.load_components(cfg).schedule.rescale_zero_terminal_snr
+    # a file goes to the single-file reader, as in JAX (an empty one is no
+    # safetensors file: tests/test_torch_single_file.py loads real ones); a
+    # name that is no local path is refused (hub ids need the network)
     (tmp_path / "file.safetensors").write_bytes(b"")
-    for model, match in ((tmp_path / "file.safetensors", "single-file"),
-                         (tmp_path / "absent", "hub ids")):
-        with pytest.raises(NotImplementedError, match=match):
-            tloader.load_components(tconf.merge(cfg, tconf.Config({"model": str(model)})))
+    file_cfg, absent_cfg = (tconf.merge(cfg, tconf.Config({"model": str(tmp_path / name)}))
+                            for name in ("file.safetensors", "absent"))
+    with pytest.raises(Exception, match="header too small"):
+        tloader.load_components(file_cfg)
+    with pytest.raises(NotImplementedError, match="hub ids"):
+        tloader.load_components(absent_cfg)
     # SDXL's second tower (ROADMAP 1.15): an empty text_encoder_2/ raises as
     # JAX's loader does; a real one loads as JAX loads it
     import shutil

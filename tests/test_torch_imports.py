@@ -36,12 +36,15 @@ def test_every_module_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 49
-    # the sampling slice's modules and the optimizer slice's are among those imported
+    # the sampling slice's modules, the optimizer slice's and the checkpoint
+    # toolchain's are among those imported
     assert {"scal_sdt_tpu_torch.diffusion.sampler", "scal_sdt_tpu_torch.convert.kohya",
             "scal_sdt_tpu_torch.cli.sample", "scal_sdt_tpu_torch.cli.gen_class_imgs",
             "scal_sdt_tpu_torch.training.sample_callback", "scal_sdt_tpu_torch.training.families",
             "scal_sdt_tpu_torch.training.packing",
-            "scal_sdt_tpu_torch.utils.msgpack"} <= set(_modules())
+            "scal_sdt_tpu_torch.utils.msgpack", "scal_sdt_tpu_torch.convert.mmdit_names",
+            "scal_sdt_tpu_torch.convert.sd_names", "scal_sdt_tpu_torch.cli.ckpt_tool",
+            "scal_sdt_tpu_torch.cli.extract_lora"} <= set(_modules())
 
 
 def test_sources_name_no_jax():
@@ -54,14 +57,14 @@ def test_sources_name_no_jax():
 @pytest.mark.parametrize("entry", ["resolve_device", "init_unet_params", "params_from_jax",
                                    "init_vae_params", "init_clip_params", "to_device",
                                    "Trainer", "train_cli", "sample_images", "sample_cli",
-                                   "gen_class_imgs_cli"])
+                                   "gen_class_imgs_cli", "lora_approx", "extract_lora_cli"])
 def test_default_device_needs_cuda(entry, tmp_path):
     import torch
     from click.testing import CliRunner
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
-    from scal_sdt_tpu_torch.cli import gen_class_imgs, sample
+    from scal_sdt_tpu_torch.cli import extract_lora, gen_class_imgs, sample
     from scal_sdt_tpu_torch.cli import train as train_cli
     from scal_sdt_tpu_torch.conf import default
     from scal_sdt_tpu_torch.diffusion.sampler import SamplerSpec, sample_images
@@ -90,7 +93,11 @@ def test_default_device_needs_cuda(entry, tmp_path):
                  sample.main, ["--model", str(tmp_path), "--prompt", "a cat"],
                  catch_exceptions=False),
              "gen_class_imgs_cli": lambda: CliRunner().invoke(
-                 gen_class_imgs.main, ["--config", str(config)], catch_exceptions=False)}
+                 gen_class_imgs.main, ["--config", str(config)], catch_exceptions=False),
+             "lora_approx": lambda: extract_lora.lora_approx(torch.zeros(2, 2), 1),
+             "extract_lora_cli": lambda: CliRunner().invoke(
+                 extract_lora.main, [str(config), str(config), str(tmp_path / "o.safetensors")],
+                 catch_exceptions=False)}
     config = tmp_path / "cfg.yaml"
     config.write_text("{}")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

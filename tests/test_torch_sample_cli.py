@@ -280,15 +280,26 @@ def test_sample_cli_img2img_and_ti_keywords(model_dir, checkpoints, tmp_path, ca
 @pytest.mark.parametrize("case", ["tokenizer-3", "mmdit-head-dim", "pos-embed-max-size",
                                   "single-file", "cuda"])
 def test_sample_cli_refuses_what_is_not_ported(model_dir, tmp_path, monkeypatch, case):
-    """The single-file SD3 options raise naming ROADMAP 1.18; an SD3 model
-    with T5 whose tokenizer_3 needs the `tokenizers` package raises naming
-    it when the package does not import (SD3 itself is ported:
-    tests/test_torch_sd3.py)."""
+    """What the single-file path refuses, as the JAX package does: an SD3
+    file whose MMDiT width the given ``--mmdit-head-dim`` does not divide, a
+    ``--pos-embed-max-size`` that contradicts the file's sincos table, and
+    an LDM file whose UNet is not the bundled v1 architecture (the CLI takes
+    no LDM YAML; tests/test_torch_single_file.py samples single files). An
+    SD3 model with T5 whose tokenizer_3 needs the `tokenizers` package
+    raises naming it when the package does not import (SD3 itself is
+    ported: tests/test_torch_sd3.py)."""
     args = ["--model", str(model_dir), "--prompt", "a cat", "--out", str(tmp_path)]
     want = {"tokenizer-3": (ImportError, "`tokenizers` package"),
-            "mmdit-head-dim": (NotImplementedError, "1.18"),
-            "pos-embed-max-size": (NotImplementedError, "1.18"),
-            "single-file": (NotImplementedError, "1.18"), "cuda": (RuntimeError, "CUDA")}[case]
+            "mmdit-head-dim": (ValueError, "not divisible by head_dim 64"),
+            "pos-embed-max-size": (ValueError, "conflicts with the checkpoint's own sincos"),
+            "single-file": (ValueError, "not consumed by the UNetConfig layout"),
+            "cuda": (RuntimeError, "CUDA")}[case]
+    # a stub SD3 file (width 16, a 12x12 sincos table): config inference
+    # reads these before anything else
+    sd3_file = tmp_path / "sd3.safetensors"
+    tstate.save_state_dict({f"model.diffusion_model.{k}": torch.zeros(shape) for k, shape in {
+        "x_embedder.proj.weight": (16, 4, 2, 2), "pos_embed": (1, 144, 16),
+        "joint_blocks.0.x_block.attn.qkv.weight": (48, 16)}.items()}, sd3_file)
     if case == "tokenizer-3":
         sd3, _ = tiny_sd3_dir(tmp_path / "sd3")
         monkeypatch.setitem(sys.modules, "tokenizers", None)   # import raises
@@ -296,12 +307,20 @@ def test_sample_cli_refuses_what_is_not_ported(model_dir, tmp_path, monkeypatch,
                 "--tokenizer", "hash", "--tokenizer-3", str(sd3 / "tokenizer_3"),
                 "--device", "cpu"]
     elif case == "mmdit-head-dim":
-        args += ["--mmdit-head-dim", "64", "--device", "cpu"]
+        args = ["--model", str(sd3_file), "--prompt", "a cat", "--out", str(tmp_path),
+                "--mmdit-head-dim", "64", "--device", "cpu"]
     elif case == "pos-embed-max-size":
-        args += ["--pos-embed-max-size", "192", "--device", "cpu"]
+        args = ["--model", str(sd3_file), "--prompt", "a cat", "--out", str(tmp_path),
+                "--mmdit-head-dim", "8", "--pos-embed-max-size", "192", "--device", "cpu"]
     elif case == "single-file":
-        f = tmp_path / "sd15.safetensors"
-        f.write_bytes(b"")
+        from scal_sdt_tpu_torch.convert.loader import load_diffusers_dir
+        from scal_sdt_tpu_torch.convert.sd_names import convert_unet_state_df_to_ldm
+
+        tiny = load_diffusers_dir(model_dir)
+        f = tmp_path / "tiny_sd1.safetensors"
+        tstate.save_state_dict({f"model.diffusion_model.{k}": v for k, v in
+                                convert_unet_state_df_to_ldm(tiny.unet, tiny.unet_config).items()},
+                               f)
         args = ["--model", str(f), "--prompt", "a cat", "--out", str(tmp_path), "--device", "cpu"]
     elif torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA default is not refused")
