@@ -65,7 +65,10 @@ Phases (any failure raises and the script exits non-zero):
               of the 7 hold the 227), adam_bf16_fused once per group with
               fp32-moment leaves (all 7 hold the 459), each splash kernel 10
               times; loss finite, params moved.
-7. uncached -- the uncached SD1.5 fine-tune at full width: the UNet as in
+7. uncached -- (the images through the native decoder where it builds,
+              else PIL: the line names it; then one epoch of the pipeline
+              alone and 3 steps with each decoder on the same PNGs)
+              the uncached SD1.5 fine-tune at full width: the UNet as in
               train, VAEConfig.sd15() and CLIPTextConfig.vit_l() with random
               weights from --seed (frozen, bf16), batches of 8 at 512^2 from
               the port's DataPipeline over 24 PNG files (720x576 and
@@ -171,6 +174,27 @@ Phases (any failure raises and the script exits non-zero):
               steps with prior preservation (2 instance + 2 class images
               per batch). Prints the class images' seconds each and the
               steps/s.
+13b. parallel -- (after dreambooth) the data x fsdp x tensor mesh over
+              torch.distributed at SD1.5 full width, 512^2, global batch 8,
+              2 steps, from the cache phase's file through the trainer
+              phase's directory (the default AdamW: fp32 masters and
+              moments, lr 1e-4; bf16 compute; remat): the single process
+              here, its masters written as the reference; (a) the train CLI
+              under python -m torch.distributed.run on 1 rank over NCCL (an
+              all-reduce first; the mesh resolved from the world size);
+              NCCL's refusal of two ranks on one card, printed; (b) 2 ranks
+              sharing the card over gloo, given explicitly, in meshes
+              (2,1,1), (1,2,1) and (1,1,2). Each rank's masters against the
+              reference: within 1e-4 of each tensor's largest entry plus 2
+              lr per step, at most PARALLEL_FAR_SHARE of them beyond the
+              first term, the update deltas within PARALLEL_DELTA_TOL
+              relative L2, losses within 1e-2. A negative control: (1,1,2)
+              with the tensor group's sum of the partial gradients skipped
+              must fail the share and delta bounds. Prints each run's
+              steps/s, peak memory, masters-and-moments GiB and launches;
+              then splash at the tensor-parallel form (8,4,4096,40) as in
+              phase 2. Two ranks on one card over gloo measure correctness
+              and memory, not multi-GPU speed.
 14. sdxl   -- SDXL-base at its published widths (the text_time UNet,
               UNetConfig.sdxl, 2.57 B parameters; CLIP ViT-L and OpenCLIP
               bigG with its text_projection; SD's VAE at scaling factor
@@ -218,10 +242,10 @@ Phases (any failure raises and the script exits non-zero):
               adamw (the reference), adam, lion, adafactor (blocks from the
               JAX trainer's default slabs), prodigyopt.Prodigy and
               dadaptation.DAdaptAdam (lr 1.0), sgd (lr 1e-3), 2 warm-up and
-              --steps timed steps each: splash 10 launches per step each,
+              2 timed steps each: splash 10 launches per step each,
               adam_bf16_fused 7 under adam and adamw and 0 under the others,
               losses finite, masters moved; Prodigy's and D-Adapt's
-              estim_lr above d0 (up to 20 more untimed steps); the first
+              estim_lr above d0 (up to 23 more untimed steps); the first
               update of three SD1.5 leaves on the card against the same
               chain on the CPU (bit for bit for elementwise chains, 1e-6 of
               the largest entry for the Adam kernel, 1e-5 with reductions).
@@ -341,6 +365,7 @@ from scal_sdt_tpu_torch.models.unet import (UNetConfig, init_unet_params, unet_a
                                             unet_param_shapes)
 from scal_sdt_tpu_torch.models.vae import (VAEConfig, decoder_apply, encoder_apply,
                                            init_vae_params, sample_latents)
+from scal_sdt_tpu_torch.native import image as native_image
 from scal_sdt_tpu_torch.ops import _build, adam8_fused, adam_bf16_fused, attention, ema_fused, splash
 from scal_sdt_tpu_torch.text.bpe import CLIPBPETokenizer, bytes_to_unicode
 from scal_sdt_tpu_torch.training.checkpoint import CheckpointManager
@@ -416,7 +441,7 @@ SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
 PHASES = ("train", "train_int8", "families", "uncached", "cache", "trainer", "ema",
           "sample", "lora", "lora_prodigy", "dreambooth", "sdxl_cache", "sdxl_lora",
           "sdxl_sample", "sd3_cached", "sd3_triple", "sd3_cli",
-          "single_file")   # the phases that run a main path
+          "single_file", "parallel")   # the phases that run a main path
 COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
 
@@ -1055,7 +1080,10 @@ FAMILY_PROBE = ("unet.conv_in.weight",
 # chains with reductions (another summation order) 1e-5 of the largest entry
 FAMILY_FIRST_TOL = {"adamw": 1e-6, "adam": 1e-6, "lion": 0.0, "sgd": 0.0, "adafactor": 1e-5,
                     "prodigyopt.Prodigy": 1e-5, "dadaptation.DAdaptAdam": 1e-5}
-FAMILY_MORE_STEPS = 20   # untimed steps Prodigy / D-Adapt may take until estim_lr > d0
+FAMILY_STEPS = 2         # warm-up and timed steps per family (2 + 2)
+# untimed steps Prodigy / D-Adapt may take until estim_lr > d0: 27 steps in all,
+# as before the timed steps were cut from 5 to 2
+FAMILY_MORE_STEPS = 23
 
 
 def sd15_pack_spec(config, labels: dict):
@@ -1457,6 +1485,40 @@ def uncached_phase(seed: int, steps: int, workdir: Path, per_step: dict[str, int
                tokenizer=setup["tokenizer"], spec=spec, step_fn=step_fn, state=state,
                per_step=per_step)
     return res
+
+
+def decoder_leg(uncached: dict, steps: int = 3) -> dict:
+    """The uncached pipeline with each decoder on the same PNGs: the native
+    decoder (``native/image.py``, when it builds here) and PIL (the decoder
+    switched off): one epoch through the pipeline alone (images/s, host),
+    then ``steps`` uncached train steps on its batches (steps/s)."""
+    out: dict = {"active": native_image.decoder_name(),
+                 "build_error": native_image.build_error.splitlines()[:2]}
+    config = uncached["config"]
+    available = native_image.available
+    for name in ("native", "pil"):
+        if name == "native" and not available():
+            out[name] = None
+            continue
+        if name == "pil":
+            native_image.available = lambda: False
+        try:
+            dataset = get_dataset(config, use_cache=False)
+            pipe = DataPipeline(dataset, get_sampler(dataset, config, 1, 0), config.batch_size,
+                                uncached["tokenizer"], num_workers=NUM_WORKERS)
+            t0 = time.perf_counter()
+            n = sum(len(b["ids"]) for b in pipe)
+            images_s = time.perf_counter() - t0
+            batches = epochs(pipe)
+            res = run_steps(uncached["state"], uncached["step_fn"], uncached["frozen"],
+                            lambda: next(batches), steps, 1, uncached["per_step"])
+            batches.close()
+            uncached["state"] = res["state"]
+            out[name] = {"images": n, "images_per_s": n / images_s,
+                         "steps_per_s": res["steps_per_s"], "losses": res["losses"]}
+        finally:
+            native_image.available = available
+    return out
 
 
 def cache_phase(uncached: dict, workdir: Path, per_step: dict[str, int],
@@ -3883,6 +3945,346 @@ def single_file_phase(record: dict, args, gen: torch.Generator, rate: tuple[int,
                                           for k in a["launches"]}}
 
 
+# --- the parallel phase: the mesh over torch.distributed -------------------------------
+
+PARALLEL_STEPS = 2
+PARALLEL_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2))   # (data, fsdp, tensor) on 2 ranks
+PARALLEL_LR = 1e-4         # large enough that 2 Adam steps move every master measurably
+PARALLEL_TP_SHAPE = (8, 4, 4096, 40)   # splash at tensor 2: 8 shared rows, 4 of 8 heads
+# a world's masters after PARALLEL_STEPS against the single process's, at bf16
+# compute: every element within PARALLEL_CLOSE of its tensor's largest entry plus
+# 2 lr per step, at most PARALLEL_FAR_SHARE of them beyond the first term, the
+# update deltas within PARALLEL_DELTA_TOL relative L2, losses within
+# PARALLEL_LOSS_TOL relative. The planted fault PARALLEL_FAULT (a world that does
+# not sum its tensor-parallel partial gradients) must fail the share and delta
+# bounds: the per-element and loss bounds alone pass it. On an H100 the sound
+# worlds read a share of 1.6-2.1e-3 and deltas of 0.026-0.032, the fault 0.146
+# and 0.379 (scripts/chip_parallel_phase.py).
+PARALLEL_CLOSE, PARALLEL_FAR_SHARE, PARALLEL_DELTA_TOL = 1e-4, 1e-2, 5e-2
+PARALLEL_LOSS_TOL = 1e-2
+PARALLEL_FAULT = ((1, 1, 2), "skip_tensor_sum")
+PARALLEL_RANK_TIMEOUT = 420
+
+
+def parallel_config(workdir: Path, model: Path, cache_path: Path, seed: int,
+                    mesh: tuple[int, int, int] | None = None) -> dict:
+    """SD1.5 at full width from the cache phase's file: 512^2, global batch
+    8, the default AdamW (fp32 masters and moments, XLA's rounding) at
+    PARALLEL_LR, bf16 compute, remat on (the ranks share one card)."""
+    cfg = {"model": str(model), "output_dir": str(workdir / "par_runs"), "project": "smoke",
+           "batch_size": 8, "seed": seed, "num_workers": NUM_WORKERS,
+           "gradient_checkpointing": True,
+           "data": {"resolution": RESOLUTION, "cache": str(cache_path)},
+           "trainer": {"precision": "bf16", "max_epochs": 1, "max_steps": PARALLEL_STEPS,
+                       "log_every_n_steps": 1},
+           "ema": {"enabled": False},
+           "optimizer": {"name": "adamw", "params": {"lr": PARALLEL_LR, "weight_decay": 1e-2},
+                         "lr_scale": {"enabled": False}},
+           "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None}}
+    if mesh is not None:
+        cfg["trainer"]["mesh"] = dict(zip(("data", "fsdp", "tensor"), mesh))
+    return cfg
+
+
+def state_bytes(trainer) -> int:
+    """Bytes of the masters and optimizer state a rank holds."""
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            yield obj
+        elif isinstance(obj, dict):
+            for v in obj.values():
+                yield from tensors(v)
+        elif dataclasses.is_dataclass(obj):
+            for f in dataclasses.fields(obj):
+                yield from tensors(getattr(obj, f.name))
+    return sum(t.numel() * t.element_size()
+               for t in [*trainer.state.trainable.values(), *tensors(trainer.state.opt_state)])
+
+
+def compare_masters(masters: dict, reference: Path, model: Path, steps: int,
+                    device) -> dict:
+    """``masters`` (prefixed keys) against the reference run's file, by the
+    CPU tests' bound, and their update deltas from the model directory's
+    initial weights against the reference's (relative L2), on ``device``."""
+    from safetensors import safe_open
+
+    far = total = 0
+    excess = 0.0
+    num = torch.zeros((), dtype=torch.float64, device=device)
+    den = torch.zeros((), dtype=torch.float64, device=device)
+    with safe_open(str(reference), "pt", device="cpu") as ref, \
+            safe_open(str(model / "unet" / "diffusion_pytorch_model.safetensors"), "pt",
+                      device="cpu") as init:
+        for k, v in masters.items():
+            got = v.detach().to(device, torch.float32)
+            want = ref.get_tensor(k).to(device, torch.float32)
+            w0 = init.get_tensor(k[len("unet."):]).to(device, torch.float32)
+            d = (got - want).abs()
+            close = PARALLEL_CLOSE * float(want.abs().max())
+            far += int((d > close).sum())
+            total += d.numel()
+            excess = max(excess, float((d - close - 2 * PARALLEL_LR * steps).max()))
+            num += (got - want).double().square().sum()
+            den += (want - w0).double().square().sum()
+    return {"leaves": len(masters), "far": far, "elements": total, "far_share": far / total,
+            "max_excess": excess, "delta_num": float(num), "delta_den": float(den),
+            "delta_rel_l2": math.sqrt(float(num) / max(float(den), 1e-300))}
+
+
+def merge_checks(checks: list[dict]) -> dict:
+    """``compare_masters``' readings of a world's ranks as one: the share of
+    every rank's masters, the deltas' relative L2 over all of them."""
+    far, total = sum(c["far"] for c in checks), sum(c["elements"] for c in checks)
+    num, den = sum(c["delta_num"] for c in checks), sum(c["delta_den"] for c in checks)
+    return {"far_share": far / total, "max_excess": max(c["max_excess"] for c in checks),
+            "delta_rel_l2": math.sqrt(num / max(den, 1e-300))}
+
+
+def plant_fault(parallel, fault: str) -> None:
+    """A deliberately wrong world, for the bounds' negative control: the
+    gradient reduction without the data-parallel all-reduce (``skip_dp``)
+    or without the tensor group's sum of the partial gradients
+    (``skip_tensor_sum``)."""
+    drop = {"skip_dp": "dp", "skip_tensor_sum": "tensor"}[fault]
+    real = parallel.reduce_grads
+
+    def reduce_grads(grads):
+        groups = parallel.mesh.groups
+        parallel.mesh.groups = {k: v for k, v in groups.items() if k != drop}
+        try:
+            real(grads)
+        finally:
+            parallel.mesh.groups = groups
+    parallel.reduce_grads = reduce_grads
+
+
+def parallel_rank(job_path: str) -> None:
+    """One rank of the parallel phase, under ``torch.distributed.run``: the
+    port's Trainer on the job's config, device and backend (and its planted
+    ``fault``, if any), PARALLEL_STEPS steps with the launch counts reset
+    just before; writes its numbers (and its masters' comparison with the
+    reference) as JSON."""
+    job = json.loads(Path(job_path).read_text())
+    rank = int(os.environ["RANK"])
+    cfg = merge(default(), Config(job["config"]))
+    tr = Trainer(cfg, Path(job["run_dir"]), device=job["device"], backend=job["backend"])
+    if job.get("fault"):
+        plant_fault(tr.parallel, job["fault"])
+    dev = tr.device
+    losses, rates = [], []
+    real = tr._log
+    tr._log = lambda m, s: (losses.append(m["train_loss"]), rates.append(m["steps_per_sec"]),
+                            real(m, s))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.fit(max_steps_override=PARALLEL_STEPS, final_save=False)
+    torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    out = {"rank": rank, "mesh": list(tr.mesh.shape), "coord": list(tr.mesh.coord),
+           "backend": tr.mesh.backend, "losses": losses, "steps_per_s": rates,
+           "fit_s": fit_s, "launches": read_launches(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "state_gib": state_bytes(tr) / 2 ** 30, "owned": len(tr.state.trainable),
+           "trainable": len(tr.parallel.owner) if tr.parallel else len(tr.state.trainable),
+           "grad_buckets": len(tr.parallel.grad_buckets) if tr.parallel else 0,
+           "broadcast_buckets": len(tr.parallel.broadcast_buckets) if tr.parallel else 0,
+           "check": compare_masters(tr.state.trainable, Path(job["reference"]),
+                                    Path(job["config"]["model"]), PARALLEL_STEPS, dev)}
+    Path(job["out"]).mkdir(parents=True, exist_ok=True)
+    (Path(job["out"]) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def nccl_probe(job_path: str) -> None:
+    """Two ranks of NCCL on one card: the all-reduce must fail."""
+    rank = int(os.environ["RANK"])
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("nccl")
+    x = torch.ones(4, device="cuda:0")
+    torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    Path(job_path).with_suffix(f".rank{rank}.ok").write_text(str(x.tolist()))
+
+
+def cli_rank(out: str, cli_args: list[str]) -> None:
+    """The train CLI under ``torch.distributed.run``, the launch counts reset
+    just before it and read after it; an NCCL all-reduce first shows the
+    group is NCCL's."""
+    from scal_sdt_tpu_torch.parallel.mesh import LaunchEnv, init_process_group
+
+    env = LaunchEnv.from_environ()
+    init_process_group(torch.device("cuda", env.local_rank), None, env)
+    x = torch.full((4,), float(env.rank + 1), device=f"cuda:{env.local_rank}")
+    torch.distributed.all_reduce(x)
+    backend = torch.distributed.get_backend()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with TrainerProbe() as probe:
+        t0 = time.perf_counter()
+        train_cli.main(cli_args, standalone_mode=False)
+        fit_s = time.perf_counter() - t0
+    Path(out).write_text(json.dumps({
+        "world": env.world, "backend": backend, "all_reduce": x.tolist(),
+        "losses": probe.losses(), "steps_per_s": [m["steps_per_sec"] for _, m, _ in probe.steps],
+        "cli_s": fit_s, "launches": read_launches(),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))
+
+
+def torchrun(n: int, args: list[str], log_path: Path, timeout: int = PARALLEL_RANK_TIMEOUT
+             ) -> subprocess.CompletedProcess:
+    """``python -m torch.distributed.run --nproc_per_node n`` on one host,
+    its output in ``log_path``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_port", str(free_port()), *args]
+    with open(log_path, "w") as f:
+        return subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT, timeout=timeout,
+                              env=dict(os.environ, OMP_NUM_THREADS="1"))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(seed: int, workdir: Path, model: Path, cache_path: Path) -> dict:
+    """The port's mesh at SD1.5 full width, 512^2, global batch 8,
+    PARALLEL_STEPS steps, against the single process on the same global
+    batch and draws (one generator seeded alike on every rank, each rank
+    taking its rows): the reference run here; (a) one rank through the train
+    CLI under torch.distributed.run over NCCL, the mesh resolved from the
+    world size; NCCL's refusal of two ranks on one card; (b) two ranks on the
+    card over gloo (given explicitly) for each mesh of PARALLEL_MESHES. Each
+    rank's masters within the bounds of the reference's; PARALLEL_FAULT's
+    world outside them. Two ranks that share one card over gloo (which
+    stages each collective through host memory) measure correctness and
+    memory, not multi-GPU speed."""
+    here = Path(__file__).resolve()
+    res: dict = {"note": "two ranks on one card over gloo: correctness and memory, not "
+                         "multi-GPU speed"}
+    cfg = parallel_config(workdir, model, cache_path, seed)
+    ref_path = workdir / "parallel_reference.safetensors"
+    # the single process
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with TrainerProbe() as probe:
+        tr = Trainer(merge(default(), Config(cfg)), workdir / "par_ref", device=DEVICE)
+        t0 = time.perf_counter()
+        tr.fit(max_steps_override=PARALLEL_STEPS, final_save=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    res["single"] = {"losses": probe.losses(), "fit_s": fit_s,
+                     "seconds": time.perf_counter() - t_phase,
+                     "steps_per_s": [m["steps_per_sec"] for _, m, _ in probe.steps],
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "state_gib": state_bytes(tr) / 2 ** 30, "launches": launches}
+    save_state_dict({k: v.float().cpu() for k, v in tr.state.trainable.items()}, ref_path)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(launches["splash_fwd"] > 0 and launches["adam_bf16_fused"] > 0,
+          f"the reference run launched {launches}")
+    total = {k: 0 for k in launches}
+
+    # (a) one rank over NCCL through the train CLI
+    t0 = time.perf_counter()
+    cfg_path = workdir / "parallel_cli.yaml"
+    cfg_path.write_text(json.dumps(dict(cfg, trainer=dict(cfg["trainer"], mesh={}))))
+    out = workdir / "parallel_cli.json"
+    proc = torchrun(1, [str(here), "--cli-rank", str(out), "--", "--config", str(cfg_path),
+                        "--run-id", "par_cli"], workdir / "parallel_cli.log")
+    check(proc.returncode == 0, "the train CLI under torch.distributed.run failed:\n"
+          + (workdir / "parallel_cli.log").read_text()[-3000:])
+    cli = json.loads(out.read_text())
+    check(cli["backend"] == "nccl" and cli["all_reduce"] == [1.0] * 4, f"cli rank {cli}")
+    ckpt = workdir / "par_runs" / "smoke" / "par_cli" / f"epoch=0-step={PARALLEL_STEPS}.safetensors"
+    cli["check"] = compare_masters(load_state_dict(ckpt), ref_path, model, PARALLEL_STEPS,
+                                   DEVICE)
+    cli["seconds"] = time.perf_counter() - t0
+    for f in checkpoint_files(ckpt.parent, ckpt.name[:-len(".safetensors")]):
+        f.unlink()
+    res["cli_nccl_1"] = cli
+    for k, v in cli["launches"].items():
+        total[k] += v
+
+    # NCCL refuses two ranks on one card
+    t0 = time.perf_counter()
+    probe_job = workdir / "nccl_probe.json"
+    probe_job.write_text("{}")
+    try:
+        proc = torchrun(2, [str(here), "--nccl-probe", str(probe_job)],
+                        workdir / "nccl_probe.log", timeout=180)
+        refused = proc.returncode != 0
+    except subprocess.TimeoutExpired:
+        refused = True
+    text = (workdir / "nccl_probe.log").read_text()
+    reason = [ln.strip() for ln in text.splitlines()
+              if "Duplicate GPU" in ln or "ncclInvalidUsage" in ln or "NCCL error" in ln]
+    res["nccl_two_ranks_one_card"] = {"refused": refused, "reason": reason[:3] or text[-600:],
+                                      "seconds": time.perf_counter() - t0}
+    check(refused, "NCCL ran two ranks on one card: gloo would not be needed")
+
+    # (b) two ranks over gloo on the one card
+    def world(mesh: tuple[int, int, int], fault: str | None = None) -> tuple[str, list]:
+        t0 = time.perf_counter()
+        name = "x".join(map(str, mesh)) + (f"_{fault}" if fault else "")
+        job = {"config": parallel_config(workdir, model, cache_path, seed, mesh),
+               "run_dir": str(workdir / f"par_{name}"), "device": "cuda:0", "backend": "gloo",
+               "reference": str(ref_path), "out": str(workdir / f"par_{name}"), "fault": fault}
+        job_path = workdir / f"parallel_{name}.json"
+        job_path.write_text(json.dumps(job))
+        proc = torchrun(2, [str(here), "--parallel-rank", str(job_path)],
+                        workdir / f"parallel_{name}.log")
+        check(proc.returncode == 0, f"mesh {mesh} failed:\n"
+              + (workdir / f"parallel_{name}.log").read_text()[-3000:])
+        ranks = [json.loads((workdir / f"par_{name}" / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        for r in ranks:
+            r["seconds"] = time.perf_counter() - t0
+        return name, ranks
+
+    for mesh in PARALLEL_MESHES:
+        name, ranks = world(mesh)
+        res[name] = ranks
+        for r in ranks:
+            for k, v in r["launches"].items():
+                total[k] += v
+    res["launches"] = total
+    # the negative control (its launches are not the main path's)
+    name, ranks = world(*PARALLEL_FAULT)
+    res["fault"] = {"name": name, "ranks": ranks,
+                    "check": merge_checks([r["check"] for r in ranks])}
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "parallel.json").write_text(json.dumps(res, indent=1))
+    want = list(res["single"]["losses"].values())
+    failed = []
+    for name, runs in [("cli_nccl_1", [res["cli_nccl_1"]])] + [
+            ("x".join(map(str, m)), res["x".join(map(str, m))]) for m in PARALLEL_MESHES]:
+        for r in runs:
+            c = r["check"]
+            got = list(r["losses"].values()) if isinstance(r["losses"], dict) else r["losses"]
+            if not (c["far_share"] <= PARALLEL_FAR_SHARE and c["max_excess"] <= 0
+                    and c["delta_rel_l2"] <= PARALLEL_DELTA_TOL
+                    and all(abs(a - b) <= PARALLEL_LOSS_TOL * abs(b) for a, b in zip(got, want))):
+                failed.append(f"{name}: masters {c}, losses {got} against {want}")
+    check(not failed, "; ".join(failed))
+    f = res["fault"]["check"]
+    check(f["far_share"] > PARALLEL_FAR_SHARE and f["delta_rel_l2"] > PARALLEL_DELTA_TOL,
+          f"the bounds pass the planted fault {res['fault']['name']}: {f}")
+    tp = res["1x1x2"]
+    check(all(r["launches"]["splash_fwd"] > 0 for r in tp),
+          "the tensor-parallel ranks launched no splash kernel")
+    return res
+
+
 def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
                 record: dict) -> dict:
     """The {"kernels": [...]} entry of an optimizer kernel: the numbers of its
@@ -3970,7 +4372,8 @@ def kernel_entries(record: dict) -> list[dict]:
     ``optim_entry`` and ``ema_entry``."""
     main_shape = record["kernels"][0]
     splash_records = (record["kernels"] + [record["kernels_arb"]] + record["kernels_lora"]
-                      + record["kernels_sdxl"] + record["kernels_sd3"] + record["kernels_sd21"])
+                      + record["kernels_sdxl"] + record["kernels_sd3"] + record["kernels_sd21"]
+                      + [record["kernels_parallel"]])
     sampling_records = record["kernels_sampling"] + record["kernels_sdxl_sampling"]
     kernels = []
     for name, (source, replaces, pallas_kernel) in KERNELS.items():
@@ -4014,12 +4417,26 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=5)
+    # the parallel phase's child processes (under torch.distributed.run)
+    parser.add_argument("--parallel-rank", help=argparse.SUPPRESS)
+    parser.add_argument("--cli-rank", help=argparse.SUPPRESS)
+    parser.add_argument("--nccl-probe", help=argparse.SUPPRESS)
+    parser.add_argument("cli_args", nargs="*", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this smoke test runs on the GPU only", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.parallel_rank:
+        parallel_rank(args.parallel_rank)
+        return 0
+    if args.cli_rank:
+        cli_rank(args.cli_rank, args.cli_args)
+        return 0
+    if args.nccl_probe:
+        nccl_probe(args.nccl_probe)
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -4097,11 +4514,17 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         uncached = uncached_phase(args.seed, args.steps, Path(tmp), splash_per_step)
-        log(f"uncached: {uncached['steps_per_s']:.4f} steps/s, peak "
+        log(f"uncached ({native_image.decoder_name()} decoder): "
+            f"{uncached['steps_per_s']:.4f} steps/s, peak "
             f"{uncached['peak_mem_gib']:.2f} GiB, VAE encode {uncached['vae_ms']:.3f} ms, "
             f"CLIP {uncached['clip_ms']:.3f} ms per step (device), losses "
             f"{uncached['losses']}, launches {uncached['launches']}, consistency "
             f"{uncached['consistency']}")
+        decoders = decoder_leg(uncached)
+        log(f"uncached decoders ({smi}): active {decoders['active']}; native "
+            f"{decoders['native']}; PIL {decoders['pil']}"
+            + (f"; native build: {decoders['build_error']}" if decoders["build_error"] else ""))
+        uncached["decoders"] = decoders
         cache = cache_phase(uncached, Path(tmp), uncached["per_step"])
         log(f"cache: {cache['encoded']} images encoded in {cache['encode_s']:.3f} s "
             f"({cache['images_per_s']:.2f} images/s, decode included; device-only VAE encode "
@@ -4193,6 +4616,41 @@ def main(argv=None) -> int:
             f"{db['peak_mem_gib']:.2f} GiB, launches {db['train_launches']}, losses "
             f"{db['losses']}")
         record["dreambooth"] = db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        par = parallel_phase(args.seed, Path(tmp), Path(tmp) / "model",
+                             Path(tmp) / "cache.safetensors")
+        par["seconds"] = time.perf_counter() - t0
+        record["parallel"] = par
+        s1 = par["single"]
+        log(f"parallel: single process {s1['steps_per_s']} steps/s, peak "
+            f"{s1['peak_mem_gib']:.2f} GiB, masters + moments {s1['state_gib']:.2f} GiB, losses "
+            f"{list(s1['losses'].values())} ({smi}; {par['note']})")
+        c = par["cli_nccl_1"]
+        log(f"parallel (a) train CLI under torch.distributed.run, {c['world']} rank, backend "
+            f"{c['backend']}: {c['steps_per_s']} steps/s, peak {c['peak_mem_gib']:.2f} GiB, "
+            f"losses {list(c['losses'].values())}, masters vs single {c['check']}")
+        log(f"parallel: NCCL with two ranks on one card refused "
+            f"{par['nccl_two_ranks_one_card']['refused']}: "
+            f"{par['nccl_two_ranks_one_card']['reason']}")
+        for mesh in PARALLEL_MESHES:
+            for r in par["x".join(map(str, mesh))]:
+                log(f"parallel (b) mesh {tuple(r['mesh'])} rank {r['rank']} ({r['backend']}): "
+                    f"{[round(x, 4) for x in r['steps_per_s']]} steps/s, peak "
+                    f"{r['peak_mem_gib']:.2f} GiB, masters + moments {r['state_gib']:.2f} GiB "
+                    f"({r['owned']}/{r['trainable']} leaves), buckets {r['grad_buckets']} grad / "
+                    f"{r['broadcast_buckets']} broadcast, losses {r['losses']}, masters vs single "
+                    f"{r['check']}")
+        log(f"parallel: the planted fault {par['fault']['name']} (must fail the bounds "
+            f"far share <= {PARALLEL_FAR_SHARE}, delta <= {PARALLEL_DELTA_TOL}): "
+            f"{par['fault']['check']}, losses {[r['losses'] for r in par['fault']['ranks']]}")
+        log(f"parallel: phase {par['seconds']:.1f} s, launches {par['launches']}")
+        record["kernels_parallel"] = kernel_phase(PARALLEL_TP_SHAPE, gen, rate)
+        r = record["kernels_parallel"]
+        log(f"kernels (parallel, tensor 2) {r['shape']}: "
+            f"{json.dumps({k: r[k] for k in r if k != 'shape'})}")
 
         # SDXL (configs/sdxl_lora.yaml); the SD1.5 directory stays for the
         # single_file phase
@@ -4310,7 +4768,7 @@ def main(argv=None) -> int:
     # last: its torch.profiler traces of ~20,000 launches come after every
     # kernel_device_ms trace of the other phases
     t0 = time.perf_counter()
-    families = families_phase(args.seed, args.steps, splash_per_step)
+    families = families_phase(args.seed, FAMILY_STEPS, splash_per_step, warmup=FAMILY_STEPS)
     families["seconds"] = time.perf_counter() - t0
     ref = families["families"]["adamw"]["optimizer"]
     for name, r in families["families"].items():

@@ -17,10 +17,14 @@ training samples one uniformly. With ARB on, the epoch order is
 data-dependent, so augmentation + ARB caching is rejected.
 
 Run it as ``python -m scal_sdt_tpu_torch.cli.cache --config cfg.yaml``
-(``--device cpu`` without a card). An SD3 model with T5 needs
-``tokenizer_3/tokenizer.json`` to cache conditions (or ``--no-conds``). Not
-ported yet: the multi-process all-gather of the shards (a run with
-``WORLD_SIZE`` > 1 raises, ROADMAP 1.17).
+(``--device cpu`` without a card), or on N cards of a host as ``python -m
+torch.distributed.run --nproc_per_node N -m scal_sdt_tpu_torch.cli.cache
+...``: each rank encodes its sampler shard on ``cuda:LOCAL_RANK`` (padded to
+the common batch count), the shards are gathered on rank 0 in rank order
+(``merge_shards``, as the JAX package's ``build_local_shard`` +
+``merge_shards``) and rank 0 writes one complete cache. Distributed caching
+needs ARB off, as in the JAX package. An SD3 model with T5 needs
+``tokenizer_3/tokenizer.json`` to cache conditions (or ``--no-conds``).
 """
 
 from __future__ import annotations
@@ -28,13 +32,13 @@ from __future__ import annotations
 import itertools
 import json
 import logging
-import os
 from pathlib import Path
 from typing import IO, Callable, Optional
 
 import click
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..conf import Config, load_with_defaults
 from ..data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
@@ -42,9 +46,11 @@ from ..device import resolve_device
 from ..models.clip import clip_text_apply, encode_sdxl
 from ..models.mmdit import encode_sd3
 from ..models.vae import encoder_apply, latent_noise, sample_latents
+from ..parallel.mesh import LaunchEnv, init_process_group, process_device
+from ..utils.logging import main_process_logger
 from ..utils.state import save_state_dict
 
-logger = logging.getLogger("cache")
+logger = main_process_logger("cache")
 
 # moments (B, 2C, h, w) -> the standard normal draw of their sample
 NoiseFn = Callable[[torch.Tensor], torch.Tensor]
@@ -184,6 +190,32 @@ def build_local_shard(config: Config, models, tokenizer, *,
     return {"ids": ids, "latents": groups, "conds": conds, "pooled": pooled}
 
 
+def merge_shards(shards: list[dict]) -> dict:
+    """The ranks' shards (in rank order) as one: ids, each group's latents,
+    conds and pooled embeddings concatenated rank after rank."""
+    if len(shards) == 1:
+        return shards[0]
+
+    def cat(key):
+        parts = [s[key] for s in shards]
+        return None if parts[0] is None else torch.cat(parts)
+
+    return {"ids": np.concatenate([s["ids"] for s in shards]),
+            "latents": [[t for s in shards for t in s["latents"][g]]
+                        for g in range(len(shards[0]["latents"]))],
+            "conds": cat("conds"), "pooled": cat("pooled")}
+
+
+def gather_shards(shard: dict, env: LaunchEnv) -> Optional[list[dict]]:
+    """Every rank's shard on rank 0 (None elsewhere), over a gloo group."""
+    if env.world == 1:
+        return [shard]
+    group = dist.new_group(backend="gloo") if dist.get_backend() != "gloo" else None
+    out = [None] * env.world if env.rank == 0 else None
+    dist.gather_object(shard, out, dst=0, group=group)
+    return out
+
+
 def assemble_cache(merged: dict) -> tuple[dict, dict]:
     """(tensors, metadata) in the reference's file schema. Each tensor is its
     own copy (safetensors refuses tensors that share memory)."""
@@ -229,14 +261,19 @@ def assemble_cache(merged: dict) -> tuple[dict, dict]:
 @click.option("--batch-size", type=int, default=1,
               help="Batch size for VAE and text encoder.")
 @click.option("--device", default="cuda", show_default=True,
-              help="Device to encode on ('cpu' runs without a card).")
+              help="Device to encode on ('cpu' runs without a card; 'cuda' is "
+                   "cuda:LOCAL_RANK under torch.distributed.run).")
+@click.option("--backend", default=None,
+              help="torch.distributed backend over the device's default (nccl on cards, "
+                   "gloo on the CPU).")
 def main(config_file: IO[str], no_conds: bool, aug_group_size: int, batch_size: int,
-         device: str):
+         device: str, backend: Optional[str]):
     """Generate the latent/condition cache at config entry data.cache."""
     from ..convert.loader import load_components
     from ..text.tokenizer import resolve_tokenizer
 
-    dev = resolve_device(device)
+    env = LaunchEnv.from_environ()
+    dev = resolve_device(process_device(device, env))
     config = load_with_defaults(config_file)
     config["batch_size"] = batch_size
 
@@ -253,16 +290,23 @@ def main(config_file: IO[str], no_conds: bool, aug_group_size: int, batch_size: 
             "Caching is incompatible with ARB + augmentation together "
             "(ARB batch entry order is random)")
 
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise click.UsageError("Multi-process caching is not ported yet; run one process")
+    if env.world > 1 and arb:
+        raise click.UsageError(
+            "Distributed caching requires ARB off (per-rank batch shapes "
+            "must align; the reference declares the same limitation)")
+    init_process_group(dev, backend, env)
 
     models = load_components(config)
     tokenizer = resolve_tokenizer(config, allow_hash=no_conds)
     shard = build_local_shard(
         config, models, tokenizer, no_conds=no_conds, aug_group_size=aug_group_size,
-        batch_size=batch_size, device=dev)
+        batch_size=batch_size, world_size=env.world, global_rank=env.rank, device=dev)
+    shards = gather_shards(shard, env)
+    if shards is None:
+        logger.info("Non-zero process: shard contributed, rank 0 writes")
+        return
 
-    cache, metadata = assemble_cache(shard)
+    cache, metadata = assemble_cache(merge_shards(shards))
     out = Path(config.data.cache)
     out.parent.mkdir(parents=True, exist_ok=True)
     save_state_dict(cache, out, "safetensors", metadata={"json": json.dumps(metadata)})

@@ -15,9 +15,12 @@ those of the JAX package for the same seed; the port's device upload
   variants chosen uniformly) and conditions (:83-88);
 * DreamBooth zips an instance item with a class item (:211-225).
 
-Images decode through PIL only. The JAX package's optional native decoder
-(``native/libssdt_image.so``, used when it is built and no augmentation is
-configured) is not ported yet.
+Images decode through the native decoder (``native/image.py``, the port's
+build of the JAX package's ``native/ssdt_image.cpp``) wherever the JAX
+package's ``_native_transform`` uses it: no augmentation configured, the
+same crop fractions from the same ``rng`` draws, and ``size_cond``
+recomputed from the header with the same cover-resize rule; otherwise, or
+when the decoder cannot be built, through PIL.
 """
 
 from __future__ import annotations
@@ -249,9 +252,42 @@ class ImagePromptDataset:
             img = img.resize((w, h), Image.BICUBIC)
         return img
 
+    def _crop_fracs(self, rng: random.Random) -> tuple[float, float]:
+        if self.center_crop:
+            return 0.5, 0.5
+        return rng.random(), rng.random()
+
+    def _native_transform(self, path: Path, cw: int, ch: int, rng: random.Random):
+        """Decode, resize, crop and normalize in one native call (the GIL
+        released) when the decoder is built and no augmentation is
+        configured; None sends the item to PIL."""
+        if self.augment is not None:
+            return None
+        from ..native import image as native_image
+
+        if not native_image.available():
+            return None
+        fx, fy = self._crop_fracs(rng)
+        arr = native_image.decode_resize_crop(path, cw, ch, fx, fy)
+        if arr is None:
+            return None
+        # size conditioning: the original size from the header, the crop
+        # offsets by the cover-resize rule of the native pipeline
+        with Image.open(path) as im:
+            ow, oh = im.size
+        scale = max(cw / ow, ch / oh)
+        rw = max(round(ow * scale), cw)
+        rh = max(round(oh * scale), ch)
+        top = int(fy * max(rh - ch, 0))
+        left = int(fx * max(rw - cw, 0))
+        return arr, (oh, ow, top, left)
+
     def _read_and_transform(self, path: Path, size: Size, rng: random.Random
                             ) -> tuple[np.ndarray, tuple[int, int, int, int]]:
         dim = size[0]
+        native = self._native_transform(path, dim, dim, rng)
+        if native is not None:
+            return native
         img = read_image(path)
         ow, oh = img.size
         # resize shortest side to dim (torchvision Resize(dim) semantics)
@@ -286,6 +322,10 @@ class AspectDataset(ImagePromptDataset):
 
     def _read_and_transform(self, path: Path, size: Size, rng: random.Random
                             ) -> tuple[np.ndarray, tuple[int, int, int, int]]:
+        if not self.debug:
+            native = self._native_transform(path, size[0], size[1], rng)
+            if native is not None:
+                return native
         img = read_image(path)
         ow, oh = img.size
         w_t, h_t = self.preserve_ratio_size(img.size, size)

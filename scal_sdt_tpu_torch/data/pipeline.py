@@ -131,11 +131,15 @@ class DataPipeline:
     `tokenizer` converts prompts to `input_ids`; `uncond_ids` (the empty
     prompt) is attached once per batch for CFG-dropout's 'eos' mode.
     `tokenizer_3` (SD3's T5) adds `t5_ids` and `t5_uncond_ids` likewise.
+    `rows` ([lo, hi)): a rank of a multi-process run decodes only these rows
+    of each host batch (DreamBooth pairs whole: its class items follow).
     """
 
     def __init__(self, dataset, sampler, batch_size: int, tokenizer=None,
-                 num_workers: int = 2, prefetch: int = 2, tokenizer_3=None):
+                 num_workers: int = 2, prefetch: int = 2, tokenizer_3=None,
+                 rows: tuple[int, int] | None = None):
         self.dataset = dataset
+        self.rows = rows
         self.sampler = sampler
         self.batch_size = batch_size
         self.tokenizer = tokenizer
@@ -168,6 +172,8 @@ class DataPipeline:
         return len(self.sampler) // self.batch_size
 
     def _load_batch(self, indices: list) -> dict:
+        if self.rows is not None:
+            indices = indices[self.rows[0]:self.rows[1]]
         items = [self.dataset[i] for i in indices]
         batch = collate(items)
         prompts = batch.pop("prompts", None)

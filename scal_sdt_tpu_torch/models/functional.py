@@ -14,7 +14,9 @@ dim 1, for the NCHW conv). LoRA dropout (the original trainer's
 ``lora_dropout``) drops the delta's input with a static per-path rate
 (``set_lora_dropout_rates``) on the training path only: the train step puts
 a ``LoRADropout`` under ``LORA_DROPOUT`` in the component's dict, inference
-never does.
+never does. Under tensor parallelism (``parallel/tensor.py``) the dict also
+holds a ``TENSOR_PARALLEL`` entry, and ``linear`` runs a split layer as its
+column- or row-parallel half.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..parallel.tensor import TENSOR_PARALLEL
 
 Params = dict[str, torch.Tensor]
 
@@ -84,8 +87,12 @@ def _lora_delta(p: Params, name: str, x: torch.Tensor, y: torch.Tensor,
     rate = _LORA_DROPOUT_RATES.get(name, 0.0)
     dropout = p.get(LORA_DROPOUT)
     if rate > 0.0 and dropout is not None:
-        x = torch.where(dropout.keep(name, x, rate), x / x.new_full((), 1.0 - rate),
-                        x.new_zeros(()))
+        keep = dropout.keep(name, x, rate)
+        if keep.shape[-1] != x.shape[-1]:
+            # a given mask over a row-parallel layer's whole input: the rank's columns
+            n, i = x.shape[-1], p[TENSOR_PARALLEL].index
+            keep = keep[..., i * n:(i + 1) * n]
+        x = torch.where(keep, x / x.new_full((), 1.0 - rate), x.new_zeros(()))
     b = p[f"{name}.lora_B"]
     alpha = p.get(f"{name}.lora_alpha")
     rank = a.shape[0]
@@ -99,7 +106,18 @@ def _lora_delta(p: Params, name: str, x: torch.Tensor, y: torch.Tensor,
 
 
 def linear(p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W^T + b with W stored (out, in), plus its LoRA delta."""
+    """y = x @ W^T + b with W stored (out, in), plus its LoRA delta. A
+    tensor-split layer takes its input through ``copy_in`` (column) or sums
+    its partial output over the tensor group and then adds the bias (row)."""
+    tp = p.get(TENSOR_PARALLEL)
+    kind = tp.kind(name) if tp is not None else None
+    if kind == "row":
+        y = _lora_delta(p, name, x, F.linear(x, p[f"{name}.weight"]))
+        total = tp.reduce_out(y)
+        b = p.get(f"{name}.bias")
+        return (total + b.float() if b is not None else total).to(y.dtype)
+    if kind == "col":
+        x = tp.copy_in(x)
     y = F.linear(x, p[f"{name}.weight"], p.get(f"{name}.bias"))
     return _lora_delta(p, name, x, y)
 

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention
+from ..parallel.tensor import TENSOR_PARALLEL
 from .clip import CLIPTextConfig, clip_text_encode_sdxl, second_tower_ids
 from .functional import Params, conv2d, init_params, linear, silu, timestep_embedding
 from .t5 import T5Config, t5_encoder_apply
@@ -168,6 +169,9 @@ def _joint_block(p: Params, pre: str, hidden: torch.Tensor, context: torch.Tenso
     dropped, its norm is the continuous adaLN. ``dual``: the latent-only
     attn2 residual between the joint attention and the MLP."""
     h = config.num_attention_heads
+    tp = p.get(TENSOR_PARALLEL)
+    if tp is not None:   # the rank's heads of a tensor-split attention
+        h = tp.heads(f"{pre}.attn.to_q", h)
     if dual:
         n_h, gate_msa, shift_mlp, scale_mlp, gate_mlp, n_h2, gate_msa2 = _ada_ln_zero_x(
             p, f"{pre}.norm1", hidden, temb)

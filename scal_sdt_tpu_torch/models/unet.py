@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
+from ..parallel.tensor import TENSOR_PARALLEL
 from .functional import (Params, conv2d, gelu, group_norm, init_params, layer_norm, linear,
                          silu, timestep_embedding)
 
@@ -215,6 +216,9 @@ def _resnet(p: Params, pre: str, x: torch.Tensor, temb: torch.Tensor, groups: in
 
 def _cross_attn(p: Params, pre: str, x: torch.Tensor, context: torch.Tensor,
                 num_heads: int) -> torch.Tensor:
+    tp = p.get(TENSOR_PARALLEL)
+    if tp is not None:   # the rank's heads of a tensor-split attention
+        num_heads = tp.heads(f"{pre}.to_q", num_heads)
     q = linear(p, f"{pre}.to_q", x)
     k = linear(p, f"{pre}.to_k", context)
     v = linear(p, f"{pre}.to_v", context)

@@ -21,8 +21,9 @@ trainer sets it from the config's ``xformers: false``, as the JAX trainer sets
 ``FORCE_XLA`` (``scal_sdt_tpu/ops/attention.py``) to keep calls off the
 Pallas kernels.
 
-The multi-device ``shard_map`` wrapper of the JAX version has no counterpart
-yet: multi-GPU is a later slice.
+The JAX version's multi-device ``shard_map`` wrapper (``_dispatch_sharded``)
+has no counterpart: under tensor parallelism each rank's call already holds
+its own H / tensor heads (``parallel/tensor.py``), and no call is split.
 """
 
 from __future__ import annotations

@@ -28,6 +28,12 @@ Restores copy into the template state's tensors in place (the EMA shadow
 too), so the optimizer's and the EMA's cached leaf tables stay valid after
 a resume.
 
+Under sharded masters (``parallel/sharding.py``) saving is collective: every
+rank's own masters, optimizer state and EMA shadows are gathered on rank 0,
+which writes the single-process layout (for the same state, the same files
+tensor for tensor). A restore needs nothing of the kind: every rank reads
+the files and keeps the leaves its template state holds.
+
 Retention mirrors the reference's ModelCheckpoint knobs: every_n_epochs /
 every_n_train_steps / save_top_k / monitor / mode, with ``{epoch}`` /
 ``{step}`` / metric templating in file names.
@@ -37,20 +43,19 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import re
 from pathlib import Path
 from typing import Any, Optional
 
 import torch
 
-from ..utils.logging import is_main_process
+from ..utils.logging import is_main_process, main_process_logger
 from ..utils.msgpack import read_flax_state
 from ..utils.state import load_metadata, load_state_dict, save_state_dict
 from .packing import PackSpec
 from .step import UNET_PREFIX, TrainState
 
-logger = logging.getLogger("checkpoint")
+logger = main_process_logger("checkpoint")
 
 EMA_PREFIX = "unet_ema.shadow_params."
 SIDECAR_SUFFIX = ".torchstate"      # the port's exact-resume file
@@ -130,22 +135,28 @@ def train_state_dict(state: TrainState) -> tuple[dict, dict]:
 
 def save_checkpoint(path: Path, state: TrainState, frozen: dict,
                     loop_state: Optional[dict] = None,
-                    extra_meta: Optional[dict] = None) -> None:
-    """Write the checkpoint file and its sidecar (rank 0 only).
+                    extra_meta: Optional[dict] = None, parallel=None) -> None:
+    """Write the checkpoint file and its sidecar (rank 0 writes).
     ``loop_state`` ({epoch, batch_in_epoch}) rides in the metadata, so a
     resume can fast-forward the data pipeline mid-epoch; ``extra_meta`` too
-    (the trainer's ``ti_tokens``)."""
-    if not is_main_process():
+    (the trainer's ``ti_tokens``). ``parallel`` with sharded masters: a
+    collective call, the ranks' leaves gathered on rank 0."""
+    sharded = parallel is not None and parallel.sharded
+    if not (sharded or is_main_process()):
         return
     path = Path(path)
     tensors, meta = checkpoint_state_dict(state, frozen)
+    side, numbers = train_state_dict(state)
+    if sharded:
+        tensors, side = parallel.gather(tensors), parallel.gather(side)
+        if not is_main_process():
+            return
     if loop_state:
         meta.update({k: int(v) for k, v in loop_state.items()})
     if extra_meta:
         meta.update(extra_meta)
     path.parent.mkdir(parents=True, exist_ok=True)
     save_state_dict(tensors, path, metadata={"json": json.dumps(meta)})
-    side, numbers = train_state_dict(state)
     save_state_dict(side, sidecar_path(path), "safetensors",
                     metadata={"json": json.dumps(numbers)})
 
@@ -258,8 +269,9 @@ class CheckpointManager:
     knobs). Best-k retention state is kept in ``run_dir/retention.json``, so
     a resumed run goes on pruning the checkpoints from before."""
 
-    def __init__(self, run_dir: Path, config):
+    def __init__(self, run_dir: Path, config, parallel=None):
         self.run_dir = Path(run_dir)
+        self.parallel = parallel
         self.filename = config.get("filename", "{epoch}-{train_loss:.2f}")
         self.auto_insert_metric_name = config.get("auto_insert_metric_name", True)
         self.every_n_epochs = config.get("every_n_epochs")
@@ -296,10 +308,11 @@ class CheckpointManager:
 
     def save(self, state: TrainState, frozen: dict, metrics: dict,
              loop_state: Optional[dict] = None, extra_meta: Optional[dict] = None) -> Path:
-        """Write the checkpoint, then prune to ``save_top_k`` by ``monitor``
-        (rank 0 only)."""
+        """Write the checkpoint (collective under sharded masters), then
+        prune to ``save_top_k`` by ``monitor`` (rank 0 only)."""
         path = self.run_dir / (self._format_name(metrics) + ".safetensors")
-        save_checkpoint(path, state, frozen, loop_state=loop_state, extra_meta=extra_meta)
+        save_checkpoint(path, state, frozen, loop_state=loop_state, extra_meta=extra_meta,
+                        parallel=self.parallel)
         if not is_main_process():
             return path
         logger.info(f"Saved checkpoint {path}")

@@ -26,6 +26,9 @@ another order than XLA does, and agree to a few ulps.
   (``estim_lr``, ``numerator_weighted``) stays on the device as 0-dim
   tensors of the params' lowest dtype, as optax keeps it. Prodigy's
   ``params0`` is a copy of the masters, which the step updates in place.
+  Under sharded masters (``GroupOwners``) their group-wide sums add the
+  owners' partial sums, and a rank that owns none of a group's leaves
+  still takes part and keeps the same scalars.
 * SGD: the decay, then the schedule (no momentum, as in JAX).
 
 The decay is ``optax.add_decayed_weights`` (``wd * p`` in the master's
@@ -448,6 +451,30 @@ def _device(params: Tensors) -> torch.device:
     return next(iter(params.values())).device if params else torch.device("cpu")
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupOwners:
+    """A group whose leaves are split over owners (sharded masters):
+    ``group_sum`` adds a 0-dim fp32 tensor over the owners, ``dtypes`` are
+    the (gradient, master) dtypes an owner of no leaf reckons with."""
+    group_sum: object
+    dtypes: tuple[torch.dtype, torch.dtype]
+
+    def zero_sum(self) -> torch.Tensor:
+        return self.group_sum(torch.zeros((), dtype=torch.float32))
+
+
+def _summed(partial: torch.Tensor, owners: Optional[GroupOwners]) -> torch.Tensor:
+    """A group-wide fp32 sum: the owners' partial sums added (difference (r):
+    another order than one process's)."""
+    return partial if owners is None else owners.group_sum(partial)
+
+
+def _state_dtype(params: Tensors, owners: Optional[GroupOwners]) -> torch.dtype:
+    """The scalar state's dtype: the params' lowest, or the masters' for an
+    owner of none of the group's leaves."""
+    return _lowest_dtype(params) if params or owners is None else owners.dtypes[1]
+
+
 @dataclasses.dataclass
 class ProdigyState:
     count: int
@@ -471,9 +498,10 @@ class Prodigy(_Chain):
     estim_lr_coef: float = 1.0
     weight_decay: float = 0.0
     safeguard_warmup: bool = False
+    owners: Optional[GroupOwners] = None
 
     def init(self, params: Tensors) -> ProdigyState:
-        dt, dev = _lowest_dtype(params), _device(params)
+        dt, dev = _state_dtype(params, self.owners), _device(params)
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
         return ProdigyState(
             0, zeros(), zeros(), zeros(), {k: p.detach().clone() for k, p in params.items()},
@@ -484,6 +512,8 @@ class Prodigy(_Chain):
                ) -> tuple[Tensors, ProdigyState]:
         keys = sorted(grads)
         if not keys:
+            if self.owners is not None:   # an owner of none of the group's leaves
+                self._scalars(state, self.owners.zero_sum(), self.owners.zero_sum())
             return {}, dataclasses.replace(state, count=state.count + 1)
         b1, b2 = self.b1, self.b2
         beta3 = self.beta3 if self.beta3 is not None else b2 ** 0.5
@@ -497,7 +527,8 @@ class Prodigy(_Chain):
         dlr = (estim_lr.float() * sched * bc).to(e_dt)
         dg = _times(g, estim_lr)
         param_diff = torch._foreach_sub(p0, p)
-        numerator_acum = vdot_sum(g, param_diff).to(torch.promote_types(g[0].dtype, p[0].dtype))
+        numerator_acum = _summed(vdot_sum(g, param_diff), self.owners).to(
+            torch.promote_types(g[0].dtype, p[0].dtype))
         new_ea = torch._foreach_add(_scale(ea, b1), _scale(dg, 1 - b1))
         new_eas = torch._foreach_add(_scale(eas, b2),
                                      torch._foreach_mul(_scale(dg, 1 - b2), dg))
@@ -512,7 +543,7 @@ class Prodigy(_Chain):
         nw_new = nw * nw.new_full((), beta3)
         ratio = estim_lr / estim_lr.new_full((), self.estim_lr0)
         nw_new = nw_new + (ratio * dlr) * numerator_acum
-        denominator = abs_sum(gs).to(gs[0].dtype)
+        denominator = _summed(abs_sum(gs), self.owners).to(gs[0].dtype)
         lr_estimate = (nw_new.new_full((), self.estim_lr_coef) * nw_new) / denominator
         new_estim_lr = torch.maximum(estim_lr, lr_estimate)
         # -wd * dlr * p - dlr * ea / (sqrt(eas) + estim_lr * eps), the new estim_lr
@@ -523,6 +554,25 @@ class Prodigy(_Chain):
         nw.copy_(nw_new)
         estim_lr.copy_(new_estim_lr)
         return dict(zip(keys, us)), dataclasses.replace(state, count=state.count + 1)
+
+    def _scalars(self, state: ProdigyState, numerator_acum: torch.Tensor,
+                 denominator: torch.Tensor) -> None:
+        """The scalar half of ``update`` on a rank that owns none of the
+        group's leaves: the group's sums from the owners that do."""
+        estim_lr, nw = state.estim_lr, state.numerator_weighted
+        e_dt, (g_dt, p_dt) = estim_lr.dtype, self.owners.dtypes
+        beta3 = self.beta3 if self.beta3 is not None else self.b2 ** 0.5
+        sched = _scalar(_lr_times_schedule(self.lr, self.schedule, state.count), estim_lr)
+        bc = _scalar(dadapt_bias_correction(self.b1, self.b2, state.count + 1), estim_lr)
+        dlr = (estim_lr.float() * sched * bc).to(e_dt)
+        numerator_acum = numerator_acum.to(torch.promote_types(g_dt, p_dt)).to(nw.device)
+        nw_new = nw * nw.new_full((), beta3)
+        ratio = estim_lr / estim_lr.new_full((), self.estim_lr0)
+        nw_new = nw_new + (ratio * dlr) * numerator_acum
+        denominator = denominator.to(p_dt).to(nw.device)
+        lr_estimate = (nw_new.new_full((), self.estim_lr_coef) * nw_new) / denominator
+        nw.copy_(nw_new)
+        estim_lr.copy_(torch.maximum(estim_lr, lr_estimate))
 
 
 @dataclasses.dataclass
@@ -544,9 +594,10 @@ class DAdaptAdamW(_Chain):
     eps: float = 1e-8
     estim_lr0: float = 1e-6
     weight_decay: float = 0.0
+    owners: Optional[GroupOwners] = None
 
     def init(self, params: Tensors) -> DAdaptState:
-        dt, dev = _lowest_dtype(params), _device(params)
+        dt, dev = _state_dtype(params, self.owners), _device(params)
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}  # noqa: E731
         return DAdaptState(0, zeros(), zeros(), zeros(),
                            torch.full((), self.estim_lr0, dtype=dt, device=dev),
@@ -556,6 +607,8 @@ class DAdaptAdamW(_Chain):
                ) -> tuple[Tensors, DAdaptState]:
         keys = sorted(grads)
         if not keys:
+            if self.owners is not None:   # an owner of none of the group's leaves
+                self._scalars(state, self.owners.zero_sum(), self.owners.zero_sum())
             return {}, dataclasses.replace(state, count=state.count + 1)
         b1, b2 = self.b1, self.b2
         sb2 = b2 ** 0.5
@@ -567,15 +620,15 @@ class DAdaptAdamW(_Chain):
         bc = _scalar(dadapt_bias_correction(b1, b2, state.count + 1), estim_lr)
         dlr = (estim_lr.float() * sched * bc).to(nw.dtype)
         s_weighted = torch._foreach_div(gs, _add_scalar(_sqrt(eas), self.eps))
-        numerator_acum = vdot_sum(g, s_weighted).to(torch.promote_types(g[0].dtype,
-                                                                        p[0].dtype))
+        numerator_acum = _summed(vdot_sum(g, s_weighted), self.owners).to(
+            torch.promote_types(g[0].dtype, p[0].dtype))
         new_ea = torch._foreach_add(_scale(ea, b1), _times(g, dlr.new_full((), 1 - b1) * dlr))
         new_eas = torch._foreach_add(_scale(eas, b2), torch._foreach_mul(_scale(g, 1 - b2), g))
         new_gs = torch._foreach_add(_scale(gs, sb2), _times(g, dlr.new_full((), 1 - sb2) * dlr))
         _copy_into(ea, new_ea)
         _copy_into(eas, new_eas)
         _copy_into(gs, new_gs)
-        grad_sum_l1 = abs_sum(gs).to(gs[0].dtype)
+        grad_sum_l1 = _summed(abs_sum(gs), self.owners).to(gs[0].dtype)
         nw_new = (nw * nw.new_full((), sb2)
                   + (dlr.new_full((), 1 - sb2) * dlr) * numerator_acum)
         d_estimate = nw_new / (grad_sum_l1 * grad_sum_l1.new_full((), 1 - sb2))
@@ -586,3 +639,21 @@ class DAdaptAdamW(_Chain):
         nw.copy_(nw_new)
         estim_lr.copy_(new_estim_lr)
         return dict(zip(keys, us)), dataclasses.replace(state, count=state.count + 1)
+
+    def _scalars(self, state: DAdaptState, numerator_acum: torch.Tensor,
+                 grad_sum_l1: torch.Tensor) -> None:
+        """The scalar half of ``update`` on a rank that owns none of the
+        group's leaves: the group's sums from the owners that do."""
+        estim_lr, nw = state.estim_lr, state.numerator_weighted
+        g_dt, p_dt = self.owners.dtypes
+        sb2 = self.b2 ** 0.5
+        sched = _scalar(_lr_times_schedule(self.lr, self.schedule, state.count), estim_lr)
+        bc = _scalar(dadapt_bias_correction(self.b1, self.b2, state.count + 1), estim_lr)
+        dlr = (estim_lr.float() * sched * bc).to(nw.dtype)
+        numerator_acum = numerator_acum.to(torch.promote_types(g_dt, p_dt)).to(nw.device)
+        grad_sum_l1 = grad_sum_l1.to(p_dt).to(nw.device)
+        nw_new = (nw * nw.new_full((), sb2)
+                  + (dlr.new_full((), 1 - sb2) * dlr) * numerator_acum)
+        d_estimate = nw_new / (grad_sum_l1 * grad_sum_l1.new_full((), 1 - sb2))
+        nw.copy_(nw_new)
+        estim_lr.copy_(torch.maximum(estim_lr, d_estimate))

@@ -59,7 +59,7 @@ from ..conf import Config
 from ..ops.adam_bf16_fused import (adam_bf16_fused_apply, adam_bf16_fused_update,
                                    build_adam_table, decay_and_schedule_reference)
 from ..ops.sr import NU_SALT, leaf_salt
-from .families import SGD, Adafactor, DAdaptAdamW, Lion, Prodigy, step_size_of
+from .families import SGD, Adafactor, DAdaptAdamW, GroupOwners, Lion, Prodigy, step_size_of
 from .packing import PackSpec
 from .quantized import Adam8bit, Adam8bitState, bias_corrections
 from .schedules import Schedule, build_lr_schedule
@@ -329,8 +329,11 @@ class GradientAccumulation:
 
 def _group_transform(name: str, lr: float, betas: tuple[float, float], eps: float,
                      weight_decay: float, schedule: Schedule, moment_dtype: Optional[str],
-                     extra: dict, reduced_masters: bool, pack_spec: Optional[PackSpec]):
-    """One group's chain, as the JAX package's ``_group_transform`` builds it."""
+                     extra: dict, reduced_masters: bool, pack_spec: Optional[PackSpec],
+                     owners: Optional[GroupOwners] = None):
+    """One group's chain, as the JAX package's ``_group_transform`` builds it
+    (``owners``: the group-wide sums of Prodigy and D-Adapt over sharded
+    masters)."""
     b1, b2 = float(betas[0]), float(betas[1])
     if name in _ADAMW_NAMES or name in _ADAM_NAMES:
         # Adam: no decay at all in the JAX chain, whatever weight_decay says
@@ -356,10 +359,12 @@ def _group_transform(name: str, lr: float, betas: tuple[float, float], eps: floa
                        estim_lr0=float(extra.get("d0", 1e-6)),
                        estim_lr_coef=float(extra.get("d_coef", 1.0)),
                        weight_decay=weight_decay,
-                       safeguard_warmup=bool(extra.get("safeguard_warmup", False)))
+                       safeguard_warmup=bool(extra.get("safeguard_warmup", False)),
+                       owners=owners)
     if name in _DADAPT_NAMES:
         return DAdaptAdamW(lr=lr, schedule=schedule, b1=b1, b2=b2, eps=eps,
-                           estim_lr0=float(extra.get("d0", 1e-6)), weight_decay=weight_decay)
+                           estim_lr0=float(extra.get("d0", 1e-6)), weight_decay=weight_decay,
+                           owners=owners)
     if name in _SGD_NAMES:
         return SGD(lr=lr, weight_decay=weight_decay, schedule=schedule)
     raise ValueError(f"Unknown optimizer: {name}")
@@ -367,7 +372,8 @@ def _group_transform(name: str, lr: float, betas: tuple[float, float], eps: floa
 
 def build_optimizer(config: Config, labels: dict[str, str],
                     group_overrides: dict[str, dict], steps_per_epoch: int,
-                    num_processes: int, pack_spec: Optional[PackSpec] = None
+                    num_processes: int, pack_spec: Optional[PackSpec] = None,
+                    owners: Optional[GroupOwners] = None
                     ) -> tuple[Union[MultiTransform, GradientAccumulation],
                                Callable[[int], float]]:
     """(tx, lr_fn) for the trainable flat dict; lr_fn(step) is the first
@@ -376,7 +382,9 @@ def build_optimizer(config: Config, labels: dict[str, str],
     groups run under ``GradientAccumulation`` and lr_fn reports the
     schedule at optimizer step ``step // k``. ``pack_spec``: the slabs the
     JAX trainer would pack (``training/packing.py``), which Adafactor treats
-    as blocks; the other families ignore it."""
+    as blocks; the other families ignore it. ``owners``: the masters are
+    split over owners and ``labels`` holds this rank's (Prodigy and D-Adapt
+    add their group-wide sums over the owners)."""
     name = str(config.optimizer.name).lower()
     if name not in OPTIMIZER_NAMES:
         raise ValueError(f"Unknown optimizer: {name}")
@@ -394,7 +402,7 @@ def build_optimizer(config: Config, labels: dict[str, str],
         schedule = build_lr_schedule(config.optimizer, lr, steps_per_epoch)
         transforms[label] = _group_transform(
             name, lr, base["betas"], float(base["eps"]), wd, schedule,
-            config.optimizer.get("moment_dtype"), extra, reduced_masters, pack_spec)
+            config.optimizer.get("moment_dtype"), extra, reduced_masters, pack_spec, owners)
         if first_lr_fn is None:
             def first_lr_fn(step, _lr=lr, _s=schedule):
                 return float(np.float32(_lr) * np.float32(_s(step)))

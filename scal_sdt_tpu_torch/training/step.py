@@ -47,6 +47,13 @@ so the recompute of a checkpointed block draws the same mask; the UNet and
 both text towers share the base seed, as they share JAX's ``rng_lora`` (SD3's
 T5 takes no LoRA dropout, as in JAX). Timesteps are integers under a DDPM
 schedule and fp32 floats under the flow schedule.
+
+Over several ranks (``parallel``, a ``parallel/sharding.py`` ``Parallel``)
+each rank holds its rows of the global batch: the draws are made (or given)
+for the whole batch and each rank takes its rows, the denoiser runs the
+rank's tensor-parallel view, the gradients are averaged over the
+data-parallel ranks, and each rank updates the masters it owns, whose
+compute-dtype copies (``TrainState.compute``) are then broadcast.
 """
 
 from __future__ import annotations
@@ -67,6 +74,8 @@ from ..models.unet import UNetConfig, unet_apply
 from ..models.vae import VAEConfig, encoder_apply, latent_noise, sample_latents
 from ..ops.sr import MASTER_SALT, apply_update_reference, leaf_salt
 from .ema import EMAState, ema_init, ema_update
+from .optimizers import AccumulationState
+from ..parallel.tensor import tp_view
 from .optim_targets import COMPONENT_PREFIX
 
 UNET_PREFIX = COMPONENT_PREFIX["unet"]
@@ -83,6 +92,8 @@ class TrainState(NamedTuple):
     opt_state: object
     generator: torch.Generator    # draws noise and timesteps, on the params' device
     ema: Optional[EMAState] = None  # over the trainable unet.* masters
+    # sharded masters: the compute-dtype copy of every trainable (owned or not)
+    compute: Optional[Params] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,24 +202,44 @@ def _octave_sizes(h: int, w: int, iterations: int) -> list[tuple[int, int]]:
 
 def draw(generator: torch.Generator, spec: StepSpec, latents: torch.Tensor,
          latent_noise: Optional[torch.Tensor] = None,
-         uncond_u: Optional[torch.Tensor] = None) -> Draws:
+         uncond_u: Optional[torch.Tensor] = None, rows=None) -> Draws:
     """Fresh draws for one step from ``generator`` (the uncached branch's
-    latent noise and CFG-dropout scalar, drawn before, are handed in)."""
+    latent noise and CFG-dropout scalar, drawn before, are handed in).
+    ``rows`` (a ``Rows``): draw for the whole batch, keep the rank's rows."""
     b, c, h, w = latents.shape
     dt, dev = spec.compute_dtype, latents.device
+    if rows is not None:
+        b = rows.total
 
     def normal(*shape):
         return torch.randn(shape, generator=generator, dtype=dt, device=dev)
 
-    return Draws(
+    draws = Draws(
         noise=normal(b, c, h, w),
         timesteps=spec.schedule.sample_timesteps(generator, b, dev),
         offset=normal(b, c, 1, 1) if spec.noise_offset else None,
         octaves=tuple(normal(b, c, hi, wi) for hi, wi in
                       _octave_sizes(h, w, spec.multires_noise_iterations)),
-        latent_noise=latent_noise,
-        uncond_u=uncond_u,
     )
+    if rows is not None:
+        draws = select_rows(draws, rows)
+    return dataclasses.replace(draws, latent_noise=latent_noise, uncond_u=uncond_u)
+
+
+def select_rows(draws: Draws, rows) -> Draws:
+    """The rank's rows of draws made for the whole batch (the CFG-dropout
+    scalar is the batch's; LoRA masks of the batch's layout lose the other
+    rows)."""
+    def take(t):
+        return rows.take(t) if t is not None else None
+
+    masks = draws.lora_masks
+    if masks is not None:
+        masks = {k: take(m) if m.shape[0] == rows.total else m for k, m in masks.items()}
+    return dataclasses.replace(
+        draws, noise=take(draws.noise), timesteps=take(draws.timesteps),
+        offset=take(draws.offset), octaves=tuple(take(o) for o in draws.octaves),
+        latent_noise=take(draws.latent_noise), lora_masks=masks)
 
 
 def _multires_noise(noise: torch.Tensor, octaves, discount: float) -> torch.Tensor:
@@ -234,16 +265,23 @@ def _merged_component(trainable: Params, frozen: Params, prefix: str, dtype) -> 
 
 
 def _encode_latents(trainable: Params, frozen: Params, images: torch.Tensor,
-                    spec: StepSpec, generator, draws: Optional[Draws]
+                    spec: StepSpec, generator, draws: Optional[Draws], rows=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(latents, the latent noise they took): VAE moments of ``images``,
-    then a sample of their Gaussian."""
+    then a sample of their Gaussian (its noise drawn for the whole batch
+    and cut to the rank's ``rows``, when given)."""
     if spec.vae_config is None:
         raise ValueError("a batch of images needs StepSpec.vae_config")
     dt = spec.compute_dtype
     vae_params = _merged_component(trainable, frozen, VAE_PREFIX, dt)
     moments = encoder_apply(vae_params, images.to(dt), spec.vae_config)
-    noise = draws.latent_noise if draws is not None else latent_noise(moments, generator)
+    if draws is not None:
+        noise = draws.latent_noise
+    elif rows is not None:
+        noise = rows.take(latent_noise(moments.new_empty((rows.total,) + moments.shape[1:]),
+                                       generator))
+    else:
+        noise = latent_noise(moments, generator)
     return sample_latents(moments, noise, spec.vae_config.scaling_factor,
                           spec.vae_config.shift_factor), noise
 
@@ -326,7 +364,7 @@ def size_time_ids(latents: torch.Tensor, spec: StepSpec,
 
 def compute_loss(trainable: Params, frozen: Params, batch: dict,
                  generator: Optional[torch.Generator], spec: StepSpec,
-                 draws: Optional[Draws] = None) -> tuple[torch.Tensor, dict]:
+                 draws: Optional[Draws] = None, parallel=None) -> tuple[torch.Tensor, dict]:
     """The training loss of one batch.
 
     batch: 'latents' (B, C, h, w) pre-scaled or 'images' (B, 3, H, W) in
@@ -334,15 +372,19 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
     'uncond_ids' (1, L) (the empty prompt's ids) for uncond mode 'eos';
     SDXL and SD3 caches carry 'pooled' (B, D2); SD3 with T5 takes 't5_ids'
     (B, L3) and 't5_uncond_ids' (1, L3). ``draws`` replaces the generator's
-    draws when given."""
+    draws when given. ``parallel``: the batch is the rank's rows (``draws``
+    are the whole batch's), the denoiser runs its tensor-parallel view."""
     dt = spec.compute_dtype
     latent_noise_ = uncond_u = None
+    rows = parallel.rows if parallel is not None else None
+    if draws is not None and rows is not None:
+        draws = select_rows(draws, rows)
     dropout = lora_dropout(generator, draws)
     if "latents" in batch:
         latents = batch["latents"].to(dt)
     else:
         latents, latent_noise_ = _encode_latents(trainable, frozen, batch["images"], spec,
-                                                 generator, draws)
+                                                 generator, draws, rows)
     if draws is not None:
         uncond_u = draws.uncond_u
     elif spec.uncond_enabled and "conds" not in batch:
@@ -361,7 +403,7 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
             added_cond = {"text_embeds": pooled.to(dt),
                           "time_ids": size_time_ids(latents, spec, batch.get("size_cond"))}
     if draws is None:
-        draws = draw(generator, spec, latents, latent_noise_, uncond_u)
+        draws = draw(generator, spec, latents, latent_noise_, uncond_u, rows)
 
     noise = draws.noise.to(dt)
     if spec.noise_offset:
@@ -373,6 +415,8 @@ def compute_loss(trainable: Params, frozen: Params, batch: dict,
     noisy = spec.schedule.add_noise(latents, noise, timesteps)
 
     unet_params = _merged_component(trainable, frozen, UNET_PREFIX, dt)
+    if parallel is not None and parallel.tp is not None:
+        unet_params = tp_view(unet_params, parallel.tp)
     if dropout is not None:
         unet_params[LORA_DROPOUT] = dropout
     if spec.sd3:
@@ -406,18 +450,24 @@ def apply_updates(trainable: Params, updates: Params, step: int) -> Params:
 
 
 def loss_and_grads(spec: StepSpec, trainable: Params, frozen: Params, batch: dict,
-                   generator: Optional[torch.Generator], draws: Optional[Draws] = None
+                   generator: Optional[torch.Generator], draws: Optional[Draws] = None,
+                   compute_copy: Optional[Params] = None, parallel=None
                    ) -> tuple[torch.Tensor, Params]:
     """(loss, gradients) with gradients taken w.r.t. a compute-dtype copy of
     the trainable dict, so they come out in the compute dtype (bf16), as in
     the JAX step. A trainable the loss does not reach (the LoRA factors of a
-    CLIP layer that CLIP-skip drops) gets zeros, as ``jax.grad`` gives it."""
+    CLIP layer that CLIP-skip drops) gets zeros, as ``jax.grad`` gives it.
+    ``compute_copy``: that copy, kept (sharded masters: every trainable's,
+    where ``trainable`` holds the owned masters only)."""
     dt = spec.compute_dtype
     use_compute = dt != torch.float32
-    compute = {k: (v.detach().to(dt) if use_compute and v.is_floating_point()
-                   else v.detach()).requires_grad_(True)
-               for k, v in trainable.items()}
-    loss, _ = compute_loss(compute, frozen, batch, generator, spec, draws)
+    if compute_copy is not None:
+        compute = {k: v.detach().requires_grad_(True) for k, v in compute_copy.items()}
+    else:
+        compute = {k: (v.detach().to(dt) if use_compute and v.is_floating_point()
+                       else v.detach()).requires_grad_(True)
+                   for k, v in trainable.items()}
+    loss, _ = compute_loss(compute, frozen, batch, generator, spec, draws, parallel)
     keys = list(compute)
     grads = torch.autograd.grad(loss, [compute[k] for k in keys], allow_unused=True)
     return loss.detach(), {k: g if g is not None else torch.zeros_like(compute[k])
@@ -434,19 +484,26 @@ def _group_keys(tx) -> dict[str, list[str]]:
 
 
 def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
-                    ema_enabled: bool = False):
+                    ema_enabled: bool = False, parallel=None):
     """Build ``train_step(state, frozen, batch, draws=None) -> (state, metrics)``:
     ``loss_and_grads``, then ``tx.update_and_apply``, which updates the
     masters of ``state.trainable`` in place, then (``ema_enabled``) the EMA
-    of the new masters, its shadows updated in place."""
+    of the new masters, its shadows updated in place. ``parallel``: the
+    gradients are averaged over the data-parallel ranks (the loss too) before
+    the update of the owned masters, whose compute copies are broadcast
+    after every update (not after the micro-steps that only accumulate)."""
     groups = _group_keys(tx) if ema_enabled else None
 
     def train_step(state: TrainState, frozen: Params, batch: dict,
                    draws: Optional[Draws] = None):
         loss, grads = loss_and_grads(spec, state.trainable, frozen, batch, state.generator,
-                                     draws)
+                                     draws, state.compute, parallel)
         ema = state.ema
         with torch.no_grad():
+            if parallel is not None:
+                parallel.reduce_grads(grads)
+                loss = parallel.mean_loss(loss)
+                grads = {k: grads[k] for k in state.trainable}
             opt_state = tx.update_and_apply(grads, state.opt_state, state.trainable, state.step)
             del grads
             if ema_enabled:
@@ -454,22 +511,36 @@ def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
                     raise ValueError("EMA is on but the train state holds none "
                                      "(init_train_state(ema_enabled=True))")
                 ema = ema_update(ema, state.trainable, state.step, groups)
+            if state.compute is not None and _updated(opt_state):
+                parallel.refresh_compute(state.compute, state.trainable)
         metrics = {"train_loss": loss, "lr": lr_fn(state.step)}
         return state._replace(step=state.step + 1, opt_state=opt_state, ema=ema), metrics
 
     return train_step
 
 
+def _updated(opt_state) -> bool:
+    """Whether the step's ``update_and_apply`` changed the masters: always,
+    but under gradient accumulation only at the emit (its count back at 0)."""
+    return not isinstance(opt_state, AccumulationState) or opt_state.mini == 0
+
+
 def init_train_state(trainable: Params, tx, seed: int = 0, ema_enabled: bool = False,
                      ema_decay: float = 0.995,
-                     ema_dtype: torch.dtype = torch.float32) -> TrainState:
+                     ema_dtype: torch.dtype = torch.float32,
+                     compute: Optional[Params] = None,
+                     device: Optional[torch.device] = None) -> TrainState:
     """Step 0, optimizer state, a generator seeded on the params' device, and
     (``ema_enabled``) an EMA shadow of the ``unet.*`` masters in
-    ``ema_dtype``."""
-    device = next(iter(trainable.values())).device
+    ``ema_dtype``. Sharded masters: ``trainable`` holds the rank's own (it
+    may hold none), ``compute`` every trainable's compute-dtype copy, and
+    ``device`` names the device."""
+    if device is None:
+        device = next(iter(trainable.values())).device
     ema = None
     if ema_enabled:
         ema = ema_init({k: v for k, v in trainable.items() if k.startswith(UNET_PREFIX + ".")},
                        ema_decay, ema_dtype)
     return TrainState(step=0, trainable=trainable, opt_state=tx.init(trainable),
-                      generator=torch.Generator(device=device).manual_seed(seed), ema=ema)
+                      generator=torch.Generator(device=device).manual_seed(seed), ema=ema,
+                      compute=compute)

@@ -19,9 +19,18 @@ model's denoiser is its MMDiT, under the ``unet`` prefix, and its T5 tower
 live text encoding with T5 needs ``tokenizer_3/tokenizer.json`` (or the
 ``tokenizer_3:`` key), which the pipeline runs beside the CLIP tokenizer.
 
-What the port has no counterpart for yet is refused, naming its ROADMAP
-item: more than one device (1.17, ``refuse_later_slices``, when the trainer
-is built).
+Under ``python -m torch.distributed.run`` each process trains on its card
+in the (data, fsdp, tensor) mesh of ``trainer.mesh`` (``parallel/mesh.py``;
+``data: null`` takes the world). ``batch_size`` is per host, as in the JAX
+package, where one process per host runs the sampler: here every rank runs
+its host's sampler (world = hosts, rank = host index) and decodes its own
+rows of each host batch, split over the host's data x fsdp ranks and shared
+by tensor peers (``parallel/sharding.py``). The gradients are averaged over
+the data-parallel ranks, every trainable leaf has one owner among the fsdp x
+tensor ranks (its master, optimizer state and EMA shadow live there alone),
+the denoiser's transformer linears split over the tensor ranks
+(``parallel/tensor.py``), and logging, sampling and writes run on rank 0;
+checkpoints and the SIGTERM autosave are collective.
 The trainer keys of the JAX package that steer XLA (compile caches, bucket
 warm-up, buffer donation) are accepted and do nothing in eager PyTorch; the
 trainer says so once. Its packing keys (``param_packing``, ``pack_min_size``,
@@ -35,7 +44,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import os
 import random
 import signal
@@ -45,6 +53,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..conf import Config, load_optim_target
 from ..data.datasets import LatentCache
@@ -55,8 +64,13 @@ from ..ops import attention as attention_ops
 from ..text.embeddings import TOKEN_EMBEDDING_KEY, install_custom_embeddings, load_embeddings_dir
 from ..text.ti import TRAINED_EXTRA_KEY, parse_ti_specs, setup_ti_training
 from ..text.tokenizer import resolve_t5_tokenizer, resolve_tokenizer
-from ..utils.logging import is_main_process, world_size
+from ..parallel.mesh import (LaunchEnv, check_mesh, init_process_group, mesh_from_config,
+                             process_device, tp_param_names)
+from ..parallel.sharding import Parallel, Rows
+from ..parallel.tensor import TensorParallel, all_reduce_sum, split_layers, tensor_sum_keys
+from ..utils.logging import is_main_process, main_process_logger
 from .checkpoint import CheckpointManager, load_loop_state, restore_train_state
+from .families import GroupOwners
 from .lora import init_lora_params
 from .optim_targets import COMPONENT_PREFIX, group_labels, resolve_optim_target
 from .optimizers import build_optimizer
@@ -64,7 +78,7 @@ from .packing import DEFAULT_MIN_SLAB_SIZE, PackSpec, build_pack_spec
 from .step import (TE2_PREFIX, TE3_PREFIX, TE_PREFIX, UNET_PREFIX, VAE_PREFIX, Draws,
                    StepSpec, init_train_state, make_train_step)
 
-logger = logging.getLogger("trainer")
+logger = main_process_logger("trainer")
 
 # trainer keys of the JAX package with nothing to steer in eager PyTorch
 INERT_TRAINER_KEYS = ("compilation_cache", "compilation_cache_dir", "aot_bucket_warmup",
@@ -74,32 +88,33 @@ PACKING_KEYS = ("param_packing", "pack_min_size", "pack_stacks")
 _BF16_NAMES = ("16", "bf16", "bfloat16")
 
 
-def refuse_later_slices(config: Config) -> None:
-    """Raise for a config that needs a part of the trainer the port does not
-    have yet, naming the ROADMAP item that brings it."""
-    def refuse(what: str, item: str):
-        raise NotImplementedError(f"{what}: not ported yet (ROADMAP {item})")
-
-    mesh = config.trainer.get("mesh") or {}
-    if any(int(mesh.get(axis) or 1) > 1 for axis in ("data", "fsdp", "tensor")):
-        refuse(f"trainer.mesh {dict(mesh)} (more than one device)", "1.17")
-    if world_size() > 1:
-        refuse(f"WORLD_SIZE={world_size()} (more than one process)", "1.17")
-
-
-def jax_pack_spec(config: Config, shapes: dict, labels: dict) -> Optional[PackSpec]:
+def jax_pack_spec(config: Config, shapes: dict, labels: dict,
+                  tensor: int = 1) -> Optional[PackSpec]:
     """The slabs and stacks the JAX trainer packs the trainables into under
     this config (None with ``trainer.param_packing: false`` or nothing to
     pack): fp32 leaves under ``pack_min_size`` elements per (component,
-    group), and with ``pack_stacks`` the big ones of one shape. ``shapes``:
-    the trainables before a bf16 master cast, as the JAX trainer packs them."""
+    group), and with ``pack_stacks`` the big ones of one shape; the weights
+    a ``tensor`` axis shards stay out, as in JAX. ``shapes``: the trainables
+    before a bf16 master cast, as the JAX trainer packs them."""
     if not bool(config.trainer.get("param_packing", True)):
         return None
     spec = build_pack_spec(shapes, labels,
                            min_slab_size=int(config.trainer.get("pack_min_size")
                                              or DEFAULT_MIN_SLAB_SIZE),
-                           stack_big=bool(config.trainer.get("pack_stacks", False)))
+                           stack_big=bool(config.trainer.get("pack_stacks", False)),
+                           exclude=tp_param_names(shapes, tensor))
     return spec if spec.nontrivial else None
+
+
+def global_rows(lo: int, hi: int, batch_size: int, hosts: int, host: int,
+                prior: bool) -> Rows:
+    """The rank's rows [lo, hi) of its host's batch as positions in the
+    global batch (hosts' batches in host order; with prior preservation each
+    host batch is its instance rows, then its class rows)."""
+    per_host = batch_size * (2 if prior else 1)
+    own = torch.arange(lo, hi)
+    index = torch.cat([own, own + batch_size]) if prior else own
+    return Rows(index=index + host * per_host, total=per_host * hosts)
 
 
 def _prefixed(params: dict, prefix: str) -> dict:
@@ -108,14 +123,22 @@ def _prefixed(params: dict, prefix: str) -> dict:
 
 class Trainer:
     def __init__(self, config: Config, run_dir: Path, models=None, tokenizer=None,
-                 device="cuda"):
+                 device="cuda", backend: Optional[str] = None):
         """``models``: optional pre-loaded ``LoadedModels`` (the CLI loads
         ``config.model``); ``device``: where the run trains (a card unless
-        the caller asks for the CPU)."""
+        the caller asks for the CPU; ``cuda`` is ``cuda:LOCAL_RANK`` under
+        torchrun); ``backend``: the process group's, over the device's
+        default (NCCL on cards, gloo on the CPU)."""
         self.config = config
         self.run_dir = Path(run_dir)
-        self.device = resolve_device(device)
-        refuse_later_slices(config)
+        env = LaunchEnv.from_environ()
+        self.device = resolve_device(process_device(device, env))
+        check_mesh(config.trainer, env, config.batch_size)
+        init_process_group(self.device, backend, env)
+        self.mesh = mesh_from_config(config.trainer, env)
+        if self.mesh.world > 1:
+            logger.info(f"mesh (data, fsdp, tensor) = {self.mesh.shape} over "
+                        f"{self.mesh.world} ranks, backend {self.mesh.backend}")
         inert = [k for k in INERT_TRAINER_KEYS if k in config.trainer]
         if inert:
             logger.info(f"trainer keys {inert} steer XLA in the JAX package; they do nothing "
@@ -234,9 +257,14 @@ class Trainer:
         logger.info(f"Trainable tensors: {len(trainable)}, frozen: {len(frozen)}")
         self.frozen = frozen
 
-        # -- data ----------------------------------------------------------------
+        # -- data: the host's sampler, the rank's rows of each host batch -----------
         dataset = get_dataset(config, use_cache=True)
-        sampler = get_sampler(dataset, config, 1, 0)
+        sampler = get_sampler(dataset, config, env.hosts, env.host)
+        rows = None
+        if self.mesh.world > 1:
+            lo, hi = self.mesh.host_rows(int(config.batch_size))
+            rows = global_rows(lo, hi, int(config.batch_size), env.hosts, env.host,
+                               bool(config.prior_preservation.get("enabled", False)))
         num_workers = config.get("num_workers")
         # SD3 with T5: the third tokenizer for live text encoding; a run from
         # a condition cache never tokenizes
@@ -250,7 +278,8 @@ class Trainer:
                     "condition cache, or drop the T5 tower from the model directory")
         self.pipeline = DataPipeline(dataset, sampler, config.batch_size, self.tokenizer,
                                      num_workers=num_workers if num_workers is not None else 4,
-                                     tokenizer_3=tokenizer_3)
+                                     tokenizer_3=tokenizer_3,
+                                     rows=(lo, hi) if rows is not None else None)
         self.steps_per_epoch = max(len(self.pipeline), 1)
 
         # -- optimizer and step ----------------------------------------------------
@@ -261,10 +290,51 @@ class Trainer:
             # its own group: a much higher lr than fine-tuning, no weight decay
             labels[f"{TE_PREFIX}.{TRAINED_EXTRA_KEY}"] = "ti"
             overrides["ti"] = {"lr": float(ti_conf.get("lr", 5e-3)), "weight_decay": 0.0}
-        self.pack_spec = jax_pack_spec(config, jax_shapes, labels)
+        self.pack_spec = jax_pack_spec(config, jax_shapes, labels, self.mesh.tensor)
         del jax_shapes
-        self.tx, self.lr_fn = build_optimizer(config, labels, overrides, self.steps_per_epoch, 1,
-                                              pack_spec=self.pack_spec)
+
+        # -- the mesh: owners of the masters, tensor-split layers -------------------
+        self.parallel = None
+        compute = None
+        if self.mesh.world > 1:
+            tp = None
+            tensor_sum: set = set()
+            if self.mesh.tensor > 1:
+                denoiser = {k[len(UNET_PREFIX) + 1:]: tuple(v.shape)
+                            for k, v in {**trainable, **frozen}.items()
+                            if k.startswith(UNET_PREFIX + ".")}
+                layers = split_layers(denoiser, self.mesh.tensor)
+                tp = TensorParallel(self.mesh.tensor, self.mesh.tensor_index,
+                                    self.mesh.group("tensor"), layers)
+                tensor_sum = tensor_sum_keys(layers, trainable, UNET_PREFIX)
+            units = ([[s.key for s in slots] for _, _, slots in self.pack_spec.slabs]
+                     + [list(members) for _, members, _ in self.pack_spec.stacks]
+                     if self.pack_spec is not None else [])
+            self.parallel = Parallel(self.mesh, {k: (tuple(v.shape), v.dtype)
+                                                 for k, v in trainable.items()},
+                                     rows=rows, tp=tp, tensor_sum=tensor_sum, units=units)
+            if self.parallel.sharded:
+                # the step's gradient dtype: the compute dtype (bf16), or the
+                # masters' own under fp32 compute, as loss_and_grads takes it
+                grad_dtype = torch.float32 if str(config.trainer.get("precision", "bf16")) \
+                    == "32" else torch.bfloat16
+                grad_dtype = dtypes[True] if grad_dtype == torch.float32 else grad_dtype
+                compute = {k: v.to(grad_dtype, copy=True) for k, v in trainable.items()}
+                trainable = self.parallel.owned(trainable)
+                labels = {k: v for k, v in labels.items() if k in trainable}
+                n_owned = len(trainable)
+                logger.info(f"rank {self.mesh.rank} owns {n_owned}/{len(compute)} trainable "
+                            "leaves")
+        owners = None
+        if self.parallel is not None and self.parallel.sharded:
+            # Prodigy's and D-Adapt's group-wide sums run over the owners;
+            # under accumulation their gradients are the fp32 means
+            accumulate = int(config.trainer.get("accumulate_grad_batches", 1) or 1)
+            owners = GroupOwners(self._group_sum, (torch.float32 if accumulate > 1
+                                                   else grad_dtype, dtypes[True]))
+        self.tx, self.lr_fn = build_optimizer(config, labels, overrides, self.steps_per_epoch,
+                                              env.hosts, pack_spec=self.pack_spec,
+                                              owners=owners)
         self.spec = StepSpec.from_config(config, models.unet_config, models.schedule,
                                          vae_config=models.vae_config,
                                          clip_config=models.clip_config,
@@ -275,21 +345,29 @@ class Trainer:
                                                     else None))
         ema = config.get("ema") or {}
         ema_enabled = bool(ema.get("enabled", False))
-        self.train_step = make_train_step(self.spec, self.tx, self.lr_fn, ema_enabled)
+        self.train_step = make_train_step(self.spec, self.tx, self.lr_fn, ema_enabled,
+                                          parallel=self.parallel)
         self.state = init_train_state(
             trainable, self.tx, seed=seed, ema_enabled=ema_enabled,
             ema_decay=float(ema.get("decay", 0.995)),
             ema_dtype=(torch.bfloat16 if str(ema.get("dtype", "fp32")) in ("bf16", "bfloat16")
-                       else torch.float32))
-        del trainable
+                       else torch.float32),
+            compute=compute, device=self.device)
+        del trainable, compute
 
-        self.ckpt = CheckpointManager(self.run_dir, config.checkpoint)
+        self.ckpt = CheckpointManager(self.run_dir, config.checkpoint, self.parallel)
         self._writers = self._build_loggers()
         self.global_step = 0
         # the epoch cursor of a mid-epoch resume: {epoch, batch_in_epoch} ride
         # in the checkpoint, and the pipeline skips the consumed batches
         self.epoch_cursor = 0
         self.batch_in_epoch = 0
+
+    def _group_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A 0-dim fp32 ``x`` summed over the model group (the owners)."""
+        total = x.detach().float().to(self.device).clone()
+        all_reduce_sum(total, self.mesh.group("model"))
+        return total.to(x.device)
 
     # ------------------------------------------------------------------ io
 
@@ -324,7 +402,12 @@ class Trainer:
     # ---------------------------------------------------------------- loop
 
     def resume(self, ckpt_path: Path) -> None:
+        """Every rank restores its own leaves (and its EMA shadows and
+        optimizer state) from the checkpoint; owners then broadcast their
+        compute copies."""
         self.state = restore_train_state(Path(ckpt_path), self.state, pack_spec=self.pack_spec)
+        if self.state.compute is not None:
+            self.parallel.refresh_compute(self.state.compute, self.state.trainable)
         self.global_step = int(self.state.step)
         loop = load_loop_state(Path(ckpt_path))
         if loop.get("epoch") is not None:
@@ -425,7 +508,7 @@ class Trainer:
                     if sample_callback is not None:
                         sample_callback(self, self.global_step)
 
-                    if preempted["flag"]:
+                    if self._any_rank(preempted["flag"]):
                         logger.warning(f"SIGTERM received: autosaving at step "
                                        f"{self.global_step}")
                         self._save(epoch, last_metrics)
@@ -449,6 +532,16 @@ class Trainer:
         finally:
             profiler.close()
 
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank (the collective autosave needs
+        every rank to agree)."""
+        group = self.mesh.group("cpu")
+        if group is None:
+            return flag
+        t = torch.tensor([int(flag)])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return bool(t.item())
+
     def _save(self, epoch: int, metrics: dict) -> None:
         self.ckpt.save(self.state, self.frozen, {"epoch": epoch, "step": self.global_step,
                                                  **metrics},
@@ -457,13 +550,17 @@ class Trainer:
 
     def natural_trainable(self) -> dict:
         """The trainable masters under their natural names (the port packs
-        no leaves into slabs, so this is the state's own dict)."""
+        no leaves into slabs, so this is the state's own dict; under sharded
+        masters, the rank's own)."""
         return dict(self.state.trainable)
 
     def merged_inference_params(self) -> dict:
         """The current frozen + trainable view for sampling (LoRA factors stay
-        run-time deltas, which the UNet forward consumes)."""
-        return {**self.frozen, **self.state.trainable}
+        run-time deltas, which the UNet forward consumes); under sharded
+        masters the trainables' compute copies, which every rank holds."""
+        trainable = self.state.compute if self.state.compute is not None else \
+            self.state.trainable
+        return {**self.frozen, **trainable}
 
 
 class _StepProfiler:

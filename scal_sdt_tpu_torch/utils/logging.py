@@ -16,10 +16,6 @@ def process_rank() -> int:
     return int(os.environ.get("RANK", "0"))
 
 
-def world_size() -> int:
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
 def is_main_process() -> bool:
     return process_rank() == 0
 

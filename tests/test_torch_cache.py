@@ -1,7 +1,10 @@
 """The port's cache CLI and state-dict IO against the JAX package's.
 
 Both CLIs run on the same tiny diffusers directory, images and config (two
-augmented groups, CLIP-BPE ids on a synthetic vocab, stop_at_layer 2); the
+groups, CLIP-BPE ids on a synthetic vocab, stop_at_layer 2), once with the
+images through the native decoder (both packages' default: random crops,
+no augmentation) and once through PIL (the decoder switched off in both,
+flips as augmentation); the
 port's runs with ``--device cpu`` and the latent noise replayed from JAX's
 draws. The files hold the same keys and the same metadata JSON; latents and
 conds agree within 1e-5 of the largest entry (fp32 sums in another order).
@@ -49,24 +52,28 @@ def _jax_latent_noise(seed, device):
     return noise
 
 
-@pytest.fixture(scope="module")
-def caches(tmp_path_factory):
+@pytest.fixture(scope="module", params=["native", "pil"])
+def caches(tmp_path_factory, request):
     """(config dict, JAX cache file, port cache file)."""
-    from scal_sdt_tpu.native import image as native_image
+    from scal_sdt_tpu.native import image as jnative
+    from scal_sdt_tpu_torch.native import image as tnative
 
     tmp = tmp_path_factory.mktemp("cache")
     model = tiny_model_dir(tmp / "model")
     write_vocab(model / "tokenizer")
     data = make_image_dataset(tmp, n=5, size=(40, 52))
     user = {"model": str(model), "seed": SEED, "clip_stop_at_layer": 2, "num_workers": 2,
-            "augment": [{"name": "RandomHorizontalFlip", "params": {"p": 0.5}}],
             "data": {"resolution": 32,
                      "concepts": [{"instance_set": {"path": str(data),
                                                     "prompt": "{TXT_PROMPT}"}}]}}
+    pil = request.param == "pil"
+    if pil:
+        user["augment"] = [{"name": "RandomHorizontalFlip", "params": {"p": 0.5}}]
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        # the JAX datasets decode through PIL too (no native decoder in the port)
-        mp.setattr(native_image, "available", lambda: False)
+        if pil:
+            mp.setattr(jnative, "available", lambda: False)
+            mp.setattr(tnative, "available", lambda: False)
         mp.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp / "jax_cache"))
         mp.setattr(tcache, "latent_noise_source", _jax_latent_noise)
         for name, cli in (("jax", jcache), ("port", tcache)):
@@ -82,11 +89,13 @@ def caches(tmp_path_factory):
 
 
 def test_cache_cli_writes_the_jax_file(caches):
-    _, jfile, tfile = caches
+    user, jfile, tfile = caches
+    # the cache CLI encodes one group unless the config augments
+    groups = 2 if "augment" in user else 1
     jmeta = json.loads(jstate.load_metadata(jfile)["json"])
     tmeta = json.loads(tstate.load_metadata(tfile)["json"])
     assert tmeta == jmeta
-    assert jmeta["total_entries"] == 5 and jmeta["aug_group_size"] == 2
+    assert jmeta["total_entries"] == 5 and jmeta["aug_group_size"] == groups
     want, got = jstate.load_state_dict(jfile), tstate.load_state_dict(tfile)
     assert got.keys() == want.keys()
     assert {k for k in got if k.endswith(".cond")} == {f"{i}.cond" for i in range(5)}
@@ -95,7 +104,8 @@ def test_cache_cli_writes_the_jax_file(caches):
         assert g.shape == w.shape and g.dtype == w.dtype, k
         assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), k
     # the two groups differ (flips and latent draws), so both were encoded
-    assert not np.array_equal(to_np(got["0.latent.0"]), to_np(got["0.latent.1"]))
+    if groups == 2:
+        assert not np.array_equal(to_np(got["0.latent.0"]), to_np(got["0.latent.1"]))
 
 
 def test_each_pipeline_reads_the_other_file(caches):

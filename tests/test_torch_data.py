@@ -2,10 +2,14 @@
 
 Tokenizers (hash and CLIP-BPE on a synthetic vocab) give equal ids; bucket
 assignment and batch order agree for 2 ranks over several epochs; the
-datasets give bit-equal pixel arrays and size conds on the PIL path, with
-augmentation off and on, fixed-size and ARB; samplers (DreamBooth too) and
-collated pipeline batches are equal; the cache reader reads the same arrays;
-``to_device`` makes the numpy batch NCHW. Everything here is exact.
+datasets give bit-equal pixel arrays and size conds on the native decoder's
+path (both packages' default: the port builds its own copy of
+``native/ssdt_image.cpp``) and on the PIL path (augmentation on, or the
+decoder switched off in both), fixed-size and ARB; the port's build of the
+decoder gives the outputs of the JAX package's library bit for bit, PNG and
+JPEG; samplers (DreamBooth too) and collated pipeline batches are equal; the
+cache reader reads the same arrays; ``to_device`` makes the numpy batch NCHW.
+Everything here is exact.
 """
 
 import json
@@ -86,13 +90,49 @@ AUGMENT = [{"name": "RandomRotationWithCrop", "params": {"angle_deg": 10}},
                                               "saturation": 0.1, "hue": 0.05}}]
 
 
-@pytest.fixture(autouse=True)
 def pil_path(monkeypatch):
-    """The JAX datasets decode through PIL too (the port has no native
-    decoder yet; the JAX package uses its own when it is built)."""
-    from scal_sdt_tpu.native import image as native_image
+    """Both packages' datasets decode through PIL (the native decoder off)."""
+    from scal_sdt_tpu.native import image as jnative
+    from scal_sdt_tpu_torch.native import image as tnative
 
-    monkeypatch.setattr(native_image, "available", lambda: False)
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
+
+
+def test_both_packages_decode_natively():
+    """The compared path is the JAX package's default: its tracked library
+    loads here, and the port builds its own."""
+    from scal_sdt_tpu.native import image as jnative
+    from scal_sdt_tpu_torch.native import image as tnative
+
+    assert jnative.available()
+    assert tnative.available(), tnative.build_error
+    assert tnative.decoder_name() == "native"
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpg"])
+def test_native_decoder_matches_jax(tmp_path, fmt):
+    """The port's g++ build of the decoder against the JAX package's library:
+    ``decode_resize_crop`` at several target sizes (JPEG DCT scaling at the
+    small ones) and crop fractions, and ``image_size``, bit for bit."""
+    from PIL import Image
+
+    from scal_sdt_tpu.native import image as jnative
+    from scal_sdt_tpu_torch.native import image as tnative
+
+    r = np.random.RandomState(1)
+    for i, (w, h) in enumerate([(128, 96), (200, 300), (611, 517)]):
+        arr = (r.randint(0, 128, (h, w, 3)) + np.linspace(0, 120, w)[None, :, None])
+        path = tmp_path / f"t{i}.{fmt}"
+        Image.fromarray(arr.astype(np.uint8)).save(path, **({"quality": 90} if fmt == "jpg"
+                                                            else {}))
+        assert tnative.image_size(path) == jnative.image_size(path) == (w, h)
+        for tw, th in [(64, 48), (32, 32), (128, 256), (512, 512)]:
+            for fx, fy in [(0.5, 0.5), (0.0, 1.0), (0.37, 0.81)]:
+                got = tnative.decode_resize_crop(path, tw, th, fx, fy)
+                want = jnative.decode_resize_crop(path, tw, th, fx, fy)
+                assert got.shape == (th, tw, 3) and got.dtype == np.float32
+                np.testing.assert_array_equal(got, want, err_msg=f"{path.name} {tw}x{th}")
 
 
 @pytest.fixture(scope="module")
@@ -156,10 +196,15 @@ def test_bucket_manager_matches_jax(world):
             assert got == list(jm.generator()) and len(got) == tm.batch_total
 
 
-@pytest.mark.parametrize("arb,augment", [(False, False), (False, True), (True, False),
-                                         (True, True)], ids=["fixed", "fixed-aug", "arb",
-                                                             "arb-aug"])
-def test_dataset_items_match_jax(data_dir, arb, augment):
+@pytest.mark.parametrize("arb,augment,pil", [(False, False, False), (False, True, False),
+                                             (True, False, False), (True, True, False),
+                                             (False, False, True)],
+                         ids=["fixed", "fixed-aug", "arb", "arb-aug", "fixed-pil"])
+def test_dataset_items_match_jax(data_dir, monkeypatch, arb, augment, pil):
+    """Native decoding unless augmentation is on (PIL then, in both
+    packages); ``fixed-pil`` switches the decoder off in both."""
+    if pil:
+        pil_path(monkeypatch)
     extra = {"aspect_ratio_bucket": {"enabled": arb}}
     if augment:
         extra["augment"] = AUGMENT

@@ -36,15 +36,17 @@ def test_every_module_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 49
-    # the sampling slice's modules, the optimizer slice's and the checkpoint
-    # toolchain's are among those imported
+    # the sampling slice's modules, the optimizer slice's, the checkpoint
+    # toolchain's and the multi-GPU slice's are among those imported
     assert {"scal_sdt_tpu_torch.diffusion.sampler", "scal_sdt_tpu_torch.convert.kohya",
             "scal_sdt_tpu_torch.cli.sample", "scal_sdt_tpu_torch.cli.gen_class_imgs",
             "scal_sdt_tpu_torch.training.sample_callback", "scal_sdt_tpu_torch.training.families",
             "scal_sdt_tpu_torch.training.packing",
             "scal_sdt_tpu_torch.utils.msgpack", "scal_sdt_tpu_torch.convert.mmdit_names",
             "scal_sdt_tpu_torch.convert.sd_names", "scal_sdt_tpu_torch.cli.ckpt_tool",
-            "scal_sdt_tpu_torch.cli.extract_lora"} <= set(_modules())
+            "scal_sdt_tpu_torch.cli.extract_lora", "scal_sdt_tpu_torch.parallel.mesh",
+            "scal_sdt_tpu_torch.parallel.sharding", "scal_sdt_tpu_torch.parallel.tensor",
+            "scal_sdt_tpu_torch.native.image"} <= set(_modules())
 
 
 def test_sources_name_no_jax():

@@ -37,7 +37,6 @@ import optax
 from flax import serialization
 
 from scal_sdt_tpu import conf as jconf
-from scal_sdt_tpu.native import image as native_image
 from scal_sdt_tpu.training import checkpoint as jckpt
 from scal_sdt_tpu.training import optimizers as jopt
 from scal_sdt_tpu.training import packing as jpacking
@@ -357,7 +356,6 @@ def lora_run(tmp_path_factory):
 
 def test_cli_resumes_a_jax_prodigy_lora_run(lora_run, monkeypatch):
     tmp, user = lora_run
-    monkeypatch.setattr(native_image, "available", lambda: False)
     jcfg = jconf.merge(jconf.default(), user, {"trainer": {"mesh": {"data": 8}}})
     jtr = JTrainer(jcfg, tmp / "jax")
     assert jtr.pack_spec is not None and jtr.pack_spec.slabs   # JAX's default packing

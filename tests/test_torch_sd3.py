@@ -52,7 +52,6 @@ from scal_sdt_tpu.data import datasets as jdatasets
 from scal_sdt_tpu.diffusion import flow as jflow
 from scal_sdt_tpu.models import mmdit as jmmdit
 from scal_sdt_tpu.models import t5 as jt5
-from scal_sdt_tpu.native import image as native_image
 from scal_sdt_tpu.text import tokenizer as jtok
 from scal_sdt_tpu.training import lora as jlora
 from scal_sdt_tpu.training import optim_targets as jtargets
@@ -539,7 +538,6 @@ def sd3_caches(sd3_dirs, tmp_path_factory):
                 {"instance_set": {"path": str(data), "prompt": "{TXT_PROMPT}"}}]}}
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_image, "available", lambda: False)
         mp.setattr(tcache, "latent_noise_source", _jax_latent_noise)
         for name, cli in (("jax", jcache), ("port", tcache)):
             cfg = dict(user, data=dict(user["data"], cache=str(tmp / f"{name}.safetensors")))
@@ -672,7 +670,6 @@ def test_sd3_train_and_sample_clis(sd3_dirs, tmp_path, monkeypatch):
     (both tokenizers), CFG dropout 'eos': 2 steps end on a checkpoint of
     LoRA factors; cli.sample --ckpt with it writes a PNG at 32x32 (16x16
     latents) by flow_euler."""
-    monkeypatch.setattr(native_image, "available", lambda: False)
     data = make_image_dataset(tmp_path, n=4, size=(40, 52))
     user = {"model": str(sd3_dirs["t5"]), "output_dir": str(tmp_path / "out"), "batch_size": 2,
             "seed": 3, "num_workers": 2, "optim_target": "lora_sd3",

@@ -400,10 +400,14 @@ def test_loader_reads_an_sdxl_dir_like_jax(sdxl_dir, tmp_path):
 
 # --- the cache CLI ------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def sdxl_caches(sdxl_dir, tmp_path_factory):
+@pytest.fixture(scope="module", params=["native", "pil"])
+def sdxl_caches(sdxl_dir, tmp_path_factory, request):
     """Both cache CLIs on the tiny SDXL directory (the port's latent noise
-    replayed from JAX's draws): (config dict, JAX file, port file)."""
+    replayed from JAX's draws), the images through the native decoder (both
+    packages' default) or through PIL (the decoder off in both): (config
+    dict, JAX file, port file)."""
+    from scal_sdt_tpu_torch.native import image as tnative
+
     tmp = tmp_path_factory.mktemp("sdxl_cache")
     data = make_image_dataset(tmp, n=3, size=(40, 52))
     user = {"model": str(sdxl_dir), "seed": 5, "num_workers": 2,
@@ -411,7 +415,9 @@ def sdxl_caches(sdxl_dir, tmp_path_factory):
                 {"instance_set": {"path": str(data), "prompt": "{TXT_PROMPT}"}}]}}
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_image, "available", lambda: False)
+        if request.param == "pil":
+            mp.setattr(native_image, "available", lambda: False)
+            mp.setattr(tnative, "available", lambda: False)
         mp.setattr(tcache, "latent_noise_source", _jax_latent_noise)
         for name, cli in (("jax", jcache), ("port", tcache)):
             cfg = dict(user, data=dict(user["data"], cache=str(tmp / f"{name}.safetensors")))
@@ -612,8 +618,8 @@ def test_sdxl_lora_slice_matches_jax_train_step(sdxl_dir, tmp_path, monkeypatch)
     the UNet and both towers), remat, uncached, size_cond from the pipeline
     and CFG dropout 'zeros' at p 0.5, for SLICE_STEPS steps from JAX's LoRA
     factors and draws; JAX's train step on the batches the port's pipeline
-    made. Then each package restores the other's checkpoint."""
-    monkeypatch.setattr(native_image, "available", lambda: False)
+    made (through the native decoder, as both packages decode by default).
+    Then each package restores the other's checkpoint."""
     data = make_image_dataset(tmp_path, n=4, size=(40, 52))
     user = {"model": str(sdxl_dir), "output_dir": str(tmp_path / "out"), "batch_size": 2,
             "seed": 3, "num_workers": 2, "optim_target": "lora_sdxl",

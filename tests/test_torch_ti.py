@@ -36,7 +36,6 @@ import jax.numpy as jnp
 
 from scal_sdt_tpu import conf as jconf
 from scal_sdt_tpu.models import clip as jclip
-from scal_sdt_tpu.native import image as native_image
 from scal_sdt_tpu.models import functional as jF
 from scal_sdt_tpu.text import bpe as jbpe
 from scal_sdt_tpu.text import embeddings as jemb
@@ -223,7 +222,6 @@ def _dtype_name(t) -> str:
 
 def test_whole_slice_matches_jax(slice_run, monkeypatch):
     tmp, user = slice_run
-    monkeypatch.setattr(native_image, "available", lambda: False)
     jcfg = jconf.merge(jconf.default(), user,
                        {"trainer": {"mesh": {"data": 8}, "param_packing": False}})
     tcfg = tconf.merge(tconf.default(), tconf.Config(dict(user)))

@@ -40,7 +40,6 @@ import jax.numpy as jnp
 
 from scal_sdt_tpu import conf as jconf
 from scal_sdt_tpu.cli import cache as jcache
-from scal_sdt_tpu.native import image as native_image
 from scal_sdt_tpu.training import ema as jema
 from scal_sdt_tpu.training import optim_targets as jtargets
 from scal_sdt_tpu.training import optimizers as jopt
@@ -87,10 +86,8 @@ def tiny_run(tmp_path_factory):
             "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None}}
     cache_cfg = dict(user, data=dict(user["data"], cache=str(tmp / "cache.safetensors")))
     (tmp / "cache.yaml").write_text(json.dumps(cache_cfg))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native_image, "available", lambda: False)
-        result = CliRunner().invoke(jcache.main, ["--config", str(tmp / "cache.yaml"),
-                                                  "--batch-size", "8", "--aug-group-size", "1"])
+    result = CliRunner().invoke(jcache.main, ["--config", str(tmp / "cache.yaml"),
+                                              "--batch-size", "8", "--aug-group-size", "1"])
     assert result.exit_code == 0, result.output or repr(result.exception)
     return tmp, user
 
@@ -163,7 +160,6 @@ def test_trainer_matches_jax(tiny_run, case, monkeypatch):
     tmp, user = tiny_run
     extra, cached = SLICE_CASES[case]
     jcfg, tcfg = _configs(user, tmp, extra, cached)
-    monkeypatch.setattr(native_image, "available", lambda: False)
     jtr = JTrainer(jcfg, tmp / case / "jax")
     ttr = TTrainer(tcfg, tmp / case / "port", device="cpu")
 
@@ -444,21 +440,29 @@ LATER_SLICES = {
     # item 1.16 is ported: an SD3 directory builds uncached (its T5 with the
     # tokenizer_3/ beside it); from a cache it needs pooled embeddings
     "sd3": ({"model": "sd3", "data": {"cache": None}}, None),
-    "mesh": ({"trainer": {"mesh": {"data": 2}}}, (NotImplementedError, "ROADMAP 1.17")),
-    "world_size": ({}, (NotImplementedError, "ROADMAP 1.17")),
+    # item 1.17 is ported: the mesh's own errors, before any process group
+    "mesh_product": ({"trainer": {"mesh": {"data": 2}}}, (ValueError, "mesh 2x1x1 != 1 devices")),
+    "tensor_across_hosts": ({"trainer": {"mesh": {"tensor": 2}}},
+                            (NotImplementedError, "single-host")),
+    "batch_not_divisible": ({}, (ValueError, "batch_size 8 is not divisible by the 3")),
 }
+# torchrun's environment of the cases that need one
+LAUNCH_ENV = {"tensor_across_hosts": {"WORLD_SIZE": "4", "LOCAL_WORLD_SIZE": "2"},
+              "batch_not_divisible": {"WORLD_SIZE": "3", "LOCAL_WORLD_SIZE": "3"}}
 
 
 @pytest.mark.parametrize("case", list(LATER_SLICES))
 def test_later_slice_configs_raise(tiny_run, tmp_path, monkeypatch, case):
-    """Configs that need a later slice raise naming its ROADMAP item; those of
-    items 1.12 (EMA, LoRA, custom embeddings), 1.13 (sampling concepts),
-    1.15 (SDXL) and 1.16 (SD3) build, and textual inversion from a condition
-    cache, an SDXL run from a cache without pooled embeddings and an SDXL
-    directory with an empty text_encoder_2/ raise as the JAX trainer does."""
+    """The configs of items 1.12 (EMA, LoRA, custom embeddings), 1.13
+    (sampling concepts), 1.15 (SDXL) and 1.16 (SD3) build, and textual
+    inversion from a condition cache, an SDXL run from a cache without
+    pooled embeddings and an SDXL directory with an empty text_encoder_2/
+    raise as the JAX trainer does; item 1.17's mesh raises for a product
+    that is not the world size, a tensor axis across hosts and a batch the
+    host's data-parallel ranks do not divide."""
     overrides, error = LATER_SLICES[case]
-    if case == "world_size":
-        monkeypatch.setenv("WORLD_SIZE", "2")
+    for name, value in LAUNCH_ENV.get(case, {}).items():
+        monkeypatch.setenv(name, value)
     if case == "custom_embeddings":
         (tmp_path / "emb").mkdir()
         overrides = {"custom_embeddings": {"enabled": True, "path": str(tmp_path / "emb")}}
@@ -467,6 +471,8 @@ def test_later_slice_configs_raise(tiny_run, tmp_path, monkeypatch, case):
     cfg = _cached_config(tiny_run, **overrides)
     if error is None:
         trainer = TTrainer(cfg, tmp_path / "run", device="cpu")
+        # one process: the mesh of one rank
+        assert trainer.mesh.shape == (1, 1, 1)
         assert (trainer.state.ema is not None) == (case == "ema")
         assert any(k.endswith(".lora_A") for k in trainer.state.trainable) == (case == "lora")
         assert (trainer.spec.sdxl or trainer.spec.sd3) == any(
