@@ -56,7 +56,10 @@ Phases (any failure raises and the script exits non-zero):
               splash kernel must launch 10 times per step and adam_bf16_fused
               once per param group (the update and master apply of all its
               leaves: 7 launches for the 7 groups of the full_unet target);
-              loss finite, params moved.
+              loss finite, params moved. Prints the model FLOPs per step
+              (utils/flops.py: 3 x the UNet forward's matmuls and
+              convolutions) and MFU against the card's dense bf16 peak, with
+              the card's name and power limit.
 5. check   -- one sample through the UNet with the kernels and with the plain
               attention path: the outputs must agree.
 6. int8    -- the same workload with optimizer bitsandbytes.optim.AdamW8bit
@@ -107,6 +110,20 @@ Phases (any failure raises and the script exits non-zero):
               sync per step, as the trainer's logging makes), time to the
               first step, checkpoint write and read seconds and size, peak
               memory, launches per step.
+9b. tuner  -- the batch-size tuner at SD1.5 full width: the trainer phase's
+              config with trainer.auto_scale_batch_size power from batch 16
+              and model: a hub id, resolved through an HF cache written in
+              the temp dir (HF_HUB_CACHE, inherited by the probes) to the
+              trainer phase's directory; a cache of 768 seeded rows (enough
+              that every probe step is a real step up to batch 256). Each
+              trial is a probe subprocess (python -m
+              scal_sdt_tpu_torch.cli.probe_batch: exit 0 fits, 3 a CUDA OOM);
+              at least one must fit and one end in the allocator's CUDA
+              out-of-memory error, and the pick be the largest power of two
+              that fit. Then 2 steps at the pick in this process: each splash
+              kernel 10 launches per step, adam_bf16_fused 7; losses finite,
+              masters moved. Prints each trial's batch, exit code, seconds
+              and peak memory (the card's error for an OOM).
 
 10. ema   -- the port's own EMA kernel (ema_fused: JAX computes the EMA in
               XLA) in one launch over the 686 SD1.5 leaves, with fp32 and
@@ -351,7 +368,7 @@ from scal_sdt_tpu_torch.cli import train as train_cli
 from scal_sdt_tpu_torch.cli.cache import assemble_cache, build_local_shard
 from scal_sdt_tpu_torch.conf import (CONFIGS_DIR, Config, default, load_optim_target,
                                      load_with_defaults, merge)
-from scal_sdt_tpu_torch.convert.loader import LoadedModels, load_components
+from scal_sdt_tpu_torch.convert.loader import LoadedModels, cached_snapshot, load_components
 from scal_sdt_tpu_torch.data.datasets import LatentCache
 from scal_sdt_tpu_torch.data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
 from scal_sdt_tpu_torch.diffusion import sampler
@@ -378,13 +395,15 @@ from scal_sdt_tpu_torch.training.quantized import Adam8bit, bias_corrections
 from scal_sdt_tpu_torch.training.sample_callback import SampleCallback
 from scal_sdt_tpu_torch.training.step import (StepSpec, compute_loss, draw, init_train_state,
                                               loss_and_grads, make_train_step)
+from scal_sdt_tpu_torch.training import tuner
 from scal_sdt_tpu_torch.training.trainer import Trainer
+from scal_sdt_tpu_torch.utils import flops
 from scal_sdt_tpu_torch.utils.state import (load_metadata, load_state_dict, save_json_metadata,
                                            save_state_dict)
 
 # H100 SXM data-sheet peaks (dense bf16 tensor cores, fp32 on the CUDA
 # cores, HBM3), at 700 W.
-PEAK_BF16_FLOPS = 989e12
+PEAK_BF16_FLOPS = flops.GPU_PEAK_FLOPS["NVIDIA H100 80GB HBM3"]
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 EXP_PER_CLOCK_PER_SM = 16  # MUFU.EX2 results per clock per SM (sm_90)
@@ -441,7 +460,7 @@ SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
 PHASES = ("train", "train_int8", "families", "uncached", "cache", "trainer", "ema",
           "sample", "lora", "lora_prodigy", "dreambooth", "sdxl_cache", "sdxl_lora",
           "sdxl_sample", "sd3_cached", "sd3_triple", "sd3_cli",
-          "single_file", "parallel")   # the phases that run a main path
+          "single_file", "parallel", "tuner")   # the phases that run a main path
 COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
 
@@ -1663,6 +1682,23 @@ def leaf_digests(trainer) -> torch.Tensor:
                         for p in trainer.state.trainable.values()])
 
 
+def trainer_config(model: str, runs: Path, cache_path: Path, seed: int) -> dict:
+    """The trainer cell's config: SD1.5 from ``cache_path`` at 512^2, batch 8,
+    AdamW with bf16 masters and moments, EMA off, a checkpoint every
+    TRAINER_SAVE_EVERY steps."""
+    return {"model": model, "output_dir": str(runs), "project": "smoke",
+            "batch_size": 8, "seed": seed, "num_workers": NUM_WORKERS,
+            "data": {"resolution": RESOLUTION, "cache": str(cache_path)},
+            "trainer": {"precision": "bf16", "max_epochs": 2, "max_steps": TRAINER_STEPS,
+                        "log_every_n_steps": 1},
+            "ema": {"enabled": False},
+            "optimizer": {"name": "adamw", "master_dtype": "bf16", "moment_dtype": "bf16",
+                          "params": {"lr": 2e-6, "weight_decay": 1e-2},
+                          "lr_scale": {"enabled": False}},
+            "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
+                           "every_n_train_steps": TRAINER_SAVE_EVERY}}
+
+
 def trainer_phase(seed: int, workdir: Path, cache_path: Path, frozen: dict,
                   per_step: dict[str, int], train_rate: float) -> dict:
     """The trainer, the train CLI and checkpoints at full width, from the
@@ -1676,19 +1712,8 @@ def trainer_phase(seed: int, workdir: Path, cache_path: Path, frozen: dict,
     model = write_model_dir(workdir, seed, frozen)
     write_s = time.perf_counter() - t0
     runs = workdir / "runs"
-    config = {"model": str(model), "output_dir": str(runs), "project": "smoke",
-              "batch_size": 8, "seed": seed, "num_workers": NUM_WORKERS,
-              "data": {"resolution": RESOLUTION, "cache": str(cache_path)},
-              "trainer": {"precision": "bf16", "max_epochs": 2, "max_steps": TRAINER_STEPS,
-                          "log_every_n_steps": 1},
-              "ema": {"enabled": False},
-              "optimizer": {"name": "adamw", "master_dtype": "bf16", "moment_dtype": "bf16",
-                            "params": {"lr": 2e-6, "weight_decay": 1e-2},
-                            "lr_scale": {"enabled": False}},
-              "checkpoint": {"filename": "{epoch}-{step}", "every_n_epochs": None,
-                             "every_n_train_steps": TRAINER_SAVE_EVERY}}
     cfg_path = workdir / "trainer.yaml"
-    cfg_path.write_text(json.dumps(config))
+    cfg_path.write_text(json.dumps(trainer_config(str(model), runs, cache_path, seed)))
     # AdamW over bf16 moments: one adam_bf16_fused launch per param group
     groups = len(resolve_optim_target(load_optim_target("full_unet"),
                                       unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
@@ -1782,6 +1807,143 @@ def trainer_phase(seed: int, workdir: Path, cache_path: Path, frozen: dict,
             "accumulation": {"k": ACCUM_K, "micro_steps": ACCUM_MICRO_STEPS,
                              "masters_moved": moved, "of": n_leaves,
                              "launches": acc_launches, "peak_mem_gib": acc_peak}}
+
+
+TUNER_HUB_ID = "smoke/sd15"      # the trainer phase's directory, as a cached hub id
+TUNER_INIT_BATCH = 16            # 14.52 GiB at batch 8 (PERF.md 5): 16-64 fit, 128 does not
+TUNER_PROBE_STEPS = 3            # tuner.subprocess_trial's steps per trial
+TUNER_MAX_BATCH = 256            # the cache holds TUNER_PROBE_STEPS x this many rows
+TUNER_STEPS = 2                  # steps at the picked batch
+
+
+def write_hub_cache(root: Path, model: Path, hub_id: str) -> Path:
+    """An HF hub cache under ``root`` holding ``hub_id`` at its main ref, the
+    snapshot a link to ``model``: the layout huggingface_hub writes."""
+    org, name = hub_id.split("/")
+    repo = root / f"models--{org}--{name}"
+    rev = hashlib.sha1(hub_id.encode()).hexdigest()
+    (repo / "refs").mkdir(parents=True)
+    (repo / "refs" / "main").write_text(rev)
+    (repo / "snapshots").mkdir()
+    (repo / "snapshots" / rev).symlink_to(model.resolve(), target_is_directory=True)
+    return repo / "snapshots" / rev
+
+
+def write_row_cache(path: Path, rows: int, seed: int) -> None:
+    """A condition cache of ``rows`` seeded SD1.5 rows at 512^2: bf16
+    latents (64, 64, 4) and conds (77, 768), about 150 kB a row."""
+    gen = torch.Generator().manual_seed(seed)
+    cache, metadata = assemble_cache({
+        "ids": list(range(rows)),
+        "latents": [torch.randn(rows, 64, 64, 4, generator=gen).bfloat16()],
+        "conds": torch.randn(rows, 77, 768, generator=gen).bfloat16()})
+    save_state_dict(cache, path, "safetensors", metadata={"json": json.dumps(metadata)})
+
+
+def tuner_phase(seed: int, workdir: Path, model: Path, per_step: dict[str, int]) -> dict:
+    """``trainer.auto_scale_batch_size: power`` through the train CLI at SD1.5
+    full width: ``model:`` is a hub id that resolves through an HF cache
+    written here (HF_HUB_CACHE, inherited by the probes) to ``model``, the
+    trainer phase's directory; the trainer phase's config (AdamW, bf16
+    masters and moments, 512^2) from TUNER_INIT_BATCH over a cache of seeded rows large
+    enough that every trial's probe steps are real steps (a batch larger
+    than the cache would end a drop_last epoch without one). Each trial is
+    a probe subprocess; then TUNER_STEPS steps in this process at the
+    picked batch, counted: each splash kernel 10 launches per step,
+    adam_bf16_fused one per param group."""
+    hub = workdir / "hf_hub"
+    snapshot = write_hub_cache(hub, model, TUNER_HUB_ID)
+    cache_path = workdir / "tuner_cache.safetensors"
+    rows = TUNER_PROBE_STEPS * TUNER_MAX_BATCH
+    t0 = time.perf_counter()
+    write_row_cache(cache_path, rows, seed + 15)
+    cache_s = time.perf_counter() - t0
+    config = trainer_config(TUNER_HUB_ID, workdir / "tune", cache_path, seed)
+    config["batch_size"] = TUNER_INIT_BATCH
+    config["trainer"] = dict(config["trainer"], auto_scale_batch_size="power", max_epochs=1,
+                             max_steps=TUNER_STEPS)
+    config["checkpoint"] = dict(config["checkpoint"], every_n_train_steps=None)
+    cfg_path = workdir / "tuner.yaml"
+    cfg_path.write_text(json.dumps(config))
+    groups = len(resolve_optim_target(load_optim_target("full_unet"),
+                                      unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
+    per_step = {**per_step, "adam_bf16_fused": groups, "adam8_fused": 0, "ema_fused": 0}
+
+    trials, digests = [], []
+    real_trial, real_fit = tuner.subprocess_trial, Trainer.fit
+
+    def recording_trial(*args, **kwargs):
+        trials.append(real_trial(*args, **kwargs))
+        return trials[-1]
+
+    def digesting_fit(tr, *args, **kwargs):
+        digests.append(leaf_digests(tr))
+        out = real_fit(tr, *args, **kwargs)
+        digests.append(leaf_digests(tr))
+        return out
+
+    env_before = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = str(hub)
+    tuner.subprocess_trial, Trainer.fit = recording_trial, digesting_fit
+    try:
+        check(cached_snapshot(TUNER_HUB_ID) == snapshot,
+              f"{TUNER_HUB_ID} does not resolve to {snapshot}")
+        parent_gib = torch.cuda.memory_reserved() / 2 ** 30
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_launches()
+        with TrainerProbe() as run:
+            train_cli.main(["--config", str(cfg_path), "--run-id", "tuned", "--device", DEVICE],
+                           standalone_mode=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        total_s = time.perf_counter() - t0
+    finally:
+        tuner.subprocess_trial, Trainer.fit = real_trial, real_fit
+        if env_before is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = env_before
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    history = trials[0].history
+    fits = [t["batch_size"] for t in history if t["returncode"] == tuner.PROBE_OK]
+    ooms = [t for t in history if t["returncode"] == tuner.PROBE_OOM]
+    picked = int(load_with_defaults(workdir / "tune" / "smoke" / "tuned" / "config.yaml")
+                 .batch_size)
+    check(fits and ooms, f"the trials need a fit and an OOM: {history}")
+    check(any("CUDA out of memory" in t.get("error", "") for t in ooms),
+          f"no OOM exit with the allocator's CUDA out-of-memory error: {ooms}")
+    check(all(t["steps"] == TUNER_PROBE_STEPS for t in history
+              if t["returncode"] == tuner.PROBE_OK),
+          f"a fit without {TUNER_PROBE_STEPS} real steps: {history}")
+    check(picked == max(fits) and all(b == TUNER_INIT_BATCH * 2 ** i for i, b in enumerate(fits))
+          and min(t["batch_size"] for t in ooms) == 2 * max(fits),
+          f"picked {picked}, not the largest power of two that fit: {history}")
+    check([s for s, _, _ in run.steps] == list(range(1, TUNER_STEPS + 1)),
+          f"the tuned run logged steps {[s for s, _, _ in run.steps]}")
+    check(all(math.isfinite(x) for x in run.losses().values()), f"losses {run.losses()}")
+    for name, n in per_step.items():
+        check(launches[name] == n * TUNER_STEPS,
+              f"{name} launched {launches[name]} times in {TUNER_STEPS} tuned steps, expected "
+              f"{n} per step")
+    moved = int((digests[0] != digests[-1]).sum())
+    check(moved > len(digests[0]) // 2, f"{moved} of {len(digests[0])} masters moved")
+    shutil.rmtree(workdir / "tune")
+    cache_path.unlink()
+    # MFU of the last step at the pick (the first one warms up)
+    step_flops = flops.train_step_flops(UNetConfig.sd15(), picked, 64)
+    peak_flops = flops.GPU_PEAK_FLOPS.get(torch.cuda.get_device_name(0))
+    rate = run.steps[-1][1]["steps_per_sec"]
+    return {"model_flops_per_step": step_flops,
+            "mfu_last_step": step_flops * rate / peak_flops if peak_flops else None,
+            "hub_id": TUNER_HUB_ID, "snapshot": str(snapshot), "cache_rows": rows,
+            "cache_write_s": cache_s, "init_batch": TUNER_INIT_BATCH, "trials": history,
+            "picked": picked, "seconds": total_s, "parent_reserved_gib": parent_gib,
+            "steps": TUNER_STEPS, "losses": [run.losses()[s] for s in sorted(run.losses())],
+            "steps_per_sec": [m["steps_per_sec"] for _, m, _ in run.steps],
+            "peak_mem_gib": peak, "masters_moved": moved, "of": len(digests[0]),
+            "launches": launches}
 
 
 def tensor_digests(tensors) -> torch.Tensor:
@@ -4476,6 +4638,16 @@ def main(argv=None) -> int:
     train = train_phase(args.seed, args.steps, "adamw", splash_per_step)
     log(f"train: {train['steps_per_s']:.4f} steps/s, peak {train['peak_mem_gib']:.2f} GiB, "
         f"losses {train['losses']}, launches {train['launches']}")
+    step_flops = flops.train_step_flops(UNetConfig.sd15(), 8, 64)
+    peak_flops = flops.GPU_PEAK_FLOPS.get(torch.cuda.get_device_name(0))
+    train["model_flops_per_step"] = step_flops
+    train["mfu"] = step_flops * train["steps_per_s"] / peak_flops if peak_flops else None
+    log(f"train: model FLOPs per step {step_flops:.6e} (utils/flops.py: 3 x the UNet forward's "
+        f"matmuls and convolutions, batch 8, 64^2 latents), MFU "
+        + (f"{train['mfu']:.4f} at {train['steps_per_s']:.4f} steps/s against "
+           f"{peak_flops:.4g} FLOP/s dense bf16" if peak_flops else
+           "not computed (no dense bf16 peak known for this card)")
+        + f" ({torch.cuda.get_device_name(0)}; {smi})")
     record["check"] = check_phase(train)
     log(f"check: {record['check']}")
     record["train"] = {k: v for k, v in train.items()
@@ -4556,6 +4728,27 @@ def main(argv=None) -> int:
             f"{acc['masters_moved']} of {acc['of']}, launches {acc['launches']}, peak "
             f"{acc['peak_mem_gib']:.2f} GiB")
         record["trainer"] = trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        tune = tuner_phase(args.seed, Path(tmp), Path(tmp) / "model", splash_per_step)
+        for t in tune["trials"]:
+            log(f"tuner trial: batch {t['batch_size']}, exit {t['returncode']}, "
+                f"{t['seconds']:.1f} s"
+                + (f", peak {t['peak_mem_gib']:.2f} GiB, {t['steps']} steps"
+                   if t["returncode"] == tuner.PROBE_OK else
+                   f", the card said: {(t.get('error') or '-').splitlines()[0][:300]}"))
+        log(f"tuner: {TUNER_HUB_ID} from the local HF cache, {len(tune['trials'])} trials from "
+            f"batch {tune['init_batch']}, picked {tune['picked']}; {tune['steps']} steps at it: "
+            f"losses {tune['losses']}, steps/s {[round(x, 4) for x in tune['steps_per_sec']]}, "
+            f"peak {tune['peak_mem_gib']:.2f} GiB (this process held "
+            f"{tune['parent_reserved_gib']:.2f} GiB during the trials), masters moved "
+            f"{tune['masters_moved']} of {tune['of']}, launches {tune['launches']}; model FLOPs "
+            f"per step {tune['model_flops_per_step']:.6e}, MFU of the last step "
+            + (f"{tune['mfu_last_step']:.4f}" if tune["mfu_last_step"] is not None
+               else "not computed")
+            + f"; phase {tune['seconds']:.1f} s ({smi})")
+        record["tuner"] = tune
         gc.collect()
         torch.cuda.empty_cache()
 

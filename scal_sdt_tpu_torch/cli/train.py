@@ -13,8 +13,11 @@ The JAX CLI's run-dir layout and resume semantics: checkpoints land in
 checkpoint. The run trains on a card unless ``--device cpu`` asks for the
 CPU. The run samples ``sampling.concepts`` into ``<run_dir>/samples/<step>/``
 every ``sampling.interval_steps`` steps. Rank 0 picks the run id, writes
-the snapshot and samples. Not ported yet: ``trainer.auto_scale_batch_size``
-(the batch-size tuner, ROADMAP 1.18).
+the snapshot and samples. ``trainer.auto_scale_batch_size`` (``power``,
+``binsearch`` or ``true``) picks ``batch_size`` before the run by trials in
+subprocesses (``training/tuner.py``), as in JAX only for a ``--config`` run
+that does not resume, and in one process: under ``torch.distributed.run``
+with more than one rank it is skipped with a warning.
 """
 
 from __future__ import annotations
@@ -106,10 +109,20 @@ def main(config_path: Optional[Path], run_id: Optional[str],
     verify_config(config)
     logger.info(f"Run ID: {run_id}")
 
+    # Auto batch-size tuning (reference trainer.tune(): skipped when
+    # resuming). Each trial is a subprocess with its own CUDA context.
     if (resume_ckpt_path is None and config_path is not None
             and config.trainer.get("auto_scale_batch_size", False)):
-        raise NotImplementedError("trainer.auto_scale_batch_size: the batch-size tuner is "
-                                  "not ported yet (ROADMAP 1.18); set batch_size")
+        if env.world > 1:
+            # a probe subprocess cannot join the process group, and ranks
+            # could pick different batch sizes and desync the collectives
+            logger.warning(
+                "auto_scale_batch_size runs in one process only; skipping it on a "
+                f"{env.world}-rank run (set batch_size explicitly)")
+        else:
+            from ..training.tuner import tune_batch_size
+
+            config.batch_size = tune_batch_size(config, config_path, device=device)
 
     trainer = Trainer(config, run_dir, device=dev, backend=backend)
     if resume_ckpt_path is not None:

@@ -22,14 +22,17 @@ may come from another file (``config.vae``).
 
 Each component is validated against its shape template. The dicts hold CPU
 tensors in the files' dtypes, keyed by the diffusers / transformers names;
-the caller moves them to its device. Hub ids are refused (resolving one
-needs the network)."""
+the caller moves them to its device. A hub id (``org/name``) is read from
+its snapshot in the local HF cache, found by the cache's own layout with no
+network and no ``huggingface_hub``; only an id that was never cached is
+downloaded, by ``huggingface_hub.snapshot_download`` where it is installed."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
+import os
 from pathlib import Path
 from typing import Optional
 
@@ -487,11 +490,67 @@ def load_ldm_checkpoint(path: Path, ldm_config: Optional[Config] = None,
                         NoiseSchedule.from_ldm_config(ldm_config))
 
 
+def hub_cache_dir() -> Path:
+    """The HF hub cache, as ``huggingface_hub`` finds it: ``HF_HUB_CACHE``
+    (or the older ``HUGGINGFACE_HUB_CACHE``), else ``HF_HOME/hub``, else
+    ``$XDG_CACHE_HOME/huggingface/hub`` (``~/.cache/huggingface/hub``)."""
+    for var in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE"):
+        if os.environ.get(var):
+            return Path(os.path.expandvars(os.path.expanduser(os.environ[var])))
+    home = os.environ.get("HF_HOME") or os.path.join(
+        os.environ.get("XDG_CACHE_HOME") or "~/.cache", "huggingface")
+    return Path(os.path.expandvars(os.path.expanduser(home))) / "hub"
+
+
+def cached_snapshot(name: str) -> Optional[Path]:
+    """The local snapshot of hub id ``org/name`` at its ``main`` ref:
+    ``<cache>/models--{org}--{name}/refs/main`` names the revision,
+    ``snapshots/<rev>`` holds it. None when it is not cached."""
+    parts = name.split("/")
+    if len(parts) != 2 or not all(parts):
+        return None
+    repo = hub_cache_dir() / f"models--{parts[0]}--{parts[1]}"
+    try:
+        rev = (repo / "refs" / "main").read_text().strip()
+    except OSError:
+        return None
+    snapshot = repo / "snapshots" / rev
+    return snapshot if rev and snapshot.is_dir() else None
+
+
+def _resolve_hub_id(name: str) -> Path:
+    """HF hub id -> local diffusers directory (the reference passes hub ids
+    to ``from_pretrained``). Resolution order:
+    1. the local HF cache (``cached_snapshot``): works offline when the
+       model was ever downloaded before;
+    2. a download by ``huggingface_hub.snapshot_download`` where that
+       package is installed and the network is there.
+    Raises an actionable error otherwise."""
+    if "/" not in name or name.startswith((".", "/")):
+        raise FileNotFoundError(
+            f"Model '{name}' not found locally and is not a hub id "
+            "(expected 'org/name')")
+    snapshot = cached_snapshot(name)
+    if snapshot is not None:
+        logger.info(f"hub id {name}: the local HF cache's {snapshot}")
+        return snapshot
+    try:
+        from huggingface_hub import snapshot_download
+
+        return Path(snapshot_download(name))
+    except Exception as e:  # noqa: BLE001 - every failure gets the one actionable error
+        raise FileNotFoundError(
+            f"Model '{name}' is neither a local path, nor in the local HF "
+            f"cache, nor downloadable ({type(e).__name__}: {e}) — pass a "
+            "local diffusers directory or LDM file instead") from e
+
+
 def load_components(config: Config) -> LoadedModels:
     """Load ``config.model``: a single-file checkpoint (with
     ``config.ldm_config``, ``config.vae`` as another VAE file, and for SD3
     ``mmdit_head_dim`` / ``mmdit_pos_embed_max_size``) or a diffusers
-    directory (``config.vae`` an external VAE directory). An optional
+    directory (``config.vae`` an external VAE directory) or a hub id's
+    snapshot (``_resolve_hub_id``). An optional
     ``schedule:`` config section overrides fields of the loaded noise
     schedule (e.g. ``prediction_type: v`` with
     ``rescale_zero_terminal_snr: true``)."""
@@ -508,9 +567,7 @@ def load_components(config: Config) -> LoadedModels:
     elif p.is_dir():
         models = load_diffusers_dir(p, config.get("vae"))
     else:
-        raise NotImplementedError(
-            f"model {name!r} is not a local file or directory: hub ids are not ported "
-            "(resolving one needs the network)")
+        models = load_diffusers_dir(_resolve_hub_id(str(name)), config.get("vae"))
 
     overrides = dict(config.get("schedule") or {})
     if overrides:

@@ -5,15 +5,18 @@ Resolved in this order:
 
 1. ``config.tokenizer`` -- a local tokenizer directory;
 2. the model's diffusers directory (``tokenizer/`` subfolder);
-3. a deterministic hashing fallback for offline/test environments -- clearly
+3. for a hub id as ``config.model``, the ``tokenizer/`` of its snapshot in
+   the local HF cache (``convert/loader.py`` ``cached_snapshot``), through
+   ``transformers.CLIPTokenizer`` as in the JAX package;
+4. a deterministic hashing fallback for offline/test environments -- clearly
    NOT CLIP-BPE; real text training requires vocab files. The fallback keeps
    the pipeline shape-correct (BOS + ids + EOS, padded to 77).
 
 A directory with ``vocab.json`` and ``merges.txt`` loads the native CLIP-BPE
-tokenizer (``text/bpe.py``). Not ported yet, and refused with an error: the
-``tokenizer_backend: transformers`` route, a vocab directory without
-``merges.txt`` (which only transformers reads), and a hub id as
-``config.model`` (the JAX package downloads its tokenizer).
+tokenizer (``text/bpe.py``). ``tokenizer_backend: transformers`` reads it
+with ``transformers.CLIPTokenizer`` instead (``CLIPTokenizerWrapper``), as
+does a directory without ``merges.txt``; where ``transformers`` is not
+installed, that route raises and names the package.
 
 SD3's third tokenizer (T5's SentencePiece unigram, ``T5TokenizerWrapper``,
 found by ``resolve_t5_tokenizer``) runs on the ``tokenizers`` package over
@@ -50,6 +53,50 @@ class PromptTokenizer:
 
     def add_tokens(self, tokens: list[str]) -> int:
         raise NotImplementedError
+
+
+class CLIPTokenizerWrapper(PromptTokenizer):
+    """``transformers.CLIPTokenizer`` behind the protocol: truncated and
+    padded (with EOS) to ``max_length``."""
+
+    def __init__(self, hf_tokenizer, max_length: Optional[int] = None):
+        self.tokenizer = hf_tokenizer
+        declared = hf_tokenizer.model_max_length
+        # Bare vocab dirs (no tokenizer_config.json) leave transformers'
+        # VERY_LARGE_INTEGER sentinel in place: fall back to CLIP's 77.
+        if declared is None or declared > 1_000_000:
+            declared = MODEL_MAX_LENGTH
+        self.max_length = max_length or declared
+        self.vocab_size = len(hf_tokenizer)
+        self._expansions: list[tuple[re.Pattern, str]] = []
+
+    @classmethod
+    def from_path(cls, path) -> "CLIPTokenizerWrapper":
+        try:
+            from transformers import CLIPTokenizer
+        except ImportError as e:
+            raise ImportError(
+                f"{path}: the transformers tokenizer backend needs the `transformers` "
+                "package, which is not installed; give a directory with vocab.json and "
+                "merges.txt to the native tokenizer (tokenizer_backend: native)") from e
+        return cls(CLIPTokenizer.from_pretrained(str(path)))
+
+    def add_expansion(self, pattern: re.Pattern, replacement: str):
+        """Textual-inversion keyword expansion: a pre-tokenization rewrite."""
+        self._expansions.append((pattern, replacement))
+
+    def add_tokens(self, tokens: list[str]) -> int:
+        n = self.tokenizer.add_tokens(tokens)
+        self.vocab_size = len(self.tokenizer)
+        return n
+
+    def __call__(self, prompts: Sequence[str]) -> np.ndarray:
+        prompts = list(prompts)
+        for pat, repl in self._expansions:
+            prompts = [pat.sub(repl, p) for p in prompts]
+        out = self.tokenizer(prompts, truncation=True, max_length=self.max_length,
+                             padding="max_length", return_tensors="np")
+        return out.input_ids.astype(np.int32)
 
 
 class T5TokenizerWrapper(PromptTokenizer):
@@ -169,25 +216,26 @@ def resolve_tokenizer(config, allow_hash: Optional[bool] = None) -> PromptTokeni
     if model and Path(str(model)).is_dir():
         candidates.append(Path(str(model)) / "tokenizer")
 
-    if str(config.get("tokenizer_backend", "native")) == "transformers":
-        raise NotImplementedError(
-            "tokenizer_backend: transformers is not ported yet; the native CLIP-BPE "
-            "tokenizer reads the same vocab.json / merges.txt")
+    use_transformers = str(config.get("tokenizer_backend", "native")) == "transformers"
     for cand in candidates:
         if cand.is_dir() and (cand / "vocab.json").exists():
-            if not (cand / "merges.txt").exists():
-                raise NotImplementedError(
-                    f"{cand} has vocab.json but no merges.txt: only the transformers "
-                    "backend reads it, which is not ported yet")
+            logger.info(f"Loading tokenizer from {cand}")
+            if use_transformers or not (cand / "merges.txt").exists():
+                return CLIPTokenizerWrapper.from_path(cand)
             from .bpe import CLIPBPETokenizer
 
-            logger.info(f"Loading tokenizer from {cand}")
             return CLIPBPETokenizer.from_dir(cand)
 
     if model and not Path(str(model)).exists():
-        raise NotImplementedError(
-            f"model {model!r} is not a local path: hub ids are not ported yet; pass a "
-            "local diffusers directory")
+        from ..convert.loader import cached_snapshot
+
+        snapshot = cached_snapshot(str(model))
+        if snapshot is not None:
+            try:
+                return CLIPTokenizerWrapper.from_path(snapshot / "tokenizer")
+            except Exception as e:  # noqa: BLE001 - JAX's route falls through too
+                logger.warning(f"no tokenizer from {snapshot / 'tokenizer'} "
+                               f"({type(e).__name__}: {e})")
 
     if not allow_hash:
         raise RuntimeError(

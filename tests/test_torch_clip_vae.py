@@ -213,14 +213,16 @@ def test_load_diffusers_dir_matches_jax(tmp_path):
     assert tloader.load_components(cfg).schedule.rescale_zero_terminal_snr
     # a file goes to the single-file reader, as in JAX (an empty one is no
     # safetensors file: tests/test_torch_single_file.py loads real ones); a
-    # name that is no local path is refused (hub ids need the network)
+    # path that does not exist is no hub id and raises JAX's error
+    # (tests/test_torch_hub_tokenizer.py resolves cached hub ids)
     (tmp_path / "file.safetensors").write_bytes(b"")
     file_cfg, absent_cfg = (tconf.merge(cfg, tconf.Config({"model": str(tmp_path / name)}))
                             for name in ("file.safetensors", "absent"))
     with pytest.raises(Exception, match="header too small"):
         tloader.load_components(file_cfg)
-    with pytest.raises(NotImplementedError, match="hub ids"):
-        tloader.load_components(absent_cfg)
+    for loader in (jloader, tloader):
+        with pytest.raises(FileNotFoundError, match="not found locally and is not a hub id"):
+            loader.load_components(absent_cfg)
     # SDXL's second tower (ROADMAP 1.15): an empty text_encoder_2/ raises as
     # JAX's loader does; a real one loads as JAX loads it
     import shutil

@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 49
     # the sampling slice's modules, the optimizer slice's, the checkpoint
-    # toolchain's and the multi-GPU slice's are among those imported
+    # toolchain's, the multi-GPU slice's and the last tools are among those
+    # imported
     assert {"scal_sdt_tpu_torch.diffusion.sampler", "scal_sdt_tpu_torch.convert.kohya",
             "scal_sdt_tpu_torch.cli.sample", "scal_sdt_tpu_torch.cli.gen_class_imgs",
             "scal_sdt_tpu_torch.training.sample_callback", "scal_sdt_tpu_torch.training.families",
@@ -46,7 +47,10 @@ def test_every_module_imports_without_jax():
             "scal_sdt_tpu_torch.convert.sd_names", "scal_sdt_tpu_torch.cli.ckpt_tool",
             "scal_sdt_tpu_torch.cli.extract_lora", "scal_sdt_tpu_torch.parallel.mesh",
             "scal_sdt_tpu_torch.parallel.sharding", "scal_sdt_tpu_torch.parallel.tensor",
-            "scal_sdt_tpu_torch.native.image"} <= set(_modules())
+            "scal_sdt_tpu_torch.native.image", "scal_sdt_tpu_torch.training.tuner",
+            "scal_sdt_tpu_torch.cli.probe_batch", "scal_sdt_tpu_torch.utils.flops",
+            "scal_sdt_tpu_torch.text.ensemble", "scal_sdt_tpu_torch.cli.arb_debug",
+            "scal_sdt_tpu_torch.cli.deepdanbooru_label"} <= set(_modules())
 
 
 def test_sources_name_no_jax():
@@ -59,14 +63,15 @@ def test_sources_name_no_jax():
 @pytest.mark.parametrize("entry", ["resolve_device", "init_unet_params", "params_from_jax",
                                    "init_vae_params", "init_clip_params", "to_device",
                                    "Trainer", "train_cli", "sample_images", "sample_cli",
-                                   "gen_class_imgs_cli", "lora_approx", "extract_lora_cli"])
+                                   "gen_class_imgs_cli", "lora_approx", "extract_lora_cli",
+                                   "probe_batch_cli"])
 def test_default_device_needs_cuda(entry, tmp_path):
     import torch
     from click.testing import CliRunner
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
-    from scal_sdt_tpu_torch.cli import extract_lora, gen_class_imgs, sample
+    from scal_sdt_tpu_torch.cli import extract_lora, gen_class_imgs, probe_batch, sample
     from scal_sdt_tpu_torch.cli import train as train_cli
     from scal_sdt_tpu_torch.conf import default
     from scal_sdt_tpu_torch.diffusion.sampler import SamplerSpec, sample_images
@@ -99,6 +104,9 @@ def test_default_device_needs_cuda(entry, tmp_path):
              "lora_approx": lambda: extract_lora.lora_approx(torch.zeros(2, 2), 1),
              "extract_lora_cli": lambda: CliRunner().invoke(
                  extract_lora.main, [str(config), str(config), str(tmp_path / "o.safetensors")],
+                 catch_exceptions=False),
+             "probe_batch_cli": lambda: CliRunner().invoke(
+                 probe_batch.main, ["--config", str(config), "--batch-size", "1"],
                  catch_exceptions=False)}
     config = tmp_path / "cfg.yaml"
     config.write_text("{}")

@@ -383,8 +383,8 @@ def test_sd3_single_file_loads_as_jax(with_t5, tmp_path):
 
 def test_vae_file_override_and_hub_ids(tmp_path):
     """``config.vae`` as a file (a first stage alone) replaces the bundled
-    VAE, as in JAX; a name that is no local path raises (hub ids need the
-    network)."""
+    VAE, as in JAX; a path that does not exist raises JAX's error: it is no
+    hub id (tests/test_torch_hub_tokenizer.py resolves cached hub ids)."""
     models = sd_models(SD1_YAML)
     path = tmp_path / "sd1.safetensors"
     jstate.save_state_dict(ldm_state(models), path)
@@ -397,7 +397,7 @@ def test_vae_file_override_and_hub_ids(tmp_path):
     assert_same_models(tm, jm)
     assert_same_state(tm.vae, other.vae)
     cfg = tconf.merge(tconf.default(), tconf.Config({"model": str(tmp_path / "org" / "name")}))
-    with pytest.raises(NotImplementedError, match="hub ids"):
+    with pytest.raises(FileNotFoundError, match="not found locally and is not a hub id"):
         tloader.load_components(cfg)
 
 
