@@ -68,9 +68,10 @@ Phases (any failure raises and the script exits non-zero):
               of the 7 hold the 227), adam_bf16_fused once per group with
               fp32-moment leaves (all 7 hold the 459), each splash kernel 10
               times; loss finite, params moved.
-7. uncached -- (the images through the native decoder where it builds,
-              else PIL: the line names it; then one epoch of the pipeline
-              alone and 3 steps with each decoder on the same PNGs)
+7. uncached -- (the images through the native decoder, its build named:
+              the phase fails if it did not build and PIL would decode;
+              then one epoch of the pipeline alone and 3 steps with the
+              native decoder and with PIL on the same PNGs)
               the uncached SD1.5 fine-tune at full width: the UNet as in
               train, VAEConfig.sd15() and CLIPTextConfig.vit_l() with random
               weights from --seed (frozen, bf16), batches of 8 at 512^2 from
@@ -89,8 +90,8 @@ Phases (any failure raises and the script exits non-zero):
               conds computed apart from the public functions.
 8. cache   -- the port's cache builder (build_local_shard, assemble_cache,
               save_state_dict) on the same images with the same VAE and
-              CLIP held in memory: images/s of the encode, decoding
-              included; the file read back through LatentCache,
+              CLIP held in memory, decoding natively (else it fails):
+              images/s of the encode, decoding included; the file read back through LatentCache,
               DataPipeline and to_device; 2 cached train steps from it, loss
               finite.
 9. trainer -- the Trainer through the train CLI on that cache file: a
@@ -124,6 +125,31 @@ Phases (any failure raises and the script exits non-zero):
               kernel 10 launches per step, adam_bf16_fused 7; losses finite,
               masters moved. Prints each trial's batch, exit code, seconds
               and peak memory (the card's error for an OOM).
+9c. tuner_world -- the tuner over one host's world: the train CLI under
+              python -m torch.distributed.run on 2 ranks sharing the card
+              over gloo (given explicitly; the mesh data 2), the trainer
+              phase's config with power from batch 32 over 192 seeded rows.
+              Rank 0 runs one search while no rank holds a process group or
+              a CUDA context; each trial is a world of 2 probe ranks on the
+              run's mesh, read from their report files: 32 must fit on both
+              ranks (3 real steps each) and 64 end in the allocator's CUDA
+              out-of-memory error; then both ranks train 2 steps at the
+              pick, 32 (16 rows a rank): each splash kernel 10 launches per
+              step and adam_bf16_fused 7 on each rank. Two ranks on one card
+              check the mechanism, not speed on N cards.
+9d. custom_diffusion -- BASELINE workload 5 at SD1.5 full width: the
+              custom_diffusion optim target (the 32 cross-attention K/V
+              projections, 32 groups) through the train CLI, 3 cached steps
+              of batch 8 at 512^2 from the trainer phase's directory and
+              cache, AdamW with fp32 masters: splash_fwd 10 per step, the
+              backward kernels only where a trained K/V lies upstream,
+              adam_bf16_fused 32 per step. ckpt_tool prune --arch sd1
+              --unet-dtype fp16 of its checkpoint (the 32 leaves) writes the
+              partial WebUI file, each K/V the trained master in fp16; the
+              trained leaves over the directory's weights, pruned with
+              --text-encoder --df-vae at fp16, reload through
+              load_ldm_checkpoint with every UNet tensor the directory's in
+              fp16 but the 32 K/V, which are the trained weights in fp16.
 
 10. ema   -- the port's own EMA kernel (ema_fused: JAX computes the EMA in
               XLA) in one launch over the 686 SD1.5 leaves, with fp32 and
@@ -166,7 +192,7 @@ Phases (any failure raises and the script exits non-zero):
               trainer phase's directory at the shipped concept's settings
               (configs/dreambooth.yaml: its prompt and negative prompt, 28
               steps, cfg 11, 512^2, seed 114514, CLIP-skip 2): after a
-              warm-up image, two images per method (ddim, euler, euler_a,
+              warm-up image, one image per method (ddim, euler, euler_a,
               dpmpp_2m), one with guidance rescale 0.7, one img2img
               (strength 0.75) and one at 704x512, each run's launches
               counted alone: splash_fwd 10 per UNet call (280 per 512^2
@@ -201,7 +227,7 @@ Phases (any failure raises and the script exits non-zero):
               all-reduce first; the mesh resolved from the world size);
               NCCL's refusal of two ranks on one card, printed; (b) 2 ranks
               sharing the card over gloo, given explicitly, in meshes
-              (2,1,1), (1,2,1) and (1,1,2). Each rank's masters against the
+              (1,2,1) and (1,1,2). Each rank's masters against the
               reference: within 1e-4 of each tensor's largest entry plus 2
               lr per step, at most PARALLEL_FAR_SHARE of them beyond the
               first term, the update deltas within PARALLEL_DELTA_TOL
@@ -368,7 +394,8 @@ from scal_sdt_tpu_torch.cli import train as train_cli
 from scal_sdt_tpu_torch.cli.cache import assemble_cache, build_local_shard
 from scal_sdt_tpu_torch.conf import (CONFIGS_DIR, Config, default, load_optim_target,
                                      load_with_defaults, merge)
-from scal_sdt_tpu_torch.convert.loader import LoadedModels, cached_snapshot, load_components
+from scal_sdt_tpu_torch.convert.loader import (LoadedModels, cached_snapshot, load_components,
+                                              load_ldm_checkpoint)
 from scal_sdt_tpu_torch.data.datasets import LatentCache
 from scal_sdt_tpu_torch.data.pipeline import DataPipeline, get_dataset, get_sampler, to_device
 from scal_sdt_tpu_torch.diffusion import sampler
@@ -460,7 +487,8 @@ SPLASH = ("splash_fwd", "splash_dq", "splash_dkv")
 PHASES = ("train", "train_int8", "families", "uncached", "cache", "trainer", "ema",
           "sample", "lora", "lora_prodigy", "dreambooth", "sdxl_cache", "sdxl_lora",
           "sdxl_sample", "sd3_cached", "sd3_triple", "sd3_cli",
-          "single_file", "parallel", "tuner")   # the phases that run a main path
+          "single_file", "parallel", "tuner", "tuner_world",
+          "custom_diffusion")   # the phases that run a main path
 COUNTERS = (splash, adam8_fused, adam_bf16_fused, ema_fused)
 
 
@@ -1477,7 +1505,11 @@ def uncached_phase(seed: int, steps: int, workdir: Path, per_step: dict[str, int
     splash kernel and the optimizer kernels launch as in the cached step
     (the VAE's and CLIP's attention take the math path); then the device
     time of the VAE encode and of CLIP per step, and the consistency
-    check."""
+    check. Fails unless the images decode through the native decoder
+    (``native/image.py``), as the JAX package decodes them."""
+    check(native_image.decoder_name() == "native",
+          f"the uncached phase would decode with PIL: the native decoder did not build "
+          f"({native_image.build_error})")
     setup = setup_uncached(seed, workdir)
     config, state, step_fn, spec, frozen = (setup[k] for k in ("config", "state", "step_fn",
                                                                "spec", "frozen"))
@@ -1506,37 +1538,49 @@ def uncached_phase(seed: int, steps: int, workdir: Path, per_step: dict[str, int
     return res
 
 
+DECODER_ROUNDS, DECODER_EPOCHS = 2, 2   # the decoders alternate; epochs timed per turn
+
+
 def decoder_leg(uncached: dict, steps: int = 3) -> dict:
     """The uncached pipeline with each decoder on the same PNGs: the native
-    decoder (``native/image.py``, when it builds here) and PIL (the decoder
-    switched off): one epoch through the pipeline alone (images/s, host),
-    then ``steps`` uncached train steps on its batches (steps/s)."""
-    out: dict = {"active": native_image.decoder_name(),
-                 "build_error": native_image.build_error.splitlines()[:2]}
+    decoder (``native/image.py``, the build that succeeded here) and PIL
+    (the decoder switched off): DECODER_ROUNDS turns each, alternating,
+    of DECODER_EPOCHS epochs through the pipeline alone (images/s, host;
+    one epoch of 24 images is too short to time alone), then ``steps``
+    uncached train steps on each one's batches (steps/s)."""
+    out: dict = {"active": native_image.decoder_name(), "build": native_image.active_build,
+                 "build_error": native_image.build_error.splitlines()[:2],
+                 "builds": {b.name: [p.name for p in b.libraries]
+                            for b in native_image.builds()}}
     config = uncached["config"]
     available = native_image.available
-    for name in ("native", "pil"):
-        if name == "native" and not available():
-            out[name] = None
-            continue
-        if name == "pil":
-            native_image.available = lambda: False
-        try:
-            dataset = get_dataset(config, use_cache=False)
-            pipe = DataPipeline(dataset, get_sampler(dataset, config, 1, 0), config.batch_size,
-                                uncached["tokenizer"], num_workers=NUM_WORKERS)
-            t0 = time.perf_counter()
-            n = sum(len(b["ids"]) for b in pipe)
-            images_s = time.perf_counter() - t0
-            batches = epochs(pipe)
+    names = ("native", "pil") if available() else ("pil",)
+    out["native"] = None
+
+    def pipeline(name: str) -> DataPipeline:
+        native_image.available = available if name == "native" else (lambda: False)
+        dataset = get_dataset(config, use_cache=False)
+        return DataPipeline(dataset, get_sampler(dataset, config, 1, 0), config.batch_size,
+                            uncached["tokenizer"], num_workers=NUM_WORKERS)
+
+    rates: dict = {name: [] for name in names}
+    try:
+        for _ in range(DECODER_ROUNDS):
+            for name in names:
+                pipe = pipeline(name)
+                t0 = time.perf_counter()
+                n = sum(len(b["ids"]) for _ in range(DECODER_EPOCHS) for b in pipe)
+                rates[name].append(n / (time.perf_counter() - t0))
+        for name in names:
+            batches = epochs(pipeline(name))
             res = run_steps(uncached["state"], uncached["step_fn"], uncached["frozen"],
                             lambda: next(batches), steps, 1, uncached["per_step"])
             batches.close()
             uncached["state"] = res["state"]
-            out[name] = {"images": n, "images_per_s": n / images_s,
+            out[name] = {"images": n, "images_per_s": rates[name],
                          "steps_per_s": res["steps_per_s"], "losses": res["losses"]}
-        finally:
-            native_image.available = available
+    finally:
+        native_image.available = available
     return out
 
 
@@ -1545,7 +1589,10 @@ def cache_phase(uncached: dict, workdir: Path, per_step: dict[str, int],
     """The port's cache builder on the uncached phase's images, VAE and CLIP
     (held in memory, bf16): build_local_shard, assemble_cache,
     save_state_dict; then the file read back through LatentCache,
-    DataPipeline and to_device, and ``steps`` cached train steps from it."""
+    DataPipeline and to_device, and ``steps`` cached train steps from it.
+    Fails unless the images decode through the native decoder."""
+    check(native_image.decoder_name() == "native",
+          f"the cache phase would decode with PIL ({native_image.build_error})")
     config, frozen, spec = uncached["config"], uncached["frozen"], uncached["spec"]
     models = LoadedModels(unet={}, unet_config=spec.unet_config, vae=component(frozen, "vae"),
                           vae_config=spec.vae_config,
@@ -1582,7 +1629,8 @@ def cache_phase(uncached: dict, workdir: Path, per_step: dict[str, int],
     res = run_steps(uncached["state"], uncached["step_fn"], frozen, lambda: next(batches),
                     steps, 0, per_step)
     batches.close()
-    return {"images": n, "encoded": len(shard["ids"]), "encode_s": encode_s,
+    return {"decoder": native_image.decoder_name(), "decoder_build": native_image.active_build,
+            "images": n, "encoded": len(shard["ids"]), "encode_s": encode_s,
             "images_per_s": len(shard["ids"]) / encode_s,
             "file_mib": path.stat().st_size / 2 ** 20,
             **{k: res[k] for k in ("steps", "timed_s", "steps_per_s", "peak_mem_gib",
@@ -1814,6 +1862,11 @@ TUNER_INIT_BATCH = 16            # 14.52 GiB at batch 8 (PERF.md 5): 16-64 fit, 
 TUNER_PROBE_STEPS = 3            # tuner.subprocess_trial's steps per trial
 TUNER_MAX_BATCH = 256            # the cache holds TUNER_PROBE_STEPS x this many rows
 TUNER_STEPS = 2                  # steps at the picked batch
+# the tuner over a world of 2 ranks sharing the card over gloo (the host's
+# batch split over data 2): 32 rows fit (2 x 16, ~25 GiB a rank), 64 do not
+TUNER_WORLD_RANKS = 2
+TUNER_WORLD_INIT = 32
+TUNER_WORLD_TIMEOUT = 600
 
 
 def write_hub_cache(root: Path, model: Path, hub_id: str) -> Path:
@@ -1907,7 +1960,7 @@ def tuner_phase(seed: int, workdir: Path, model: Path, per_step: dict[str, int])
             os.environ["HF_HUB_CACHE"] = env_before
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     history = trials[0].history
-    fits = [t["batch_size"] for t in history if t["returncode"] == tuner.PROBE_OK]
+    fits = [t["batch_size"] for t in history if t["fits"]]
     ooms = [t for t in history if t["returncode"] == tuner.PROBE_OOM]
     picked = int(load_with_defaults(workdir / "tune" / "smoke" / "tuned" / "config.yaml")
                  .batch_size)
@@ -1944,6 +1997,253 @@ def tuner_phase(seed: int, workdir: Path, model: Path, per_step: dict[str, int])
             "steps_per_sec": [m["steps_per_sec"] for _, m, _ in run.steps],
             "peak_mem_gib": peak, "masters_moved": moved, "of": len(digests[0]),
             "launches": launches}
+
+
+def tune_rank(out: str, cli_args: list[str]) -> None:
+    """One rank of the tuner world: the train CLI under
+    ``torch.distributed.run`` as a user runs it (no process group before it,
+    so rank 0 runs the search before any exists), the launch counts reset
+    just before it. Writes what the rank saw: the batch its Trainer was
+    built with, its steps and losses, launches, peak memory, and on rank 0
+    each trial (a world of probe ranks) and whether this process held a
+    process group or a CUDA context while the trials ran."""
+    from scal_sdt_tpu_torch.parallel.mesh import LaunchEnv
+
+    env = LaunchEnv.from_environ()
+    seen: dict = {"trials": [], "group_during_trials": [], "cuda_during_trials": []}
+    real_trial, real_fit = tuner.subprocess_trial, Trainer.fit
+
+    def recording_trial(*args, **kwargs):
+        run = real_trial(*args, **kwargs)
+
+        def trial(bs):
+            seen["group_during_trials"].append(torch.distributed.is_initialized())
+            seen["cuda_during_trials"].append(torch.cuda.is_initialized())
+            return run(bs)
+        trial.history = seen["trials"] = run.history
+        return trial
+
+    def fit(tr, *args, **kwargs):
+        seen["batch_size"] = int(tr.config.batch_size)
+        seen["mesh"] = list(tr.mesh.shape)
+        seen["backend"] = torch.distributed.get_backend()
+        return real_fit(tr, *args, **kwargs)
+
+    tuner.subprocess_trial, Trainer.fit = recording_trial, fit
+    try:
+        reset_launches()
+        with TrainerProbe() as probe:
+            t0 = time.perf_counter()
+            train_cli.main(cli_args, standalone_mode=False)
+            seen["cli_s"] = time.perf_counter() - t0
+    finally:
+        tuner.subprocess_trial, Trainer.fit = real_trial, real_fit
+    seen.update(world=env.world, rank=env.rank, launches=read_launches(),
+                losses=probe.losses(), steps=[s for s, _, _ in probe.steps],
+                steps_per_s=[m["steps_per_sec"] for _, m, _ in probe.steps],
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    Path(f"{out}.rank{env.rank}.json").write_text(json.dumps(seen))
+
+
+def tuner_world_phase(seed: int, workdir: Path, model: Path, per_step: dict[str, int]) -> dict:
+    """``auto_scale_batch_size: power`` through the train CLI on a world of
+    TUNER_WORLD_RANKS ranks (torchrun) sharing the card over gloo, at SD1.5
+    full width: the trainer phase's config from TUNER_WORLD_INIT over a
+    cache of seeded rows. Rank 0 runs one search while no rank holds a
+    process group or a CUDA context; each trial is a world of as many probe
+    ranks on the run's mesh (data 2: the host's batch split over the
+    ranks), read from the ranks' reports; then every rank trains
+    TUNER_STEPS steps at the one pick: each splash kernel 10 launches per
+    step, adam_bf16_fused one per param group, on each rank. Two ranks on
+    one card check the mechanism, not speed on N cards."""
+    here = Path(__file__).resolve()
+    cache_path = workdir / "tuner_world_cache.safetensors"
+    rows = TUNER_PROBE_STEPS * 2 * TUNER_WORLD_INIT
+    write_row_cache(cache_path, rows, seed + 16)
+    config = trainer_config(str(model), workdir / "tune_world", cache_path, seed)
+    config["batch_size"] = TUNER_WORLD_INIT
+    config["trainer"] = dict(config["trainer"], auto_scale_batch_size="power", max_epochs=1,
+                             max_steps=TUNER_STEPS)
+    config["checkpoint"] = dict(config["checkpoint"], every_n_train_steps=None)
+    cfg_path = workdir / "tuner_world.yaml"
+    cfg_path.write_text(json.dumps(config))
+    out = workdir / "tuner_world"
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_gib = torch.cuda.memory_reserved() / 2 ** 30
+    t0 = time.perf_counter()
+    proc = torchrun(TUNER_WORLD_RANKS, [str(here), "--tune-rank", str(out), "--",
+                                        "--config", str(cfg_path), "--run-id", "tuned",
+                                        "--device", "cuda:0", "--backend", "gloo"],
+                    workdir / "tuner_world.log", timeout=TUNER_WORLD_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    OUT_DIR.mkdir(exist_ok=True)
+    shutil.copy(workdir / "tuner_world.log", OUT_DIR / "tuner_world.log")
+    errors = [ln for ln in (workdir / "tuner_world.log").read_text().splitlines()
+              if "Error" in ln and "ChildFailedError" not in ln]
+    check(proc.returncode == 0, "the tuner world failed (its log: "
+          f"{OUT_DIR / 'tuner_world.log'}):\n" + "\n".join(errors[:20]))
+    ranks = [json.loads(Path(f"{out}.rank{r}.json").read_text())
+             for r in range(TUNER_WORLD_RANKS)]
+    history = ranks[0]["trials"]
+    picked = int(load_with_defaults(workdir / "tune_world" / "smoke" / "tuned" / "config.yaml")
+                 .batch_size)
+    fits = [t["batch_size"] for t in history if t["fits"]]
+    ooms = [t for t in history if not t["fits"]]
+    check(fits and ooms and all(len(t["ranks"]) == TUNER_WORLD_RANKS and
+                                t["steps"] == TUNER_PROBE_STEPS for t in history
+                                if t["fits"]),
+          f"the world trials need a fit on every rank and an OOM: {history}")
+    check(any("CUDA out of memory" in (t.get("error") or "") for t in ooms),
+          f"no world trial ended in the allocator's CUDA out-of-memory error: {ooms}")
+    check(picked == max(fits) and all(b == TUNER_WORLD_INIT * 2 ** i for i, b in enumerate(fits))
+          and min(t["batch_size"] for t in ooms) == 2 * max(fits),
+          f"picked {picked}, not the largest power of two that fit: {history}")
+    check(not any(ranks[0]["group_during_trials"]) and not any(ranks[0]["cuda_during_trials"]),
+          f"rank 0 held a process group or a CUDA context during the trials: {ranks[0]}")
+    check(all(r["trials"] == [] for r in ranks[1:]), "a rank other than 0 ran trials")
+    for r in ranks:
+        check(r["batch_size"] == picked and r["world"] == TUNER_WORLD_RANKS
+              and r["backend"] == "gloo" and r["mesh"] == [TUNER_WORLD_RANKS, 1, 1],
+              f"rank {r['rank']} trained at {r['batch_size']} on {r['mesh']} over "
+              f"{r['backend']}, not the pick {picked}")
+        for name, n in per_step.items():
+            check(r["launches"][name] == n * TUNER_STEPS,
+                  f"rank {r['rank']}: {name} launched {r['launches'][name]} times in "
+                  f"{TUNER_STEPS} steps, expected {n} per step")
+    check(ranks[0]["steps"] == list(range(1, TUNER_STEPS + 1))
+          and all(math.isfinite(x) for x in ranks[0]["losses"].values()),
+          f"rank 0 logged steps {ranks[0]['steps']}, losses {ranks[0]['losses']}")
+    shutil.rmtree(workdir / "tune_world")
+    cache_path.unlink()
+    return {"note": "two ranks on one card over gloo: the mechanism, not speed on N cards",
+            "launches": {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]},
+            "init_batch": TUNER_WORLD_INIT, "trials": history, "picked": picked,
+            "seconds": seconds, "parent_reserved_gib": parent_gib, "ranks": ranks}
+
+
+CUSTOM_STEPS = 3            # Custom Diffusion steps through the train CLI
+# the splash self-attentions with a trained K/V upstream, so with a
+# backward: all but the first (down_blocks.0.attentions.0.attn1 precedes
+# the first cross-attention)
+CUSTOM_BWD_PER_STEP = CALLS_PER_STEP - 1
+CUSTOM_LR = 1e-4            # fp32 masters: 3 Adam steps move every K/V weight past an fp16 ulp
+
+
+def custom_diffusion_phase(seed: int, workdir: Path, model: Path, cache_path: Path) -> dict:
+    """BASELINE workload 5 at SD1.5 full width: the ``custom_diffusion``
+    optim target (the 32 cross-attention K/V projections, one group each)
+    through the train CLI, CUSTOM_STEPS cached steps of batch 8 at 512^2
+    from the trainer phase's directory and cache, AdamW with fp32 masters;
+    each splash kernel's launches counted (forward CALLS_PER_STEP per step;
+    the backward CUSTOM_BWD_PER_STEP, only where a trained K/V lies
+    upstream), adam_bf16_fused one per group. Its checkpoint holds only the 32 trained leaves.
+    ``ckpt_tool prune --arch sd1 --unet-dtype fp16`` of it writes the
+    partial WebUI file: the 32 K/V weights under model.diffusion_model.,
+    fp16, each the trained master rounded to fp16. The trained leaves over
+    the directory's UNet with its CLIP, pruned with ``--text-encoder
+    --df-vae <dir>/vae --unet-dtype fp16``, give the whole WebUI file;
+    ``convert/loader.py`` ``load_ldm_checkpoint`` reloads it: every UNet
+    tensor is the directory's rounded to fp16, but the 32 K/V, which are
+    the trained weights rounded to fp16 (equal to the partial file's)."""
+    from scal_sdt_tpu_torch.cli import ckpt_tool
+
+    t_phase = time.perf_counter()
+    config = trainer_config(str(model), workdir / "custom_runs", cache_path, seed)
+    config.update(optim_target="custom_diffusion")
+    config["trainer"] = dict(config["trainer"], max_steps=CUSTOM_STEPS, max_epochs=2)
+    config["optimizer"] = dict(config["optimizer"], master_dtype="fp32", moment_dtype=None,
+                               params={"lr": CUSTOM_LR, "weight_decay": 1e-2})
+    config["checkpoint"] = dict(config["checkpoint"], filename="last", every_n_train_steps=None)
+    cfg_path = workdir / "custom_diffusion.yaml"
+    cfg_path.write_text(json.dumps(config))
+    shapes = unet_param_shapes(UNetConfig.sd15())
+    res = resolve_optim_target(load_optim_target("custom_diffusion"), shapes, [])["unet"]
+    kv = {f"unet.{k}" for k in res.trainable}
+    check(len(kv) == 32 and len(res.groups) == 32
+          and all(".attn2.to_k." in k or ".attn2.to_v." in k for k in kv),
+          f"custom_diffusion resolves to {len(kv)} leaves in {len(res.groups)} groups")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with TrainerProbe() as run:
+        t0 = time.perf_counter()
+        train_cli.main(["--config", str(cfg_path), "--run-id", "cd", "--device", DEVICE],
+                       standalone_mode=False)
+        train_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = run.losses()
+    check(sorted(losses) == list(range(1, CUSTOM_STEPS + 1))
+          and all(math.isfinite(x) for x in losses.values()), f"custom diffusion losses {losses}")
+    check(launches["splash_fwd"] == CALLS_PER_STEP * CUSTOM_STEPS
+          and launches["splash_dq"] == launches["splash_dkv"]
+          == CUSTOM_BWD_PER_STEP * CUSTOM_STEPS
+          and launches["adam_bf16_fused"] == len(res.groups) * CUSTOM_STEPS
+          and launches["adam8_fused"] == launches["ema_fused"] == 0,
+          f"custom diffusion launches {launches}")
+    ckpt = workdir / "custom_runs" / "smoke" / "cd" / "last.safetensors"
+    trained = load_state_dict(ckpt)
+    check(set(trained) == kv and all(v.dtype == torch.float32 for v in trained.values()),
+          f"the Custom Diffusion checkpoint holds {len(trained)} tensors, not the 32 K/V")
+
+    t0 = time.perf_counter()
+    partial = workdir / "custom_kv_fp16.safetensors"
+    ckpt_tool.main(["prune", str(ckpt), str(partial), "--arch", "sd1", "--unet-dtype", "fp16"],
+                   standalone_mode=False)
+    partial_s = time.perf_counter() - t0
+    kv_file = load_state_dict(partial)
+    check(len(kv_file) == 32 and all(k.startswith("model.diffusion_model.") and
+                                     v.dtype == torch.float16 for k, v in kv_file.items()),
+          f"the partial WebUI file: {sorted(kv_file)[:3]}")
+    check(sorted(v.contiguous().view(torch.int16).sum(dtype=torch.int64).item()
+                 for v in kv_file.values())
+          == sorted(v.half().contiguous().view(torch.int16).sum(dtype=torch.int64).item()
+                    for v in trained.values()),
+          "the partial WebUI file's K/V are not the trained weights rounded to fp16")
+
+    base = load_components(merge(default(), Config({"model": str(model)})))
+    training = {**{f"unet.{k}": v for k, v in base.unet.items()},
+                **{f"condition_model.encoder.{k}": v for k, v in base.clip.items()}}
+    training.update(trained)
+    train_file, full = workdir / "custom_train.safetensors", workdir / "custom_fp16.safetensors"
+    save_state_dict(training, train_file)
+    del training
+    t0 = time.perf_counter()
+    ckpt_tool.main(["prune", str(train_file), str(full), "--text-encoder", "--df-vae",
+                    str(model / "vae"), "--unet-dtype", "fp16"], standalone_mode=False)
+    full_s = time.perf_counter() - t0
+    train_file.unlink()
+    t0 = time.perf_counter()
+    reloaded = load_ldm_checkpoint(full)
+    load_s = time.perf_counter() - t0
+    check(reloaded.unet_config == UNetConfig.sd15() and reloaded.unet.keys() == base.unet.keys(),
+          "the reloaded Custom Diffusion file's UNet")
+    differ, moved, kv_equal = [], 0, 0
+    for k, v in reloaded.unet.items():
+        want = trained[f"unet.{k}"] if f"unet.{k}" in kv else base.unet[k]
+        if not torch.equal(v.to(torch.float16).cpu(), want.to(torch.float16).cpu()):
+            differ.append(k)
+        if f"unet.{k}" in kv:
+            moved += int(not torch.equal(v.to(torch.float16).cpu(),
+                                         base.unet[k].to(torch.float16).cpu()))
+    check(not differ, f"{len(differ)} reloaded UNet tensors differ from the base or the trained "
+          f"weights rounded to fp16, e.g. {differ[:3]}")
+    check(moved == len(kv), f"{moved} of {len(kv)} K/V weights differ from the base in fp16")
+    del base, reloaded
+    sizes = {"checkpoint_mib": ckpt.stat().st_size / 2 ** 20,
+             "partial_kib": partial.stat().st_size / 2 ** 10,
+             "full_gib": full.stat().st_size / 2 ** 30}
+    for path in (partial, full):
+        path.unlink()
+    shutil.rmtree(workdir / "custom_runs")
+    return {"optim_target": "custom_diffusion", "leaves": len(kv), "groups": len(res.groups),
+            "splash_bwd_per_step": CUSTOM_BWD_PER_STEP,
+            "steps": CUSTOM_STEPS, "losses": [losses[i] for i in sorted(losses)],
+            "steps_per_s": [m["steps_per_sec"] for _, m, _ in run.steps], "train_s": train_s,
+            "peak_mem_gib": peak, "launches": launches, **sizes,
+            "partial_prune_s": partial_s, "full_prune_s": full_s, "reload_s": load_s,
+            "kv_moved": moved, "seconds": time.perf_counter() - t_phase}
 
 
 def tensor_digests(tensors) -> torch.Tensor:
@@ -2677,7 +2977,7 @@ def sampling_check(model: Path, seed: int, concept, clip_skip: int = 1) -> dict:
 
 def sample_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
     """The sample CLI on the trainer phase's SD1.5 directory at the shipped
-    concept's settings: a warm-up image, then two images with each method,
+    concept's settings: a warm-up image, then one image with each method,
     one with guidance rescale 0.7, one img2img (strength 0.75 from one of
     the uncached phase's PNGs), one at 704x512, and the first DDIM image
     again. Each run's launches are counted alone: splash_fwd 10 per UNet
@@ -2690,9 +2990,9 @@ def sample_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
     base = ["--model", str(model), "--prompt", concept.prompt, "--negative",
             concept.negative_prompt, "--steps", str(steps), "--cfg", str(concept.cfg_scale),
             "--seed", str(concept.seed), "--clip-skip", str(clip_skip), "--device", DEVICE]
-    # each method makes two images (seeds s and s + 1), whose times are both
-    # kept: the host-bound loop's time moves from call to call
-    runs = {"warmup": ("ddim", []), **{m: (m, ["--num", "2"]) for m in SAMPLE_METHODS},
+    # one image per method (a second one was cut to keep the smoke inside its
+    # time limit; "repeat" gives a second DDIM time)
+    runs = {"warmup": ("ddim", []), **{m: (m, []) for m in SAMPLE_METHODS},
             "rescale": ("ddim", ["--guidance-rescale", "0.7"]),
             "img2img": ("ddim", ["--init-image", str(images / "img_000.png"),
                                  "--strength", "0.75"]),
@@ -4110,7 +4410,9 @@ def single_file_phase(record: dict, args, gen: torch.Generator, rate: tuple[int,
 # --- the parallel phase: the mesh over torch.distributed -------------------------------
 
 PARALLEL_STEPS = 2
-PARALLEL_MESHES = ((2, 1, 1), (1, 2, 1), (1, 1, 2))   # (data, fsdp, tensor) on 2 ranks
+# (data, fsdp, tensor) on 2 ranks; (2, 1, 1), the gradient all-reduce alone,
+# was cut to keep the smoke inside its time limit: (1, 2, 1) runs it too
+PARALLEL_MESHES = ((1, 2, 1), (1, 1, 2))
 PARALLEL_LR = 1e-4         # large enough that 2 Adam steps move every master measurably
 PARALLEL_TP_SHAPE = (8, 4, 4096, 40)   # splash at tensor 2: 8 shared rows, 4 of 8 heads
 # a world's masters after PARALLEL_STEPS against the single process's, at bf16
@@ -4583,6 +4885,7 @@ def main(argv=None) -> int:
     parser.add_argument("--parallel-rank", help=argparse.SUPPRESS)
     parser.add_argument("--cli-rank", help=argparse.SUPPRESS)
     parser.add_argument("--nccl-probe", help=argparse.SUPPRESS)
+    parser.add_argument("--tune-rank", help=argparse.SUPPRESS)
     parser.add_argument("cli_args", nargs="*", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4598,6 +4901,9 @@ def main(argv=None) -> int:
         return 0
     if args.nccl_probe:
         nccl_probe(args.nccl_probe)
+        return 0
+    if args.tune_rank:
+        tune_rank(args.tune_rank, args.cli_args)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -4686,19 +4992,23 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         uncached = uncached_phase(args.seed, args.steps, Path(tmp), splash_per_step)
-        log(f"uncached ({native_image.decoder_name()} decoder): "
+        log(f"uncached ({native_image.decoder_name()} decoder, {native_image.active_build} "
+            f"build; {smi}): "
             f"{uncached['steps_per_s']:.4f} steps/s, peak "
             f"{uncached['peak_mem_gib']:.2f} GiB, VAE encode {uncached['vae_ms']:.3f} ms, "
             f"CLIP {uncached['clip_ms']:.3f} ms per step (device), losses "
             f"{uncached['losses']}, launches {uncached['launches']}, consistency "
             f"{uncached['consistency']}")
         decoders = decoder_leg(uncached)
-        log(f"uncached decoders ({smi}): active {decoders['active']}; native "
+        log(f"uncached decoders ({smi}): active {decoders['active']} ({decoders['build']} "
+            f"build; builds here {decoders['builds']}); native "
             f"{decoders['native']}; PIL {decoders['pil']}"
-            + (f"; native build: {decoders['build_error']}" if decoders["build_error"] else ""))
+            + (f"; builds tried before it: {decoders['build_error']}"
+               if decoders["build_error"] else ""))
         uncached["decoders"] = decoders
         cache = cache_phase(uncached, Path(tmp), uncached["per_step"])
-        log(f"cache: {cache['encoded']} images encoded in {cache['encode_s']:.3f} s "
+        log(f"cache ({cache['decoder']} decoder, {cache['decoder_build']} build; {smi}): "
+            f"{cache['encoded']} images encoded in {cache['encode_s']:.3f} s "
             f"({cache['images_per_s']:.2f} images/s, decode included; device-only VAE encode "
             f"{uncached['vae_images_per_s']:.2f} images/s), {cache['file_mib']:.2f} MiB; cached "
             f"steps: losses {cache['losses']}, {cache['steps_per_s']:.4f} steps/s")
@@ -4751,6 +5061,48 @@ def main(argv=None) -> int:
         record["tuner"] = tune
         gc.collect()
         torch.cuda.empty_cache()
+
+        groups = len(resolve_optim_target(load_optim_target("full_unet"),
+                                          unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
+        world = tuner_world_phase(args.seed, Path(tmp), Path(tmp) / "model",
+                                  {**splash_per_step, "adam_bf16_fused": groups,
+                                   "adam8_fused": 0, "ema_fused": 0})
+        for t in world["trials"]:
+            log(f"tuner world trial: batch {t['batch_size']} on {TUNER_WORLD_RANKS} ranks, "
+                f"torchrun exit {t['returncode']}, {t['seconds']:.1f} s, ranks "
+                + "; ".join(f"{r}: " + (f"fit, {rep.get('steps')} steps, peak "
+                                        f"{rep.get('peak_mem_gib', float('nan')):.2f} GiB"
+                                        if rep.get("fits") else
+                                        ("OOM" if rep.get("oom") else "error") + ", "
+                                        + (rep.get("error") or "-").splitlines()[0][:200])
+                            for r, rep in sorted(t["ranks"].items())))
+        r0 = world["ranks"][0]
+        log(f"tuner world ({world['note']}; {smi}): {len(world['trials'])} trials from batch "
+            f"{world['init_batch']}, picked {world['picked']} (the host's batch, "
+            f"{world['picked'] // TUNER_WORLD_RANKS} rows a rank); rank 0 held a process group "
+            f"during the trials {any(r0['group_during_trials'])}, a CUDA context "
+            f"{any(r0['cuda_during_trials'])}; every rank trained at "
+            f"{[r['batch_size'] for r in world['ranks']]} on mesh {r0['mesh']} over "
+            f"{r0['backend']}: rank 0 losses {r0['losses']}, steps/s "
+            f"{[round(x, 4) for x in r0['steps_per_s']]}, peak per rank "
+            f"{[round(r['peak_mem_gib'], 2) for r in world['ranks']]} GiB, launches per rank "
+            f"{[r['launches'] for r in world['ranks']]}; phase {world['seconds']:.1f} s")
+        record["tuner_world"] = world
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cd = custom_diffusion_phase(args.seed, Path(tmp), Path(tmp) / "model",
+                                    Path(tmp) / "cache.safetensors")
+        log(f"custom diffusion ({smi}): {cd['leaves']} K/V leaves in {cd['groups']} groups, "
+            f"{cd['steps']} steps through the train CLI: losses {cd['losses']}, steps/s "
+            f"{[round(x, 4) for x in cd['steps_per_s']]}, peak {cd['peak_mem_gib']:.2f} GiB, "
+            f"launches {cd['launches']} (splash backward {cd['splash_bwd_per_step']} per step: "
+            f"the first self-attention has no trained K/V upstream); checkpoint {cd['checkpoint_mib']:.2f} MiB; prune to "
+            f"fp16: partial {cd['partial_kib']:.1f} KiB in {cd['partial_prune_s']:.2f} s, "
+            f"whole {cd['full_gib']:.2f} GiB in {cd['full_prune_s']:.2f} s, reloaded in "
+            f"{cd['reload_s']:.2f} s: only the K/V differ from the base ({cd['kv_moved']} "
+            f"moved), each the trained weight in fp16; phase {cd['seconds']:.1f} s")
+        record["custom_diffusion"] = cd
 
         sample = sample_phase(args.seed, Path(tmp), Path(tmp) / "model", Path(tmp) / "images")
         for name, r in sample["runs"].items():

@@ -16,14 +16,20 @@ every ``sampling.interval_steps`` steps. Rank 0 picks the run id, writes
 the snapshot and samples. ``trainer.auto_scale_batch_size`` (``power``,
 ``binsearch`` or ``true``) picks ``batch_size`` before the run by trials in
 subprocesses (``training/tuner.py``), as in JAX only for a ``--config`` run
-that does not resume, and in one process: under ``torch.distributed.run``
-with more than one rank it is skipped with a warning.
+that does not resume. As JAX tunes on one host's whole mesh, a world of N
+ranks on one host runs one search: rank 0 runs the trials, each a world of
+N probe ranks on the run's ``trainer.mesh`` (the picked batch is the
+host's), and every rank takes the pick before it builds its Trainer. Until
+then the ranks share values through torchrun's rendezvous store, holding
+no CUDA context or communicator while the trials use the cards. On more
+than one host the tuner is skipped with JAX's warning.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from datetime import timedelta
 from pathlib import Path
 from typing import Optional
 
@@ -33,12 +39,16 @@ import torch.distributed as dist
 
 from .. import conf
 from ..device import resolve_device
-from ..parallel.mesh import LaunchEnv, init_process_group, process_device
+from ..parallel.mesh import (LaunchEnv, init_process_group, process_device, rendezvous_store,
+                             share_from_rank0)
 from ..utils.logging import is_main_process
 from ..training.sample_callback import SampleCallback
 from ..training.trainer import Trainer
 
 logger = logging.getLogger("train")
+
+# how long the other ranks wait for rank 0's batch-size search
+TUNE_WAIT = timedelta(hours=24)
 
 
 def generate_run_id() -> str:
@@ -89,7 +99,9 @@ def main(config_path: Optional[Path], run_id: Optional[str],
          resume_ckpt_path: Optional[Path], device: str, backend: Optional[str]):
     env = LaunchEnv.from_environ()
     dev = resolve_device(process_device(device, env))
-    init_process_group(dev, backend, env)
+    # torchrun's store, no process group yet: nothing on the card until the
+    # tuner's trials are done
+    store = rendezvous_store(env)
     if config_path is not None:
         config = conf.load_with_defaults(config_path)
     elif resume_ckpt_path is not None:
@@ -97,12 +109,8 @@ def main(config_path: Optional[Path], run_id: Optional[str],
     else:
         raise click.UsageError("Either --config or --resume must be specified")
 
-    if run_id is None:
-        run_id = generate_run_id()
-        if env.world > 1:   # rank 0's clock names the run
-            box = [run_id]
-            dist.broadcast_object_list(box, src=0)
-            run_id = box[0]
+    if run_id is None:   # rank 0's clock names the run
+        run_id = share_from_rank0(store, env, "run_id", generate_run_id)
     run_dir = Path(config.output_dir, config.project, run_id)
     run_dir.mkdir(parents=True, exist_ok=True)
 
@@ -110,20 +118,27 @@ def main(config_path: Optional[Path], run_id: Optional[str],
     logger.info(f"Run ID: {run_id}")
 
     # Auto batch-size tuning (reference trainer.tune(): skipped when
-    # resuming). Each trial is a subprocess with its own CUDA context.
+    # resuming). Each trial is a subprocess (a world of the host's ranks)
+    # with its own CUDA contexts.
     if (resume_ckpt_path is None and config_path is not None
             and config.trainer.get("auto_scale_batch_size", False)):
-        if env.world > 1:
-            # a probe subprocess cannot join the process group, and ranks
-            # could pick different batch sizes and desync the collectives
+        if env.hosts > 1:
+            # Probe subprocesses cannot join the multi-host slice, and
+            # per-host searches could pick different batch sizes and deadlock
+            # the collectives (JAX's words, its processes being hosts)
             logger.warning(
-                "auto_scale_batch_size runs in one process only; skipping it on a "
-                f"{env.world}-rank run (set batch_size explicitly)")
+                "auto_scale_batch_size is single-host only; skipping on a "
+                f"{env.hosts}-process slice (set batch_size "
+                "explicitly for multi-host runs)")
         else:
             from ..training.tuner import tune_batch_size
 
-            config.batch_size = tune_batch_size(config, config_path, device=device)
+            config.batch_size = share_from_rank0(
+                store, env, "batch_size",
+                lambda: tune_batch_size(config, config_path, device=device, nproc=env.world,
+                                        backend=backend), wait=TUNE_WAIT)
 
+    init_process_group(dev, backend, env, store)
     trainer = Trainer(config, run_dir, device=dev, backend=backend)
     if resume_ckpt_path is not None:
         trainer.resume(resume_ckpt_path)

@@ -27,7 +27,14 @@ port's, with the same shapes and dtypes:
 
 A JAX run that packed its small leaves (``trainer.param_packing``) keeps
 their moments in slabs and stacks; given the run's ``PackSpec``, they are
-unpacked into the port's per-leaf moments (``training/packing.py``).
+unpacked into the port's per-leaf moments (``training/packing.py``). That
+holds for AdamW8bit too: a slab is 1-D, so its moments are plain fp32 and
+unpack like any other family's (the zero-padded tail is dropped); an int8
+stack's payloads and scales are split by rows, each member's rows bit for
+bit in the port's per-leaf (rows, nb*256) / (rows, nb) layout, the
+member's share of the stack's view (``training/quantized.py``
+``stack_member_view``), which the port's AdamW8bit keeps under the same
+packing.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from ..device import resolve_device
 from ..training.families import DAdaptState, FactoredState, LionState, ProdigyState, SGDState
 from ..training.optimizers import AccumulationState, AdamState
 from ..training.packing import PackSpec, unpack_host
-from ..training.quantized import Adam8bitState
+from ..training.quantized import Adam8bitState, stack_member_view
 
 _ADAM_FIELDS = ("count", "mu", "nu")
 _ADAM8_FIELDS = ("count", "mu_q", "mu_s", "nu_q", "nu_s")
@@ -136,6 +143,33 @@ def _tensors(d: Mapping[str, object], dev: torch.device, spec: Optional[PackSpec
     return {k: v.contiguous().clone().to(dev) for k, v in arrays.items()}
 
 
+def _adam8_tensors(payloads: Mapping[str, object], scales: Mapping[str, object],
+                   dev: torch.device, spec: Optional[PackSpec]
+                   ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """One moment of an AdamW8bit state (payloads: int8, or fp32 moments for
+    the leaves without a scale; scales: fp32) as per-leaf tensors on
+    ``dev``: fp32 slabs and stacks unpacked by ``spec``, int8 stacks split
+    into their members' rows."""
+    if spec is None or not spec.nontrivial:
+        return _tensors(payloads, dev), _tensors(scales, dev)
+    q = {k: v if isinstance(v, torch.Tensor) else _array_to_tensor(v)
+         for k, v in payloads.items() if _is_array(v)}
+    s = {k: v if isinstance(v, torch.Tensor) else _array_to_tensor(v)
+         for k, v in scales.items() if _is_array(v)}
+    int8_stacks = {k: (members, shape) for k, members, shape in spec.stacks if k in s}
+    out_q = _tensors({k: v for k, v in q.items() if k not in int8_stacks}, dev, spec)
+    out_s = _tensors({k: v for k, v in s.items() if k not in int8_stacks}, dev)
+    for k, (members, shape) in int8_stacks.items():
+        rows = stack_member_view(k, shape, len(members))[0]
+        if q[k].shape[0] != rows * len(members) or s[k].shape[0] != rows * len(members):
+            raise ValueError(f"{k}: payloads {tuple(q[k].shape)} and scales "
+                             f"{tuple(s[k].shape)} are not {len(members)} x {rows} rows")
+        for i, m in enumerate(members):
+            out_q[m] = q[k][i * rows:(i + 1) * rows].contiguous().clone().to(dev)
+            out_s[m] = s[k][i * rows:(i + 1) * rows].contiguous().clone().to(dev)
+    return out_q, out_s
+
+
 def _scalar(v, dev: torch.device) -> torch.Tensor:
     t = v if isinstance(v, torch.Tensor) else _array_to_tensor(v)
     return t.reshape(()).clone().to(dev)
@@ -149,15 +183,13 @@ def group_state_from_jax(state, device="cuda", pack_spec: Optional[PackSpec] = N
     """One group's JAX optimizer state (or the chain state holding it) ->
     the port's state of that family on ``device``. ``pack_spec``: the JAX
     run's packing, whose slab and stack moments are unpacked per leaf
-    (Adafactor keeps its blocks)."""
+    (AdamW8bit's int8 stacks split by rows; Adafactor keeps its blocks)."""
     dev = resolve_device(device)
     found = _find_state(state, _ADAM8_FIELDS)
     if found is not None:
-        if pack_spec is not None and pack_spec.nontrivial:
-            raise NotImplementedError("AdamW8bit state of a packed JAX run: its int8 blocks "
-                                      "span the slab; resume with param_packing: false")
-        return Adam8bitState(_count(_get(found, "count")),
-                             *(_tensors(_get(found, f), dev) for f in _ADAM8_FIELDS[1:]))
+        mu_q, mu_s = _adam8_tensors(_get(found, "mu_q"), _get(found, "mu_s"), dev, pack_spec)
+        nu_q, nu_s = _adam8_tensors(_get(found, "nu_q"), _get(found, "nu_s"), dev, pack_spec)
+        return Adam8bitState(_count(_get(found, "count")), mu_q, mu_s, nu_q, nu_s)
     for fields, cls in ((_PRODIGY_FIELDS, ProdigyState), (_DADAPT_FIELDS, DAdaptState)):
         found = _find_state(state, fields)
         if found is not None:

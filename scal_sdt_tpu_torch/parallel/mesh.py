@@ -23,6 +23,12 @@ rank needs:
 * ``cpu``: a gloo group over the world for host objects (checkpoint and
   cache gathers), whatever the backend.
 
+Before the process group, the ranks can share host values through the
+store of torchrun's rendezvous (``rendezvous_store``, ``share_from_rank0``):
+the train CLI names the run and tunes the batch that way, so no rank holds
+a CUDA context or a communicator while the tuner's trials use the cards;
+the process group then joins on the same store.
+
 The Megatron suffix lists and ``tp_dim`` / ``tp_param_names`` are the JAX
 package's. ``tensor > 1`` across hosts is refused with JAX's message. The
 JAX package's active-mesh registry has no counterpart: its attention reads
@@ -34,8 +40,10 @@ sampling on rank 0 runs the whole model during a sharded run.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
-from typing import Optional
+from datetime import timedelta
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -145,11 +153,58 @@ def launched() -> bool:
     return "TORCHELASTIC_RUN_ID" in os.environ
 
 
+# torch.distributed's default wait of a store and a process group
+STORE_TIMEOUT = timedelta(minutes=30)
+
+
+def rendezvous_store(env: Optional[LaunchEnv] = None,
+                     timeout: timedelta = STORE_TIMEOUT) -> Optional[dist.Store]:
+    """The key-value store of torchrun's rendezvous (``env://``: rank 0's
+    TCP store, or the agent's), reached as ``init_process_group`` would
+    reach it but without a process group: no device is touched and no
+    communicator made. None alone in a world, where nothing is shared."""
+    env = env or LaunchEnv.from_environ()
+    if env.world == 1:
+        return None
+    store, _, _ = next(dist.rendezvous("env://", env.rank, env.world, timeout=timeout))
+    store.set_timeout(timeout)
+    return store
+
+
+def share_from_rank0(store: Optional[dist.Store], env: LaunchEnv, key: str,
+                     make: Callable[[], Any], wait: timedelta = STORE_TIMEOUT) -> Any:
+    """``make()`` on rank 0, its (JSON) value on every rank through
+    ``store`` (``rendezvous_store``'s), and ``make()`` itself alone in a
+    world. An exception in rank 0's ``make`` re-raises there and, named, on
+    every other rank; the others wait up to ``wait`` for rank 0."""
+    if env.world == 1:
+        return make()
+    if store is None:
+        raise RuntimeError(f"sharing {key!r} over {env.world} ranks needs the rendezvous store")
+    key = f"scal_sdt/{key}"
+    if env.rank == 0:
+        try:
+            value = make()
+        except BaseException as e:
+            store.set(key, json.dumps({"error": f"{type(e).__name__}: {e}"}))
+            raise
+        store.set(key, json.dumps({"value": value}))
+        return value
+    store.wait([key], wait)
+    got = json.loads(store.get(key))
+    if "error" in got:
+        raise RuntimeError(f"rank 0 failed to produce {key}: {got['error']}")
+    return got["value"]
+
+
 def init_process_group(device: torch.device, backend: Optional[str] = None,
-                       env: Optional[LaunchEnv] = None) -> LaunchEnv:
+                       env: Optional[LaunchEnv] = None,
+                       store: Optional[dist.Store] = None) -> LaunchEnv:
     """Join the process group torchrun describes (a no-op for a process
     torchrun did not start, alone in its world, or for an initialized
-    group). ``backend`` overrides the device's default and is printed."""
+    group), through ``store`` when given (``rendezvous_store``'s) or
+    ``env://``. ``backend`` overrides the device's default and is
+    printed."""
     env = env or LaunchEnv.from_environ()
     if (env.world > 1 or launched()) and not dist.is_initialized():
         chosen = backend or default_backend(device)
@@ -158,8 +213,11 @@ def init_process_group(device: torch.device, backend: Optional[str] = None,
                   flush=True)
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        dist.init_process_group(chosen, init_method="env://", rank=env.rank,
-                                world_size=env.world)
+        if store is not None:
+            dist.init_process_group(chosen, store=store, rank=env.rank, world_size=env.world)
+        else:
+            dist.init_process_group(chosen, init_method="env://", rank=env.rank,
+                                    world_size=env.world)
     return env
 
 

@@ -18,7 +18,8 @@ each group running the JAX chain in the same order and precision.
 * AdamW8bit: ``Adam8bit`` (``training/quantized.py``; the update in the
   gradient's dtype), then the decay in the update's dtype
   (``u + (wd * p).to(u.dtype)``), then the schedule with the step size cast
-  to the update's dtype first, as optax's ``scale_by_schedule`` does.
+  to the update's dtype first, as optax's ``scale_by_schedule`` does. Its
+  int8 leaves are those of the JAX trainer's packed run (``pack_spec``).
 * Lion, Adafactor, Prodigy, D-Adapt AdamW and SGD: plain PyTorch chains
   (``training/families.py``). Prodigy and D-Adapt carry the lr and the
   schedule inside; Adafactor sees the JAX trainer's slabs (``pack_spec``).
@@ -215,13 +216,14 @@ class AdamW8bit:
     eps: float
     weight_decay: float
     schedule: Schedule
+    pack_spec: Optional[PackSpec] = None   # the JAX run's packing: which leaves are int8
     _tables: dict = _cache_field()   # the group's two leaf tables, built on first use
 
     def _adam(self) -> Adam8bit:
         return Adam8bit(b1=self.b1, b2=self.b2, eps=self.eps)
 
     def init(self, params: Tensors) -> Adam8bitState:
-        return self._adam().init(params)
+        return self._adam().init(params, self.pack_spec)
 
     def update(self, grads: Tensors, state: Adam8bitState, params: Tensors
                ) -> tuple[Tensors, Adam8bitState]:
@@ -342,9 +344,10 @@ def _group_transform(name: str, lr: float, betas: tuple[float, float], eps: floa
                      schedule=schedule,
                      moment_dtypes=_adam_moment_dtype(moment_dtype, reduced_masters))
     if name in _ADAMW_8BIT_NAMES:
-        # stores its moments int8 whatever moment_dtype says, as in JAX
+        # stores its moments int8 whatever moment_dtype says, as in JAX; under
+        # the JAX trainer's packing, int8 where JAX's packed run has it
         return AdamW8bit(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-                         schedule=schedule)
+                         schedule=schedule, pack_spec=pack_spec)
     if name in _LION_NAMES:
         # the config's betas, (0.9, 0.999) by default, as the JAX package passes them
         return Lion(lr=lr, b1=b1, b2=b2, weight_decay=weight_decay, schedule=schedule,
@@ -380,9 +383,10 @@ def build_optimizer(config: Config, labels: dict[str, str],
     group's ``lr * schedule(step)``, for logging (for every family, Prodigy
     and D-Adapt too). With ``trainer.accumulate_grad_batches`` k > 1 the
     groups run under ``GradientAccumulation`` and lr_fn reports the
-    schedule at optimizer step ``step // k``. ``pack_spec``: the slabs the
-    JAX trainer would pack (``training/packing.py``), which Adafactor treats
-    as blocks; the other families ignore it. ``owners``: the masters are
+    schedule at optimizer step ``step // k``. ``pack_spec``: the slabs and
+    stacks the JAX trainer would pack (``training/packing.py``), which
+    Adafactor treats as blocks and which decide AdamW8bit's int8 leaves as
+    in JAX's packed run; the other families ignore it. ``owners``: the masters are
     split over owners and ``labels`` holds this rank's (Prodigy and D-Adapt
     add their group-wide sums over the owners)."""
     name = str(config.optimizer.name).lower()

@@ -11,6 +11,14 @@ int8, scales (lead, nb) fp32. Leaves below ``SSDT_INT8_FUSED_MIN`` elements
 (default 2^18; the JAX package reads the same variable) keep plain fp32
 moments in their natural shape and have no scale entry.
 
+Under the JAX trainer's packing (``training/packing.py``) JAX decides this
+per container, and so does the port given the run's ``PackSpec``
+(``int8_views``): a slab is 1-D, so its members keep fp32 moments; a
+stack's members are int8 when the stack is, each in its share of the
+stack's view, owning whole rows of its payloads and scales
+(``stack_member_view``), so a packed JAX state carries across bit for bit
+(``convert/from_jax.py``) and the blocks are JAX's.
+
 ``Adam8bit.update`` runs the int8 leaves through ``ops/adam8_fused.py`` and
 the fp32-moment leaves through ``ops/adam_bf16_fused.py`` (reciprocal bias
 corrections, output in the gradient's dtype, nu rounded to nearest), one
@@ -26,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -105,6 +114,41 @@ def _stores_int8(shape, min_size: int) -> bool:
     return lead > 1 and slab_ok and lead * minor >= min_size
 
 
+def stack_member_view(stack_key: str, shape, n: int) -> tuple[int, int, int]:
+    """(rows, minor, n_blocks) of one member of an int8 stack of ``n``
+    leaves of ``shape``: its share of the stack's (lead, minor, n_blocks)
+    view, whose lead n divides. Mostly the member's own view; where the
+    stack merges its dims otherwise (a stack (3, 32, 32, 3, 3) is 3 rows of
+    9216, a member alone 32 rows of 288), the stack's, so that each member
+    owns whole rows of the stack's payloads and scales."""
+    shape = tuple(int(d) for d in shape)
+    lead, minor, nb = _leaf_view((n,) + shape)
+    if lead % n:
+        raise ValueError(f"{stack_key}: the int8 view of the stack {(n,) + shape} has {lead} "
+                         f"rows, which its {n} members cannot share")
+    return lead // n, minor, nb
+
+
+def int8_views(shapes: Mapping[str, tuple], min_size: int,
+               pack_spec=None) -> dict[str, tuple[int, int, int]]:
+    """The (lead, minor, n_blocks) view of each key of ``shapes`` whose
+    moments are stored int8. Without a pack spec each leaf decides by its
+    own view (``_stores_int8``); with one, as the JAX trainer's packed run
+    does: a slab's members never (a slab is 1-D), a stack's members when
+    the stack is, each in its share of the stack's view
+    (``stack_member_view``), the other leaves by their own view."""
+    own = {k: _leaf_view(s) for k, s in shapes.items() if _stores_int8(s, min_size)}
+    if pack_spec is None or not pack_spec.nontrivial:
+        return own
+    packed = pack_spec.packed_keys
+    out = {k: v for k, v in own.items() if k not in packed}
+    for stack_key, members, shape in pack_spec.stacks:
+        if _stores_int8((len(members),) + tuple(shape), min_size):
+            view = stack_member_view(stack_key, shape, len(members))
+            out.update({k: view for k in members if k in shapes})
+    return out
+
+
 @dataclasses.dataclass
 class Adam8bitState:
     count: int        # updates applied so far
@@ -122,14 +166,18 @@ class Adam8bit:
     b2: float = 0.999
     eps: float = 1e-8
 
-    def init(self, params: Tensors) -> Adam8bitState:
-        min_size = _min_8bit_size()
+    def init(self, params: Tensors, pack_spec=None) -> Adam8bitState:
+        """Zero moments; ``pack_spec``: the JAX trainer's packing of the
+        run, which decides the int8 leaves and their views as JAX does
+        (``int8_views``)."""
+        views = int8_views({k: tuple(p.shape) for k, p in params.items()}, _min_8bit_size(),
+                           pack_spec)
         mu_q, mu_s = {}, {}
         for k, p in params.items():
-            if not _stores_int8(p.shape, min_size):
+            if k not in views:
                 mu_q[k] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 continue
-            lead, _, nb = _leaf_view(p.shape)
+            lead, _, nb = views[k]
             mu_q[k] = torch.zeros(lead, nb * BLOCK, dtype=torch.int8, device=p.device)
             mu_s[k] = torch.zeros(lead, nb, dtype=torch.float32, device=p.device)
         return Adam8bitState(0, mu_q, mu_s, {k: v.clone() for k, v in mu_q.items()},
@@ -148,8 +196,8 @@ class Adam8bit:
                     g.contiguous(), state.mu_q[k], state.nu_q[k], bc, out_dtype=g.dtype,
                     recip_bc=True, **hp)[0]
                 continue
-            lead, minor, _ = _leaf_view(g.shape)
-            out = adam8_fused_update(g.reshape(lead, minor).contiguous(), state.mu_q[k],
+            lead = state.mu_s[k].shape[0]   # the leaf's view, or its share of a stack's
+            out = adam8_fused_update(g.reshape(lead, -1).contiguous(), state.mu_q[k],
                                      state.mu_s[k], state.nu_q[k], state.nu_s[k], inv_bc1,
                                      inv_bc2, **hp)[0]
             updates[k] = out.view(g.shape)

@@ -83,7 +83,8 @@ logger = main_process_logger("trainer")
 # trainer keys of the JAX package with nothing to steer in eager PyTorch
 INERT_TRAINER_KEYS = ("compilation_cache", "compilation_cache_dir", "aot_bucket_warmup",
                       "donate_state")
-# the JAX trainer's packing: here only Adafactor's blocks and a JAX resume
+# the JAX trainer's packing: here Adafactor's blocks, AdamW8bit's int8 leaves and a
+# JAX resume
 PACKING_KEYS = ("param_packing", "pack_min_size", "pack_stacks")
 _BF16_NAMES = ("16", "bf16", "bfloat16")
 
@@ -146,7 +147,8 @@ class Trainer:
         packing = [k for k in PACKING_KEYS if k in config.trainer]
         if packing:
             logger.info(f"trainer keys {packing} pack no parameters here; they steer "
-                        "Adafactor's blocks and the reading of a JAX run's optimizer state")
+                        "Adafactor's blocks, AdamW8bit's int8 leaves and the reading of a "
+                        "JAX run's optimizer state (slabs and stacks unpacked per leaf)")
 
         # the reference's seed_everything: data-path randomness is seeded per
         # item, stray global draws get determinism too

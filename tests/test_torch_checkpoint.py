@@ -197,19 +197,22 @@ def test_resumed_run_equals_the_continuous_run(tiny_dir, tmp_path, optimizer, mo
     """Stop at step 3 (epoch 1, batch 1), resume in a new Trainer, run to 6:
     masters, optimizer state, generator and losses equal a continuous 6-step
     run bit for bit. Uncached, so the latent noise comes from the restored
-    generator too; bf16 masters, so the SR store's step is checked."""
+    generator too; bf16 masters, so the SR store's step is checked. The
+    leaves of 1024 elements and more stay out of the JAX trainer's slabs
+    (``pack_min_size``), so that AdamW8bit stores them int8, as JAX's
+    packed run does."""
     monkeypatch.setenv("SSDT_INT8_FUSED_MIN", "1024")
-    continuous = _trainer(tiny_dir, tmp_path / "cont", optimizer)
+    continuous = _trainer(tiny_dir, tmp_path / "cont", optimizer, pack_min_size=1024)
     continuous.fit(max_steps_override=6)
 
-    stopped = _trainer(tiny_dir, tmp_path / "split", optimizer)
+    stopped = _trainer(tiny_dir, tmp_path / "split", optimizer, pack_min_size=1024)
     stopped.fit(max_steps_override=3)
     ckpt = tmp_path / "split" / "epoch=1-step=3.safetensors"
     side = tstate.load_state_dict(ckpt.parent / (ckpt.name + ".torchstate"), "safetensors")
     assert {k.split(".")[0] for k in side} == {"opt_state", "generator"}
     assert side["generator"].dtype == torch.uint8
 
-    resumed = _trainer(tiny_dir, tmp_path / "resumed", optimizer)
+    resumed = _trainer(tiny_dir, tmp_path / "resumed", optimizer, pack_min_size=1024)
     resumed.resume(ckpt)
     assert (resumed.global_step, resumed.epoch_cursor, resumed.batch_in_epoch) == (3, 1, 1)
     resumed.fit(max_steps_override=6)

@@ -7,12 +7,16 @@ path (both packages' default: the port builds its own copy of
 ``native/ssdt_image.cpp``) and on the PIL path (augmentation on, or the
 decoder switched off in both), fixed-size and ARB; the port's build of the
 decoder gives the outputs of the JAX package's library bit for bit, PNG and
-JPEG; samplers (DreamBooth too) and collated pipeline batches are equal; the
+JPEG, and so does its build for a host without libjpeg / libpng headers
+(the headers kept in the package, linked to Pillow's wheel's libraries),
+which the decoder falls back to when the Makefile's build fails; samplers
+(DreamBooth too) and collated pipeline batches are equal; the
 cache reader reads the same arrays; ``to_device`` makes the numpy batch NCHW.
 Everything here is exact.
 """
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -110,15 +114,14 @@ def test_both_packages_decode_natively():
     assert tnative.decoder_name() == "native"
 
 
-@pytest.mark.parametrize("fmt", ["png", "jpg"])
-def test_native_decoder_matches_jax(tmp_path, fmt):
-    """The port's g++ build of the decoder against the JAX package's library:
-    ``decode_resize_crop`` at several target sizes (JPEG DCT scaling at the
-    small ones) and crop fractions, and ``image_size``, bit for bit."""
+def _decodes_as_jax(tmp_path, fmt, decode, size):
+    """``decode`` / ``size`` (a native decoder's ``decode_resize_crop`` and
+    ``image_size``) against the JAX package's library at several target
+    sizes (JPEG DCT scaling at the small ones) and crop fractions, bit for
+    bit."""
     from PIL import Image
 
     from scal_sdt_tpu.native import image as jnative
-    from scal_sdt_tpu_torch.native import image as tnative
 
     r = np.random.RandomState(1)
     for i, (w, h) in enumerate([(128, 96), (200, 300), (611, 517)]):
@@ -126,13 +129,113 @@ def test_native_decoder_matches_jax(tmp_path, fmt):
         path = tmp_path / f"t{i}.{fmt}"
         Image.fromarray(arr.astype(np.uint8)).save(path, **({"quality": 90} if fmt == "jpg"
                                                             else {}))
-        assert tnative.image_size(path) == jnative.image_size(path) == (w, h)
+        assert size(path) == jnative.image_size(path) == (w, h)
         for tw, th in [(64, 48), (32, 32), (128, 256), (512, 512)]:
             for fx, fy in [(0.5, 0.5), (0.0, 1.0), (0.37, 0.81)]:
-                got = tnative.decode_resize_crop(path, tw, th, fx, fy)
+                got = decode(path, tw, th, fx, fy)
                 want = jnative.decode_resize_crop(path, tw, th, fx, fy)
                 assert got.shape == (th, tw, 3) and got.dtype == np.float32
                 np.testing.assert_array_equal(got, want, err_msg=f"{path.name} {tw}x{th}")
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpg"])
+def test_native_decoder_matches_jax(tmp_path, fmt):
+    """The port's g++ build of the decoder against the JAX package's library:
+    ``decode_resize_crop`` and ``image_size``, bit for bit."""
+    from scal_sdt_tpu_torch.native import image as tnative
+
+    _decodes_as_jax(tmp_path, fmt, tnative.decode_resize_crop, tnative.image_size)
+
+
+def _ctypes_decoder(lib):
+    """``decode_resize_crop`` / ``image_size`` over a bound library."""
+    import ctypes
+
+    def decode(path, tw, th, fx, fy):
+        data = Path(path).read_bytes()
+        out = np.empty((th, tw, 3), np.float32)
+        assert lib.ssdt_decode_resize_crop(data, len(data), tw, th, fx, fy, out.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_float))) == 0
+        return out
+
+    def size(path):
+        data = Path(path).read_bytes()
+        w, h = ctypes.c_int(), ctypes.c_int()
+        assert lib.ssdt_image_size(data, len(data), ctypes.byref(w), ctypes.byref(h)) == 0
+        return w.value, h.value
+    return decode, size
+
+
+@pytest.mark.parametrize("fmt", ["png", "jpg"])
+def test_kept_headers_build_against_pillow_matches_jax(tmp_path, fmt):
+    """The build for a host without libjpeg / libpng headers: the headers
+    kept in the package, Pillow's wheel's libjpeg 62 and libpng16 linked by
+    path with an rpath. It loads those libraries and decodes as the JAX
+    package's tracked library does, bit for bit."""
+    import subprocess
+
+    from scal_sdt_tpu_torch.native import image as tnative
+
+    libs = tnative.pillow_libraries()
+    assert libs is not None and "pillow.libs" in str(libs[0])
+    build = tnative.kept_headers_build(libs)
+    assert build.flags == ("-I", str(tnative.INCLUDE_DIR))
+    assert tnative.library_path(build) != tnative.library_path(tnative.SYSTEM_BUILD)
+    lib = tnative.load_build(build)
+    ldd = subprocess.run(["ldd", str(tnative.library_path(build))], capture_output=True,
+                         text=True).stdout
+    for p in libs:
+        assert f"=> {p}" in ldd, ldd
+    _decodes_as_jax(tmp_path, fmt, *_ctypes_decoder(lib))
+
+
+def test_a_failing_system_build_falls_back_to_the_kept_headers(monkeypatch):
+    """Where the Makefile's build fails (a host without the ``-dev``
+    packages), the next build is used and the failure is kept."""
+    from scal_sdt_tpu_torch.native import image as tnative
+
+    broken = tnative.Build("system", (), ("-lssdt_no_such_library",))
+    kept = tnative.kept_headers_build(tnative.pillow_libraries())
+    monkeypatch.setattr(tnative, "builds", lambda: [broken, kept])
+    for name, value in (("_lib", None), ("_tried", False), ("build_error", ""),
+                        ("active_build", "")):
+        monkeypatch.setattr(tnative, name, value)
+    assert tnative.decoder_name() == "native"
+    assert tnative.active_build == "kept-headers+pillow"
+    assert tnative.build_error.startswith("system: g++ failed")
+    assert "ssdt_no_such_library" in tnative.build_error
+    monkeypatch.setattr(tnative, "builds", lambda: [broken])
+    for name, value in (("_lib", None), ("_tried", False)):
+        monkeypatch.setattr(tnative, name, value)
+    assert tnative.decoder_name() == "pil" and tnative.decode_resize_crop("x", 4, 4) is None
+
+
+def test_a_failed_build_is_not_retried(tmp_path, monkeypatch):
+    """A build that fails leaves its error beside its key; a later load of
+    it (another process of the host) raises that error without running
+    ``g++``, while the other builds still compile."""
+    from scal_sdt_tpu_torch.native import image as tnative
+
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build")
+    broken = tnative.Build("system", (), ("-lssdt_no_such_library",))
+    kept = tnative.kept_headers_build(tnative.pillow_libraries())
+    compiled = []
+    real_compile = tnative._compile
+
+    def counting_compile(out, build=tnative.SYSTEM_BUILD):
+        compiled.append(build.name)
+        return real_compile(out, build)
+
+    monkeypatch.setattr(tnative, "_compile", counting_compile)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed.*ssdt_no_such_library"):
+            tnative.load_build(broken)
+    assert compiled == ["system"]
+    assert "ssdt_no_such_library" in tnative.failure_path(broken).read_text()
+    assert not tnative.library_path(broken).exists()
+    tnative.load_build(kept)
+    assert compiled == ["system", "kept-headers+pillow"]
+    assert not tnative.failure_path(kept).exists()
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,14 @@ sidecar, for every optimizer family, on the CPU.
   tests/test_torch_optimizers.py (bit for bit for SGD, Lion and Adam with
   explicit moment dtypes; Adafactor 1e-6 and Prodigy / D-Adapt 1e-4 of each
   tensor's largest entry, ``estim_lr`` 1e-5 relative).
+* A packed JAX AdamW8bit run (``param_packing: true``, stacks and not,
+  with accumulation, ``SSDT_INT8_FUSED_MIN`` lowered so the tiny UNet's
+  conv leaves and stacks are int8; the full_unet target's groups): the
+  restored int8 payloads, scales and fp32 moments (slab members included)
+  equal JAX's read per leaf bit for bit, and the next step matches JAX's
+  within difference (c). Every SD1.5 stack family's int8 view splits into
+  whole member rows; a stack whose blocks would straddle its members gives
+  each its share of the stack's view.
 * The port's own sidecar: a resume is bit-equal for every family.
 * The whole slice: ``cli.train --resume`` of a JAX Trainer's Prodigy LoRA
   checkpoint (the shipped ``lora`` target, JAX's default packing, its 8-device
@@ -45,10 +53,12 @@ from scal_sdt_tpu.training.trainer import Trainer as JTrainer
 
 from scal_sdt_tpu_torch import conf as tconf
 from scal_sdt_tpu_torch.cli import train as tcli
-from scal_sdt_tpu_torch.convert.from_jax import opt_state_from_jax
+from scal_sdt_tpu_torch.convert.from_jax import (_ADAM8_FIELDS, _find_state, _get,
+                                                 opt_state_from_jax)
 from scal_sdt_tpu_torch.training import checkpoint as tckpt
 from scal_sdt_tpu_torch.training import optimizers as topt
 from scal_sdt_tpu_torch.training import packing as tpacking
+from scal_sdt_tpu_torch.training.quantized import _stores_int8
 from scal_sdt_tpu_torch.training.step import init_train_state
 from scal_sdt_tpu_torch.training.trainer import Trainer as TTrainer
 from scal_sdt_tpu_torch.utils import msgpack as tmsgpack
@@ -221,9 +231,8 @@ def _jax_run(family, packing, tmp_path, steps=2):
     return path, jtx, jstate, jp, jspec, tcfg
 
 
-# a packed AdamW8bit state is refused (its int8 blocks span the slab): tested below
-@pytest.mark.parametrize("family,packing", [(f, p) for f in FAMILIES for p in (True, False)
-                                            if not (f == "adamw8bit" and p)])
+# a packed AdamW8bit state with int8 leaves and stacks: tested below
+@pytest.mark.parametrize("family,packing", [(f, p) for f in FAMILIES for p in (True, False)])
 def test_port_resumes_a_jax_trainstate(family, packing, tmp_path):
     path, jtx, jstate, jp, jspec, tcfg = _jax_run(family, packing, tmp_path)
     assert (tmp_path / "jax.safetensors.trainstate").exists()
@@ -277,14 +286,273 @@ def test_port_resumes_a_jax_trainstate(family, packing, tmp_path):
             assert_close(got_t[k], v, 1e-4, k)
 
 
-def test_a_packed_adamw8bit_trainstate_is_refused(tmp_path):
-    path, *_ , tcfg = _jax_run("adamw8bit", True, tmp_path, steps=1)
-    tspec = tpacking.build_pack_spec({k: torch.zeros(s) for k, s in SHAPES.items()}, LABELS,
-                                     PACK_MIN, False)
-    ttx, _ = topt.build_optimizer(tcfg, dict(LABELS), OVERRIDES, 100, 1, pack_spec=tspec)
-    _, _, fresh = masters("fp32")
-    with pytest.raises(NotImplementedError, match="param_packing: false"):
-        tckpt.restore_train_state(path, init_train_state(fresh, ttx), pack_spec=tspec)
+# --- a packed JAX AdamW8bit run resumed by the port ------------------------------------
+
+INT8_MIN = 2048   # SSDT_INT8_FUSED_MIN of these cases: the tiny UNet's conv leaves are int8
+# pack_stacks, pack_min_size, accumulate_grad_batches, steps before the checkpoint
+PACKED8 = {"slabs": (False, 16384, 1, 2), "stacks": (True, 8192, 1, 2),
+           "stacks_accumulate": (True, 8192, 2, 3)}
+
+
+def _tiny_unet_labels():
+    """The tiny UNet's leaves (prefixed) and the full_unet target's 7 group
+    labels, and their overrides, as both packages resolve them."""
+    from scal_sdt_tpu.training import optim_targets as jtargets
+    from scal_sdt_tpu_torch.models.unet import UNetConfig, unet_param_shapes
+    from scal_sdt_tpu_torch.training import optim_targets as ttargets
+
+    shapes = unet_param_shapes(UNetConfig.tiny())
+    tres = ttargets.resolve_optim_target(tconf.load_optim_target("full_unet"), shapes, [])
+    jres = jtargets.resolve_optim_target(jconf.load_optim_target("full_unet"), shapes, [])
+    labels = ttargets.group_labels(tres)
+    assert labels == jtargets.group_labels(jres) and len(set(labels.values())) == 7
+    overrides = {f"g{i}": dict(g.optimizer) for i, g in enumerate(tres["unet"].groups)}
+    return {f"unet.{k}": tuple(v) for k, v in shapes.items()}, labels, overrides
+
+
+def _pack8(d: dict, spec) -> dict:
+    """JAX's pack of a natural dict in its own dtype: slabs zero padded,
+    stacks along a new first axis."""
+    out = _packed(d, spec)
+    for stack_key, members, _ in spec.stacks:
+        out.pop(stack_key, None)
+        for k in members:
+            out.pop(k, None)
+        out[stack_key] = jnp.stack([d[k] for k in members])
+    return out
+
+
+def _adam8_groups(state) -> dict:
+    """{label: (count, mu_q, mu_s, nu_q, nu_s)} of a live JAX AdamW8bit state
+    (or the accumulation wrapper's around it)."""
+    inner = state.inner_states if hasattr(state, "inner_states") else state[1].inner_states
+    out = {}
+    for label, s in inner.items():
+        found = _find_state(s, _ADAM8_FIELDS)
+        out[label] = (int(np.asarray(_get(found, "count"))),) + tuple(
+            {k: np.asarray(v) for k, v in _get(found, f).items() if hasattr(v, "shape")}
+            for f in _ADAM8_FIELDS[1:])
+    return out
+
+
+def _jax_unpacked8(payloads: dict, scales: dict, spec) -> tuple[dict, dict]:
+    """JAX's packed moments read per leaf with numpy alone: slab slices, an
+    fp32 stack's members, an int8 stack's rows split evenly (the test's own
+    reading, independent of ``convert.from_jax``)."""
+    q, sc = {}, {}
+    for k, v in payloads.items():
+        if k in scales:
+            q[k], sc[k] = v, scales[k]
+        else:
+            q[k] = v
+    for slab_key, _, slots in spec.slabs:
+        if slab_key in q:
+            slab = q.pop(slab_key)
+            assert slab_key not in sc and slab.dtype == np.float32 and slab.ndim == 1
+            for slot in slots:
+                q[slot.key] = slab[slot.offset:slot.offset + slot.size].reshape(slot.shape)
+    for stack_key, members, _ in spec.stacks:
+        if stack_key not in q:
+            continue
+        arr = q.pop(stack_key)
+        if stack_key in sc:
+            scale = sc.pop(stack_key)
+            n = len(members)
+            for i, k in enumerate(members):
+                q[k] = arr.reshape(n, arr.shape[0] // n, -1)[i]
+                sc[k] = scale.reshape(n, scale.shape[0] // n, -1)[i]
+        else:
+            for i, k in enumerate(members):
+                q[k] = arr[i]
+    return q, sc
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    a = np.abs(x.astype(np.float64))
+    return np.where(a > 0, 2.0 ** (np.floor(np.log2(np.where(a > 0, a, 1.0))) - 7), 0.0)
+
+
+@pytest.mark.parametrize("case", list(PACKED8))
+def test_port_resumes_a_packed_jax_adamw8bit_run(case, tmp_path, monkeypatch):
+    """The JAX package runs AdamW8bit under ``param_packing: true`` on the
+    tiny UNet's leaves (fp32 masters, the full_unet target's 7 groups), with
+    stacks and without, and writes its checkpoint; the port restores it.
+    The restored int8 payloads, scales and fp32 moments (slabs' members
+    included, padding dropped) equal JAX's read per leaf bit for bit, and
+    the accumulation wrapper's count and sums come across too. The port's
+    next step then matches JAX's: updates as ``Adam8bit`` does (payloads at
+    most 1 apart in under 1e-3, scales and fp32 moments within 1e-6
+    relative, fp32 moments within 1e-6 of the tensor's largest entry by
+    difference (d)), masters within difference (c): one fp32 ulp of the new
+    master plus one bf16 ulp of the update."""
+    stacks, pack_min, accumulate, steps = PACKED8[case]
+    monkeypatch.setenv("SSDT_INT8_FUSED_MIN", str(INT8_MIN))
+    shapes, labels, overrides = _tiny_unet_labels()
+    r = np.random.RandomState(5)
+    values = {k: (r.randn(*s) * 0.3).astype(np.float32) for k, s in shapes.items()}
+    jp = {k: jnp.asarray(v) for k, v in values.items()}
+    jspec = jpacking.build_pack_spec(values, labels, min_slab_size=pack_min, stack_big=stacks)
+    tspec = tpacking.build_pack_spec({k: torch.zeros(s) for k, s in shapes.items()}, labels,
+                                     pack_min, stacks)
+    assert tspec == jspec and jspec.slabs and bool(jspec.stacks) == stacks
+    jlabels = {**{k: v for k, v in labels.items() if k not in jspec.packed_keys},
+               **jpacking.packed_labels(jspec)}
+    kw = dict(packing=True, accumulate=accumulate)
+    jcfg, tcfg = config(jconf, "adamw8bit", **kw), config(tconf, "adamw8bit", **kw)
+    jtx, _ = jopt.build_optimizer(jcfg, jlabels, overrides, 100, 1)
+    jstate = jtx.init(_pack8(jp, jspec))
+
+    def grads(i):
+        g = np.random.RandomState(200 + i)
+        jg = {k: jnp.asarray((g.randn(*s) * 10.0 ** g.uniform(-3, 0, s)).astype(np.float32),
+                             jnp.bfloat16) for k, s in sorted(shapes.items())}
+        return jg, {k: to_torch(v) for k, v in jg.items()}
+
+    def jax_step(jp, jstate, i):
+        ju, jstate = jtx.update(_pack8(grads(i)[0], jspec), jstate, _pack8(jp, jspec))
+        ju = {k: jnp.asarray(v) for k, v in jpacking.unpack_host(
+            {k: np.asarray(v) for k, v in ju.items()}, jspec).items()}
+        return jax_apply(jp, ju, i), jstate, ju
+
+    for i in range(steps):
+        jp, jstate, _ = jax_step(jp, jstate, i)
+    path = tmp_path / "jax.safetensors"
+    train = jstep.TrainState(step=jnp.asarray(steps, jnp.int32), trainable=_pack8(jp, jspec),
+                             opt_state=jstate, ema=None, rng=jax.random.PRNGKey(0))
+    jckpt.save_checkpoint(path, train, {}, pack_spec=jspec)
+
+    ttx, _ = topt.build_optimizer(tcfg, dict(labels), overrides, 100, 1, pack_spec=tspec)
+    fresh = {k: torch.zeros(s) for k, s in shapes.items()}   # overwritten by the restore
+    state = tckpt.restore_train_state(path, init_train_state(fresh, ttx), pack_spec=tspec)
+    assert state.step == steps
+    for k in shapes:
+        assert torch.equal(state.trainable[k], to_torch(jp[k])), k
+
+    # the restored moments are JAX's, read per leaf, bit for bit
+    groups = state.opt_state.inner if accumulate > 1 else state.opt_state
+    kinds = {"int8 stack": 0, "int8 leaf": 0, "slab fp32 (int8 alone)": 0}
+    in_slab = {slot.key for _, _, slots in jspec.slabs for slot in slots}
+    stacked = {k for _, members, _ in jspec.stacks for k in members}
+    for label, (count, mq, ms, nq, ns) in _adam8_groups(jstate).items():
+        got = groups[label]
+        assert got.count == count == steps // accumulate
+        for pq, ps, tq_, ts in ((mq, ms, got.mu_q, got.mu_s), (nq, ns, got.nu_q, got.nu_s)):
+            wq, ws = _jax_unpacked8(pq, ps, jspec)
+            assert set(tq_) == set(wq) and set(ts) == set(ws), label
+            for k in wq:
+                assert str(tq_[k].dtype)[6:] == wq[k].dtype.name, k
+                assert np.array_equal(to_np(tq_[k]), wq[k]), k
+            for k in ws:
+                assert np.array_equal(to_np(ts[k]), ws[k]), k
+        for k in got.mu_q:
+            if k in got.mu_s:
+                kinds["int8 stack" if k in stacked else "int8 leaf"] += 1
+            elif k in in_slab and _stores_int8(shapes[k], INT8_MIN):
+                kinds["slab fp32 (int8 alone)"] += 1
+    assert kinds["int8 leaf"] and (kinds["int8 stack"] if stacks
+                                   else kinds["slab fp32 (int8 alone)"]), kinds
+    if accumulate > 1:
+        assert state.opt_state.mini == steps % accumulate
+        for k, v in jpacking.unpack_host({k: np.asarray(v) for k, v in jstate[2].items()},
+                                         jspec).items():
+            assert np.array_equal(to_np(state.opt_state.acc[k]), to_np(v)), k
+        assert any(to_np(v).any() for v in state.opt_state.acc.values())
+
+    # the next step in both packages
+    jp, jstate, ju = jax_step(jp, jstate, steps)
+    opt = ttx.update_and_apply(grads(steps)[1], state.opt_state, state.trainable, steps)
+    for k in shapes:
+        want = to_np(jp[k]).astype(np.float64)
+        tol = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64) + _bf16_ulp(
+            to_np(ju[k]))
+        bad = np.abs(to_np(state.trainable[k]).astype(np.float64) - want) > tol
+        assert not bad.any(), f"master {k}: {bad.sum()} beyond (c)"
+    assert any(not np.array_equal(to_np(state.trainable[k]), values[k]) for k in shapes)
+    groups = opt.inner if accumulate > 1 else opt
+    for label, (count, mq, ms, nq, ns) in _adam8_groups(jstate).items():
+        got = groups[label]
+        assert got.count == count
+        for pq, ps, tq_, ts in ((mq, ms, got.mu_q, got.mu_s), (nq, ns, got.nu_q, got.nu_s)):
+            wq, ws = _jax_unpacked8(pq, ps, jspec)
+            for k in wq:
+                g, w = to_np(tq_[k]), wq[k]
+                if k in ws:
+                    d = np.abs(g.astype(np.int32) - w.astype(np.int32))
+                    assert d.max() <= 1 and (d > 0).mean() < 1e-3, k
+                    np.testing.assert_allclose(to_np(ts[k]), ws[k], rtol=1e-6, err_msg=k)
+                else:   # difference (d): XLA may contract b*m + (1-b)*g into an fma
+                    assert_close(g, w, 1e-6, f"{label} {k}")
+
+
+@pytest.mark.parametrize("stacks", [False, True])
+def test_every_sd15_stack_family_splits_into_member_rows(stacks):
+    """SD1.5 under the full_unet target (JAX's default ``pack_min_size``
+    2^18 and ``SSDT_INT8_FUSED_MIN`` 2^18): the 459 leaves under 2^18 form
+    one fp32 slab per group (7); without stacks no stack exists; with
+    stacks, every one of the 39 stack families (per shape and group) is
+    int8, and its int8 view
+    (JAX's ``_leaf_view`` of the stack) is the member's with N times the
+    lead, so each member owns whole rows in its own view; the port's
+    ``int8_views`` names exactly the leaves whose moments JAX's packed run
+    stores int8, each in its own view."""
+    from scal_sdt_tpu.training import optim_targets as jtargets
+    from scal_sdt_tpu.training import quantized as jq
+    from scal_sdt_tpu_torch.models.unet import UNetConfig, unet_param_shapes
+    from scal_sdt_tpu_torch.training import quantized as tq
+
+    shapes = unet_param_shapes(UNetConfig.sd15())
+    labels = jtargets.group_labels(jtargets.resolve_optim_target(
+        jconf.load_optim_target("full_unet"), shapes, []))
+    natural = {f"unet.{k}": jax.ShapeDtypeStruct(tuple(v), jnp.float32)
+               for k, v in shapes.items()}
+    spec = jpacking.build_pack_spec(natural, labels, stack_big=stacks)
+    assert sum(len(slots) for _, _, slots in spec.slabs) == 459
+    assert len(spec.slabs) == 7 and len(spec.stacks) == (39 if stacks else 0)
+    want = {k for k in spec.passthrough if jq._stores_int8(natural[k].shape, 1 << 18)}
+    for stack_key, members, shape in spec.stacks:
+        n = len(members)
+        assert jq._stores_int8((n,) + tuple(shape), 1 << 18), stack_key
+        lead_s, minor_s, nb_s = jq._leaf_view((n,) + tuple(shape))
+        lead, minor, nb = jq._leaf_view(tuple(shape))
+        assert (lead_s, minor_s, nb_s) == (n * lead, minor, nb), stack_key
+        assert tq.stack_member_view(stack_key, shape, n) == (lead, minor, nb)
+        want.update(members)
+    got = tq.int8_views({k: v.shape for k, v in natural.items()}, 1 << 18,
+                        tpacking.PackSpec(*spec))
+    assert set(got) == want and len(got) == 227
+    assert all(v == tq._leaf_view(natural[k].shape) for k, v in got.items())
+
+
+def test_a_stack_whose_blocks_straddle_members_keeps_the_stack_view(monkeypatch):
+    """Where a stack's int8 view is not its members' own views stacked (a
+    member (4, 300) alone is 4 rows of 2 blocks, the stack (2, 4, 300) 2 rows
+    of 5 blocks), each member takes its share of the stack's view: the
+    port's AdamW8bit then lays out and quantizes its moments in JAX's packed
+    blocks, and the plain update runs on that view."""
+    from scal_sdt_tpu_torch.training import quantized as tq
+
+    monkeypatch.setenv("SSDT_INT8_FUSED_MIN", "512")
+    assert tq.stack_member_view("s", (64, 64, 3, 3), 8) == (64, 576, 3)
+    assert tq._leaf_view((4, 300)) == (4, 300, 2)
+    assert tq.stack_member_view("s", (4, 300), 2) == (1, 1200, 5)
+    spec = tpacking.PackSpec((), (("unet.__stack__.g0.0", ("unet.a", "unet.b"), (4, 300)),),
+                             ("unet.c",))
+    shapes = {"unet.a": (4, 300), "unet.b": (4, 300), "unet.c": (4, 300)}
+    assert tq.int8_views(shapes, 512, spec) == {"unet.a": (1, 1200, 5), "unet.b": (1, 1200, 5),
+                                                "unet.c": (4, 300, 2)}
+    assert tq.int8_views(shapes, 512) == {k: (4, 300, 2) for k in shapes}
+    params = {k: torch.zeros(s) for k, s in shapes.items()}
+    state = tq.Adam8bit().init(params, spec)
+    assert tuple(state.mu_q["unet.a"].shape) == (1, 1280)
+    assert tuple(state.mu_s["unet.a"].shape) == (1, 5)
+    assert tuple(state.mu_q["unet.c"].shape) == (4, 512)
+    gen = torch.Generator().manual_seed(1)
+    grads = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    updates, state = tq.Adam8bit().update(grads, state)
+    assert all(torch.isfinite(u).all() and u.shape == grads[k].shape for k, u in updates.items())
+    # a stack view whose rows the members cannot share is refused, naming the shape
+    with pytest.raises(ValueError, match=r"\(3, 1, 100\).*cannot share"):
+        tq.stack_member_view("unet.__stack__.g0.1", (1, 100), 3)
 
 
 # --- the port's own sidecar, every family ------------------------------------------------

@@ -3,14 +3,17 @@
 * The batch-size tuner (``training/tuner.py``): ``search_batch_size`` tries
   the same batches and picks the same one as JAX's over JAX's capacity
   trials, in both modes and under ``max_trials`` / ``max_bs``;
-  ``subprocess_trial`` reads exit codes as JAX's does (0 fits, 3 OOM,
-  anything else raises) and passes the device on; ``tune_batch_size``'s
+  ``subprocess_trial`` decides as JAX's does for each of the probe's exits
+  (0 fits, 3 OOM, anything else raises), reading the report the probe
+  writes with it, and passes the device on; ``tune_batch_size``'s
   settings.
 * The probe (``cli/probe_batch.py``): in process with the Trainer's ``fit``
   patched, exit 3 on the card's out-of-memory errors and a re-raise of any
   other; one real probe subprocess on the tiny model with ``--device cpu``.
 * ``cli.train``'s tuner hook: the picked batch reaches the Trainer and the
-  run's ``config.yaml``; no tuning on ``--resume`` or on more than one rank.
+  run's ``config.yaml``; no tuning on ``--resume``; one search over world
+  trials on one host of 2 ranks, the pick shared through the rendezvous
+  store; JAX's skip and warning on more than one host.
 * The FLOP count (``utils/flops.py``): ``train_step_flops`` equal to JAX's
   exactly at the tiny UNet and at SD1.5, and the per-op convention.
 * ``text/ensemble.py`` on a tiny CLIP + T5 pair with projections, within the
@@ -120,14 +123,49 @@ class _FakeRun:
         return subprocess.CompletedProcess(cmd, self.rc, self.stdout, self.stderr)
 
 
+# what the probe reports beside each exit code (a timeout reports nothing)
+PROBE_REPORTS = {0: {"batch_size": 4, "fits": True, "steps": 3, "peak_mem_gib": 1.5},
+                 3: {"batch_size": 4, "fits": False, "oom": True,
+                     "error": "OutOfMemoryError: CUDA out of memory."},
+                 1: {"batch_size": 4, "fits": False, "oom": False,
+                     "error": "ValueError: a real error"}}
+
+
+class _FakePopen:
+    """subprocess.Popen of one port probe: writes the report that goes with
+    ``rc`` into the command's report directory, exits ``rc`` (None hangs)."""
+
+    def __init__(self, rc):
+        self.rc, self.cmds, self.killed = rc, [], []
+
+    def __call__(self, cmd, stdout, stderr, env, start_new_session):
+        self.cmds.append(cmd)
+        if self.rc in PROBE_REPORTS:
+            report_dir = Path(cmd[cmd.index("--report-dir") + 1])
+            (report_dir / "rank0.json").write_text(json.dumps(PROBE_REPORTS[self.rc]))
+        fake, proc = self, subprocess.CompletedProcess(cmd, self.rc)
+        proc.pid = 4242
+
+        def communicate(timeout=None):
+            if fake.rc is None and not fake.killed:
+                raise subprocess.TimeoutExpired(cmd, timeout)
+            return b"", b"Traceback ...\nValueError: a real error"
+        proc.communicate = communicate
+        return proc
+
+
 @pytest.mark.parametrize("rc", [0, 3, 1, None])
 def test_subprocess_trial_reads_exit_codes_as_jax(rc, monkeypatch, tmp_path):
     """0 fits, 3 is an OOM, a timeout fails the trial, anything else raises
-    with the probe's stderr; the port's probe gets the caller's device."""
-    report = {"batch_size": 4, "fits": rc == 0, "peak_mem_gib": 1.5}
-    fake = _FakeRun(rc, stdout=b"log line\n" + json.dumps(report).encode() + b"\n",
-                    stderr=b"Traceback ...\nValueError: a real error")
+    with the probe's error: JAX's trial reads the exit code, the port's the
+    report its probe writes with that exit; the port's probe gets the
+    caller's device and a report directory."""
+    stdout = b"log line\n" + json.dumps(PROBE_REPORTS.get(rc, {})).encode() + b"\n"
+    fake = _FakeRun(rc, stdout=stdout, stderr=b"Traceback ...\nValueError: a real error")
+    popen = _FakePopen(rc)
     monkeypatch.setattr(subprocess, "run", fake)
+    monkeypatch.setattr(subprocess, "Popen", popen)
+    monkeypatch.setattr(ttuner.os, "killpg", lambda pid, sig: popen.killed.append(pid))
     cfg = tmp_path / "cfg.yaml"
     results = []
     for trial in (jtuner.subprocess_trial(cfg), ttuner.subprocess_trial(cfg, device="cpu")):
@@ -137,14 +175,18 @@ def test_subprocess_trial_reads_exit_codes_as_jax(rc, monkeypatch, tmp_path):
         else:
             results.append(trial(4))
     assert results == ([] if rc == 1 else [rc == 0] * 2)
-    jcmd, tcmd = fake.cmds
+    (jcmd,), (tcmd,) = fake.cmds, popen.cmds
     assert jcmd[1:3] == ["-m", "scal_sdt_tpu.cli.probe_batch"]
     assert tcmd[1:3] == ["-m", "scal_sdt_tpu_torch.cli.probe_batch"]
-    assert tcmd[3:] == jcmd[3:] + ["--device", "cpu"]
+    assert tcmd[3:-2] == jcmd[3:] + ["--device", "cpu"] and tcmd[-2] == "--report-dir"
+    assert popen.killed == ([4242] if rc is None else [])
     (record,) = trial.history
     assert record["batch_size"] == 4 and record["returncode"] == rc
-    if rc in (0, 3):
-        assert record["peak_mem_gib"] == 1.5
+    assert record["fits"] is (rc == 0)
+    if rc == 0:
+        assert record["peak_mem_gib"] == 1.5 and record["steps"] == 3
+    if rc == 3:
+        assert "CUDA out of memory" in record["error"]
 
 
 def test_tune_batch_size_settings(monkeypatch, tmp_path):
@@ -154,7 +196,7 @@ def test_tune_batch_size_settings(monkeypatch, tmp_path):
 
     calls = []
 
-    def fake_trial(config_path, device="cuda"):
+    def fake_trial(config_path, device="cuda", nproc=1, backend=None):
         calls.append((config_path, device))
         return lambda bs: bs <= 11
 
@@ -265,14 +307,19 @@ class _StubTrainer:
 
 
 @pytest.mark.parametrize("setting,picked", [("power", 8), ("binsearch", 11), (True, 8)])
-def test_train_cli_tunes_the_batch(setting, picked, tmp_path, monkeypatch):
+def test_train_cli_tunes_the_batch(setting, picked, tmp_path, monkeypatch, caplog):
     """``--config`` with ``auto_scale_batch_size``: the trials' pick reaches
     the Trainer and the run's config.yaml; ``--resume`` of that run tunes
-    nothing; more than one rank skips the tuner."""
-    tried = []
+    nothing; rank 0 of a 2-rank world on one host tunes over world trials of
+    2 ranks (the CLI's backend passed on) and shares the pick through the
+    rendezvous store before the process group exists; on 2 hosts the tuner
+    is skipped with JAX's warning."""
+    import torch.distributed as dist
 
-    def fake_trial(config_path, device="cuda"):
-        tried.append(device)
+    tried, world_tried = [], []
+
+    def fake_trial(config_path, device="cuda", nproc=1, backend=None):
+        (tried if nproc == 1 else world_tried).append((nproc, device, backend))
         return lambda bs: bs <= 11
 
     monkeypatch.setattr(ttuner, "subprocess_trial", fake_trial)
@@ -286,7 +333,7 @@ def test_train_cli_tunes_the_batch(setting, picked, tmp_path, monkeypatch):
     result = CliRunner().invoke(tcli.main, ["--config", str(path), "--run-id", "r1",
                                             "--device", "cpu"])
     assert result.exit_code == 0, repr(result.exception)
-    assert _StubTrainer.batches == [picked] and tried == ["cpu"]
+    assert _StubTrainer.batches == [picked] and tried == [(1, "cpu", None)]
     run = tmp_path / "out" / "SCAL-SDT" / "r1"
     from scal_sdt_tpu_torch import conf as tconf
 
@@ -297,16 +344,43 @@ def test_train_cli_tunes_the_batch(setting, picked, tmp_path, monkeypatch):
     result = CliRunner().invoke(tcli.main, ["--resume", str(ckpt), "--run-id", "r2",
                                             "--device", "cpu"])
     assert result.exit_code == 0, repr(result.exception)
-    assert _StubTrainer.batches == [picked, picked] and tried == ["cpu"]
+    assert _StubTrainer.batches == [picked, picked] and tried == [(1, "cpu", None)]
 
+    # rank 0 of two on one host: one search over 2-rank worlds, the pick in the store
     for name, value in {"WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2", "RANK": "0",
                         "LOCAL_RANK": "0"}.items():
         monkeypatch.setenv(name, value)
-    monkeypatch.setattr(tcli, "init_process_group", lambda *a: None)
-    result = CliRunner().invoke(tcli.main, ["--config", str(path), "--run-id", "r3",
-                                            "--device", "cpu"])
+    store = dist.HashStore()
+    joined = []
+    monkeypatch.setattr(tcli, "rendezvous_store", lambda env: store)
+    monkeypatch.setattr(tcli, "init_process_group",
+                        lambda dev, backend, env, st=None: joined.append((backend, st)))
+    result = CliRunner().invoke(tcli.main, ["--config", str(path), "--device", "cpu",
+                                            "--backend", "gloo"])
     assert result.exit_code == 0, repr(result.exception)
-    assert _StubTrainer.batches == [picked, picked, 2] and tried == ["cpu"]
+    assert _StubTrainer.batches == [picked] * 3 and tried == [(1, "cpu", None)]
+    assert world_tried == [(2, "cpu", "gloo")] and joined == [("gloo", store)]
+    assert json.loads(store.get("scal_sdt/batch_size")) == {"value": picked}
+    # ... and rank 1 takes rank 0's pick and run id from the store, trying nothing
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    result = CliRunner().invoke(tcli.main, ["--config", str(path), "--device", "cpu",
+                                            "--backend", "gloo"])
+    assert result.exit_code == 0, repr(result.exception)
+    assert _StubTrainer.batches == [picked] * 4 and len(world_tried) == 1
+
+    # two hosts of 2: JAX's skip and warning, the configured batch
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    store = dist.HashStore()
+    with caplog.at_level("WARNING", logger="train"):
+        result = CliRunner().invoke(tcli.main, ["--config", str(path), "--run-id", "r4",
+                                                "--device", "cpu"])
+    assert result.exit_code == 0, repr(result.exception)
+    assert _StubTrainer.batches == [picked] * 4 + [2] and len(world_tried) == 1
+    assert ("auto_scale_batch_size is single-host only; skipping on a 2-process slice (set "
+            "batch_size explicitly for multi-host runs)") in caplog.text
 
 
 # --- the FLOP count -------------------------------------------------------------------
