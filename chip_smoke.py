@@ -11,22 +11,25 @@ Phases (any failure raises and the script exits non-zero):
 1. build   -- compile the port's kernels from scal_sdt_tpu_torch/ops/csrc with
               nvcc for sm_90a (one nvcc per source, in parallel): splash fwd,
               dq, dkv; the int8 Adam update (adam8_fused); the fused Adam
-              update over stored moments (adam_bf16_fused).
+              update over stored moments (adam_bf16_fused). Prints ptxas's
+              registers and spill bytes per kernel instance.
 2. kernels -- at the main path's shapes, (8,8,4096,40) and (8,8,1024,80) bf16,
               plus the ARB length (1,8,1344,40) that no block divides: each
               splash kernel (fwd, dq, dkv) against its plain PyTorch version
               on the same inputs, then the autograd Function against autograd
               of splash_attention_reference. Bounds: forward 5e-3 max-abs,
               dq/dk/dv 1.5e-2 relative (those of the JAX splash tests), the
-              delta dq writes for dkv 1e-5 of its largest entry. Times of the
+              delta dq writes for dkv 1e-5 of its largest entry; a second
+              launch of dq and dkv must give the same bits. Times of the
               kernel, its plain version, torch's SDPA forward and backward
               (the backward computes dq, dk and dv together; its calls are
               timed queued behind a spin kernel, so that the host's time to
               issue them does not count; beside it the time of the pair
-              dq + dkv), and the least time the card could take (HBM bytes,
-              tensor-core flops, or exponentials on the exponential unit at
-              the card's SM count and maximum SM clock, whichever is
-              largest).
+              dq + dkv and the pair over SDPA's backward; dq's and dkv's
+              device time alone, queued behind a spin kernel), and the least
+              time the card could take (HBM bytes, tensor-core flops, or
+              exponentials on the exponential unit at the card's SM count
+              and maximum SM clock, whichever is largest).
 3. optim   -- the optimizer kernels against their plain versions, in both
               forms. Update-only, one leaf at SD1.5 leaf shapes: adam8_fused
               at (1280, 23040) and the ragged (320, 2880), from a state
@@ -112,7 +115,7 @@ Phases (any failure raises and the script exits non-zero):
               first step, checkpoint write and read seconds and size, peak
               memory, launches per step.
 9b. tuner  -- the batch-size tuner at SD1.5 full width: the trainer phase's
-              config with trainer.auto_scale_batch_size power from batch 16
+              config with trainer.auto_scale_batch_size power from batch 32
               and model: a hub id, resolved through an HF cache written in
               the temp dir (HF_HUB_CACHE, inherited by the probes) to the
               trainer phase's directory; a cache of 768 seeded rows (enough
@@ -376,6 +379,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -506,8 +510,12 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a progress line with the seconds since the script started."""
+    print(f"{msg} [{time.perf_counter() - _START:.0f} s]", flush=True)
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -631,8 +639,15 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     dq_ref, delta_ref = splash.splash_dq_reference(qs, k, v, o, do, lse)
     dk, dv = splash.splash_dkv(qs, k, v, do, lse, delta)
     dk_ref, dv_ref = splash.splash_dkv_reference(qs, k, v, do, lse, delta)
+    # a second launch of each backward kernel gives the same bits (one CTA
+    # owns each output row, no atomics): resumed runs depend on it
+    dq2, delta2 = splash.splash_dq(qs, k, v, o, do, lse)
+    dk2, dv2 = splash.splash_dkv(qs, k, v, do, lse, delta2)
     torch.cuda.synchronize()
-    res = {"shape": list(shape),
+    same_bits = all(torch.equal(a, b) for a, b in
+                    ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+    del dq2, delta2, dk2, dv2
+    res = {"shape": list(shape), "bwd_same_bits": same_bits,
            "err": {"splash_fwd": max_abs(o, o_ref), "lse": max_abs(lse, lse_ref),
                    "delta": max_abs(delta, delta_ref), "delta_rel": rel_err(delta, delta_ref),
                    "splash_dq": max_abs(dq, dq_ref), "splash_dq_rel": rel_err(dq, dq_ref),
@@ -645,6 +660,7 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     check(e["delta_rel"] <= DELTA_TOL, f"splash_dq delta disagrees at {shape}: {e['delta_rel']}")
     check(e["splash_dkv_rel"] <= GRAD_TOL,
           f"splash_dkv disagrees at {shape}: {e['splash_dkv_rel']}")
+    check(same_bits, f"splash_dq / splash_dkv give other bits on a second launch at {shape}")
 
     # The autograd Function end to end against autograd of the plain version.
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -665,6 +681,12 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
         "splash_fwd": time_ms(lambda: splash.splash_fwd(qs, k, v)),
         "splash_dq": time_ms(lambda: splash.splash_dq(qs, k, v, o, do, lse)),
         "splash_dkv": time_ms(lambda: splash.splash_dkv(qs, k, v, do, lse, delta)),
+    }
+    # the backward kernels' device time alone, queued behind a spin kernel
+    # (at the short forms the wrappers' host time bounds "ms")
+    res["device_ms"] = {
+        "splash_dq": device_ms(lambda: splash.splash_dq(qs, k, v, o, do, lse)),
+        "splash_dkv": device_ms(lambda: splash.splash_dkv(qs, k, v, do, lse, delta)),
     }
     res["plain_ms"] = {
         "splash_fwd": time_ms(lambda: splash.splash_fwd_reference(qs, k, v), iters=3),
@@ -687,6 +709,7 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
         splash.splash_dkv(qs, k, v, do, lse, splash.splash_dq(qs, k, v, o, do, lse)[1])
 
     res["bwd_pair_ms"] = time_ms(bwd_pair, iters=50, warmup=5)
+    res["bwd_pair_over_sdpa"] = res["bwd_pair_ms"] / res["sdpa_bwd_ms"]
     res["bound"] = {n: list(v) for n, v in bounds_ms(b, h, l, l, d, *rate).items()}
     del q, k, v, do, qs, o, lse, dq, delta, dk, dv
     torch.cuda.empty_cache()
@@ -1858,7 +1881,7 @@ def trainer_phase(seed: int, workdir: Path, cache_path: Path, frozen: dict,
 
 
 TUNER_HUB_ID = "smoke/sd15"      # the trainer phase's directory, as a cached hub id
-TUNER_INIT_BATCH = 16            # 14.52 GiB at batch 8 (PERF.md 5): 16-64 fit, 128 does not
+TUNER_INIT_BATCH = 32            # 32 fits, 64 does not (PERF.md 5); from 32 for time
 TUNER_PROBE_STEPS = 3            # tuner.subprocess_trial's steps per trial
 TUNER_MAX_BATCH = 256            # the cache holds TUNER_PROBE_STEPS x this many rows
 TUNER_STEPS = 2                  # steps at the picked batch
@@ -4869,12 +4892,31 @@ def kernel_entries(record: dict) -> list[dict]:
                              | {"bound_ms": r["bound"][0]} for r in sampling_records]}
                if name == "splash_fwd" else {"bwd_pair_ms": main_shape["bwd_pair_ms"]}),
             "by_shape": [{"shape": r["shape"], "ms": r["ms"][name],
+                          **({"device_ms": r["device_ms"][name]} if name != "splash_fwd"
+                             else {}),
                           "plain_ms": r["plain_ms"][name], "bound_ms": r["bound"][name][0],
                           "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"],
-                          "bwd_pair_ms": r["bwd_pair_ms"]}
+                          "bwd_pair_ms": r["bwd_pair_ms"],
+                          "bwd_pair_over_sdpa": r["bwd_pair_over_sdpa"],
+                          "bwd_same_bits": r["bwd_same_bits"]}
                          for r in splash_records],
         })
     return kernels
+
+
+def ptxas_lines(build_log: str) -> list[str]:
+    """nvcc's report, one line per kernel instance: its (mangled) name with
+    its registers, and its stack and spill bytes; the ``== source`` headers."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif line.startswith("=="):
+            out.append(line.strip())
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -4917,9 +4959,8 @@ def main(argv=None) -> int:
     OUT_DIR.mkdir(exist_ok=True)
     if _build.build_log:  # empty when an earlier process of this checkout built the library
         (OUT_DIR / "kernels_build.log").write_text(_build.build_log)
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log(line.strip())
+    for line in ptxas_lines(_build.build_log):
+        log(line)
     log(f"build: {record['build_s']:.1f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

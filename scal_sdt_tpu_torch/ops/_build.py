@@ -22,7 +22,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("splash_fwd.cu", "splash_bwd.cu", "adam8_fused.cu", "adam_bf16_fused.cu",
            "ema_fused.cu")
-HEADERS = ("splash_common.cuh", "adam_common.cuh")
+HEADERS = ("splash_common.cuh", "splash_hopper.cuh", "wgmma.cuh", "adam_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,8 +31,8 @@ _LL = ctypes.POINTER(ctypes.c_longlong)
 # C entry points and their argument types (see the extern "C" blocks).
 _SIGNATURES = {
     "ssdt_splash_fwd": [_P] * 5 + [_I] * 5 + [_LL, _P],
-    "ssdt_splash_dq": [_P] * 8 + [_I] * 5 + [_LL, _P],
-    "ssdt_splash_dkv": [_P] * 8 + [_I] * 5 + [_LL, _P],
+    "ssdt_splash_dq": [_P] * 8 + [_I] * 5 + [_LL, _LL, _P],
+    "ssdt_splash_dkv": [_P] * 8 + [_I] * 5 + [_LL, _LL, _P],
     "ssdt_adam8_fused": [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P],
     "ssdt_adam_bf16_fused": ([_P] * 4 + [ctypes.c_longlong] + [_I] * 4 + [_F] * 7
                              + [_I, _I, _I, ctypes.c_uint, _P]),

@@ -1,75 +1,161 @@
-// Splash-attention backward for Hopper, as two kernels with no atomics,
-// matching the split (non-fused) backward of the TPU version
-// (scal_sdt_tpu/ops/splash.py sets use_fused_bwd_kernel=False). Both are on
-// the register-tile design of splash_common.cuh: a CTA holds rows of one
-// operand, 16 per warp, and walks the other through cp.async buffers.
+// Splash-attention backward for Hopper (sm_90a), as two kernels with no
+// atomics, matching the split (non-fused) backward of the TPU version
+// (scal_sdt_tpu/ops/splash.py sets use_fused_bwd_kernel=False):
 //
-// * dq replaces `_splash_attention_bwd_dq` (`_flash_attention_dq_kernel`):
-//   one CTA per (head, DqShape::rows query rows). A warp first sums delta =
-//   rowsum(dO * O) of its rows (dO from shared memory, O by 16-byte loads)
-//   and stores it for dkv; then it keeps its q and dO rows as A fragments
-//   and its lse and delta in registers. K / V tiles (DqShape::keys keys)
-//   stream through a cp.async ring. Per tile: S = q k^T (mma.sync, k by
-//   ldmatrix) and P = exp2(S log2 e - lse log2 e) over the whole tile; then
-//   per 16 keys dP = dO v^T (v by ldmatrix) and dS = P (dP - delta) in
-//   registers, rounded to bf16 in registers as the A operand of dq += dS k
-//   (k by ldmatrix.trans from the same shared tile). Only P lives across
-//   the tile, so at D = 40 a 64-key tile fits beside the fragments in the
-//   registers of 16 warps per SM. dq stays fp32 in registers and is written
-//   once. Only the last KV tile masks keys past Lk.
-// * dkv replaces `_splash_attention_bwd_dkv`: one CTA per (head, 64 or 128
-//   key rows), 16 key rows per warp (DkvShape). A warp keeps its k and v rows
-//   as A fragments in registers (up to DP = 96; wider instances reload them
-//   from the warp's own shared rows per step, so that dK / dV fit). q / dO
-//   tiles of 64 queries, with their lse and delta, come by cp.async double
-//   buffering. Per step of 32 (or 16) queries: S^T = k q^T and dP^T = v dO^T
-//   (q and dO by ldmatrix), P^T = exp2(S^T log2 e - lse log2 e) and dS^T =
-//   P^T (dP^T - delta) in registers, rounded to bf16 in registers as the A
-//   operands of dV += P^T dO and dK += dS^T q (dO, q by ldmatrix.trans). dK
-//   and dV stay fp32 in registers and are written once. Only the last query
-//   tile masks queries past Lq.
+// * dq replaces `_splash_attention_bwd_dq` (`_flash_attention_dq_kernel`);
+// * dkv replaces `_splash_attention_bwd_dkv` (`_flash_attention_dkv_kernel`).
+//
+// Both are warp-specialised. One producer warp (of a producer warpgroup
+// that hands its registers to the consumers by setmaxnreg) loads every tile
+// by TMA into chunk-major shared tiles (splash_hopper.cuh) and signals it on
+// an mbarrier; consumer warpgroups of 64 rows run every product as an
+// asynchronous warpgroup wgmma (wgmma.cuh), keep their accumulators in
+// registers, and free a ring stage by an mbarrier arrival.
+//
+// * dq: one CTA per (head, DqShape::rows query rows). The CTA's q and dO
+//   rows arrive once; each consumer first sums delta = rowsum(dO * O) of its
+//   rows (dO from shared memory, O by 16-byte loads) and stores it for dkv.
+//   K / V tiles of 64 keys stream through a ring of stages. Per tile: S =
+//   q k^T and dP = dO v^T (both operands from shared memory, both issued
+//   before a wait), P = exp2(S log2 e - lse log2 e) in registers while dP
+//   runs, dS = P (dP - delta) rounded to bf16 in registers as the A operand
+//   of dq += dS k (k read MN-major from the same shared tile). dq stays fp32
+//   in registers and is written once.
+// * dkv: one CTA per (head, DkvShape::rows key rows); its k and v rows
+//   arrive once (and, up to DP = 80, stay in registers as A fragments).
+//   q / dO tiles stream through the ring with their -lse log2 e and delta,
+//   which the producer warp writes beside them (-inf and 0 past Lq, so no
+//   query past Lq counts and no lse or delta past Lq is read). Per tile:
+//   S^T = k q^T and dP^T = v dO^T, P^T in registers while dP^T runs, dS^T =
+//   P^T (dP^T - delta), then dV += P^T dO and dK += dS^T q in one group (dO,
+//   q read MN-major). The two consumers take turns at issuing (Turns), so
+//   one's exponentials run under the other's products. dK and dV stay fp32
+//   in registers and are written once.
 //
 // What bounds them: 6 D (dq) and 8 D (dkv) tensor-core flops per
-// exponential put their floor on the tensor cores, but they run far above
-// it, bound by the latency of their dependent mma chains: measured on an
-// H100, their time falls with every warp more per SM, so the shapes trade
-// tile rows for CTAs per SM within the registers. Every warp also reads each
-// walked tile from shared memory twice (plain and transposed).
+// exponential put the floor on the tensor cores at D = 64 (at D = 40 the
+// exponentials and the fp32 work per score come close). The design this
+// replaces (mma.sync fragments, cp.async, ldmatrix reads of every walked
+// tile by every warp) ran at 16-22% of that floor, bound by the latency of its
+// dependent mma chains. Here a product is one wgmma per k16 step for a
+// whole warpgroup, read straight from shared memory; a warpgroup's
+// exponentials overlap its own dP product and the other warpgroups'
+// products; no thread spends registers or instructions on loads. What
+// holds them above the floor now: the exponentials and fp32 work that
+// neither overlap fully, and shared-memory reads of the score products
+// (both operands at N = 64). Measured slower on an H100 and not kept: the
+// next tile's score products issued before this tile's last product lands
+// (it frees each ring stage a tile later), and dkv query tiles of 32 (128
+// spill above DP = 48).
+//
+// Head dims off 16 run on the DP = round-up(D, 16) instance: the tile's
+// chunks past D arrive as zeros by TMA's out-of-bounds fill (nothing extra
+// is read from memory), products run over DP, columns past D are never
+// stored. Rows past L arrive as zeros; keys past Lk are masked in dq,
+// queries past Lq in dkv (a zero key scores 0, not -inf).
 //
 // dkv reads the delta that dq wrote, so the two launch in that order on one
 // stream. Gradients are with respect to the pre-scaled q the forward saw;
 // the caller's autograd applies the scale's chain rule.
 
 #include "splash_common.cuh"
+#include "splash_hopper.cuh"
+#include "wgmma.cuh"
 
 namespace ssdt {
 
-// ---------------------------------------------------------------------------
-// dq: register tiles
+constexpr int kGroupRows = 64;  // rows of one consumer warpgroup (wgmma M)
 
-// Launch shape of each instance, chosen on an H100 by time and by the ptxas
-// report (no spill up to DP = 160; scripts/sweep_dq_shapes.py): warps per
-// CTA (16 query rows each), keys per KV tile, keys per dP / dS step, stages
-// of the KV ring and the CTAs per SM the registers must allow. The kernel is
-// latency-bound, so warps per SM matter most: up to DP = 64, 16 warps in
-// 128 registers each; at DP = 48 only 16-key steps keep a 64-key tile in
-// them. At DP = 80 such CTAs spill, so 3 CTAs of 4 warps.
-template <int DP>
-struct DqShape {
-  static constexpr int warps = DP <= 64 ? 8 : 4;
-  static constexpr int keys = DP <= 48 ? 64 : 32;
-  static constexpr int step = 16;
-  static constexpr int stages = 3;
-  static constexpr int min_blocks = DP <= 64 ? 2 : (DP <= 80 ? 3 : (DP <= 96 ? 2 : 1));
-  static constexpr int threads = warps * 32, rows = warps * kWarpRows;
+// setmaxnreg budget of NC > 1 consumer warpgroups beside the producer
+// group: the CTA launches at 65536 / threads registers a thread (a multiple
+// of 8), the producer group drops to 24 and the consumers share the rest,
+// at most 240 each (NC = 2: 384 * 168 = 128 * 24 + 256 * 240).
+template <int NC>
+struct Regs {
+  static constexpr int launch = 65536 / ((NC + 1) * 128) / 8 * 8, producer = 24;
+  static constexpr int share = (launch * (NC + 1) * 128 - 128 * producer) / (NC * 128) / 8 * 8;
+  static constexpr int consumer = share < 240 ? share : 240;
 };
 
+// Launch shape of each instance, chosen on an H100 by time and by the
+// ptxas report (scripts/sweep_dq_shapes.py): consumer warpgroups, keys per
+// K/V tile, stages of the ring. Three consumers of 64 query rows where
+// their 160 registers hold dq, the S and dP tiles and dS (DP <= 80); two
+// above. Turns at issuing (as dkv takes them) measured no faster here, so
+// dq takes none. q and dO stay in shared memory:
+// held in registers (OperandA<..., true>) they gave a wrong dq on an H100 at
+// DP = 64 with 64-key tiles (1.09 relative), though a right one at DP = 48
+// and 80 and with 128-key tiles, for 6% at most; the cause is not found.
 template <int DP>
-constexpr size_t dq_smem_bytes() {
-  using Shape = DqShape<DP>;
-  // q and dO rows of the CTA, then the ring: stage s holds K at 2s, V at 2s + 1
-  return (size_t)(2 * Shape::rows + Shape::stages * 2 * Shape::keys) * Tile<DP>::ld *
-         sizeof(bf16);
+struct DqShape {
+  static constexpr int consumers = DP <= 80 ? 3 : 2, keys = 64, stages = 3;
+  static constexpr int rows = consumers * kGroupRows, threads = (consumers + 1) * 128;
+};
+
+// Two consumers of 64 key rows up to DP = 96; above, where dK and dV alone
+// take DP registers a thread, one consumer, and at DP = 160 query tiles of
+// 32. `a_regs`: k and v, the A operands of S^T and dP^T, held in registers
+// as k16 fragments (loaded once) instead of read from shared memory by
+// every product; up to DP = 80, where they fit beside dK and dV. Two
+// consumers take turns at issuing their products (Turns).
+template <int DP>
+struct DkvShape {
+  static constexpr int consumers = DP <= 96 ? 2 : 1, queries = DP <= 128 ? 64 : 32;
+  static constexpr int stages = DP <= 96 ? 3 : 2;
+  static constexpr bool a_regs = DP <= 80;
+  static constexpr int rows = consumers * kGroupRows, threads = (consumers + 1) * 128;
+};
+
+struct BwdArgs {
+  const bf16* o;     // dq: the forward output, for delta
+  const float* lse;  // (B, H, Lq) fp32 logsumexp of the forward
+  float* delta;      // (B, H, Lq) fp32 rowsum(dO * O): written by dq, read by dkv
+  bf16* out;         // dq: dq; dkv: dk
+  bf16* out2;        // dkv: dv
+  int H, Lq, Lk, D;
+  Strides so, sout, sout2;
+};
+
+template <int NC>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (NC > 1) regs_dealloc<Regs<NC>::producer>();
+}
+template <int NC>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (NC > 1) regs_alloc<Regs<NC>::consumer>();
+}
+
+// Turns of dkv's NC consumer warpgroups at issuing products: group w
+// issues only after group w - 1 (mod NC) has issued its own, so the tensor
+// cores run one group's products while the others compute their
+// exponentials. Named barrier 1 + w: group w's 128 threads wait there for
+// the 128 of group w - 1; the last group's arrival at construction gives
+// group 0 the first turn. One group takes no turns.
+template <int NC>
+struct Turns {
+  int wg;
+  __device__ __forceinline__ explicit Turns(int group) : wg(group) {
+    if constexpr (NC > 1) {
+      if (wg == NC - 1) named_bar_arrive(1, 256);
+    }
+  }
+  __device__ __forceinline__ void take() const {
+    if constexpr (NC > 1) named_bar_sync(1 + wg, 256);
+  }
+  // last: this group's final turn, after which group 0 takes none.
+  __device__ __forceinline__ void pass(bool last) const {
+    if constexpr (NC > 1) {
+      if (!(last && wg == NC - 1)) named_bar_arrive(1 + (wg + 1) % NC, 256);
+    }
+  }
+};
+
+__device__ __forceinline__ void prefetch_maps(const CUtensorMap& q, const CUtensorMap& k,
+                                              const CUtensorMap& v, const CUtensorMap& dout) {
+  tma_prefetch_map(&q);
+  tma_prefetch_map(&k);
+  tma_prefetch_map(&v);
+  tma_prefetch_map(&dout);
 }
 
 // acc + x . y over 8 bf16 pairs, in order (each product is exact in fp32).
@@ -85,319 +171,494 @@ __device__ __forceinline__ float dot8_bf16(uint4 x, uint4 y, float acc) {
   return acc;
 }
 
-template <int DP>
-__global__ void __launch_bounds__(DqShape<DP>::threads, DqShape<DP>::min_blocks)
-    splash_dq_kernel(Args a) {
-  using Shape = DqShape<DP>;
-  constexpr int kThreads = Shape::threads, kRows = Shape::rows, kKeys = Shape::keys;
-  constexpr int kStages = Shape::stages, kStep = Shape::step;
-  constexpr int LD = Tile<DP>::ld, NT = DP / 8, SN = kKeys / 8;
-  constexpr int kTileElems = kKeys * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + kRows * LD;
-  bf16* sKV = sDO + kRows * LD;  // stage s: K at 2s, V at 2s + 1
+// A warpgroup's fixed A operand over the head dim (q or dO in dq, k or v in
+// dkv): its 64 rows of a chunk-major tile of RA rows, read by descriptor
+// (InRegs = false) or held as k16 register fragments loaded once by
+// ldmatrix (InRegs = true). times_bt: c = A B^T with B a K-major tile of N
+// rows; DP / 16 k16 steps.
+template <int DP, int RA, bool InRegs>
+struct OperandA;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * kRows;
-  const int D = a.D, Lq = a.Lq, Lk = a.Lk;
-  const bf16* k = head_ptr(a.k, a.sk, b, h);
-  const bf16* v = head_ptr(a.v, a.sv, b, h);
-  const int ntiles = (Lk + kKeys - 1) / kKeys;
-
-  auto load_kv = [&](int j) {
-    bf16* dst = sKV + (j % kStages) * 2 * kTileElems;
-    load_tile_async<kKeys, DP, kThreads>(dst, k, a.sk.l, j * kKeys, Lk, D);
-    load_tile_async<kKeys, DP, kThreads>(dst + kTileElems, v, a.sv.l, j * kKeys, Lk, D);
-  };
-  load_tile_async<kRows, DP, kThreads>(sQ, head_ptr(a.q, a.sq, b, h), a.sq.l, q0, Lq, D);
-  load_tile_async<kRows, DP, kThreads>(sDO, head_ptr(a.dout, a.sdo, b, h), a.sdo.l, q0, Lq, D);
-  load_kv(0);
-  cp_async_commit();
+template <int DP, int RA>
+struct OperandA<DP, RA, false> {
+  const unsigned char* rows;
+  __device__ __forceinline__ void load(const unsigned char* group_rows) { rows = group_rows; }
+  template <int N>
+  __device__ __forceinline__ void times_bt(float (&c)[N / 2], const unsigned char* b) const {
 #pragma unroll
-  for (int s = 1; s < kStages - 1; ++s) {
-    if (s < ntiles) load_kv(s);
-    cp_async_commit();
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<N>::template ss<0>(c, desc_kmajor<RA>(rows + kk * 2 * RA * 16),
+                               desc_kmajor<N>(b + kk * 2 * N * 16), kk > 0);
+  }
+};
+
+template <int DP, int RA>
+struct OperandA<DP, RA, true> {
+  uint32_t f[DP / 16][4];
+  // ldmatrix x4 per k16 step: lanes 0-15 address rows 0-15 of the warp's 16
+  // in chunk 2 kk, lanes 16-31 the same rows in chunk 2 kk + 1.
+  __device__ __forceinline__ void load(const unsigned char* group_rows) {
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const unsigned char* row = group_rows + (warp * 16 + (lane & 15)) * 16;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      ldsm_x4(f[kk], smem_u32(row + (2 * kk + (lane >> 4)) * RA * 16));
+  }
+  template <int N>
+  __device__ __forceinline__ void times_bt(float (&c)[N / 2], const unsigned char* b) const {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<N>::template rs<0>(c, f[kk], desc_kmajor<N>(b + kk * 2 * N * 16), kk > 0);
+  }
+};
+
+// acc += P W over the K rows of a tile: P in k16 register fragments, W the
+// K-row tile at `w` read MN-major (N = DP).
+template <int DP, int K>
+__device__ __forceinline__ void gemm_pw(float (&acc)[DP / 2], const uint32_t (&p)[K / 16][4],
+                                        const unsigned char* w) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    Wgmma<DP>::template rs<1>(acc, p[kk], desc_mnmajor<K>(w + kk * 256), 1);
+}
+
+// n8 accumulator tile n (rows g, g + 8; columns 8n + 2t, +1) packed as the
+// half of k16 fragment n / 2 it feeds.
+template <int N>
+__device__ __forceinline__ void pack_frag(uint32_t (&f)[N / 16][4], int n, float x0, float x1,
+                                          float x2, float x3) {
+  f[n / 2][(n & 1) * 2] = pack_bf16(x0, x1);
+  f[n / 2][(n & 1) * 2 + 1] = pack_bf16(x2, x3);
+}
+
+// One consumer thread's rows g, g + 8 of an accumulator over the head dim
+// as bf16 into rows row, row + 8 of a (B, H, L, D) view; rows past nrows and
+// columns past D are skipped.
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], bf16* dst, long long sl,
+                                           int row, int nrows, int D) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    if (n * 8 >= D) continue;
+    const int col = n * 8 + 2 * t;
+    if (row < nrows)
+      *reinterpret_cast<uint32_t*>(dst + (long long)row * sl + col) =
+          pack_bf16(acc[4 * n], acc[4 * n + 1]);
+    if (row + 8 < nrows)
+      *reinterpret_cast<uint32_t*>(dst + (long long)(row + 8) * sl + col) =
+          pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq
+
+template <int DP>
+constexpr size_t dq_smem_bytes() {
+  using S = DqShape<DP>;
+  // q and dO rows of the CTA, then the ring: K and V per stage; barriers
+  return (size_t)(2 * S::rows + S::stages * 2 * S::keys) * DP * 2 + (1 + 2 * S::stages) * 8;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(DqShape<DP>::threads, 1)
+    splash_dq_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mdo, BwdArgs a) {
+  using Shape = DqShape<DP>;
+  constexpr int NC = Shape::consumers, QR = Shape::rows, KT = Shape::keys, ST = Shape::stages;
+  constexpr uint32_t kRowsBytes = QR * DP * 2, kTileBytes = KT * DP * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sQ = smem;
+  unsigned char* sDO = sQ + kRowsBytes;
+  unsigned char* sKV = sDO + kRowsBytes;  // stage s: K at 2s, V at 2s + 1
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sKV + ST * 2 * kTileBytes);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * QR;
+  const int Lq = a.Lq, Lk = a.Lk, D = a.D;
+  const int ntiles = (Lk + KT - 1) / KT;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NC) {  // producer
+    producer_regs<NC>();
+    if (threadIdx.x != NC * 128) return;
+    prefetch_maps(mq, mk, mv, mdo);
+    mbar_expect_tx(qdo_full, 2 * kRowsBytes);
+    tma_load_5d(sQ, &mq, qdo_full, 0, q0, 0, h, b);
+    tma_load_5d(sDO, &mdo, qdo_full, 0, q0, 0, h, b);
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % ST;
+      if (j >= ST) mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+      unsigned char* dst = sKV + s * 2 * kTileBytes;
+      mbar_expect_tx(&full[s], 2 * kTileBytes);
+      tma_load_5d(dst, &mk, &full[s], 0, j * KT, 0, h, b);
+      tma_load_5d(dst + kTileBytes, &mv, &full[s], 0, j * KT, 0, h, b);
+    }
+    return;
   }
 
-  const int r0 = q0 + warp * kWarpRows;  // the warp's first query row
-  bf16* myQ = sQ + warp * kWarpRows * LD;
-  const bf16* myDO = sDO + warp * kWarpRows * LD;
-  // Rows g and g + 8 of the warp's 16: -lse log2 e and delta. Rows past Lq
-  // hold q = dO = 0 and lse = delta = 0, so their dS is 0.
-  const float* lse = a.lse + (long long)bh * Lq;
-  const float nl0 = r0 + g < Lq ? -lse[r0 + g] * kLog2e : 0.f;
-  const float nl1 = r0 + g + 8 < Lq ? -lse[r0 + g + 8] * kLog2e : 0.f;
+  consumer_regs<NC>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wg * kGroupRows + warp * 16;  // the warp's first row in the CTA's tile
+  const unsigned char* myQ = sQ + wg * kGroupRows * 16;
+  const unsigned char* myDO = sDO + wg * kGroupRows * 16;
 
-  cp_async_wait<kStages - 2>();  // q and dO (and KV tile 0) landed for this thread
-  __syncthreads();               // ... for all
+  // -lse log2 e of rows g and g + 8 (0 past Lq: those rows have q = dO = 0,
+  // so their dS is 0, and are never stored).
+  const float* lse = a.lse + (long long)bh * Lq;
+  const int rg = q0 + r0 + g;
+  const float nl0 = rg < Lq ? -lse[rg] * kLog2e : 0.f;
+  const float nl1 = rg + 8 < Lq ? -lse[rg + 8] * kLog2e : 0.f;
+
+  mbar_wait(qdo_full, 0);
+  OperandA<DP, QR, false> qa, doa;
+  qa.load(myQ);
+  doa.load(myDO);
   float dl0, dl1;
   {
     // delta = rowsum(dO * O) in fp32 over the bf16 values: lanes 2r and
-    // 2r + 1 take row r, each summing its 8-element chunks (c = its parity,
-    // c + 2, ...) in order; then the pair adds its two sums.
-    const int row = lane >> 1, half = lane & 1, grow = r0 + row;
+    // 2r + 1 take row r of the warp's 16, each summing its 8-column chunks
+    // (c = its parity, c + 2, ...) in order; then the pair adds its sums.
+    const int row = lane >> 1, half = lane & 1, grow = q0 + r0 + row;
     float d = 0.f;
     if (grow < Lq) {
-      const bf16* orow = head_ptr(a.o, a.so, b, h) + (long long)grow * a.so.l;
+      const bf16* orow = a.o + b * a.so.b + h * a.so.h + (long long)grow * a.so.l;
       for (int c = half; c < (D >> 3); c += 2)
         d = dot8_bf16(*reinterpret_cast<const uint4*>(orow + c * 8),
-                      *reinterpret_cast<const uint4*>(myDO + row * LD + c * 8), d);
+                      *reinterpret_cast<const uint4*>(sDO + (c * QR + r0 + row) * 16), d);
     }
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if (half == 0 && grow < Lq) a.delta[(long long)bh * Lq + grow] = d;
     dl0 = __shfl_sync(0xffffffffu, d, 2 * g);
     dl1 = __shfl_sync(0xffffffffu, d, 2 * g + 16);
   }
-  uint32_t qf[DP / 16][4], df[DP / 16][4];
-  load_a_frags<DP>(qf, myQ, D);
-  load_a_frags<DP>(df, myDO, D);
 
-  float dq[NT][4];
+  float dq[DP / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
 
   for (int j = 0; j < ntiles; ++j) {
-    cp_async_wait<kStages - 2>();  // tile j landed for this thread
-    __syncthreads();               // ... for all; tile j - 1's slot is free
-    if (j + kStages - 1 < ntiles) load_kv(j + kStages - 1);
-    cp_async_commit();
+    const int s = j % ST;
+    mbar_wait(&full[s], (j / ST) & 1);
+    const unsigned char* sK = sKV + s * 2 * kTileBytes;
+    const unsigned char* sV = sK + kTileBytes;
 
-    const bf16* sK = sKV + (j % kStages) * 2 * kTileElems;
-    const bf16* sV = sK + kTileElems;
-    // P over the whole tile: query rows g, g + 8 of the warp's 16 x keys
-    // 8 n + 2t, +1.
-    float p[SN][4];
-#pragma unroll
-    for (int n = 0; n < SN; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-    mma_abt<DP, SN>(p, qf, sK, D);
+    // S = q k^T and dP = dO v^T: rows g, g + 8 of the warp x keys 8n + 2t, +1.
+    float p[KT / 2], dp[KT / 2];
+    wgmma_fence();
+    qa.template times_bt<KT>(p, sK);
+    wgmma_commit();
+    doa.template times_bt<KT>(dp, sV);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(p);
 
-    const int k0 = j * kKeys;
-    if (k0 + kKeys > Lk) {  // the last tile: keys past Lk get P = 0
+    const int k0 = j * KT;
+    if (k0 + KT > Lk) {  // the last tile: keys past Lk get P = 0
 #pragma unroll
-      for (int n = 0; n < SN; ++n) {
+      for (int n = 0; n < KT / 8; ++n) {
         const int col = k0 + n * 8 + 2 * t;
-        if (col >= Lk) p[n][0] = p[n][2] = -INFINITY;
-        if (col + 1 >= Lk) p[n][1] = p[n][3] = -INFINITY;
+        if (col >= Lk) p[4 * n] = p[4 * n + 2] = -INFINITY;
+        if (col + 1 >= Lk) p[4 * n + 1] = p[4 * n + 3] = -INFINITY;
       }
     }
 #pragma unroll
-    for (int n = 0; n < SN; ++n) {
-      p[n][0] = exp2_approx(fmaf(p[n][0], kLog2e, nl0));
-      p[n][1] = exp2_approx(fmaf(p[n][1], kLog2e, nl0));
-      p[n][2] = exp2_approx(fmaf(p[n][2], kLog2e, nl1));
-      p[n][3] = exp2_approx(fmaf(p[n][3], kLog2e, nl1));
+    for (int n = 0; n < KT / 8; ++n) {
+      p[4 * n] = exp2_approx(fmaf(p[4 * n], kLog2e, nl0));
+      p[4 * n + 1] = exp2_approx(fmaf(p[4 * n + 1], kLog2e, nl0));
+      p[4 * n + 2] = exp2_approx(fmaf(p[4 * n + 2], kLog2e, nl1));
+      p[4 * n + 3] = exp2_approx(fmaf(p[4 * n + 3], kLog2e, nl1));
     }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t ds[KT / 16][4];
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n)
+      pack_frag<KT>(ds, n, p[4 * n] * (dp[4 * n] - dl0), p[4 * n + 1] * (dp[4 * n + 1] - dl0),
+                    p[4 * n + 2] * (dp[4 * n + 2] - dl1), p[4 * n + 3] * (dp[4 * n + 3] - dl1));
 
-    // dP, dS and dq += dS k one step of kStep keys at a time, so that only
-    // P stays live over the whole tile.
-#pragma unroll
-    for (int c = 0; c < kKeys; c += kStep) {
-      float dp[kStep / 8][4] = {};
-      mma_abt<DP, kStep / 8>(dp, df, sV + c * LD, D);
-      uint32_t ds[kStep / 16][4];  // dS as k16 A fragments over the step's keys
-#pragma unroll
-      for (int n = 0; n < kStep / 8; ++n) {
-        const float(&pn)[4] = p[c / 8 + n];
-        // n8 tile n: the low (n even) or high half of k16 step n / 2.
-        ds[n / 2][(n & 1) * 2] = pack_bf16(pn[0] * (dp[n][0] - dl0), pn[1] * (dp[n][1] - dl0));
-        ds[n / 2][(n & 1) * 2 + 1] =
-            pack_bf16(pn[2] * (dp[n][2] - dl1), pn[3] * (dp[n][3] - dl1));
-      }
-#pragma unroll
-      for (int kk = 0; kk < kStep / 16; ++kk)
-        mma_pw<DP>(dq, ds[kk], sK + (c + kk * 16) * LD, D);
-    }
+    fence_regs(dq);
+    wgmma_fence();
+    gemm_pw<DP, KT>(dq, ds, sK);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(&empty[s]);
   }
 
-  // Query rows past Lq are never written; the warp's own q rows stage dq.
-  __syncwarp();
-  warp_store_rows<DP>(dq, 1.f, 1.f, myQ, head_ptr(a.out, a.sout, b, h), a.sout.l, r0, Lq, D);
+  store_rows<DP>(dq, a.out + b * a.sout.b + h * a.sout.h, a.sout.l, q0 + r0 + g, Lq, D);
 }
 
 // ---------------------------------------------------------------------------
-// dkv: register tiles
+// dkv
 
-// Launch shape of each instance, chosen on an H100 by time and by the
-// ptxas report (no spill up to DP = 128): the kernel is latency-bound, so the
-// narrow instances take CTAs of 4 warps, as many per SM as their registers
-// allow, and every instance up to DP = 96 walks 32 queries per inner step
-// for more independent products per warp.
 template <int DP>
-struct DkvShape {
-  static constexpr int warps = DP <= 64 ? 4 : 8;  // 16 key rows each
-  static constexpr int step = DP <= 96 ? 32 : 16;  // queries of one inner step
-  static constexpr int min_blocks = DP <= 48 ? 3 : (DP <= 64 ? 2 : 1);  // CTAs per SM
-  static constexpr bool frags_in_regs = DP <= 96;  // k / v A fragments
-  static constexpr int threads = warps * 32, rows = warps * kWarpRows;
-};
+__host__ __device__ constexpr size_t dkv_stage_bytes() {
+  using S = DkvShape<DP>;
+  return (size_t)2 * S::queries * DP * 2 + 2 * S::queries * 4;  // q, dO, -lse log2 e, delta
+}
 
 template <int DP>
 constexpr size_t dkv_smem_bytes() {
-  // k and v rows of the CTA; per buffer a q and a dO tile, then lse and delta
-  return (size_t)(2 * DkvShape<DP>::rows + 2 * 2 * kWalk) * Tile<DP>::ld * sizeof(bf16) +
-         (size_t)2 * 2 * kWalk * sizeof(float);
+  using S = DkvShape<DP>;
+  return (size_t)2 * S::rows * DP * 2 + S::stages * dkv_stage_bytes<DP>() + (1 + 2 * S::stages) * 8;
 }
 
 template <int DP>
-__global__ void __launch_bounds__(DkvShape<DP>::threads, DkvShape<DP>::min_blocks)
-    splash_dkv_kernel(Args a) {
+__global__ void __launch_bounds__(DkvShape<DP>::threads, 1)
+    splash_dkv_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mdo, BwdArgs a) {
   using Shape = DkvShape<DP>;
-  constexpr int kDkvThreads = Shape::threads, kDkvRows = Shape::rows, kDkvStep = Shape::step;
-  constexpr int LD = Tile<DP>::ld, NT = DP / 8;
-  constexpr int kTileElems = kWalk * LD;
-  constexpr int SN = kDkvStep / 8;  // n8 query tiles of one step
-  constexpr bool kFragsInRegs = Shape::frags_in_regs;
+  constexpr int NC = Shape::consumers, KR = Shape::rows, QT = Shape::queries;
+  constexpr int ST = Shape::stages;
+  constexpr uint32_t kRowsBytes = KR * DP * 2, kTileBytes = QT * DP * 2;
+  constexpr uint32_t kStageBytes = dkv_stage_bytes<DP>();
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kDkvRows * LD;
-  bf16* sQD = sV + kDkvRows * LD;  // buffer s: q at 2s, dO at 2s + 1
-  float* sRow = reinterpret_cast<float*>(sQD + 2 * 2 * kTileElems);  // lse, delta
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + kRowsBytes;
+  unsigned char* sStages = sV + kRowsBytes;  // per stage: q, dO, -lse log2 e, delta
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sStages + ST * kStageBytes);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.x * kDkvRows;
-  const int D = a.D, Lq = a.Lq;
-  const bf16* q = head_ptr(a.q, a.sq, b, h);
-  const bf16* dout = head_ptr(a.dout, a.sdo, b, h);
-  const float* lse_g = a.lse + (long long)bh * Lq;
-  const float* delta_g = a.delta + (long long)bh * Lq;
-  const int ntiles = (Lq + kWalk - 1) / kWalk;
+  const int k0 = blockIdx.x * KR;
+  const int Lq = a.Lq;
+  const int ntiles = (Lq + QT - 1) / QT;
+  const int wg = threadIdx.x / 128;
 
-  auto load_q = [&](int j) {
-    const int s = j & 1;
-    bf16* dst = sQD + s * 2 * kTileElems;
-    load_tile_async<kWalk, DP, kDkvThreads>(dst, q, a.sq.l, j * kWalk, Lq, D);
-    load_tile_async<kWalk, DP, kDkvThreads>(dst + kTileElems, dout, a.sdo.l, j * kWalk, Lq, D);
-    for (int i = threadIdx.x; i < 2 * kWalk; i += kDkvThreads) {
-      const int which = i / kWalk;  // 0: lse, 1: delta
-      load_rowvec_async(sRow + (2 * s + which) * kWalk, which ? delta_g : lse_g, j * kWalk, Lq,
-                        i % kWalk);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes: row values, then the TMA
+      mbar_init(&empty[s], NC * 128);
     }
-  };
-  load_tile_async<kDkvRows, DP, kDkvThreads>(sK, head_ptr(a.k, a.sk, b, h), a.sk.l, k0, a.Lk, D);
-  load_tile_async<kDkvRows, DP, kDkvThreads>(sV, head_ptr(a.v, a.sv, b, h), a.sv.l, k0, a.Lk, D);
-  load_q(0);
-  cp_async_commit();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  bf16* myK = sK + warp * kWarpRows * LD;
-  bf16* myV = sV + warp * kWarpRows * LD;
-  uint32_t kf[DP / 16][4], vf[DP / 16][4];
-  float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  if (wg == NC) {  // producer
+    producer_regs<NC>();
+    if ((threadIdx.x >> 5) != NC * 4) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      prefetch_maps(mq, mk, mv, mdo);
+      mbar_expect_tx(kv_full, 2 * kRowsBytes);
+      tma_load_5d(sK, &mk, kv_full, 0, k0, 0, h, b);
+      tma_load_5d(sV, &mv, kv_full, 0, k0, 0, h, b);
+    }
+    const float* lse = a.lse + (long long)bh * Lq;
+    const float* delta = a.delta + (long long)bh * Lq;
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % ST;
+      if (j >= ST) mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+      unsigned char* st = sStages + s * kStageBytes;
+      float* nl = reinterpret_cast<float*>(st + 2 * kTileBytes);
+      float* dl = nl + QT;
+      for (int i = lane; i < QT; i += 32) {
+        const int row = j * QT + i;
+        nl[i] = row < Lq ? -lse[row] * kLog2e : -INFINITY;
+        dl[i] = row < Lq ? delta[row] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_5d(st, &mq, &full[s], 0, j * QT, 0, h, b);
+        tma_load_5d(st + kTileBytes, &mdo, &full[s], 0, j * QT, 0, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
 
+  consumer_regs<NC>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const unsigned char* myK = sK + wg * kGroupRows * 16;
+  const unsigned char* myV = sV + wg * kGroupRows * 16;
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  OperandA<DP, KR, Shape::a_regs> ka, va;
+  ka.load(myK);
+  va.load(myV);
+  const Turns<NC> turns(wg);
   for (int j = 0; j < ntiles; ++j) {
-    cp_async_wait<0>();  // tile j landed for this thread
-    __syncthreads();     // ... for all; the other buffer is free
-    if (j + 1 < ntiles) load_q(j + 1);
-    cp_async_commit();
-    if (kFragsInRegs && j == 0) {
-      load_a_frags<DP>(kf, myK, D);
-      load_a_frags<DP>(vf, myV, D);
+    const int s = j % ST;
+    mbar_wait(&full[s], (j / ST) & 1);
+    const unsigned char* sQ = sStages + s * kStageBytes;
+    const unsigned char* sDO = sQ + kTileBytes;
+    const float* nl = reinterpret_cast<const float*>(sQ + 2 * kTileBytes);
+    const float* dl = nl + QT;
+
+    // S^T = k q^T and dP^T = v dO^T: keys g, g + 8 of the warp x queries
+    // 8n + 2t, +1.
+    float st[QT / 2], dpt[QT / 2];
+    turns.take();
+    wgmma_fence();
+    ka.template times_bt<QT>(st, sQ);
+    wgmma_commit();
+    va.template times_bt<QT>(dpt, sDO);
+    wgmma_commit();
+    turns.pass(false);
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    uint32_t pa[QT / 16][4];  // P^T as k16 A fragments over the tile's queries
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      const float2 l = *reinterpret_cast<const float2*>(nl + n * 8 + 2 * t);
+      st[4 * n] = exp2_approx(fmaf(st[4 * n], kLog2e, l.x));
+      st[4 * n + 1] = exp2_approx(fmaf(st[4 * n + 1], kLog2e, l.y));
+      st[4 * n + 2] = exp2_approx(fmaf(st[4 * n + 2], kLog2e, l.x));
+      st[4 * n + 3] = exp2_approx(fmaf(st[4 * n + 3], kLog2e, l.y));
+      pack_frag<QT>(pa, n, st[4 * n], st[4 * n + 1], st[4 * n + 2], st[4 * n + 3]);
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    uint32_t da[QT / 16][4];  // dS^T likewise
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      const float2 d = *reinterpret_cast<const float2*>(dl + n * 8 + 2 * t);
+      pack_frag<QT>(da, n, st[4 * n] * (dpt[4 * n] - d.x), st[4 * n + 1] * (dpt[4 * n + 1] - d.y),
+                    st[4 * n + 2] * (dpt[4 * n + 2] - d.x),
+                    st[4 * n + 3] * (dpt[4 * n + 3] - d.y));
     }
 
-    const int s = j & 1;
-    const bf16* tQ = sQD + s * 2 * kTileElems;
-    const bf16* tDO = tQ + kTileElems;
-    const float* lse = sRow + 2 * s * kWalk;
-    const float* delta = lse + kWalk;
-    const int qbase = j * kWalk;
-    const bool tail = qbase + kWalk > Lq;  // mask queries past Lq
-#pragma unroll 1
-    for (int c = 0; c < kWalk; c += kDkvStep) {
-      if (!kFragsInRegs) {
-        load_a_frags<DP>(kf, myK, D);
-        load_a_frags<DP>(vf, myV, D);
-      }
-      // Keys g, g + 8 of the warp's 16 (rows) x queries c + 8 n + 2t, +1.
-      float st[SN][4], dpt[SN][4];
-#pragma unroll
-      for (int n = 0; n < SN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-      mma_abt<DP, SN>(st, kf, tQ + c * LD, D);
-      mma_abt<DP, SN>(dpt, vf, tDO + c * LD, D);
-
-      uint32_t pa[SN / 2][4], da[SN / 2][4];  // P^T, dS^T as k16 A fragments
-#pragma unroll
-      for (int n = 0; n < SN; ++n) {
-        const int qi = c + n * 8 + 2 * t;
-        const float2 ls = *reinterpret_cast<const float2*>(lse + qi);
-        const float2 dl = *reinterpret_cast<const float2*>(delta + qi);
-        const float n0 = -ls.x * kLog2e, n1 = -ls.y * kLog2e;
-        float p0 = exp2_approx(fmaf(st[n][0], kLog2e, n0));
-        float p1 = exp2_approx(fmaf(st[n][1], kLog2e, n1));
-        float p2 = exp2_approx(fmaf(st[n][2], kLog2e, n0));
-        float p3 = exp2_approx(fmaf(st[n][3], kLog2e, n1));
-        if (tail) {
-          if (qbase + qi >= Lq) p0 = p2 = 0.f;
-          if (qbase + qi + 1 >= Lq) p1 = p3 = 0.f;
-        }
-        // n8 tile n: the low (n even) or high half of k16 step n / 2.
-        pa[n / 2][(n & 1) * 2] = pack_bf16(p0, p1);
-        pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-        da[n / 2][(n & 1) * 2] = pack_bf16(p0 * (dpt[n][0] - dl.x), p1 * (dpt[n][1] - dl.y));
-        da[n / 2][(n & 1) * 2 + 1] =
-            pack_bf16(p2 * (dpt[n][2] - dl.x), p3 * (dpt[n][3] - dl.y));
-      }
-#pragma unroll
-      for (int kk = 0; kk < SN / 2; ++kk) {
-        mma_pw<DP>(dv, pa[kk], tDO + (c + kk * 16) * LD, D);
-        mma_pw<DP>(dk, da[kk], tQ + (c + kk * 16) * LD, D);
-      }
-    }
+    // dV += P^T dO and dK += dS^T q.
+    fence_regs(dv);
+    fence_regs(dk);
+    turns.take();
+    wgmma_fence();
+    gemm_pw<DP, QT>(dv, pa, sDO);
+    gemm_pw<DP, QT>(dk, da, sQ);
+    wgmma_commit();
+    turns.pass(j == ntiles - 1);
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&empty[s]);
   }
 
   // Key rows past Lk (k = v = 0) are never written.
-  const int row0 = k0 + warp * kWarpRows;
-  warp_store_rows<DP>(dk, 1.f, 1.f, myK, head_ptr(a.out, a.sout, b, h), a.sout.l, row0, a.Lk, D);
-  warp_store_rows<DP>(dv, 1.f, 1.f, myV, head_ptr(a.out2, a.sout2, b, h), a.sout2.l, row0, a.Lk,
-                      D);
+  const int row = k0 + wg * kGroupRows + warp * 16 + g;
+  store_rows<DP>(dk, a.out + b * a.sout.b + h * a.sout.h, a.sout.l, row, a.Lk, a.D);
+  store_rows<DP>(dv, a.out2 + b * a.sout2.b + h * a.sout2.h, a.sout2.l, row, a.Lk, a.D);
 }
 
-inline Args bwd_args(const void* q, const void* k, const void* v, const void* dout, int B, int H,
-                     int Lq, int Lk, int D) {
-  Args a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
-  a.B = B, a.H = H, a.Lq = Lq, a.Lk = Lk, a.D = D;
-  return a;
+// ---------------------------------------------------------------------------
+// Launch
+
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Encode the four tile maps (geo: 9 values per map, q k v dO): q and dO
+// with boxes of `q_rows` rows, k and v of `k_rows`.
+template <int DP>
+bool encode_maps(Maps& m, const void* const* ptrs, const long long* geo, int q_rows,
+                 int k_rows) {
+  return encode_tile_map(&m.q, ptrs[0], geo, q_rows, DP / 8) &&
+         encode_tile_map(&m.k, ptrs[1], geo + 9, k_rows, DP / 8) &&
+         encode_tile_map(&m.v, ptrs[2], geo + 18, k_rows, DP / 8) &&
+         encode_tile_map(&m.dout, ptrs[3], geo + 27, q_rows, DP / 8);
+}
+
+// Ready a kernel instance on the current device: its register count
+// checked (setmaxnreg.inc waits for registers the launch did not give, so a
+// build whose entry count would leave the consumers waiting forever is
+// refused) and its shared memory allowed. cudaSetDevice also makes the
+// device's primary context current in this thread (autograd runs the
+// backward on a thread of its own), which cuTensorMapEncodeTiled needs.
+template <int NC, typename Kernel>
+int ready_kernel(Kernel kernel, size_t smem) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (NC > 1 && attr.numRegs < Regs<NC>::launch) return (int)cudaErrorInvalidConfiguration;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+// ptrs: q, k, v, dO; q_rows, k_rows: their boxes' rows.
+template <int DP, int NC, typename Kernel>
+int launch_bwd(Kernel kernel, size_t smem, int rows, int rows_per_cta, int threads, int BH,
+               const void* const* ptrs, const long long* geo, int q_rows, int k_rows,
+               const BwdArgs& a, cudaStream_t stream) {
+  int err = ready_kernel<NC>(kernel, smem);
+  if (err != 0) return err;
+  Maps m;
+  if (!encode_maps<DP>(m, ptrs, geo, q_rows, k_rows)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((rows + rows_per_cta - 1) / rows_per_cta, BH);
+  kernel<<<grid, threads, smem, stream>>>(m.q, m.k, m.v, m.dout, a);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_dq(const void* const* ptrs, const long long* geo, const BwdArgs& a, int BH,
+              cudaStream_t s) {
+  using S = DqShape<DP>;
+  return launch_bwd<DP, S::consumers>(splash_dq_kernel<DP>, dq_smem_bytes<DP>(), a.Lq, S::rows,
+                                      S::threads, BH, ptrs, geo, S::rows, S::keys, a, s);
+}
+
+template <int DP>
+int launch_dkv(const void* const* ptrs, const long long* geo, const BwdArgs& a, int BH,
+               cudaStream_t s) {
+  using S = DkvShape<DP>;
+  return launch_bwd<DP, S::consumers>(splash_dkv_kernel<DP>, dkv_smem_bytes<DP>(), a.Lk,
+                                      S::rows, S::threads, BH, ptrs, geo, S::queries, S::rows,
+                                      a, s);
 }
 
 }  // namespace ssdt
 
 extern "C" {
 
-// strides: 18 values, (batch, head, row) for q, k, v, o, dO, dq, in elements.
+// strides: 6 values, (batch, head, row) for o and dq, in elements.
+// geo: 36 values, tma_geometry of q, k, v, dO (ops/splash.py).
 int ssdt_splash_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* delta, void* dq, int B, int H, int Lq, int Lk, int D,
-                   const long long* strides, void* stream) {
+                   const long long* strides, const long long* geo, void* stream) {
   using namespace ssdt;
-  Args a = bwd_args(q, k, v, dout, B, H, Lq, Lk, D);
+  BwdArgs a{};
   a.o = static_cast<const bf16*>(o);
-  a.lse = const_cast<float*>(static_cast<const float*>(lse));
+  a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.out = static_cast<bf16*>(dq);
-  a.sq = {strides[0], strides[1], strides[2]};
-  a.sk = {strides[3], strides[4], strides[5]};
-  a.sv = {strides[6], strides[7], strides[8]};
-  a.so = {strides[9], strides[10], strides[11]};
-  a.sdo = {strides[12], strides[13], strides[14]};
-  a.sout = {strides[15], strides[16], strides[17]};
+  a.H = H, a.Lq = Lq, a.Lk = Lk, a.D = D;
+  a.so = {strides[0], strides[1], strides[2]};
+  a.sout = {strides[3], strides[4], strides[5]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* ptrs[4] = {q, k, v, dout};
   switch (ssdt_padded_dim(D)) {
-#define SSDT_CASE(DP)                                                                          \
-  case DP:                                                                                     \
-    return launch_kernel(splash_dq_kernel<DP>, dq_smem_bytes<DP>(), Lq, DqShape<DP>::rows, \
-                         DqShape<DP>::threads, a, s);
+#define SSDT_CASE(DP) \
+  case DP:            \
+    return launch_dq<DP>(ptrs, geo, a, B * H, s);
     SSDT_FOR_EACH_DP(SSDT_CASE)
 #undef SSDT_CASE
     default:
@@ -405,28 +666,26 @@ int ssdt_splash_dq(const void* q, const void* k, const void* v, const void* o, c
   }
 }
 
-// strides: 18 values, (batch, head, row) for q, k, v, dO, dk, dv, in elements.
+// strides: 6 values, (batch, head, row) for dk and dv, in elements.
+// geo: 36 values, tma_geometry of q, k, v, dO (ops/splash.py).
 int ssdt_splash_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int B, int H, int Lq,
-                    int Lk, int D, const long long* strides, void* stream) {
+                    int Lk, int D, const long long* strides, const long long* geo, void* stream) {
   using namespace ssdt;
-  Args a = bwd_args(q, k, v, dout, B, H, Lq, Lk, D);
-  a.lse = const_cast<float*>(static_cast<const float*>(lse));
+  BwdArgs a{};
+  a.lse = static_cast<const float*>(lse);
   a.delta = const_cast<float*>(static_cast<const float*>(delta));
   a.out = static_cast<bf16*>(dk);
   a.out2 = static_cast<bf16*>(dv);
-  a.sq = {strides[0], strides[1], strides[2]};
-  a.sk = {strides[3], strides[4], strides[5]};
-  a.sv = {strides[6], strides[7], strides[8]};
-  a.sdo = {strides[9], strides[10], strides[11]};
-  a.sout = {strides[12], strides[13], strides[14]};
-  a.sout2 = {strides[15], strides[16], strides[17]};
+  a.H = H, a.Lq = Lq, a.Lk = Lk, a.D = D;
+  a.sout = {strides[0], strides[1], strides[2]};
+  a.sout2 = {strides[3], strides[4], strides[5]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* ptrs[4] = {q, k, v, dout};
   switch (ssdt_padded_dim(D)) {
-#define SSDT_CASE(DP)                                                                   \
-  case DP:                                                                              \
-    return launch_kernel(splash_dkv_kernel<DP>, dkv_smem_bytes<DP>(), Lk, DkvShape<DP>::rows, \
-                         DkvShape<DP>::threads, a, s);
+#define SSDT_CASE(DP) \
+  case DP:            \
+    return launch_dkv<DP>(ptrs, geo, a, B * H, s);
     SSDT_FOR_EACH_DP(SSDT_CASE)
 #undef SSDT_CASE
     default:

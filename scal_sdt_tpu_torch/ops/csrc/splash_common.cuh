@@ -6,35 +6,33 @@
 // over (B, H, L, D) bf16 views, q already scaled by D^-0.5 and rounded to
 // bf16 by the caller, fp32 running max/sum, logsumexp saved for the backward.
 //
-// One design, register-resident tiles (splash_fwd.cu, splash_bwd.cu). Every
-// product is `mma.sync.m16n8k16` (bf16 in, fp32 accumulate; one `m16n8k8`
-// step where D % 16 == 8, so D = 40 runs unpadded) with operands read from
-// shared memory by `ldmatrix` (`.trans` where the operand is K-major).
-// Scores, probabilities and the output accumulators stay in registers; the
-// accumulators of two adjacent n8 tiles of m16n8k16 are laid out as one k16
-// A fragment of the next product, so P (or dS) goes from registers straight
-// into it. Tiles of the walked operand come in by 16-byte `cp.async` copies
-// into a ring of stages, so the next tile's load overlaps this tile's
-// products. A warp owns 16 rows; a CTA 128 rows (forward) or 64-128 (dq,
-// dkv): the more rows, the fewer L2 reads of the walked operand, the fewer
-// CTAs fit on an SM.
+// The forward (splash_fwd.cu) runs on register-resident tiles, the pieces
+// below: every product is `mma.sync.m16n8k16` (bf16 in, fp32 accumulate;
+// one `m16n8k8` step where D % 16 == 8, so D = 40 runs unpadded) with
+// operands read from shared memory by `ldmatrix` (`.trans` where the
+// operand is K-major). Scores, probabilities and the output accumulators
+// stay in registers; the accumulators of two adjacent n8 tiles of m16n8k16
+// are laid out as one k16 A fragment of the next product, so P goes from
+// registers straight into it. Tiles of the walked operand come in by
+// 16-byte `cp.async` copies into a ring of stages, so the next tile's load
+// overlaps this tile's products. A warp owns 16 rows, a CTA 128. The
+// backward (splash_bwd.cu) takes from here only the contract, the head-dim
+// instances and the small helpers; its tiles, loads and products are
+// Hopper's own (splash_hopper.cuh: TMA, mbarriers, wgmma).
 //
-// What bounds them on an H100: at L = 4096 all three are far above the
-// 295 flop/byte ridge, so HBM is not the limit. At D = 40 the forward does
-// 4*D = 160 tensor-core flops per exponential, and the exponential unit (16
-// results per clock per SM) is slower than the tensor cores: it is the
-// forward's floor. The design spends one FFMA per score on the exponent
-// (log2 e folded in), and the exponentials of one warp overlap the products
-// of others. The backward kernels do 6*D and 8*D flops per exponential and
-// their floor is the tensor cores; what holds them above it is the latency
-// of dependent products at the warps per SM their registers allow, and the
-// shared-memory reads of the walked tile by every warp.
+// What bounds the forward on an H100: at L = 4096 it is far above the 295
+// flop/byte ridge, so HBM is not the limit. At D = 40 it does 4*D = 160
+// tensor-core flops per exponential, and the exponential unit (16 results
+// per clock per SM) is slower than the tensor cores: it is the forward's
+// floor. The design spends one FFMA per score on the exponent (log2 e
+// folded in), and the exponentials of one warp overlap the products of
+// others.
 //
-// Layout: q/k/v/o/do/dq/dk/dv are addressed through (batch, head, row)
-// strides in elements with a unit stride over D, so the head-split views of
+// Layout: q/k/v/o are addressed through (batch, head, row) strides in
+// elements with a unit stride over D, so the head-split views of
 // ops/attention.py need no copy. A compiled instance DP (a multiple of 16)
 // serves every D in (DP - 16, DP] (and D = 104..112, 136..144 on 128, 160).
-// The kernels keep D unpadded: in shared memory a row holds DP/8 16-byte
+// The forward keeps D unpadded: in shared memory a row holds DP/8 16-byte
 // chunks, padded to an odd count, so the 8 rows one `ldmatrix` reads fall in
 // 8 different bank groups, and chunks past D are neither loaded nor read.
 // Rows past L are zero-filled on load, masked in the softmax and never
@@ -61,18 +59,15 @@ struct Strides {
   long long b, h, l;
 };
 
+// The forward's arguments.
 struct Args {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  const bf16* o;     // forward output (read by dq for delta)
-  const bf16* dout;  // dO
-  bf16* out;         // fwd: O; dq: dq; dkv: dk
-  bf16* out2;        // dkv: dv
-  float* lse;        // (B, H, Lq) fp32, written by fwd
-  float* delta;      // (B, H, Lq) fp32, rowsum(dO * O), written by dq
+  bf16* out;    // O
+  float* lse;   // (B, H, Lq) fp32
   int B, H, Lq, Lk, D;
-  Strides sq, sk, sv, so, sdo, sout, sout2;
+  Strides sq, sk, sv, so;
 };
 
 __device__ __forceinline__ const bf16* head_ptr(const bf16* p, Strides s, int b, int h) {
@@ -86,7 +81,6 @@ __device__ __forceinline__ bf16* head_ptr(bf16* p, Strides s, int b, int h) {
 // Register tiles
 
 constexpr int kWarpRows = 16;  // rows each warp owns (one m16 tile)
-constexpr int kWalk = 64;      // rows of each walked tile
 
 // Row stride in elements of a bf16 tile in shared memory: DP/8 16-byte
 // chunks, made odd.
@@ -104,11 +98,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16-byte async copy; src_bytes = 0 zero-fills the destination.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }
@@ -136,14 +125,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long
     const bf16* p = src + (long long)(in ? row0 + r : 0) * sl + c * 8;
     cp_async16(smem_addr(dst + r * LD + c * 8), p, in ? 16 : 0);
   }
-}
-
-// Copy 64 fp32 row values [row0, row0 + 64) of one (B, H, L) vector;
-// values past nrows are zero-filled.
-__device__ __forceinline__ void load_rowvec_async(float* dst, const float* src, int row0,
-                                                  int nrows, int tid) {
-  const bool in = row0 + tid < nrows;
-  cp_async4(smem_addr(dst + tid), src + (in ? row0 + tid : 0), in ? 4 : 0);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -212,20 +193,20 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[DP / 16][4], const bf
   }
 }
 
-// One warp: acc[n] (n8 tile n of 16 walked rows, N = 2 or 8 tiles) +=
+// One warp: acc[n] (n8 tile n of 16 walked rows, N = 4 or 8 tiles) +=
 // A[16 x D] * W^T, with W the walked rows of a shared tile (row stride
 // Tile<DP>::ld, rows w0 ...) and A in k16 fragments from load_a_frags.
 template <int DP, int N>
 __device__ __forceinline__ void mma_abt(float (&acc)[N][4], const uint32_t (&a)[DP / 16][4],
                                         const bf16* w, int D) {
   constexpr int LD = Tile<DP>::ld;
-  static_assert(N % 2 == 0, "pairs of n8 tiles");
+  static_assert(N % 4 == 0, "quads of n8 tiles");
   const int lane = threadIdx.x & 31;
   // x4 over two n8 tiles x k16: matrices (n 0-7, k 0-7), (n 0-7, k 8-15),
   // (n 8-15, k 0-7), (n 8-15, k 8-15).
   const uint32_t pair = smem_addr(w + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8);
-  // k8 step: one matrix per n8 tile, (n 0-7, k 0-7) ... of 2 or 4 tiles.
-  const uint32_t single = smem_addr(w + (lane & (N >= 4 ? 31 : 15)) * LD);
+  // k8 step: one matrix per n8 tile, (n 0-7, k 0-7) ... of 4 tiles.
+  const uint32_t single = smem_addr(w + (lane & 31) * LD);
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     if (kk * 16 + 16 <= D) {
@@ -237,19 +218,12 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N][4], const uint32_t (&a)[
         mma_k16(acc[n + 1], a[kk], b[2], b[3]);
       }
     } else if (kk * 16 + 8 <= D) {
-      if constexpr (N >= 4) {
 #pragma unroll
-        for (int n = 0; n < N; n += 4) {
-          uint32_t b[4];
-          ldsm_x4(b, single + 2 * (n * 8 * LD + kk * 16));
+      for (int n = 0; n < N; n += 4) {
+        uint32_t b[4];
+        ldsm_x4(b, single + 2 * (n * 8 * LD + kk * 16));
 #pragma unroll
-          for (int i = 0; i < 4; ++i) mma_k8(acc[n + i], a[kk][0], a[kk][1], b[i]);
-        }
-      } else {
-        uint32_t b0, b1;
-        ldsm_x2(b0, b1, single + 2 * kk * 16);
-        mma_k8(acc[0], a[kk][0], a[kk][1], b0);
-        mma_k8(acc[1], a[kk][0], a[kk][1], b1);
+        for (int i = 0; i < 4; ++i) mma_k8(acc[n + i], a[kk][0], a[kk][1], b[i]);
       }
     }
   }

@@ -9,6 +9,10 @@ by a ``torch.autograd.Function``:
 * ``splash_dq``   -> (dq, delta=rowsum(dO*O)) csrc/splash_bwd.cu
 * ``splash_dkv``  -> (dk, dv)                 csrc/splash_bwd.cu
 
+The forward runs on ``mma.sync`` register tiles; the backward pair on
+Hopper's warpgroup ``wgmma`` with its tiles loaded by TMA (one tensor map
+per operand, whose geometry ``tma_geometry`` computes here).
+
 Inputs are (B, H, L, D) bf16 views with a unit stride over D (the head-split
 views of ``ops/attention.py`` go in without a copy); D is a multiple of 8 and
 at most 160. The kernels bound ragged L tails themselves, so any length runs,
@@ -22,6 +26,7 @@ one to the other.
 
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
@@ -109,20 +114,19 @@ def splash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return splash_fwd_reference(_prescale(q, scale), k, v)[0]
 
 
-def _check(name: str, t: torch.Tensor) -> None:
+def _check(name: str, t: torch.Tensor) -> tuple[int, ...]:
+    """A forward operand (and dq's o, read by 16-byte loads); its strides."""
     if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 4:
         raise TypeError(f"splash kernel: {name} must be a 4-d bf16 CUDA tensor, "
                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+    st = t.stride()
+    if st[3] != 1 or st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16:
         raise ValueError(f"splash kernel: {name} needs a unit stride over D and "
-                         f"16-byte aligned rows, got strides {t.stride()}")
+                         f"16-byte aligned rows, got strides {st}")
+    return st
 
 
-def _check_inputs(q, k, v) -> tuple[int, int, int, int, int]:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t)
-        if t.device != q.device:
-            raise ValueError(f"splash kernel: {name} on {t.device}, q on {q.device}")
+def _check_shapes(q, k, v) -> tuple[int, int, int, int, int]:
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if k.shape != (b, h, lk, d) or v.shape != k.shape:
@@ -135,6 +139,14 @@ def _check_inputs(q, k, v) -> tuple[int, int, int, int, int]:
     return b, h, lq, lk, d
 
 
+def _check_inputs(q, k, v) -> tuple[int, int, int, int, int]:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t)
+        if t.device != q.device:
+            raise ValueError(f"splash kernel: {name} on {t.device}, q on {q.device}")
+    return _check_shapes(q, k, v)
+
+
 def _check_rows(name: str, t: torch.Tensor, ref: torch.Tensor, shape) -> None:
     """lse / delta: contiguous fp32 (B, H, Lq) on q's device."""
     if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
@@ -143,10 +155,39 @@ def _check_rows(name: str, t: torch.Tensor, ref: torch.Tensor, shape) -> None:
                          f"{ref.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+TMA_MAX_STRIDE = 1 << 40   # a tensor map's byte strides: multiples of 16 below this
+
+
+def tma_geometry(t: torch.Tensor) -> list[int]:
+    """The backward kernels' TMA tensor map of a (B, H, L, D) bf16 view: dims
+    (8, L, D/8, H, B) and the byte strides of dims 1-4 (row, the 16-byte
+    chunk of 8 columns, head, batch). One box of that map is a chunk-major
+    tile (``csrc/splash_hopper.cuh``). Raises ValueError for a view TMA
+    cannot address: no unit stride over D, D not a multiple of 8, a base
+    not 16-byte aligned, or a stride of a dim longer than 1 that is not a
+    positive multiple of 16 bytes below 2**40 (a dim of length 1 takes any
+    stride: its coordinate is always 0)."""
+    b, h, l, d = t.shape
+    sb, sh, sl, sd = t.stride()
+    es = t.element_size()
+    if sd != 1 or d % 8 or t.data_ptr() % 16:
+        raise ValueError(f"splash kernel: TMA needs a unit stride over D (a multiple of 8) and "
+                         f"a 16-byte aligned base, got strides {t.stride()}, D = {d}")
+    geo = [8, l, d // 8, h, b, sl * es if l > 1 else 16, 16, sh * es if h > 1 else 16,
+           sb * es if b > 1 else 16]
+    for name, nbytes in (("row", geo[5]), ("head", geo[7]), ("batch", geo[8])):
+        if nbytes <= 0 or nbytes % 16 or nbytes >= TMA_MAX_STRIDE:
+            raise ValueError(f"splash kernel: TMA cannot address a {name} stride of "
+                             f"{nbytes // es} elements (needs a positive multiple of 16 bytes "
+                             f"below 2**40)")
+    return geo
+
+
 def _like_heads(b: int, h: int, length: int, d: int, ref: torch.Tensor) -> torch.Tensor:
     """(B, H, L, D) output whose memory is (B, L, H, D): merging heads after
     it is a free view."""
-    return torch.empty(b, length, h, d, dtype=ref.dtype, device=ref.device).transpose(1, 2)
+    return torch.empty_strided((b, h, length, d), (length * h * d, d, h * d, 1),
+                               dtype=ref.dtype, device=ref.device)
 
 
 def _strides(*ts: torch.Tensor):
@@ -154,8 +195,46 @@ def _strides(*ts: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+_MAPS = ctypes.c_longlong * 36
+
+
+def _check_bwd(qs, k, v, do):
+    """The backward's four TMA operands q, k, v, dO: bf16 CUDA tensors on one
+    device that TMA can address, of matching shapes. Returns (b, h, lq, lk,
+    d) and their tensor maps' geometry (9 values each), built with one
+    stride read per operand (a launch's host time bounds the small forms)."""
+    geo = []
+    for name, t in (("q", qs), ("k", k), ("v", v), ("do", do)):
+        if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 4:
+            raise TypeError(f"splash kernel: {name} must be a 4-d bf16 CUDA tensor, "
+                            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.device != qs.device:
+            raise ValueError(f"splash kernel: {name} on {t.device}, q on {qs.device}")
+        geo += tma_geometry(t)
+    if do.shape != qs.shape:
+        raise ValueError(f"splash kernel: do {tuple(do.shape)} != q {tuple(qs.shape)}")
+    return _check_shapes(qs, k, v), _MAPS.from_buffer(array.array("q", geo))
+
+
+_LL6 = ctypes.c_longlong * 6   # (batch, head, row) strides of two views
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device: int) -> int:
+    """The current CUDA stream's handle on ``device``."""
+    if _raw_stream is not None:
+        return _raw_stream(device)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _call(fn, device: int, *args) -> int:
+    """fn(*args, stream) with ``device`` current (entered only when it is not)."""
+    if device == torch.cuda.current_device():
+        return fn(*args, _stream(device))
+    with torch.cuda.device(device):
+        return fn(*args, _stream(device))
 
 
 def splash_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -165,10 +244,9 @@ def splash_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     lib = _build.load_library()
     o = _like_heads(b, h, lq, d, qs)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=qs.device)
-    with torch.cuda.device(qs.device):
-        err = lib.ssdt_splash_fwd(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                  lse.data_ptr(), b, h, lq, lk, d, _strides(qs, k, v, o),
-                                  _stream())
+    err = _call(lib.ssdt_splash_fwd, qs.get_device(), qs.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, lq, lk, d,
+                _strides(qs, k, v, o))
     _build.check(lib, "splash_fwd", err)
     launches["splash_fwd"] += 1
     return o, lse
@@ -176,19 +254,19 @@ def splash_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def splash_dq(qs, k, v, o, do, lse) -> tuple[torch.Tensor, torch.Tensor]:
     """dq kernel: (dq w.r.t. the pre-scaled q, delta fp32 (B,H,Lq))."""
-    b, h, lq, lk, d = _check_inputs(qs, k, v)
-    for name, t in (("o", o), ("do", do)):
-        _check(name, t)
-        if t.shape != qs.shape:
-            raise ValueError(f"splash kernel: {name} {tuple(t.shape)} != q {tuple(qs.shape)}")
+    (b, h, lq, lk, d), geo = _check_bwd(qs, k, v, do)
+    so = _check("o", o)
+    if o.shape != qs.shape or o.device != qs.device:
+        raise ValueError(f"splash kernel: o {tuple(o.shape)} on {o.device} != q "
+                         f"{tuple(qs.shape)} on {qs.device}")
     _check_rows("lse", lse, qs, (b, h, lq))
     lib = _build.load_library()
     dq = _like_heads(b, h, lq, d, qs)
     delta = torch.empty(b, h, lq, dtype=torch.float32, device=qs.device)
-    with torch.cuda.device(qs.device):
-        err = lib.ssdt_splash_dq(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                                 b, h, lq, lk, d, _strides(qs, k, v, o, do, dq), _stream())
+    strides = _LL6(*so[:3], lq * h * d, d, h * d)   # o, and dq as _like_heads lays it out
+    err = _call(lib.ssdt_splash_dq, qs.get_device(), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                b, h, lq, lk, d, strides, geo)
     _build.check(lib, "splash_dq", err)
     launches["splash_dq"] += 1
     return dq, delta
@@ -196,29 +274,28 @@ def splash_dq(qs, k, v, o, do, lse) -> tuple[torch.Tensor, torch.Tensor]:
 
 def splash_dkv(qs, k, v, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
     """dkv kernel: (dk, dv); reads the delta that ``splash_dq`` wrote."""
-    b, h, lq, lk, d = _check_inputs(qs, k, v)
-    _check("do", do)
-    if do.shape != qs.shape:
-        raise ValueError(f"splash kernel: do {tuple(do.shape)} != q {tuple(qs.shape)}")
+    (b, h, lq, lk, d), geo = _check_bwd(qs, k, v, do)
     _check_rows("lse", lse, qs, (b, h, lq))
     _check_rows("delta", delta, qs, (b, h, lq))
     lib = _build.load_library()
     dk = _like_heads(b, h, lk, d, k)
     dv = _like_heads(b, h, lk, d, v)
-    with torch.cuda.device(qs.device):
-        err = lib.ssdt_splash_dkv(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                  b, h, lq, lk, d, _strides(qs, k, v, do, dk, dv), _stream())
+    err = _call(lib.ssdt_splash_dkv, qs.get_device(), qs.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, h, lq, lk, d, _LL6(*(lk * h * d, d, h * d) * 2), geo)
     _build.check(lib, "splash_dkv", err)
     launches["splash_dkv"] += 1
     return dk, dv
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """An incoming gradient with a layout the kernels cannot address is
-    copied once (the UNet's gradients arrive addressable and are not)."""
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        return t.contiguous()
+    """A backward operand TMA cannot address (``tma_geometry``) is copied
+    once into fresh, aligned memory; the UNet's and the MMDiT's tensors
+    arrive addressable and are not."""
+    try:
+        tma_geometry(t)
+    except ValueError:
+        return t.clone(memory_format=torch.contiguous_format)
     return t
 
 
@@ -232,7 +309,7 @@ class _SplashFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qs, k, v, o, lse = ctx.saved_tensors
-        do = _kernel_ready(do)
+        qs, k, v, do = (_kernel_ready(t) for t in (qs, k, v, do))
         dq, delta = splash_dq(qs, k, v, o, do, lse)
         dk, dv = splash_dkv(qs, k, v, do, lse, delta)
         return dq, dk, dv

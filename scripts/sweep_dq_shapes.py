@@ -1,24 +1,29 @@
-"""Time launch shapes of the splash dq kernel on one CUDA card.
+"""Time launch shapes of the splash backward kernels (dq and dkv) on one CUDA card.
 
 Run from the repository root, on the card:
 
-    python3 -m scripts.sweep_dq_shapes [--rounds 3] [--dp48 W,K,S,B,T ...]
-        [--dp80 W,K,S,B,T ...]
+    python3 -m scripts.sweep_dq_shapes [--rounds 3] [--variant SPEC ...]
 
-A shape is W warps per CTA, K keys per KV tile, S stages of the KV ring, B
-CTAs per SM for ``__launch_bounds__`` and T keys per dP / dS step
-(``DqShape`` in ``scal_sdt_tpu_torch/ops/csrc/splash_bwd.cu``). Variant i
-takes the i-th shape of each list (the shorter list repeats its last); the
-tree's own ``DqShape`` runs as variant "tree". Each variant is a copy of ``ops/csrc``
-whose ``DqShape`` gets explicit specializations for DP = 48 and DP = 80,
-built (splash_fwd.cu and splash_bwd.cu, every variant at once) into
-``ops/build/sweep/``. Then at the main path's shapes (8,8,4096,40) and
-(8,8,1024,80) each variant's ``splash_dq`` is held once against the plain
-version (dq 1.5e-2 relative, delta 1e-5 of its largest entry) and timed by
-CUDA events, the variants in turns, the order reversed every other round.
+A SPEC is a space-separated list of items KERNEL DP=FIELDS, for example
+"dq48=3,64,3 dkv48=2,64,3,1". The fields are those of the kernel's shape
+struct in ``scal_sdt_tpu_torch/ops/csrc/splash_bwd.cu``: for ``DqShape``
+consumer warpgroups, keys per K/V tile and stages of the ring; for
+``DkvShape`` consumer warpgroups, queries per q/dO tile, stages and a_regs
+(0 or 1: k and v, the A operands of the score products, in registers). Each variant
+is a copy of ``ops/csrc`` whose ``splash_bwd.cu`` gets one explicit
+specialization per item right after the primary template;
+the tree's own shapes run as variant "tree". All variants are built at once
+(splash_fwd.cu and splash_bwd.cu) into ``ops/build/sweep/``. Then at the
+form of every head dim a variant names (``FORMS``: SD1.5's (8,8,4096,40) and
+(8,8,1024,80), SD3's (2,24,4250,64)) each variant's ``splash_dq`` and
+``splash_dkv`` are held once against the plain versions (gradients 1.5e-2
+relative, delta 1e-5 of its largest entry) and timed by CUDA events, the
+variants in turns, the order reversed every other round; a variant that
+disagrees is reported and not timed at that form.
 
-Prints one line per variant (ptxas registers and spill bytes of the dq
-instances, ms per call per round) and writes chiprun_out/sweep_dq_shapes.json.
+Prints one line per variant (ptxas registers and spill bytes of the dq and
+dkv instances, ms per call per round) and writes sweep_dq_shapes.json into
+chip_smoke.py's output directory.
 """
 
 from __future__ import annotations
@@ -37,34 +42,59 @@ import torch
 import chip_smoke
 from scal_sdt_tpu_torch.ops import _build, splash
 
-SHAPES = {48: (8, 8, 4096, 40), 80: (8, 8, 1024, 80)}
-DEFAULT = {48: ["8,64,3,2,32", "8,64,3,2,64", "4,64,3,4,16", "8,32,3,2,16"],
-           80: ["8,32,3,2,16", "4,32,3,3,32", "4,32,3,4,16", "4,64,3,2,16"]}
+FORMS = {48: (8, 8, 4096, 40), 64: (2, 24, 4250, 64), 80: (8, 8, 1024, 80)}
+DEFAULT = ["dq48=2,64,3 dkv48=2,64,3,0 dq64=2,64,3 dkv64=2,64,3,0 dq80=2,64,3 "
+           "dkv80=2,64,3,0"]
 SWEEP_DIR = _build.BUILD_DIR / "sweep"
 SPLASH_ENTRIES = ("ssdt_splash_fwd", "ssdt_splash_dq", "ssdt_splash_dkv")
+# kernel -> (shape struct, its tile field, its flags in spec order)
+STRUCTS = {"dq": ("DqShape", "keys", ()),
+           "dkv": ("DkvShape", "queries", ("a_regs",))}
 
 
-def specialization(dp: int, shape: str) -> str:
-    warps, keys, stages, min_blocks, step = (int(x) for x in shape.split(","))
-    return (f"template <>\nstruct DqShape<{dp}> {{\n"
-            f"  static constexpr int warps = {warps}, keys = {keys}, stages = {stages};\n"
-            f"  static constexpr int min_blocks = {min_blocks}, step = {step};\n"
-            f"  static constexpr int threads = warps * 32, rows = warps * kWarpRows;\n}};\n")
+def parse_spec(spec: str) -> dict[tuple[str, int], str]:
+    """"dq48=3,64,3 dkv80=2,64,3,1" -> {("dq", 48): "3,64,3",
+    ("dkv", 80): "2,64,3,1"}."""
+    out = {}
+    for item in spec.split():
+        m = re.fullmatch(r"(dq|dkv)(\d+)=(\d+),(\d+),(\d+)((?:,[01])*)", item)
+        if m is None or len(m.group(6)) // 2 != len(STRUCTS[m.group(1)][2]):
+            raise ValueError(f"bad variant item {item!r} (want e.g. dq48=3,64,3 or "
+                             f"dkv48=2,64,3,1)")
+        out[(m.group(1), int(m.group(2)))] = ",".join(m.groups()[2:5]) + m.group(6)
+    return out
 
 
-def make_variant(name: str, shapes: dict[int, str] | None) -> Path:
-    """A copy of ops/csrc with DqShape specialized to ``shapes`` (None: as is)."""
+def specialization(kernel: str, dp: int, fields: str) -> str:
+    struct, tile, flags = STRUCTS[kernel]
+    consumers, rows, stages, *values = fields.split(",")
+    bools = ", ".join(f"{f} = {'true' if v == '1' else 'false'}" for f, v in zip(flags, values))
+    return (f"template <>\nstruct {struct}<{dp}> {{\n"
+            f"  static constexpr int consumers = {consumers}, {tile} = {rows}, "
+            f"stages = {stages};\n"
+            + (f"  static constexpr bool {bools};\n" if bools else "") +
+            f"  static constexpr int rows = consumers * kGroupRows, "
+            f"threads = (consumers + 1) * 128;\n}};\n")
+
+
+def make_variant(name: str, items: dict[tuple[str, int], str] | None) -> Path:
+    """A copy of ops/csrc with DqShape / DkvShape specialized to ``items``
+    (None: as is)."""
     src = SWEEP_DIR / name / "csrc"
     shutil.rmtree(src.parent, ignore_errors=True)
     shutil.copytree(_build.CSRC, src)
-    if shapes:
+    if items:
         path = src / "splash_bwd.cu"
         text = path.read_text()
-        primary = re.search(r"struct DqShape \{.*?\n\};\n", text, re.S)
-        if primary is None:
-            raise RuntimeError("DqShape not found in splash_bwd.cu")
-        specs = "".join(specialization(dp, s) for dp, s in sorted(shapes.items()))
-        path.write_text(text[:primary.end()] + "\n" + specs + text[primary.end():])
+        for kernel, (struct, _, _) in STRUCTS.items():
+            primary = re.search(rf"struct {struct} \{{.*?\n\}};\n", text, re.S)
+            if primary is None:
+                raise RuntimeError(f"{struct} not found in splash_bwd.cu")
+            specs = "".join(specialization(k, dp, f) for (k, dp), f in sorted(items.items())
+                            if k == kernel)
+            if specs:
+                text = text[:primary.end()] + "\n" + specs + text[primary.end():]
+        path.write_text(text)
     return src
 
 
@@ -73,13 +103,14 @@ def build(name: str, csrc: Path) -> tuple[Path, str]:
     return out, _build._compile(out, csrc, ("splash_fwd.cu", "splash_bwd.cu"))
 
 
-def ptxas_dq(log: str) -> dict[int, dict[str, int]]:
-    """Registers and spill bytes of each splash_dq_kernel<DP> in nvcc's -v output."""
+def ptxas(log: str, kernel: str) -> dict[int, dict[str, int]]:
+    """Registers and spill bytes of each splash_{kernel}_kernel<DP> in nvcc's
+    -v output (kernel "dq" or "dkv")."""
     report, dp = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"splash_dq_kernelILi(\d+)E", m.group(1))
+            k = re.search(rf"splash_{kernel}_kernelILi(\d+)E", m.group(1))
             dp = int(k.group(1)) if k else None
             continue
         if dp is None:
@@ -97,8 +128,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--dp48", nargs="+", default=DEFAULT[48])
-    parser.add_argument("--dp80", nargs="+", default=DEFAULT[80])
+    parser.add_argument("--variant", action="append", help="KERNEL DP=FIELDS items")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep_dq_shapes: no CUDA card", file=sys.stderr)
@@ -107,50 +137,62 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
 
-    n = max(len(args.dp48), len(args.dp80))
-    pick = lambda xs, i: xs[min(i, len(xs) - 1)]
     variants = {"tree": None}
-    for i in range(n):
-        shapes = {48: pick(args.dp48, i), 80: pick(args.dp80, i)}
-        variants["v%d_%s_%s" % (i, *(s.replace(",", "-") for s in shapes.values()))] = shapes
-    srcs = {name: make_variant(name, shapes) for name, shapes in variants.items()}
+    for i, spec in enumerate(args.variant or DEFAULT):
+        variants[f"v{i}"] = parse_spec(spec)
+    dps = sorted({dp for items in variants.values() if items for _, dp in items} or FORMS)
+    srcs = {name: make_variant(name, items) for name, items in variants.items()}
     with ThreadPoolExecutor(max_workers=4) as pool:
         built = dict(zip(srcs, pool.map(lambda kv: build(*kv), srcs.items())))
     libs = {name: _build.bind(out, SPLASH_ENTRIES) for name, (out, _) in built.items()}
     record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "variants": {}}
     for name, (_, log) in built.items():
-        record["variants"][name] = {"shapes": variants[name], "ptxas": ptxas_dq(log),
-                                    "ms": {str(dp): [] for dp in SHAPES}, "err": {}}
+        record["variants"][name] = {
+            "items": {f"{k}{dp}": f for (k, dp), f in (variants[name] or {}).items()},
+            "ptxas": {k: ptxas(log, k) for k in STRUCTS},
+            "ms": {f"{k}{dp}": [] for dp in dps for k in STRUCTS}, "err": {}}
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     order = list(libs)
     _build._library = libs["tree"]  # the forward that makes o and lse
-    for dp, shape in SHAPES.items():
+    for dp in dps:
+        shape = FORMS[dp]
         qs, k, v, do = (chip_smoke.head_views(shape, gen) for _ in range(4))
         qs = splash._prescale(qs, shape[-1] ** -0.5)
         o, lse = splash.splash_fwd(qs, k, v)
         dq_ref, delta_ref = splash.splash_dq_reference(qs, k, v, o, do, lse)
+        dk_ref, dv_ref = splash.splash_dkv_reference(qs, k, v, do, lse, delta_ref)
+        agree = []
         for name in order:
             _build._library = libs[name]
             dq, delta = splash.splash_dq(qs, k, v, o, do, lse)
+            dk, dv = splash.splash_dkv(qs, k, v, do, lse, delta)
             err = {"dq_rel": chip_smoke.rel_err(dq, dq_ref),
-                   "delta_rel": chip_smoke.rel_err(delta, delta_ref)}
+                   "delta_rel": chip_smoke.rel_err(delta, delta_ref),
+                   "dkv_rel": max(chip_smoke.rel_err(dk, dk_ref), chip_smoke.rel_err(dv, dv_ref))}
             record["variants"][name]["err"][str(dp)] = err
-            ok = err["dq_rel"] <= chip_smoke.GRAD_TOL and err["delta_rel"] <= chip_smoke.DELTA_TOL
-            chip_smoke.check(ok, f"{name} disagrees at {shape}: {err}")
-        del dq_ref, delta_ref, dq, delta
+            if (max(err["dq_rel"], err["dkv_rel"]) <= chip_smoke.GRAD_TOL
+                    and err["delta_rel"] <= chip_smoke.DELTA_TOL):
+                agree.append(name)
+            else:
+                print(f"{name} disagrees at {shape}: {err}", flush=True)
+        del dq_ref, dk_ref, dv_ref, dq, dk, dv
+        delta = delta_ref  # the plain version's, for every variant's dkv timing
         for r in range(args.rounds):
-            for name in (order if r % 2 == 0 else order[::-1]):
+            for name in (agree if r % 2 == 0 else agree[::-1]):
                 _build._library = libs[name]
-                ms = chip_smoke.time_ms(lambda: splash.splash_dq(qs, k, v, o, do, lse), iters=20)
-                record["variants"][name]["ms"][str(dp)].append(ms)
-        del qs, k, v, do, o, lse
+                ms = record["variants"][name]["ms"]
+                ms[f"dq{dp}"].append(chip_smoke.time_ms(
+                    lambda: splash.splash_dq(qs, k, v, o, do, lse), iters=20))
+                ms[f"dkv{dp}"].append(chip_smoke.time_ms(
+                    lambda: splash.splash_dkv(qs, k, v, do, lse, delta), iters=20))
+        del qs, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     _build._library = None
 
     for name, rec in record["variants"].items():
-        print(f"{name}: ptxas {json.dumps(rec['ptxas'])} ms {json.dumps(rec['ms'])} "
-              f"err {json.dumps(rec['err'])}", flush=True)
+        print(f"{name} {json.dumps(rec['items'])}: ptxas {json.dumps(rec['ptxas'])} "
+              f"ms {json.dumps(rec['ms'])} err {json.dumps(rec['err'])}", flush=True)
     chip_smoke.OUT_DIR.mkdir(exist_ok=True)
     (chip_smoke.OUT_DIR / "sweep_dq_shapes.json").write_text(json.dumps(record, indent=1))
     return 0

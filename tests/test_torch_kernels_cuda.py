@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-splash attention (end to end, and the dq kernel alone), the fused Adam
+splash attention (end to end, and the dq and dkv kernels alone, one head dim
+per compiled instance, with a second launch equal bit for bit), the fused Adam
 update and the int8 Adam update, each in its single-leaf update-only form
 and its grouped form (the fused Adam also in its ``xla`` rounding mode) (Adam, decay, schedule and master apply over a leaf
 table in one launch; with bf16 gradients, and with the fp32 gradients of
@@ -188,6 +189,40 @@ def test_splash_dq_matches_reference_on_cuda(d, layout):
     assert float(err) < 1.5e-2
     assert float((delta - want_delta).abs().max()) <= 1e-5 * float(want_delta.abs().max())
     assert torch.equal(dq, again[0]) and torch.equal(delta, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "heads"])
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 96, 120, 160])
+def test_splash_dkv_matches_reference_on_cuda(d, layout):
+    """splash_dkv against its plain version on the delta splash_dq wrote,
+    one head dim per compiled instance (DP 16-160), at ragged lengths
+    Lq != Lk that no 32-, 64- or 128-row tile divides: dk and dv within
+    1.5e-2 relative; a second call gives the same bits (one CTA owns its dk
+    and dv rows, no atomics)."""
+    _need_card()
+    r = np.random.RandomState(100 + d)
+    b, h, lq, lk = 2, 3, 300, 217
+
+    def make(length):
+        shape = (b, h, length, d)
+        base = shape if layout == "contiguous" else (b, length, h * d)
+        t = torch.from_numpy(r.randn(*base).astype(np.float32)).cuda().bfloat16()
+        return _heads(t, shape, layout)
+
+    qs = S._prescale(make(lq), d ** -0.5)
+    k, v, do = make(lk), make(lk), make(lq)
+    o, lse = S.splash_fwd(qs, k, v)
+    _, delta = S.splash_dq(qs, k, v, o, do, lse)
+    want_dk, want_dv = S.splash_dkv_reference(qs, k, v, do, lse, delta)
+    dk, dv = S.splash_dkv(qs, k, v, do, lse, delta)
+    again = S.splash_dkv(qs, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert dk.shape == k.shape and dv.shape == v.shape
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+        assert float(err) < 1.5e-2
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
 
 
 @pytest.mark.cuda

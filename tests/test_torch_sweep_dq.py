@@ -1,7 +1,8 @@
-"""The CPU half of scripts/sweep_dq_shapes.py: reading the dq instances'
-registers and spills from nvcc's ptxas report, and writing a variant's
-``DqShape`` specializations into a copy of the kernel sources. The builds
-and timings run on a card only; ``main`` is not called."""
+"""The CPU half of scripts/sweep_dq_shapes.py: reading the dq and dkv
+instances' registers and spills from nvcc's ptxas report, parsing a
+variant, and writing its ``DqShape`` / ``DkvShape`` specializations into a
+copy of the kernel sources. The builds and timings run on a card only;
+``main`` is not called."""
 
 import pytest
 
@@ -10,48 +11,71 @@ from scripts import sweep_dq_shapes as sweep
 # nvcc -Xptxas -v output for one dq instance, one dkv instance and the
 # dq instance of another head dim (names as nvcc mangles them).
 PTXAS_LOG = """== splash_bwd.cu
-ptxas info    : Compiling entry function '_ZN4ssdt16splash_dq_kernelILi48EEEvNS_4ArgsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN4ssdt16splash_dq_kernelILi48EEEvNS_4ArgsE
+ptxas info    : Compiling entry function '_ZN4ssdt16splash_dq_kernelILi48EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4ssdt16splash_dq_kernelILi48EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers, 392 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN4ssdt17splash_dkv_kernelILi48EEEvNS_4ArgsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN4ssdt17splash_dkv_kernelILi48EEEvNS_4ArgsE
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN4ssdt17splash_dkv_kernelILi48EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4ssdt17splash_dkv_kernelILi48EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE
     8 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads
-ptxas info    : Used 165 registers, used 1 barriers, 392 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN4ssdt16splash_dq_kernelILi80EEEvNS_4ArgsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN4ssdt16splash_dq_kernelILi80EEEvNS_4ArgsE
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN4ssdt16splash_dq_kernelILi80EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN4ssdt16splash_dq_kernelILi80EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE
     88 bytes stack frame, 44 bytes spill stores, 44 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers, 392 bytes cmem[0]
+ptxas info    : Used 168 registers, used 1 barriers
 """
 
 
 def test_ptxas_report_of_the_dq_instances():
     """Only the dq instances are read; spill counts stores and loads."""
-    assert sweep.ptxas_dq(PTXAS_LOG) == {48: {"spill": 0, "registers": 128},
-                                         80: {"spill": 88, "registers": 128}}
+    assert sweep.ptxas(PTXAS_LOG, "dq") == {48: {"spill": 0, "registers": 168},
+                                            80: {"spill": 88, "registers": 168}}
 
 
-@pytest.mark.parametrize("shapes", [{48: "8,64,3,2,16", 80: "4,32,3,3,32"}, None])
-def test_variant_specializes_dq_shape(shapes, tmp_path, monkeypatch):
+def test_ptxas_report_of_the_dkv_instances():
+    """Only the dkv instances are read."""
+    assert sweep.ptxas(PTXAS_LOG, "dkv") == {48: {"spill": 64, "registers": 168}}
+
+
+def test_a_variant_spec_names_kernel_head_dim_and_fields():
+    assert sweep.parse_spec("dq48=3,64,3 dkv160=1,32,2,0") == {
+        ("dq", 48): "3,64,3", ("dkv", 160): "1,32,2,0"}
+    for bad in ("dq48=2,64", "dq48=2,64,3,1", "dkv48=2,64,3", "dkv48=2,64,3,1,1"):
+        with pytest.raises(ValueError):
+            sweep.parse_spec(bad)
+
+
+@pytest.mark.parametrize("items", [{("dq", 48): "2,64,3", ("dkv", 80): "1,64,2,0",
+                                    ("dkv", 48): "2,64,2,1"}, None])
+def test_variant_specializes_dq_shape(items, tmp_path, monkeypatch):
     """A variant is a copy of ops/csrc whose splash_bwd.cu gains one explicit
-    DqShape specialization per head dim right after the primary template;
-    without shapes the copy is the tree's own."""
+    DqShape or DkvShape specialization per item right after its primary
+    template; without items the copy is the tree's own."""
     monkeypatch.setattr(sweep, "SWEEP_DIR", tmp_path)
-    src = sweep.make_variant("v", shapes)
+    src = sweep.make_variant("v", items)
     assert sorted(p.name for p in src.iterdir()) == sorted(
         p.name for p in sweep._build.CSRC.iterdir())
     text = (src / "splash_bwd.cu").read_text()
     tree = (sweep._build.CSRC / "splash_bwd.cu").read_text()
-    if shapes is None:
+    if items is None:
         assert text == tree
         return
-    # the specializations sit between the primary template and dq_smem_bytes
-    start = text.index("template <>\nstruct DqShape<")
-    end = text.index("template <int DP>\nconstexpr size_t dq_smem_bytes") - 1
-    assert text[:start - 1] + text[end:] == tree
-    for dp, shape in shapes.items():
-        warps, keys, stages, min_blocks, step = shape.split(",")
-        spec = text[text.index(f"struct DqShape<{dp}> {{"):]
+    # taking the specializations out leaves the tree's file
+    stripped = text
+    for struct in ("DqShape", "DkvShape"):
+        start = stripped.index(f"template <>\nstruct {struct}<")
+        end = stripped.rindex(f"struct {struct}<")
+        end = stripped.index("};\n", end) + 3
+        stripped = stripped[:start - 1] + stripped[end:]
+    assert stripped == tree
+    for (kernel, dp), fields in items.items():
+        struct, tile, flags = sweep.STRUCTS[kernel]
+        consumers, rows, stages, *values = fields.split(",")
+        spec = text[text.index(f"struct {struct}<{dp}> {{"):]
         spec = spec[:spec.index("};")]
-        assert f"warps = {warps}, keys = {keys}, stages = {stages};" in spec
-        assert f"min_blocks = {min_blocks}, step = {step};" in spec
+        assert f"consumers = {consumers}, {tile} = {rows}, stages = {stages};" in spec
+        if flags:
+            assert "static constexpr bool " + ", ".join(
+                f"{f} = {'true' if v == '1' else 'false'}" for f, v in zip(flags, values)) in spec
+        else:
+            assert "bool" not in spec
