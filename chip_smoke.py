@@ -18,15 +18,16 @@ Phases (any failure raises and the script exits non-zero):
               splash kernel (fwd, dq, dkv) against its plain PyTorch version
               on the same inputs, then the autograd Function against autograd
               of splash_attention_reference. Bounds: forward 5e-3 max-abs,
-              dq/dk/dv 1.5e-2 relative (those of the JAX splash tests), the
-              delta dq writes for dkv 1e-5 of its largest entry; a second
-              launch of dq and dkv must give the same bits. Times of the
-              kernel, its plain version, torch's SDPA forward and backward
-              (the backward computes dq, dk and dv together; its calls are
-              timed queued behind a spin kernel, so that the host's time to
-              issue them does not count; beside it the time of the pair
-              dq + dkv and the pair over SDPA's backward; dq's and dkv's
-              device time alone, queued behind a spin kernel), and the least
+              its lse 1e-4, dq/dk/dv 1.5e-2 relative (those of the JAX splash
+              tests), the delta dq writes for dkv 1e-5 of its largest entry;
+              a second launch of fwd, dq and dkv must give the same bits.
+              Times of the kernel, its plain version, torch's SDPA forward
+              (with the forward's time over it) and backward (the backward computes
+              dq, dk and dv together; its calls are timed queued behind a
+              spin kernel, so that the host's time to issue them does not
+              count; beside it the time of the pair dq + dkv and the pair
+              over SDPA's backward; each kernel's device time alone, queued
+              behind a spin kernel), and the least
               time the card could take (HBM bytes, tensor-core flops, or
               exponentials on the exponential unit at the card's SM count
               and maximum SM clock, whichever is largest).
@@ -210,8 +211,10 @@ Phases (any failure raises and the script exits non-zero):
               and CUDA operations (a torch.profiler trace), the VAE decode's
               and CLIP's device ms, peak memory. splash_fwd is then held in
               sampling's forms under inference mode: (2,8,4096,40),
-              (2,8,1024,80), (2,8,5632,40), (2,8,1408,80), timed beside its
-              bound, its plain version and SDPA's forward.
+              (2,8,1024,80), (2,8,5632,40), (2,8,1408,80), against its plain
+              version (O 5e-3, lse 1e-4, a second launch equal bit for
+              bit), timed beside its bound, its plain version and SDPA's
+              forward.
 13. dreambooth -- the port's configs/dreambooth.yaml on that directory, the
               PNGs as instance images, cut to 4 class images and 4 steps:
               the class-image CLI (python -m
@@ -457,6 +460,7 @@ MASTER_FLIPS = 1e-3      # int8 grouped masters: one bf16 ulp apart in under thi
 PAYLOAD_FLIPS = 1e-3     # int8 payloads: at most 1 apart in under this share
 OPT_TOL = 1e-6           # optimizer step, scales: relative to the tensor's largest
 FWD_TOL, GRAD_TOL = 5e-3, 1.5e-2
+LSE_TOL = 1e-4           # splash_fwd's lse, max-abs in natural-log units
 DELTA_TOL = 1e-5         # delta = rowsum(dO * O), relative to its largest entry
 SDPA_BWD = ("SDPA backward (torch.autograd.grad of F.scaled_dot_product_attention): "
             "dq, dk and dv together")
@@ -634,20 +638,22 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     qs = splash._prescale(q, scale)
 
     o, lse = splash.splash_fwd(qs, k, v)
+    o2, lse2 = splash.splash_fwd(qs, k, v)
     o_ref, lse_ref = splash.splash_fwd_reference(qs, k, v)
     dq, delta = splash.splash_dq(qs, k, v, o, do, lse)
     dq_ref, delta_ref = splash.splash_dq_reference(qs, k, v, o, do, lse)
     dk, dv = splash.splash_dkv(qs, k, v, do, lse, delta)
     dk_ref, dv_ref = splash.splash_dkv_reference(qs, k, v, do, lse, delta)
-    # a second launch of each backward kernel gives the same bits (one CTA
-    # owns each output row, no atomics): resumed runs depend on it
+    # a second launch of each kernel gives the same bits (one CTA owns each
+    # output row, no atomics): resumed runs depend on it
     dq2, delta2 = splash.splash_dq(qs, k, v, o, do, lse)
     dk2, dv2 = splash.splash_dkv(qs, k, v, do, lse, delta2)
     torch.cuda.synchronize()
     same_bits = all(torch.equal(a, b) for a, b in
                     ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
-    del dq2, delta2, dk2, dv2
-    res = {"shape": list(shape), "bwd_same_bits": same_bits,
+    fwd_same_bits = torch.equal(o, o2) and torch.equal(lse, lse2)
+    del dq2, delta2, dk2, dv2, o2, lse2
+    res = {"shape": list(shape), "bwd_same_bits": same_bits, "fwd_same_bits": fwd_same_bits,
            "err": {"splash_fwd": max_abs(o, o_ref), "lse": max_abs(lse, lse_ref),
                    "delta": max_abs(delta, delta_ref), "delta_rel": rel_err(delta, delta_ref),
                    "splash_dq": max_abs(dq, dq_ref), "splash_dq_rel": rel_err(dq, dq_ref),
@@ -656,6 +662,8 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     del o_ref, lse_ref, dq_ref, delta_ref, dk_ref, dv_ref
     e = res["err"]
     check(e["splash_fwd"] <= FWD_TOL, f"splash_fwd disagrees at {shape}: {e['splash_fwd']}")
+    check(e["lse"] <= LSE_TOL, f"splash_fwd lse disagrees at {shape}: {e['lse']}")
+    check(fwd_same_bits, f"splash_fwd gives other bits on a second launch at {shape}")
     check(e["splash_dq_rel"] <= GRAD_TOL, f"splash_dq disagrees at {shape}: {e['splash_dq_rel']}")
     check(e["delta_rel"] <= DELTA_TOL, f"splash_dq delta disagrees at {shape}: {e['delta_rel']}")
     check(e["splash_dkv_rel"] <= GRAD_TOL,
@@ -682,9 +690,10 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
         "splash_dq": time_ms(lambda: splash.splash_dq(qs, k, v, o, do, lse)),
         "splash_dkv": time_ms(lambda: splash.splash_dkv(qs, k, v, do, lse, delta)),
     }
-    # the backward kernels' device time alone, queued behind a spin kernel
-    # (at the short forms the wrappers' host time bounds "ms")
+    # the kernels' device time alone, queued behind a spin kernel (at the
+    # short forms the wrappers' host time bounds "ms")
     res["device_ms"] = {
+        "splash_fwd": device_ms(lambda: splash.splash_fwd(qs, k, v)),
         "splash_dq": device_ms(lambda: splash.splash_dq(qs, k, v, o, do, lse)),
         "splash_dkv": device_ms(lambda: splash.splash_dkv(qs, k, v, do, lse, delta)),
     }
@@ -698,6 +707,7 @@ def kernel_phase(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     res["sdpa_fwd_ms"] = time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    res["fwd_over_sdpa"] = res["ms"]["splash_fwd"] / res["sdpa_fwd_ms"]
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
     # at L = 1024 the host work of one autograd.grad call outlasts its
     # kernels, so plain CUDA events would time the host
@@ -2856,24 +2866,29 @@ def png_pixels(path: Path, size: tuple[int, int]) -> np.ndarray:
 
 def sampling_kernel_case(shape, gen: torch.Generator, rate: tuple[int, float]) -> dict:
     """splash_fwd in sampling's form (inference mode, the CFG pair's batch,
-    head-split views) against its plain version, at FWD_TOL; its time, its
-    plain version's and SDPA's forward, each queued behind a spin kernel,
-    beside the bound."""
+    head-split views) against its plain version, at FWD_TOL and LSE_TOL, and
+    a second launch equal bit for bit; its time, its plain version's and
+    SDPA's forward, each queued behind a spin kernel, beside the bound."""
     b, h, l, d = shape
     q, k, v = (head_views(shape, gen) for _ in range(3))
     with torch.inference_mode():
         qs = splash._prescale(q, d ** -0.5)
         o, lse = splash.splash_fwd(qs, k, v)
+        o2, lse2 = splash.splash_fwd(qs, k, v)
         o_ref, lse_ref = splash.splash_fwd_reference(qs, k, v)
-        err = max_abs(o, o_ref)
+        err, lse_err = max_abs(o, o_ref), max_abs(lse, lse_ref)
+        same_bits = torch.equal(o, o2) and torch.equal(lse, lse2)
         check(err <= FWD_TOL, f"splash_fwd (inference) disagrees at {shape}: {err}")
-        res = {"shape": list(shape), "err": err, "lse_err": max_abs(lse, lse_ref),
+        check(lse_err <= LSE_TOL, f"splash_fwd (inference) lse disagrees at {shape}: {lse_err}")
+        check(same_bits, f"splash_fwd (inference) gives other bits on a second launch at {shape}")
+        res = {"shape": list(shape), "err": err, "lse_err": lse_err, "same_bits": same_bits,
                "ms": device_ms(lambda: splash.splash_fwd(qs, k, v)),
                "plain_ms": device_ms(lambda: splash.splash_fwd_reference(qs, k, v), iters=3),
                "sdpa_fwd_ms": device_ms(
                    lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)),
                "bound": list(bounds_ms(b, h, l, l, d, *rate)["splash_fwd"])}
-    del q, k, v, qs, o, lse, o_ref, lse_ref
+        res["fwd_over_sdpa"] = res["ms"] / res["sdpa_fwd_ms"]
+    del q, k, v, qs, o, lse, o2, lse2, o_ref, lse_ref
     torch.cuda.empty_cache()
     return res
 
@@ -4888,16 +4903,18 @@ def kernel_entries(record: dict) -> list[dict]:
             "library": "SDPA forward (F.scaled_dot_product_attention)" if name == "splash_fwd"
                        else SDPA_BWD,
             "at": main_shape["shape"],
-            **({"sampling": [{k: r[k] for k in ("shape", "ms", "plain_ms", "sdpa_fwd_ms")}
+            **({"sampling": [{k: r[k] for k in ("shape", "ms", "plain_ms", "sdpa_fwd_ms",
+                                                "fwd_over_sdpa", "same_bits")}
                              | {"bound_ms": r["bound"][0]} for r in sampling_records]}
                if name == "splash_fwd" else {"bwd_pair_ms": main_shape["bwd_pair_ms"]}),
             "by_shape": [{"shape": r["shape"], "ms": r["ms"][name],
-                          **({"device_ms": r["device_ms"][name]} if name != "splash_fwd"
-                             else {}),
+                          "device_ms": r["device_ms"][name],
                           "plain_ms": r["plain_ms"][name], "bound_ms": r["bound"][name][0],
                           "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"],
+                          "fwd_over_sdpa": r["fwd_over_sdpa"],
                           "bwd_pair_ms": r["bwd_pair_ms"],
                           "bwd_pair_over_sdpa": r["bwd_pair_over_sdpa"],
+                          "fwd_same_bits": r["fwd_same_bits"],
                           "bwd_same_bits": r["bwd_same_bits"]}
                          for r in splash_records],
         })

@@ -5,12 +5,13 @@
 // * dq replaces `_splash_attention_bwd_dq` (`_flash_attention_dq_kernel`);
 // * dkv replaces `_splash_attention_bwd_dkv` (`_flash_attention_dkv_kernel`).
 //
-// Both are warp-specialised. One producer warp (of a producer warpgroup
-// that hands its registers to the consumers by setmaxnreg) loads every tile
-// by TMA into chunk-major shared tiles (splash_hopper.cuh) and signals it on
-// an mbarrier; consumer warpgroups of 64 rows run every product as an
-// asynchronous warpgroup wgmma (wgmma.cuh), keep their accumulators in
-// registers, and free a ring stage by an mbarrier arrival.
+// Both are warp-specialised, as the forward (splash_fwd.cu) is. One producer
+// warp (of a producer warpgroup that hands its registers to the consumers by
+// setmaxnreg) loads every tile by TMA into chunk-major shared tiles
+// (splash_hopper.cuh) and signals it on an mbarrier; consumer warpgroups of
+// 64 rows run every product as an asynchronous warpgroup wgmma (wgmma.cuh),
+// keep their accumulators in registers, and free a ring stage by an mbarrier
+// arrival.
 //
 // * dq: one CTA per (head, DqShape::rows query rows). The CTA's q and dO
 //   rows arrive once; each consumer first sums delta = rowsum(dO * O) of its
@@ -58,24 +59,9 @@
 // stream. Gradients are with respect to the pre-scaled q the forward saw;
 // the caller's autograd applies the scale's chain rule.
 
-#include "splash_common.cuh"
 #include "splash_hopper.cuh"
-#include "wgmma.cuh"
 
 namespace ssdt {
-
-constexpr int kGroupRows = 64;  // rows of one consumer warpgroup (wgmma M)
-
-// setmaxnreg budget of NC > 1 consumer warpgroups beside the producer
-// group: the CTA launches at 65536 / threads registers a thread (a multiple
-// of 8), the producer group drops to 24 and the consumers share the rest,
-// at most 240 each (NC = 2: 384 * 168 = 128 * 24 + 256 * 240).
-template <int NC>
-struct Regs {
-  static constexpr int launch = 65536 / ((NC + 1) * 128) / 8 * 8, producer = 24;
-  static constexpr int share = (launch * (NC + 1) * 128 - 128 * producer) / (NC * 128) / 8 * 8;
-  static constexpr int consumer = share < 240 ? share : 240;
-};
 
 // Launch shape of each instance, chosen on an H100 by time and by the
 // ptxas report (scripts/sweep_dq_shapes.py): consumer warpgroups, keys per
@@ -116,48 +102,6 @@ struct BwdArgs {
   Strides so, sout, sout2;
 };
 
-template <int NC>
-__device__ __forceinline__ void producer_regs() {
-  if constexpr (NC > 1) regs_dealloc<Regs<NC>::producer>();
-}
-template <int NC>
-__device__ __forceinline__ void consumer_regs() {
-  if constexpr (NC > 1) regs_alloc<Regs<NC>::consumer>();
-}
-
-// Turns of dkv's NC consumer warpgroups at issuing products: group w
-// issues only after group w - 1 (mod NC) has issued its own, so the tensor
-// cores run one group's products while the others compute their
-// exponentials. Named barrier 1 + w: group w's 128 threads wait there for
-// the 128 of group w - 1; the last group's arrival at construction gives
-// group 0 the first turn. One group takes no turns.
-template <int NC>
-struct Turns {
-  int wg;
-  __device__ __forceinline__ explicit Turns(int group) : wg(group) {
-    if constexpr (NC > 1) {
-      if (wg == NC - 1) named_bar_arrive(1, 256);
-    }
-  }
-  __device__ __forceinline__ void take() const {
-    if constexpr (NC > 1) named_bar_sync(1 + wg, 256);
-  }
-  // last: this group's final turn, after which group 0 takes none.
-  __device__ __forceinline__ void pass(bool last) const {
-    if constexpr (NC > 1) {
-      if (!(last && wg == NC - 1)) named_bar_arrive(1 + (wg + 1) % NC, 256);
-    }
-  }
-};
-
-__device__ __forceinline__ void prefetch_maps(const CUtensorMap& q, const CUtensorMap& k,
-                                              const CUtensorMap& v, const CUtensorMap& dout) {
-  tma_prefetch_map(&q);
-  tma_prefetch_map(&k);
-  tma_prefetch_map(&v);
-  tma_prefetch_map(&dout);
-}
-
 // acc + x . y over 8 bf16 pairs, in order (each product is exact in fp32).
 __device__ __forceinline__ float dot8_bf16(uint4 x, uint4 y, float acc) {
   const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
@@ -169,86 +113,6 @@ __device__ __forceinline__ float dot8_bf16(uint4 x, uint4 y, float acc) {
     acc = fmaf(a.y, b.y, acc);
   }
   return acc;
-}
-
-// A warpgroup's fixed A operand over the head dim (q or dO in dq, k or v in
-// dkv): its 64 rows of a chunk-major tile of RA rows, read by descriptor
-// (InRegs = false) or held as k16 register fragments loaded once by
-// ldmatrix (InRegs = true). times_bt: c = A B^T with B a K-major tile of N
-// rows; DP / 16 k16 steps.
-template <int DP, int RA, bool InRegs>
-struct OperandA;
-
-template <int DP, int RA>
-struct OperandA<DP, RA, false> {
-  const unsigned char* rows;
-  __device__ __forceinline__ void load(const unsigned char* group_rows) { rows = group_rows; }
-  template <int N>
-  __device__ __forceinline__ void times_bt(float (&c)[N / 2], const unsigned char* b) const {
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      Wgmma<N>::template ss<0>(c, desc_kmajor<RA>(rows + kk * 2 * RA * 16),
-                               desc_kmajor<N>(b + kk * 2 * N * 16), kk > 0);
-  }
-};
-
-template <int DP, int RA>
-struct OperandA<DP, RA, true> {
-  uint32_t f[DP / 16][4];
-  // ldmatrix x4 per k16 step: lanes 0-15 address rows 0-15 of the warp's 16
-  // in chunk 2 kk, lanes 16-31 the same rows in chunk 2 kk + 1.
-  __device__ __forceinline__ void load(const unsigned char* group_rows) {
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const unsigned char* row = group_rows + (warp * 16 + (lane & 15)) * 16;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      ldsm_x4(f[kk], smem_u32(row + (2 * kk + (lane >> 4)) * RA * 16));
-  }
-  template <int N>
-  __device__ __forceinline__ void times_bt(float (&c)[N / 2], const unsigned char* b) const {
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      Wgmma<N>::template rs<0>(c, f[kk], desc_kmajor<N>(b + kk * 2 * N * 16), kk > 0);
-  }
-};
-
-// acc += P W over the K rows of a tile: P in k16 register fragments, W the
-// K-row tile at `w` read MN-major (N = DP).
-template <int DP, int K>
-__device__ __forceinline__ void gemm_pw(float (&acc)[DP / 2], const uint32_t (&p)[K / 16][4],
-                                        const unsigned char* w) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
-    Wgmma<DP>::template rs<1>(acc, p[kk], desc_mnmajor<K>(w + kk * 256), 1);
-}
-
-// n8 accumulator tile n (rows g, g + 8; columns 8n + 2t, +1) packed as the
-// half of k16 fragment n / 2 it feeds.
-template <int N>
-__device__ __forceinline__ void pack_frag(uint32_t (&f)[N / 16][4], int n, float x0, float x1,
-                                          float x2, float x3) {
-  f[n / 2][(n & 1) * 2] = pack_bf16(x0, x1);
-  f[n / 2][(n & 1) * 2 + 1] = pack_bf16(x2, x3);
-}
-
-// One consumer thread's rows g, g + 8 of an accumulator over the head dim
-// as bf16 into rows row, row + 8 of a (B, H, L, D) view; rows past nrows and
-// columns past D are skipped.
-template <int DP>
-__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2], bf16* dst, long long sl,
-                                           int row, int nrows, int D) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    if (n * 8 >= D) continue;
-    const int col = n * 8 + 2 * t;
-    if (row < nrows)
-      *reinterpret_cast<uint32_t*>(dst + (long long)row * sl + col) =
-          pack_bf16(acc[4 * n], acc[4 * n + 1]);
-    if (row + 8 < nrows)
-      *reinterpret_cast<uint32_t*>(dst + (long long)(row + 8) * sl + col) =
-          pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -582,26 +446,6 @@ bool encode_maps(Maps& m, const void* const* ptrs, const long long* geo, int q_r
          encode_tile_map(&m.k, ptrs[1], geo + 9, k_rows, DP / 8) &&
          encode_tile_map(&m.v, ptrs[2], geo + 18, k_rows, DP / 8) &&
          encode_tile_map(&m.dout, ptrs[3], geo + 27, q_rows, DP / 8);
-}
-
-// Ready a kernel instance on the current device: its register count
-// checked (setmaxnreg.inc waits for registers the launch did not give, so a
-// build whose entry count would leave the consumers waiting forever is
-// refused) and its shared memory allowed. cudaSetDevice also makes the
-// device's primary context current in this thread (autograd runs the
-// backward on a thread of its own), which cuTensorMapEncodeTiled needs.
-template <int NC, typename Kernel>
-int ready_kernel(Kernel kernel, size_t smem) {
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaSetDevice(dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  if (NC > 1 && attr.numRegs < Regs<NC>::launch) return (int)cudaErrorInvalidConfiguration;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
 }
 
 // ptrs: q, k, v, dO; q_rows, k_rows: their boxes' rows.

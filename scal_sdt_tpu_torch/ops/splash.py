@@ -9,9 +9,12 @@ by a ``torch.autograd.Function``:
 * ``splash_dq``   -> (dq, delta=rowsum(dO*O)) csrc/splash_bwd.cu
 * ``splash_dkv``  -> (dk, dv)                 csrc/splash_bwd.cu
 
-The forward runs on ``mma.sync`` register tiles; the backward pair on
-Hopper's warpgroup ``wgmma`` with its tiles loaded by TMA (one tensor map
-per operand, whose geometry ``tma_geometry`` computes here).
+All three run on Hopper's warpgroup ``wgmma`` with their tiles loaded by TMA
+(one tensor map per operand, whose geometry ``tma_geometry`` computes here;
+the forward also writes O by a TMA store). A producer warp keeps the loads in
+flight while consumer warpgroups take turns at issuing products, so one
+group's exponentials, the forward's floor at small head dims, run under
+another's products.
 
 Inputs are (B, H, L, D) bf16 views with a unit stride over D (the head-split
 views of ``ops/attention.py`` go in without a copy); D is a multiple of 8 and
@@ -26,8 +29,8 @@ one to the other.
 
 from __future__ import annotations
 
-import array
 import ctypes
+import struct
 
 import torch
 
@@ -115,7 +118,7 @@ def splash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def _check(name: str, t: torch.Tensor) -> tuple[int, ...]:
-    """A forward operand (and dq's o, read by 16-byte loads); its strides."""
+    """dq's o (read by 16-byte loads): its strides."""
     if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 4:
         raise TypeError(f"splash kernel: {name} must be a 4-d bf16 CUDA tensor, "
                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
@@ -124,6 +127,17 @@ def _check(name: str, t: torch.Tensor) -> tuple[int, ...]:
         raise ValueError(f"splash kernel: {name} needs a unit stride over D and "
                          f"16-byte aligned rows, got strides {st}")
     return st
+
+
+def _check_cuda(*named: tuple[str, torch.Tensor]) -> None:
+    """Operands (name, tensor): 4-d bf16 CUDA tensors on the first one's device."""
+    device = named[0][1].device
+    for name, t in named:
+        if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 4:
+            raise TypeError(f"splash kernel: {name} must be a 4-d bf16 CUDA tensor, "
+                            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.device != device:
+            raise ValueError(f"splash kernel: {name} on {t.device}, {named[0][0]} on {device}")
 
 
 def _check_shapes(q, k, v) -> tuple[int, int, int, int, int]:
@@ -139,14 +153,6 @@ def _check_shapes(q, k, v) -> tuple[int, int, int, int, int]:
     return b, h, lq, lk, d
 
 
-def _check_inputs(q, k, v) -> tuple[int, int, int, int, int]:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t)
-        if t.device != q.device:
-            raise ValueError(f"splash kernel: {name} on {t.device}, q on {q.device}")
-    return _check_shapes(q, k, v)
-
-
 def _check_rows(name: str, t: torch.Tensor, ref: torch.Tensor, shape) -> None:
     """lse / delta: contiguous fp32 (B, H, Lq) on q's device."""
     if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
@@ -159,7 +165,7 @@ TMA_MAX_STRIDE = 1 << 40   # a tensor map's byte strides: multiples of 16 below 
 
 
 def tma_geometry(t: torch.Tensor) -> list[int]:
-    """The backward kernels' TMA tensor map of a (B, H, L, D) bf16 view: dims
+    """The kernels' TMA tensor map of a (B, H, L, D) bf16 view: dims
     (8, L, D/8, H, B) and the byte strides of dims 1-4 (row, the 16-byte
     chunk of 8 columns, head, batch). One box of that map is a chunk-major
     tile (``csrc/splash_hopper.cuh``). Raises ValueError for a view TMA
@@ -173,14 +179,16 @@ def tma_geometry(t: torch.Tensor) -> list[int]:
     if sd != 1 or d % 8 or t.data_ptr() % 16:
         raise ValueError(f"splash kernel: TMA needs a unit stride over D (a multiple of 8) and "
                          f"a 16-byte aligned base, got strides {t.stride()}, D = {d}")
-    geo = [8, l, d // 8, h, b, sl * es if l > 1 else 16, 16, sh * es if h > 1 else 16,
-           sb * es if b > 1 else 16]
-    for name, nbytes in (("row", geo[5]), ("head", geo[7]), ("batch", geo[8])):
-        if nbytes <= 0 or nbytes % 16 or nbytes >= TMA_MAX_STRIDE:
-            raise ValueError(f"splash kernel: TMA cannot address a {name} stride of "
-                             f"{nbytes // es} elements (needs a positive multiple of 16 bytes "
-                             f"below 2**40)")
-    return geo
+    row, head = sl * es if l > 1 else 16, sh * es if h > 1 else 16
+    batch = sb * es if b > 1 else 16
+    if ((row | head | batch) % 16 or min(row, head, batch) <= 0
+            or max(row, head, batch) >= TMA_MAX_STRIDE):
+        for name, nbytes in (("row", row), ("head", head), ("batch", batch)):
+            if nbytes <= 0 or nbytes % 16 or nbytes >= TMA_MAX_STRIDE:
+                raise ValueError(f"splash kernel: TMA cannot address a {name} stride of "
+                                 f"{nbytes // es} elements (needs a positive multiple of 16 "
+                                 f"bytes below 2**40)")
+    return [8, l, d // 8, h, b, row, 16, head, batch]
 
 
 def _like_heads(b: int, h: int, length: int, d: int, ref: torch.Tensor) -> torch.Tensor:
@@ -190,30 +198,29 @@ def _like_heads(b: int, h: int, length: int, d: int, ref: torch.Tensor) -> torch
                                dtype=ref.dtype, device=ref.device)
 
 
-def _strides(*ts: torch.Tensor):
-    vals = [s for t in ts for s in t.stride()[:3]]
-    return (ctypes.c_longlong * len(vals))(*vals)
-
-
 _MAPS = ctypes.c_longlong * 36
+_PACK_MAPS = struct.Struct("36q")
+
+
+def tile_maps(*ts: torch.Tensor) -> ctypes.Array:
+    """A kernel's argument of tile maps: ``tma_geometry`` of each of its four
+    (B, H, L, D) operands (forward: q, k, v, o; backward: q, k, v, dO), 9
+    values each, one stride read per operand (a launch's host time bounds
+    the small forms). Raises ValueError for a view TMA cannot address."""
+    geo = []
+    for t in ts:
+        geo += tma_geometry(t)
+    return _MAPS.from_buffer_copy(_PACK_MAPS.pack(*geo))
 
 
 def _check_bwd(qs, k, v, do):
     """The backward's four TMA operands q, k, v, dO: bf16 CUDA tensors on one
     device that TMA can address, of matching shapes. Returns (b, h, lq, lk,
-    d) and their tensor maps' geometry (9 values each), built with one
-    stride read per operand (a launch's host time bounds the small forms)."""
-    geo = []
-    for name, t in (("q", qs), ("k", k), ("v", v), ("do", do)):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 4:
-            raise TypeError(f"splash kernel: {name} must be a 4-d bf16 CUDA tensor, "
-                            f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if t.device != qs.device:
-            raise ValueError(f"splash kernel: {name} on {t.device}, q on {qs.device}")
-        geo += tma_geometry(t)
+    d) and their tile maps."""
+    _check_cuda(("q", qs), ("k", k), ("v", v), ("do", do))
     if do.shape != qs.shape:
         raise ValueError(f"splash kernel: do {tuple(do.shape)} != q {tuple(qs.shape)}")
-    return _check_shapes(qs, k, v), _MAPS.from_buffer(array.array("q", geo))
+    return _check_shapes(qs, k, v), tile_maps(qs, k, v, do)
 
 
 _LL6 = ctypes.c_longlong * 6   # (batch, head, row) strides of two views
@@ -239,14 +246,17 @@ def _call(fn, device: int, *args) -> int:
 
 def splash_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel on pre-scaled q: (O bf16 (B,H,Lq,D), lse fp32 (B,H,Lq))."""
-    b, h, lq, lk, d = _check_inputs(qs, k, v)
-    lib = _build.load_library()
+    """Forward kernel on pre-scaled q: (O bf16 (B,H,Lq,D), lse fp32 (B,H,Lq)).
+    q, k and v must be views TMA can address (``tma_geometry``; the autograd
+    Function copies one that is not)."""
+    _check_cuda(("q", qs), ("k", k), ("v", v))
+    b, h, lq, lk, d = _check_shapes(qs, k, v)
     o = _like_heads(b, h, lq, d, qs)
+    maps = tile_maps(qs, k, v, o)
+    lib = _build.load_library()
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=qs.device)
     err = _call(lib.ssdt_splash_fwd, qs.get_device(), qs.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, lq, lk, d,
-                _strides(qs, k, v, o))
+                v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, lq, lk, d, maps)
     _build.check(lib, "splash_fwd", err)
     launches["splash_fwd"] += 1
     return o, lse
@@ -289,9 +299,9 @@ def splash_dkv(qs, k, v, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """A backward operand TMA cannot address (``tma_geometry``) is copied
-    once into fresh, aligned memory; the UNet's and the MMDiT's tensors
-    arrive addressable and are not."""
+    """An operand TMA cannot address (``tma_geometry``) is copied once into
+    fresh, aligned memory; the UNet's and the MMDiT's tensors arrive
+    addressable and are not."""
     try:
         tma_geometry(t)
     except ValueError:
@@ -302,6 +312,7 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 class _SplashFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qs, k, v):
+        qs, k, v = (_kernel_ready(t) for t in (qs, k, v))
         o, lse = splash_fwd(qs, k, v)
         ctx.save_for_backward(qs, k, v, o, lse)
         return o
@@ -309,7 +320,7 @@ class _SplashFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qs, k, v, o, lse = ctx.saved_tensors
-        qs, k, v, do = (_kernel_ready(t) for t in (qs, k, v, do))
+        do = _kernel_ready(do)
         dq, delta = splash_dq(qs, k, v, o, do, lse)
         dk, dv = splash_dkv(qs, k, v, do, lse, delta)
         return dq, dk, dv

@@ -1,5 +1,5 @@
 """Write ``scal_sdt_tpu_torch/ops/csrc/wgmma.cuh``: the warpgroup products
-(``wgmma.mma_async``, bf16 in, fp32 accumulate) the splash backward issues,
+(``wgmma.mma_async``, bf16 in, fp32 accumulate) the splash kernels issue,
 one wrapper per N, since a wgmma lists its N / 2 accumulator registers in
 the instruction itself.
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-splash attention (end to end, and the dq and dkv kernels alone, one head dim
-per compiled instance, with a second launch equal bit for bit), the fused Adam
+splash attention (end to end, and the forward, dq and dkv kernels alone, one
+head dim per compiled instance, with a second launch equal bit for bit), the fused Adam
 update and the int8 Adam update, each in its single-leaf update-only form
 and its grouped form (the fused Adam also in its ``xla`` rounding mode) (Adam, decay, schedule and master apply over a leaf
 table in one launch; with bf16 gradients, and with the fp32 gradients of
@@ -156,6 +156,40 @@ def test_head_dims_the_kernels_refuse_take_the_math_path_on_cuda(d):
     want = A._merge_heads(A._attention_math(*(A._split_heads(t, 2) for t in (q, k, v)),
                                             d ** -0.5))
     assert out.shape == (1, 1024, 2 * d) and torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["narrow", "wide"])
+@pytest.mark.parametrize("layout", ["contiguous", "heads"])
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 80, 96, 120, 160])
+def test_splash_fwd_matches_reference_on_cuda(d, layout, grid):
+    """splash_fwd against its plain version, one head dim per compiled
+    instance (DP 16-160), at ragged lengths Lq != Lk that no 64- or 128-row
+    tile divides (the last key tile partly past Lk, the last query rows past
+    Lq), in both of its launch shapes: a grid of a few CTAs takes the narrow
+    one (one consumer fewer), (8, 16, 1100) queries over 1031 keys the wide
+    one, on 132 SMs. O within 5e-3 max-abs, lse within 1e-4; a second call
+    gives the same bits (one CTA owns its output rows)."""
+    _need_card()
+    r = np.random.RandomState(200 + d)
+    b, h, lq, lk = (2, 3, 300, 217) if grid == "narrow" else (8, 16, 1100, 1031)
+
+    def make(length):
+        shape = (b, h, length, d)
+        base = shape if layout == "contiguous" else (b, length, h * d)
+        t = torch.from_numpy(r.randn(*base).astype(np.float32)).cuda().bfloat16()
+        return _heads(t, shape, layout)
+
+    qs = S._prescale(make(lq), d ** -0.5)
+    k, v = make(lk), make(lk)
+    want_o, want_lse = S.splash_fwd_reference(qs, k, v)
+    o, lse = S.splash_fwd(qs, k, v)
+    again = S.splash_fwd(qs, k, v)
+    torch.cuda.synchronize()
+    assert o.shape == qs.shape and lse.shape == (b, h, lq)
+    assert float((o.float() - want_o.float()).abs().max()) < 5e-3
+    assert float((lse - want_lse).abs().max()) < 1e-4
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
 @pytest.mark.cuda

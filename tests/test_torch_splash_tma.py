@@ -1,12 +1,15 @@
-"""The tensor-map geometry of the splash backward kernels, on the CPU.
+"""The tensor-map geometry of the splash kernels, on the CPU.
 
 ``ops/splash.py`` ``tma_geometry`` describes each (B, H, L, D) bf16 operand
-of ``splash_dq`` / ``splash_dkv`` as a 5-d TMA tensor map (8 columns, rows,
-16-byte chunks, heads, batch); the kernels' C side only adds the box. Here:
-the geometry of the layouts the port hands the kernels (contiguous, the
-head-split views of ``ops/attention.py``, a tensor-parallel rank's heads),
-every element's address through the map against torch's own, the views TMA
-cannot address, and the copy the autograd Function makes of those. Also
+of ``splash_fwd`` (q, k, v and its output o), ``splash_dq`` and
+``splash_dkv`` (q, k, v, dO) as a 5-d TMA tensor map (8 columns, rows,
+16-byte chunks, heads, batch), and ``tile_maps`` lays four of them out as a
+kernel's argument; the kernels' C side only adds the box. Here: the
+geometry of the layouts the port hands the kernels (contiguous, the
+head-split views of ``ops/attention.py``, a tensor-parallel rank's heads,
+the kernels' own outputs), every element's address through the map against
+torch's own, the views TMA cannot address, and the copy the autograd
+Function makes of those before the forward. Also
 ``chip_smoke.ptxas_lines``, which names each kernel instance in nvcc's
 report, and ``csrc/wgmma.cuh`` against its generator.
 """
@@ -113,6 +116,79 @@ def test_a_view_tma_cannot_address_is_refused(name):
         S.tma_geometry(_refused(name))
 
 
+@pytest.mark.parametrize("name", CASES)
+def test_the_forwards_maps_are_q_k_v_and_its_output(name):
+    """splash_fwd's argument of tile maps: 36 values, the maps of q, k, v and
+    the (B, L, H, D)-laid output o in that order, each addressing every
+    element where torch does; at Lk != Lq."""
+    q = _case(name)
+    b, h, l, d = q.shape
+    k = _case(name)[:, :, :l - 4]
+    v = _case(name)[:, :, 4:]
+    o = S._like_heads(b, h, l, d, q)
+    maps = list(S.tile_maps(q, k, v, o))
+    assert len(maps) == 36
+    for i, t in enumerate((q, k, v, o)):
+        geo = maps[9 * i:9 * i + 9]
+        assert geo == S.tma_geometry(t)
+        assert geo[:5] == [8, t.shape[2], d // 8, h, b]
+        np.testing.assert_array_equal(_map_offsets(t, geo), _torch_offsets(t))
+
+
+@pytest.mark.parametrize("slot", [0, 1, 2])
+@pytest.mark.parametrize("name", ["row_stride_not_16_bytes", "base_not_16_byte_aligned",
+                                  "heads_broadcast", "head_dim_strided"])
+def test_the_forwards_maps_refuse_what_tma_cannot_address(name, slot):
+    """A q, k or v view TMA cannot address: no tile maps (splash_fwd raises
+    the same ValueError before any launch)."""
+    ops = [_case("contiguous") for _ in range(3)]
+    ops[slot] = _refused(name)
+    o = S._like_heads(*ops[0].shape, ops[0])
+    with pytest.raises(ValueError, match="TMA"):
+        S.tile_maps(*ops, o)
+
+
+@pytest.mark.parametrize("slot", [0, 1, 2])
+@pytest.mark.parametrize("name", ["row_stride_not_16_bytes", "base_not_16_byte_aligned",
+                                  "heads_broadcast"])
+def test_the_autograd_forward_copies_what_tma_cannot_address(name, slot, monkeypatch):
+    """The autograd Function hands splash_fwd a contiguous copy of an operand
+    TMA cannot address (equal values) and every addressable one as it is,
+    and the backward kernels get the very tensors the forward got."""
+    seen = {}
+
+    def fwd(qs, k, v):
+        seen["fwd"] = (qs, k, v)
+        b, h, lq, d = qs.shape
+        return S._like_heads(b, h, lq, d, qs).zero_(), torch.zeros(b, h, lq)
+
+    def dq(qs, k, v, o, do, lse):
+        seen["dq"] = (qs, k, v)
+        return torch.zeros_like(qs), torch.zeros(lse.shape)
+
+    def dkv(qs, k, v, do, lse, delta):
+        seen["dkv"] = (qs, k, v)
+        return torch.zeros_like(k), torch.zeros_like(v)
+
+    monkeypatch.setattr(S, "splash_fwd", fwd)
+    monkeypatch.setattr(S, "splash_dq", dq)
+    monkeypatch.setattr(S, "splash_dkv", dkv)
+    given = [_case("head_split") for _ in range(3)]
+    given[slot] = _refused(name)
+    given = [t.detach().requires_grad_(True) for t in given]
+    out = S._SplashFunction.apply(*given)
+    out.backward(torch.ones(out.shape, dtype=out.dtype))
+    for i, (got, t) in enumerate(zip(seen["fwd"], given)):
+        if i == slot:
+            assert got.is_contiguous() and torch.equal(got, t.detach())
+            S.tma_geometry(got)
+        else:
+            assert got is t
+    for kernel in ("dq", "dkv"):
+        for got, want in zip(seen[kernel], seen["fwd"]):
+            assert got.data_ptr() == want.data_ptr() and got.stride() == want.stride()
+
+
 @pytest.mark.parametrize("name", ["row_stride_not_16_bytes", "base_not_16_byte_aligned",
                                   "heads_broadcast"])
 def test_the_backward_copies_what_tma_cannot_address(name):
@@ -128,7 +204,13 @@ def test_the_backward_copies_what_tma_cannot_address(name):
 
 
 def test_ptxas_lines_name_each_kernel_instance():
+    fwd = "_ZN4ssdt17splash_fwd_kernelILi48ELi3EEEv14CUtensorMap_stS1_S1_S1_NS_7FwdArgsE"
     log = "\n".join([
+        "== splash_fwd.cu",
+        f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fwd}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
         "== splash_bwd.cu",
         "ptxas info    : Compiling entry function "
         "'_ZN4ssdt17splash_dkv_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE' for 'sm_90a'",
@@ -139,6 +221,9 @@ def test_ptxas_lines_name_each_kernel_instance():
         "ptxas info    : 0 bytes gmem"])
     name = "_ZN4ssdt17splash_dkv_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE"
     assert chip_smoke.ptxas_lines(log) == [
+        "== splash_fwd.cu",
+        f"ptxas {fwd}: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        f"ptxas {fwd}: Used 168 registers, used 1 barriers",
         "== splash_bwd.cu",
         f"ptxas {name}: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         f"ptxas {name}: Used 168 registers, used 1 barriers"]
