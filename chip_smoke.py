@@ -58,8 +58,9 @@ Phases (any failure raises and the script exits non-zero):
               bf16 moments, EMA off, no remat. 3 warm-up steps, then --steps
               timed steps with the launch counts reset just before: each
               splash kernel must launch 10 times per step and adam_bf16_fused
-              once per param group (the update and master apply of all its
-              leaves: 7 launches for the 7 groups of the full_unet target);
+              once (the update and master apply of every leaf of the 7
+              groups of the full_unet target, each group with its own
+              scalars);
               loss finite, params moved. Prints the model FLOPs per step
               (utils/flops.py: 3 x the UNet forward's matmuls and
               convolutions) and MFU against the card's dense bf16 peak, with
@@ -69,8 +70,8 @@ Phases (any failure raises and the script exits non-zero):
 6. int8    -- the same workload with optimizer bitsandbytes.optim.AdamW8bit
               (int8 moments): 3 warm-up and --steps timed steps; per step
               adam8_fused launches once per param group with int8 leaves (4
-              of the 7 hold the 227), adam_bf16_fused once per group with
-              fp32-moment leaves (all 7 hold the 459), each splash kernel 10
+              of the 7 hold the 227), adam_bf16_fused once over every
+              group's fp32-moment leaves (the 459), each splash kernel 10
               times; loss finite, params moved.
 7. uncached -- (the images through the native decoder, its build named:
               the phase fails if it did not build and PIL would decode;
@@ -86,7 +87,7 @@ Phases (any failure raises and the script exits non-zero):
               warm-up and --steps timed steps: each splash kernel 10
               launches per step (the VAE's D = 512 and CLIP's causal
               attention take the math path, as on the TPU), adam_bf16_fused
-              7; loss finite, params moved. Prints steps/s, peak memory and
+              1; loss finite, params moved. Prints steps/s, peak memory and
               the device ms of the VAE encode and of CLIP per step (calls
               queued behind a spin kernel). Consistency: on one batch with
               fixed draws (the CFG drop on, then off) the uncached
@@ -106,8 +107,8 @@ Phases (any failure raises and the script exits non-zero):
               moments, checkpoints at step 4 (mid-epoch) and step 6; run 2
               (--resume from step 4) ends on a checkpoint and sidecar equal
               to run 1's bit for bit (file digests) and run 1's losses. Each
-              splash kernel 10 launches per step, adam_bf16_fused one per
-              param group. Then a Trainer with accumulate_grad_batches 2
+              splash kernel 10 launches per step, adam_bf16_fused one. Then
+              a Trainer with accumulate_grad_batches 2
               over 4 micro-steps: the masters move on micro-steps 2 and 4
               only, the optimizer kernels launch on those alone (with the
               fp32 mean of the gradients). Prints the trainer's own steps/s
@@ -126,7 +127,7 @@ Phases (any failure raises and the script exits non-zero):
               at least one must fit and one end in the allocator's CUDA
               out-of-memory error, and the pick be the largest power of two
               that fit. Then 2 steps at the pick in this process: each splash
-              kernel 10 launches per step, adam_bf16_fused 7; losses finite,
+              kernel 10 launches per step, adam_bf16_fused 1; losses finite,
               masters moved. Prints each trial's batch, exit code, seconds
               and peak memory (the card's error for an OOM).
 9c. tuner_world -- the tuner over one host's world: the train CLI under
@@ -139,7 +140,7 @@ Phases (any failure raises and the script exits non-zero):
               ranks (3 real steps each) and 64 end in the allocator's CUDA
               out-of-memory error; then both ranks train 2 steps at the
               pick, 32 (16 rows a rank): each splash kernel 10 launches per
-              step and adam_bf16_fused 7 on each rank. Two ranks on one card
+              step and adam_bf16_fused 1 on each rank. Two ranks on one card
               check the mechanism, not speed on N cards.
 9d. custom_diffusion -- BASELINE workload 5 at SD1.5 full width: the
               custom_diffusion optim target (the 32 cross-attention K/V
@@ -147,7 +148,8 @@ Phases (any failure raises and the script exits non-zero):
               of batch 8 at 512^2 from the trainer phase's directory and
               cache, AdamW with fp32 masters: splash_fwd 10 per step, the
               backward kernels only where a trained K/V lies upstream,
-              adam_bf16_fused 32 per step. ckpt_tool prune --arch sd1
+              adam_bf16_fused 1 per step (over the 32 groups). ckpt_tool
+              prune --arch sd1
               --unet-dtype fp16 of its checkpoint (the 32 leaves) writes the
               partial WebUI file, each K/V the trained master in fp16; the
               trained leaves over the directory's weights, pruned with
@@ -161,8 +163,9 @@ Phases (any failure raises and the script exits non-zero):
               plain version, timed beside its bytes bound and
               torch._foreach_lerp_ over fp32 lists; then the train phase's
               step with EMA on, an fp32 shadow and then a bf16 one, 3 warm-up
-              and --steps timed steps each: ema_fused once per param group
-              per step (7) beside the train phase's launches, the shadows
+              and --steps timed steps each: ema_fused once per step (one
+              table over every shadow) beside the train phase's launches, the
+              shadows
               moving; then 4 micro-steps at accumulate_grad_batches 2 from
               the bf16 run's state: the EMA moves on all four, the masters on
               2 and 4 only. Prints the EMA kernel's ms against its bound,
@@ -177,8 +180,9 @@ Phases (any failure raises and the script exits non-zero):
               checkpoint bytes, then 2 steps with LoRA dropout 0.1 and a bf16
               EMA shadow. Each step's splash launches must match the gate at
               its bucket's lengths (forward twice under remat; the sampled
-              images' forwards on top), adam_bf16_fused one launch per LoRA
-              module, ema_fused one per UNet module. Prints steps/s (steps
+              images' forwards on top), adam_bf16_fused one launch per step
+              over every LoRA module's group, ema_fused one over every UNet
+              factor. Prints steps/s (steps
               over the wall time between their logs, the first step and the
               one after a checkpoint write and the sampling left out), the
               sampling event's seconds, buckets,
@@ -187,11 +191,14 @@ Phases (any failure raises and the script exits non-zero):
               in the lora phase's forms: each splash kernel at the attention
               shapes its buckets gave (as in phase 2, same bounds), and over
               lora.yaml's 264 groups of two fp32 LoRA factors at SD1.5 width,
-              adam_bf16_fused (fp32 masters and moments, bf16 gradients, one
-              launch per group) and ema_fused over the 192 UNet groups'
-              updated masters (fp32 and bf16 shadows), bit for bit against
-              their plain versions; one step's launches timed beside the
-              bytes bound, torch._fused_adamw_ and torch._foreach_lerp_.
+              adam_bf16_fused as the run's optimizer launches it (fp32
+              masters and moments, bf16 gradients, each group's lr and
+              decay, one launch over all of them) and ema_fused in one
+              launch over the 192 UNet groups' updated masters (fp32 and
+              bf16 shadows), bit for bit against their plain versions; the
+              launch's device and event time, the optimizer step's host
+              time, beside the bytes bound, torch._fused_adamw_ and
+              torch._foreach_lerp_.
 12. sample -- the sample CLI (python -m scal_sdt_tpu_torch.cli.sample) on the
               trainer phase's directory at the shipped concept's settings
               (configs/dreambooth.yaml: its prompt and negative prompt, 28
@@ -263,7 +270,8 @@ Phases (any failure raises and the script exits non-zero):
               run resumed from step 4 that must end on the same checkpoint
               bytes and losses; splash launches per step match the gate at
               each bucket (70 self-attentions at 1024^2: transformer depths
-              1, 2, 10), adam_bf16_fused one launch per group; step 5 runs
+              1, 2, 10), adam_bf16_fused one launch per step over the 986
+              groups; step 5 runs
               under the trainer's torch.profiler (its kernels by category,
               launches and the device's busy share);
               sdxl_sample: the sample CLI at the file's concept (24 steps,
@@ -279,7 +287,8 @@ Phases (any failure raises and the script exits non-zero):
               (1,10,4032,64) and the lora run's bucket shapes as in phase 2;
               splash_fwd in sampling's form at (2,10,4096,64) and
               (2,20,1024,64); adam_bf16_fused over lora_sdxl's 986 groups of
-              fp32 factors at SDXL widths, bit for bit.
+              fp32 factors at SDXL widths in one launch, bit for bit, with the
+              optimizer step's host time.
 15. lora_prodigy -- (after lora) configs/lora.yaml through the train CLI with
               optimizer prodigyopt.Prodigy at lr 1.0, sampling off: 4 steps
               with a checkpoint at 2, then a run resumed from it that must
@@ -292,7 +301,7 @@ Phases (any failure raises and the script exits non-zero):
               JAX trainer's default slabs), prodigyopt.Prodigy and
               dadaptation.DAdaptAdam (lr 1.0), sgd (lr 1e-3), 2 warm-up and
               2 timed steps each: splash 10 launches per step each,
-              adam_bf16_fused 7 under adam and adamw and 0 under the others,
+              adam_bf16_fused 1 under adam and adamw and 0 under the others,
               losses finite, masters moved; Prodigy's and D-Adapt's
               estim_lr above d0 (up to 23 more untimed steps); the first
               update of three SD1.5 leaves on the card against the same
@@ -312,7 +321,7 @@ Phases (any failure raises and the script exits non-zero):
               MMDiT under the JAX package's default AdamW (fp32 masters and
               moments: adam_bf16_fused's xla mode), 2 warm-up and --steps
               timed steps: each splash kernel 24 launches per step,
-              adam_bf16_fused once per param group (6); one MMDiT forward
+              adam_bf16_fused once (over the 6 param groups); one MMDiT forward
               against the plain attention path within the check phase's
               bound;
               (c) the triple-encoder step at batch 1: CLIP-L and CLIP-G
@@ -322,7 +331,7 @@ Phases (any failure raises and the script exits non-zero):
               (d) an SD3-Medium diffusers directory without text_encoder_3/
               written here: the train CLI with optim_target lora_sd3 (285
               groups) uncached at 1024^2, batch 1, 3 steps ending on a
-              checkpoint (24 launches of each splash kernel and 285 of
+              checkpoint (24 launches of each splash kernel and 1 of
               adam_bf16_fused per step), then the sample CLI with that
               checkpoint: one 1024^2 image by flow_euler at 28 steps, 672
               splash_fwd and nothing else; then adam_bf16_fused's xla mode
@@ -348,7 +357,7 @@ Phases (any failure raises and the script exits non-zero):
               moments: the xla mode), v-prediction, 2 warm-up and --steps
               timed steps ending on a checkpoint: per step 5 launches of
               each splash kernel at (2,5,9216,64) and at (2,10,2304,64)
-              (counted by form), adam_bf16_fused once per group; losses
+              (counted by form), adam_bf16_fused once; losses
               finite, masters moved; the checkpoint with the tower bundled
               through ckpt_tool prune --arch sd2 --text-encoder at fp32 and
               fp16 reloads as the masters bit for bit and their fp16 cast;
@@ -456,6 +465,10 @@ ADAM_CASES = [  # (shape, moment dtype, nu SR, xla): AdamW's largest leaf; an in
 ADAM8_OPS, ADAM_OPS, EPILOGUE_OPS = 26, 12, 4
 B1, B2, EPS = 0.9, 0.999, 1e-8
 GROUP_WD, GROUP_STEP_SIZE = 1e-2, -2e-6    # the grouped cases' decay and -lr * schedule
+# adam_bf16_fused launches per optimizer step of a run whose Adam groups share
+# one launch signature (betas, eps, rounding, dtypes), as every run here does:
+# one launch over every group's leaves (training/optimizers.py MultiTransform)
+ADAM_PER_STEP = 1
 MASTER_FLIPS = 1e-3      # int8 grouped masters: one bf16 ulp apart in under this share
 PAYLOAD_FLIPS = 1e-3     # int8 payloads: at most 1 apart in under this share
 OPT_TOL = 1e-6           # optimizer step, scales: relative to the tensor's largest
@@ -572,6 +585,38 @@ def kernel_device_ms(fn, kernel: str, iters: int = 10, warmup: int = 2) -> float
     # the trace may miss a launch now and then: the mean is over those it holds
     check(2 * len(us) >= iters, f"{len(us)} {kernel} kernels traced in {iters} calls")
     return sum(us) / len(us) / 1e3
+
+
+def staged_device_ms(run, staging, iters: int = 10, warmup: int = 2,
+                     hold_cycles: int = 20_000_000) -> float:
+    """Mean device time of the one kernel ``run()`` launches after staging
+    its arguments through ``staging`` (an ``adam_bf16_fused.GradPointers``),
+    by CUDA events around that kernel alone: a spin kernel (~10 ms) holds the
+    stream while the host enqueues it, so the host's work around the launch
+    does not count. Late in the smoke a torch.profiler trace may hold none
+    of the ops/ kernels (``kernel_device_ms``); this needs no trace."""
+    for _ in range(warmup):
+        run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    upload = staging.upload
+
+    def timed_upload(*args, **kwargs):
+        address = upload(*args, **kwargs)
+        torch.cuda._sleep(hold_cycles)
+        start.record()
+        return address
+
+    total = 0.0
+    staging.upload = timed_upload
+    try:
+        for _ in range(iters):
+            run()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+    finally:
+        del staging.upload
+    return total / iters
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -856,7 +901,7 @@ def group_record(got, want, run, plain, kernel: str, ops: int, err: dict,
     n = sum(p.numel() for p in got.params)
     nbytes = group_bytes(got, g_size)
     call_ms = time_ms(run)
-    return {"leaves": len(got.keys), "elements": n, "chunks": len(got.chunks), "err": err,
+    return {"leaves": len(got.params), "elements": n, "chunks": len(got.chunks), "err": err,
             "ms": kernel_device_ms(run, kernel) if traced else call_ms, "call_ms": call_ms,
             "plain_ms": time_ms(plain, iters=1, warmup=0),
             "bytes": nbytes, "bound": list(bound(nbytes, ops * n)), "library_ms": None}
@@ -885,31 +930,33 @@ def adamw_group_case(gen: torch.Generator, keys, shapes,
     nu = [rand(s, gen, 1e-7, m_dtype, positive=True) for s in shapes]
     grads = [rand(s, gen, 1e-3, g_dtype) for s in shapes]
     count = 3
-    bc = bias_corrections(B1, B2, count)
-    kw = dict(b1=B1, b2=B2, eps=EPS, recip_bc=False, count=count, step=count - 1,
-              weight_decay=GROUP_WD, step_size=GROUP_STEP_SIZE, update_dtype=torch.float32,
-              xla=xla)
-    got = adam_bf16_fused.build_adam_table(keys, clones(params), clones(mu), clones(nu))
-    adam_bf16_fused.adam_bf16_fused_apply(got, grads, bc, **kw)
-    want = adam_bf16_fused.build_adam_table(keys, params, mu, nu)  # updated in place
-    adam_bf16_fused.adam_bf16_fused_apply_reference(want, grads, bc, **kw)
+    steps = [adam_bf16_fused.GroupStep(bias_corrections(B1, B2, count), count, GROUP_WD,
+                                       GROUP_STEP_SIZE)]
+    kw = dict(b1=B1, b2=B2, eps=EPS, recip_bc=False, step=count - 1,
+              update_dtype=torch.float32, xla=xla)
+    got = adam_bf16_fused.build_adam_table([keys], clones(params), clones(mu), clones(nu))
+    adam_bf16_fused.adam_bf16_fused_apply(got, grads, steps, **kw)
+    want = adam_bf16_fused.build_adam_table([keys], params, mu, nu)  # updated in place
+    adam_bf16_fused.adam_bf16_fused_apply_reference(want, grads, steps, **kw)
     torch.cuda.synchronize()
     err = {what: all(torch.equal(a, b) for a, b in zip(getattr(got, what), getattr(want, what)))
            for what in ("params", "mu", "nu")}
     err["out"] = max(max_abs(a, b) for a, b in zip(got.params, want.params))
     check(err["params"] and err["mu"] and err["nu"],
           f"grouped adam_bf16_fused (AdamW) disagrees with its plain chain: {err}")
-    res = group_record(got, want, lambda: adam_bf16_fused.adam_bf16_fused_apply(got, grads, bc, **kw),
-                       lambda: adam_bf16_fused.adam_bf16_fused_apply_reference(want, grads, bc, **kw),
+    res = group_record(got, want,
+                       lambda: adam_bf16_fused.adam_bf16_fused_apply(got, grads, steps, **kw),
+                       lambda: adam_bf16_fused.adam_bf16_fused_apply_reference(want, grads,
+                                                                               steps, **kw),
                        "adam_bf16_group", ADAM_OPS + EPILOGUE_OPS, err, grads[0].element_size(),
                        traced)
     if g_dtype != torch.bfloat16 or xla:   # torch's fused AdamW: gradients of the params' dtype
         return res
     # nearest library call, not the same function: torch's fused AdamW over
     # the same 686 bf16 params, gradients and moments
-    steps = [torch.tensor(float(count), device="cuda") for _ in keys]
+    counts = [torch.tensor(float(count), device=grads[0].device) for _ in keys]
     res["library_ms"] = time_ms(lambda: torch._fused_adamw_(
-        want.params, grads, want.mu, want.nu, [], steps, lr=1e-6, beta1=B1, beta2=B2,
+        want.params, grads, want.mu, want.nu, [], counts, lr=1e-6, beta1=B1, beta2=B2,
         weight_decay=GROUP_WD, eps=EPS, amsgrad=False, maximize=False))
     res["library"] = ("torch._fused_adamw_ over the same 686 bf16 lists (nearest call, not "
                       "the same function)")
@@ -934,21 +981,21 @@ def adamw8bit_group_case(gen: torch.Generator, keys, shapes,
         return (adam8_fused.build_adam8_table(
                     k8, [ps[k] for k in k8],
                     [(st.mu_q[k], st.mu_s[k], st.nu_q[k], st.nu_s[k]) for k in k8]),
-                adam_bf16_fused.build_adam_table(k32, [ps[k] for k in k32],
+                adam_bf16_fused.build_adam_table([k32], [ps[k] for k in k32],
                                                  [st.mu_q[k] for k in k32],
                                                  [st.nu_q[k] for k in k32]))
 
     def step_fns(t8, t32, grads, count, plain):
         bc = bias_corrections(B1, B2, count)
         inv = [float(1 / b) for b in bc]
-        hp = dict(b1=B1, b2=B2, eps=EPS, step=count - 1, weight_decay=GROUP_WD,
-                  step_size=GROUP_STEP_SIZE)
+        hp = dict(b1=B1, b2=B2, eps=EPS, step=count - 1)
         f8 = adam8_fused.adam8_fused_apply_reference if plain else adam8_fused.adam8_fused_apply
         f32 = (adam_bf16_fused.adam_bf16_fused_apply_reference if plain
                else adam_bf16_fused.adam_bf16_fused_apply)
-        g8, g32 = [grads[k] for k in t8.keys], [grads[k] for k in t32.keys]
-        return (lambda: f8(t8, g8, *inv, **hp),
-                lambda: f32(t32, g32, bc, recip_bc=True, count=count, **hp))
+        g8, g32 = [grads[k] for k in t8.keys], [grads[k] for k in t32.keys[0]]
+        steps = [adam_bf16_fused.GroupStep(bc, count, GROUP_WD, GROUP_STEP_SIZE)]
+        return (lambda: f8(t8, g8, *inv, weight_decay=GROUP_WD, step_size=GROUP_STEP_SIZE, **hp),
+                lambda: f32(t32, g32, steps, recip_bc=True, **hp))
 
     want8, want32 = tables(params, state)
     for fn in step_fns(want8, want32, {k: rand(s, gen, 1e-3, g_dtype)
@@ -1062,17 +1109,22 @@ def setup_train(seed: int, optimizer: str = "adamw", extra: dict | None = None,
 
 
 def optimizer_launches(opt_state: dict) -> dict[str, int]:
-    """Launches per step of each optimizer kernel: one per param group that
-    holds leaves of its kind (AdamW: adam_bf16_fused over every leaf;
-    AdamW8bit: adam8_fused over the int8 leaves, adam_bf16_fused over the
-    fp32-moment leaves)."""
-    out = {"adam8_fused": 0, "adam_bf16_fused": 0}
+    """Launches per step of each optimizer kernel: adam8_fused once per param
+    group that holds int8 leaves (AdamW8bit); adam_bf16_fused once per step
+    over every group's other Adam leaves (AdamW's, AdamW8bit's fp32-moment
+    ones), one launch per kind of group and moment dtypes."""
+    out = {"adam8_fused": 0}
+    signatures = set()
     for s in opt_state.values():
         if hasattr(s, "mu_s"):
             out["adam8_fused"] += bool(s.mu_s)
-            out["adam_bf16_fused"] += len(s.mu_q) > len(s.mu_s)
-        else:
-            out["adam_bf16_fused"] += bool(s.mu)
+            fp32 = [v for k, v in s.mu_q.items() if k not in s.mu_s]
+            if fp32:
+                signatures.add(("adamw8bit", fp32[0].dtype))
+        elif s.mu:
+            mu, nu = next(iter(s.mu.values())), next(iter(s.nu.values()))
+            signatures.add(("adamw", mu.dtype, nu.dtype))
+    out["adam_bf16_fused"] = len(signatures)
     return out
 
 
@@ -1080,8 +1132,7 @@ def train_phase(seed: int, steps: int, optimizer: str, per_step: dict[str, int],
                 warmup: int = 3) -> dict:
     """Warm-up, then ``steps`` timed steps; ``per_step`` gives the launches
     per step each splash kernel must make in the timed steps, and each
-    optimizer kernel must launch once per param group that holds its
-    leaves."""
+    optimizer kernel must launch as ``optimizer_launches`` says."""
     setup = setup_train(seed, optimizer)
     state, step_fn, batch, unet_config = (setup[k] for k in ("state", "step_fn", "batch",
                                                                "unet_config"))
@@ -1236,7 +1287,7 @@ def optimizer_cost(tx, state, frozen: dict, batch: dict, step_fn_spec) -> dict:
 def families_phase(seed: int, steps: int, per_step: dict[str, int], warmup: int = 2) -> dict:
     """The train phase's step (SD1.5 full fine-tune, bf16 masters and
     moments) under each optimizer family: ``warmup`` steps, then ``steps``
-    timed steps; each splash kernel 10 launches per step, adam_bf16_fused 7
+    timed steps; each splash kernel 10 launches per step, adam_bf16_fused 1
     under adam (and the AdamW reference) and 0 under the others; loss finite,
     masters moved. Prodigy's and D-Adapt's estim_lr must rise above d0 (up
     to FAMILY_MORE_STEPS more untimed steps). The first update of three
@@ -1268,7 +1319,8 @@ def families_phase(seed: int, steps: int, per_step: dict[str, int], warmup: int 
             del g
         first = first_update_check(name, config, labels, overrides, first_masters, first_grads)
         groups = len(tx.transforms)
-        want = {**per_step, "adam_bf16_fused": groups if name in ("adamw", "adam") else 0,
+        want = {**per_step,
+                "adam_bf16_fused": ADAM_PER_STEP if name in ("adamw", "adam") else 0,
                 "adam8_fused": 0, "ema_fused": 0}
         res = run_steps(state, step_fn, {}, lambda: batch, steps, warmup, want)
         for k, v in res["launches"].items():
@@ -1795,10 +1847,8 @@ def trainer_phase(seed: int, workdir: Path, cache_path: Path, frozen: dict,
     runs = workdir / "runs"
     cfg_path = workdir / "trainer.yaml"
     cfg_path.write_text(json.dumps(trainer_config(str(model), runs, cache_path, seed)))
-    # AdamW over bf16 moments: one adam_bf16_fused launch per param group
-    groups = len(resolve_optim_target(load_optim_target("full_unet"),
-                                      unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
-    per_step = {**per_step, "adam_bf16_fused": groups, "adam8_fused": 0}
+    # AdamW over bf16 moments: one adam_bf16_fused launch over every param group
+    per_step = {**per_step, "adam_bf16_fused": ADAM_PER_STEP, "adam8_fused": 0}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1936,7 +1986,7 @@ def tuner_phase(seed: int, workdir: Path, model: Path, per_step: dict[str, int])
     than the cache would end a drop_last epoch without one). Each trial is
     a probe subprocess; then TUNER_STEPS steps in this process at the
     picked batch, counted: each splash kernel 10 launches per step,
-    adam_bf16_fused one per param group."""
+    adam_bf16_fused one per step."""
     hub = workdir / "hf_hub"
     snapshot = write_hub_cache(hub, model, TUNER_HUB_ID)
     cache_path = workdir / "tuner_cache.safetensors"
@@ -1951,9 +2001,7 @@ def tuner_phase(seed: int, workdir: Path, model: Path, per_step: dict[str, int])
     config["checkpoint"] = dict(config["checkpoint"], every_n_train_steps=None)
     cfg_path = workdir / "tuner.yaml"
     cfg_path.write_text(json.dumps(config))
-    groups = len(resolve_optim_target(load_optim_target("full_unet"),
-                                      unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
-    per_step = {**per_step, "adam_bf16_fused": groups, "adam8_fused": 0, "ema_fused": 0}
+    per_step = {**per_step, "adam_bf16_fused": ADAM_PER_STEP, "adam8_fused": 0, "ema_fused": 0}
 
     trials, digests = [], []
     real_trial, real_fit = tuner.subprocess_trial, Trainer.fit
@@ -2087,7 +2135,7 @@ def tuner_world_phase(seed: int, workdir: Path, model: Path, per_step: dict[str,
     ranks on the run's mesh (data 2: the host's batch split over the
     ranks), read from the ranks' reports; then every rank trains
     TUNER_STEPS steps at the one pick: each splash kernel 10 launches per
-    step, adam_bf16_fused one per param group, on each rank. Two ranks on
+    step, adam_bf16_fused one per step, on each rank. Two ranks on
     one card check the mechanism, not speed on N cards."""
     here = Path(__file__).resolve()
     cache_path = workdir / "tuner_world_cache.safetensors"
@@ -2170,7 +2218,8 @@ def custom_diffusion_phase(seed: int, workdir: Path, model: Path, cache_path: Pa
     from the trainer phase's directory and cache, AdamW with fp32 masters;
     each splash kernel's launches counted (forward CALLS_PER_STEP per step;
     the backward CUSTOM_BWD_PER_STEP, only where a trained K/V lies
-    upstream), adam_bf16_fused one per group. Its checkpoint holds only the 32 trained leaves.
+    upstream), adam_bf16_fused one per step over the 32 groups. Its checkpoint holds only the
+    32 trained leaves.
     ``ckpt_tool prune --arch sd1 --unet-dtype fp16`` of it writes the
     partial WebUI file: the 32 K/V weights under model.diffusion_model.,
     fp16, each the trained master rounded to fp16. The trained leaves over
@@ -2212,7 +2261,7 @@ def custom_diffusion_phase(seed: int, workdir: Path, model: Path, cache_path: Pa
     check(launches["splash_fwd"] == CALLS_PER_STEP * CUSTOM_STEPS
           and launches["splash_dq"] == launches["splash_dkv"]
           == CUSTOM_BWD_PER_STEP * CUSTOM_STEPS
-          and launches["adam_bf16_fused"] == len(res.groups) * CUSTOM_STEPS
+          and launches["adam_bf16_fused"] == ADAM_PER_STEP * CUSTOM_STEPS
           and launches["adam8_fused"] == launches["ema_fused"] == 0,
           f"custom diffusion launches {launches}")
     ckpt = workdir / "custom_runs" / "smoke" / "cd" / "last.safetensors"
@@ -2344,10 +2393,10 @@ def ema_phase(seed: int, steps: int, per_step: dict[str, int], train_rate: float
     """The EMA kernel over the SD1.5 leaves (both shadow dtypes), then the
     cached SD1.5 full fine-tune (the train phase's step) with EMA on, an fp32
     shadow and then a bf16 one: ``warmup`` and ``steps`` timed steps each,
-    ema_fused once per param group per step beside the train phase's
-    launches, the shadows moving. Then 4 micro-steps at
-    accumulate_grad_batches 2 from the bf16 run's state: the EMA runs and
-    moves on all four, the masters on the emits only."""
+    ema_fused once per step beside the train phase's launches, the shadows
+    moving. Then 4 micro-steps at accumulate_grad_batches 2 from the bf16
+    run's state: the EMA runs and moves on all four, the masters on the
+    emits only."""
     keys, shapes = sd15_leaves()
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     res: dict = {"kernel": {name: ema_kernel_case(gen, keys, shapes, dt)
@@ -2358,8 +2407,7 @@ def ema_phase(seed: int, steps: int, per_step: dict[str, int], train_rate: float
         setup = setup_train(seed, "adamw", {"ema": {"enabled": True, "dtype": name,
                                                     "decay": EMA_DECAY}})
         state, step_fn, batch = setup["state"], setup["step_fn"], setup["batch"]
-        groups = len(setup["tx"].transforms)
-        expect = {**per_step, **optimizer_launches(state.opt_state), "ema_fused": groups}
+        expect = {**per_step, **optimizer_launches(state.opt_state), "ema_fused": 1}
         shadow0 = tensor_digests(state.ema.shadow.values())
         run = run_steps(state, step_fn, {}, lambda: batch, steps, warmup, expect)
         state = run.pop("state")
@@ -2368,7 +2416,7 @@ def ema_phase(seed: int, steps: int, per_step: dict[str, int], train_rate: float
         moved = int((tensor_digests(state.ema.shadow.values()) != shadow0).sum())
         check(moved > len(keys) // 2, f"{moved} of {len(keys)} shadows moved")
         tables = list(state.ema.tables.values())
-        check(len(tables) == groups, f"{len(tables)} EMA tables for {groups} groups")
+        check(len(tables) == 1, f"{len(tables)} EMA tables for one shadow and master dtype")
         one_minus = one_minus_decay(EMA_DECAY, state.ema.num_updates)
         run["ema_ms_per_step"] = device_ms(
             lambda: [ema_fused.ema_fused_apply(t, one_minus, state.step) for t in tables],
@@ -2377,7 +2425,7 @@ def ema_phase(seed: int, steps: int, per_step: dict[str, int], train_rate: float
         run["counted_launches_per_step"] = sum(run["launches_per_step"].values())
         run["shadows_moved"] = moved
         if name == "bf16":
-            run["accumulation"] = ema_accumulation(setup, state, batch, groups, len(keys))
+            run["accumulation"] = ema_accumulation(setup, state, batch, len(keys))
         res[name] = run
         del setup, state, step_fn, tables
         gc.collect()
@@ -2386,10 +2434,10 @@ def ema_phase(seed: int, steps: int, per_step: dict[str, int], train_rate: float
     return res
 
 
-def ema_accumulation(setup: dict, state, batch: dict, groups: int, n_leaves: int) -> dict:
+def ema_accumulation(setup: dict, state, batch: dict, n_leaves: int) -> dict:
     """ACCUM_MICRO_STEPS micro-steps at accumulate_grad_batches ACCUM_K from
     ``state`` (its shadows lag its masters): the masters move on emits only,
-    the EMA shadows on every micro-step, ema_fused once per group each."""
+    the EMA shadows on every micro-step, ema_fused once each."""
     acc_tx = GradientAccumulation(setup["tx"], ACCUM_K)
     acc = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in state.trainable.items()}
     state = state._replace(opt_state=AccumulationState(0, state.opt_state, acc))
@@ -2415,8 +2463,8 @@ def ema_accumulation(setup: dict, state, batch: dict, groups: int, n_leaves: int
         check(sh > n_leaves // 2, f"EMA accumulation micro-step {i}: {sh} shadows moved")
     check(state.ema.num_updates == n0 + ACCUM_MICRO_STEPS,
           f"{state.ema.num_updates - n0} EMA updates in {ACCUM_MICRO_STEPS} micro-steps")
-    check(launches["ema_fused"] == groups * ACCUM_MICRO_STEPS
-          and launches["adam_bf16_fused"] == groups * emits,
+    check(launches["ema_fused"] == ACCUM_MICRO_STEPS
+          and launches["adam_bf16_fused"] == ADAM_PER_STEP * emits,
           f"launches under accumulation: {launches}")
     return {"k": ACCUM_K, "micro_steps": ACCUM_MICRO_STEPS, "masters_moved": masters_moved,
             "shadows_moved": shadows_moved, "of": n_leaves, "launches": launches}
@@ -2553,7 +2601,8 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
         calls = expect_train_splash(shapes1, launches, "lora run 1", unet_config,
                                     sampled=sampled)
         n_groups = sum(groups.values())
-        check(launches["adam_bf16_fused"] == n_groups * LORA_STEPS and launches["ema_fused"] == 0
+        check(launches["adam_bf16_fused"] == ADAM_PER_STEP * LORA_STEPS
+              and launches["ema_fused"] == 0
               and launches["adam8_fused"] == 0, f"lora run 1 launches {launches}")
         dir1 = runs / "lora" / "run1"
         mid, last = (f"epoch=0-step={n}" for n in (LORA_SAVE_EVERY, LORA_STEPS))
@@ -2577,7 +2626,7 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
         cli(["--resume", str(dir1 / f"{mid}.safetensors"), "--run-id", "run2"], run2)
         launches2 = read_launches()
         expect_train_splash(step_shapes(timings), launches2, "lora run 2", unet_config)
-        check(launches2["adam_bf16_fused"] == n_groups * (LORA_STEPS - LORA_SAVE_EVERY)
+        check(launches2["adam_bf16_fused"] == ADAM_PER_STEP * (LORA_STEPS - LORA_SAVE_EVERY)
               and launches2["ema_fused"] == 0, f"lora run 2 launches {launches2}")
         got = file_digests(checkpoint_files(runs / "lora" / "run2", last))
         check(got == want, f"the resumed LoRA run's checkpoint differs from run 1's: {got} {want}")
@@ -2605,8 +2654,8 @@ def lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict:
               and sorted(run3.losses()) == list(range(1, LORA_EMA_STEPS + 1)),
               f"lora run 3 losses {run3.losses()}")
         calls3 = expect_train_splash(step_shapes(timings), launches3, "lora run 3", unet_config)
-        check(launches3["ema_fused"] == groups["unet"] * LORA_EMA_STEPS
-              and launches3["adam_bf16_fused"] == n_groups * LORA_EMA_STEPS,
+        check(launches3["ema_fused"] == LORA_EMA_STEPS
+              and launches3["adam_bf16_fused"] == ADAM_PER_STEP * LORA_EMA_STEPS,
               f"lora run 3 launches {launches3}")
         path3 = runs / "lora" / "run3" / f"epoch=0-step={LORA_EMA_STEPS}.safetensors"
         meta3 = json.loads(load_metadata(path3)["json"])
@@ -2675,121 +2724,150 @@ def lora_groups(target: str = "lora", bases: dict | None = None
     return out
 
 
-def lora_adam_case(gen: torch.Generator, groups, hp) -> tuple[dict, list]:
-    """adam_bf16_fused as a LoRA run launches it: one launch per group of
-    ``groups`` over fp32 masters and fp32 moments with bf16 gradients
-    (AdamW with ``hp``'s betas and eps, each group's lr and decay), bit for
-    bit against its plain version. Per step: the kernels' own device time
-    (the mean launch in a torch.profiler trace times the launches), the
-    calls' time by CUDA events (the host's work around each launch
-    included: each call uploads its gradients' addresses), the bytes bound
-    of the same work and torch._fused_adamw_ over the same lists. Returns
-    the record and the kernel's tables (their masters updated)."""
-    b1, b2, eps = float(hp.beta1), float(hp.beta2), float(hp.eps)
-    count = 3
-    bc = bias_corrections(b1, b2, count)
-    got, want, grads, kws = [], [], [], []
-    for _, keys, shapes, opt in groups:
-        params = [rand(sh, gen, 2e-2, torch.float32) for sh in shapes]
-        mu = [rand(sh, gen, 1e-4, torch.float32) for sh in shapes]
-        nu = [rand(sh, gen, 1e-7, torch.float32, positive=True) for sh in shapes]
-        grads.append([rand(sh, gen, 1e-3) for sh in shapes])
-        got.append(adam_bf16_fused.build_adam_table(keys, clones(params), clones(mu), clones(nu)))
-        want.append(adam_bf16_fused.build_adam_table(keys, params, mu, nu))
-        kws.append(dict(b1=b1, b2=b2, eps=eps, recip_bc=False, count=count, step=count - 1,
-                        weight_decay=float(opt["weight_decay"]),
-                        step_size=float(np.float32(-opt["lr"])), update_dtype=torch.float32))
-
-    def adam(tables, plain):
-        fn = (adam_bf16_fused.adam_bf16_fused_apply_reference if plain
-              else adam_bf16_fused.adam_bf16_fused_apply)
-        return lambda: [fn(t, g, bc, **kw) for t, g, kw in zip(tables, grads, kws)]
-
-    adam(got, False)()
-    adam(want, True)()
+def lora_adam_case(gen: torch.Generator, groups, config) -> tuple[dict, dict]:
+    """adam_bf16_fused as a LoRA run launches it: ``config``'s optimizer
+    through build_optimizer over ``groups`` (each LoRA module its own param
+    group with its lr and decay), fp32 masters and moments, bf16 gradients,
+    one ``tx.update_and_apply`` per step: one launch over every group's
+    leaves (the default AdamW: the xla rounding), bit for bit against the
+    plain version of the same merged launch (``MergedLaunch``). Per step: the
+    kernel's device time (``staged_device_ms``), the launch's time by CUDA
+    events (the host's staging of the gradient addresses and group records
+    included),
+    the whole ``update_and_apply``'s host ms (its return, after a
+    synchronize) and launches, the bytes bound of the same work and
+    torch._fused_adamw_ over the same lists. Returns the record and the
+    masters the kernel updated."""
+    labels = {k: f"g{i:04d}" for i, (_, keys, _, _) in enumerate(groups) for k in keys}
+    overrides = {f"g{i:04d}": opt for i, (_, _, _, opt) in enumerate(groups)}
+    tx, _ = build_optimizer(config, labels, overrides, steps_per_epoch=1000, num_processes=1)
+    shapes = {k: sh for _, keys, shs, _ in groups for k, sh in zip(keys, shs)}
+    masters = {k: rand(sh, gen, 2e-2, torch.float32) for k, sh in shapes.items()}
+    state = tx.init(masters)
+    check(all(t.xla for t in tx.transforms.values()), "the LoRA run's AdamW is not in xla mode")
+    for s in state.values():   # moments and a count as a run's after two steps
+        for k in s.mu:
+            s.mu[k].copy_(rand(shapes[k], gen, 1e-4, torch.float32))
+            s.nu[k].copy_(rand(shapes[k], gen, 1e-7, torch.float32, positive=True))
+        s.count = 2
+    grads = {k: rand(sh, gen, 1e-3) for k, sh in shapes.items()}
+    step = 2
+    plain_masters = {k: v.clone() for k, v in masters.items()}
+    plain_state = copy.deepcopy(state)
+    (merged,) = tx.merged_launches(state, masters)
+    b1, b2, eps, recip_bc, update_dtype, xla = merged.launch
+    kw = dict(b1=b1, b2=b2, eps=eps, recip_bc=recip_bc, step=step, update_dtype=update_dtype,
+              xla=xla)
+    want = adam_bf16_fused.build_adam_table(
+        merged.keys, *merged.tensors(tx.transforms, plain_state, plain_masters))
+    steps = [tx.transforms[label].group_step(plain_state[label].count)
+             for label in merged.labels]
+    flat_grads = [grads[k] for keys in merged.keys for k in keys]
     torch.cuda.synchronize()
-    err = {what: all(torch.equal(a, b) for t, u in zip(got, want)
-                     for a, b in zip(getattr(t, what), getattr(u, what)))
+    reset_launches()
+    tx.update_and_apply(grads, state, masters, step)
+    launches = read_launches()
+    adam_bf16_fused.adam_bf16_fused_apply_reference(want, flat_grads, steps, **kw)
+    torch.cuda.synchronize()
+    got = merged.table
+    check(launches["adam_bf16_fused"] == 1 and len(got.keys) == len(groups),
+          f"the LoRA optimizer step over {len(groups)} groups launched {launches}")
+    err = {what: all(torch.equal(a, b) for a, b in zip(getattr(got, what), getattr(want, what)))
            for what in ("params", "mu", "nu")}
-    err["out"] = max(max_abs(a, b) for t, u in zip(got, want) for a, b in zip(t.params, u.params))
+    err["out"] = max(max_abs(a, b) for a, b in zip(got.params, want.params))
     check(err["params"] and err["mu"] and err["nu"],
           f"adam_bf16_fused over the LoRA groups (fp32 masters and moments) disagrees: {err}")
-    n = sum(p.numel() for t in got for p in t.params)
-    nbytes = sum(group_bytes(t) for t in got)
-    res = {"groups": len(got), "leaves": sum(len(t.keys) for t in got), "elements": n,
+    check(len({st.step_size for st in steps}) == len({o.get("lr") for o in overrides.values()}),
+          "the LoRA groups' step sizes")
+
+    def run():
+        adam_bf16_fused.adam_bf16_fused_apply(got, flat_grads, steps, **kw)
+
+    host = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tx.update_and_apply(grads, state, masters, step + 1 + i)
+        host.append((time.perf_counter() - t0) * 1e3)
+    n = sum(p.numel() for p in got.params)
+    nbytes = group_bytes(got)
+    res = {"groups": len(got.keys), "leaves": len(got.params), "elements": n,
            "adam_bf16_fused": {
-               "err": err, "ms": len(got) * kernel_device_ms(adam(got, False), "adam_bf16_group",
-                                                          iters=3, warmup=1),
-               "call_ms": time_ms(adam(got, False), iters=10, warmup=1),
-               "plain_ms": time_ms(adam(want, True), iters=1, warmup=0),
+               "err": err, "launches": launches["adam_bf16_fused"], "chunks": len(got.chunks),
+               "ms": staged_device_ms(run, got.staging),
+               "call_ms": time_ms(run, iters=10, warmup=2),
+               "host_ms": sorted(host)[len(host) // 2], "host_ms_all": host,
+               "plain_ms": time_ms(lambda: adam_bf16_fused.adam_bf16_fused_apply_reference(
+                   want, flat_grads, steps, **kw), iters=1, warmup=0),
                "bytes": nbytes, "bound": list(bound(nbytes, (ADAM_OPS + EPILOGUE_OPS) * n))}}
     # nearest library call, not the same function: torch's fused AdamW over
     # the same fp32 lists (with fp32 copies of the gradients: it takes
     # gradients of the params' dtype) at one lr
-    flat = [(p, g.float(), m, v) for u, gs in zip(want, grads)
-            for p, g, m, v in zip(u.params, gs, u.mu, u.nu)]
-    ps, gs, ms, vs = (list(x) for x in zip(*flat))
-    steps = [torch.tensor(float(count), device="cuda") for _ in ps]
+    ps, ms, vs = want.params, want.mu, want.nu
+    gs = [g.float() for g in flat_grads]
+    counts = [torch.tensor(3.0, device=ps[0].device) for _ in ps]
     res["adam_bf16_fused"]["library_ms"] = time_ms(lambda: torch._fused_adamw_(
-        ps, gs, ms, vs, [], steps, lr=5e-4, beta1=b1, beta2=b2, weight_decay=2e-2, eps=eps,
+        ps, gs, ms, vs, [], counts, lr=5e-4, beta1=b1, beta2=b2, weight_decay=2e-2, eps=eps,
         amsgrad=False, maximize=False))
     res["adam_bf16_fused"]["library"] = (
         "torch._fused_adamw_ over the same fp32 lists, fp32 gradients, one lr (nearest call, "
         "not the same function)")
-    del flat, ps, gs, ms, vs, want, grads
-    return res, got
+    del want, gs, plain_masters, plain_state, state
+    return res, masters
 
 
 def lora_kernel_case(gen: torch.Generator) -> dict:
     """The optimizer and EMA kernels in the form the lora phase runs them,
     over lora.yaml's 264 groups of two LoRA factors each (SD1.5 width):
-    ``lora_adam_case``, then one ema_fused launch per UNet group over the
-    updated masters with fp32 and with bf16 shadows, bit for bit against its
-    plain version, timed as the optimizer is and beside
-    torch._foreach_lerp_."""
+    ``lora_adam_case``, then ema_fused as the trainer's EMA launches it over
+    the updated masters: one launch over all 384 UNet factors, with fp32 and
+    with bf16 shadows, bit for bit against its plain version; its device
+    time by CUDA events with the launches queued behind a spin kernel
+    (``device_ms``), beside torch._foreach_lerp_."""
     groups = lora_groups()
-    res, got = lora_adam_case(gen, groups, load_with_defaults(CONFIGS_DIR / "lora.yaml")
-                              .optimizer.params)
-    unet = [(keys, t) for (comp, keys, _, _), t in zip(groups, got) if comp == "unet"]
+    res, masters = lora_adam_case(gen, groups, load_with_defaults(CONFIGS_DIR / "lora.yaml"))
+    keys = sorted(k for comp, ks, _, _ in groups if comp == "unet" for k in ks)
+    ps = [masters[k] for k in keys]
     one_minus, step = one_minus_decay(EMA_DECAY, 9), 8
     res["ema_fused"] = {}
     for name, s_dtype in EMA_DTYPES.items():
-        shadows = [[(p + rand(p.shape, gen, 1e-3, torch.float32)).to(s_dtype) for p in t.params]
-                   for _, t in unet]
-        e_got = [ema_fused.build_ema_table(keys, clones(sh), t.params)
-                 for (keys, t), sh in zip(unet, shadows)]
-        e_want = [ema_fused.build_ema_table(keys, clones(sh), t.params)
-                  for (keys, t), sh in zip(unet, shadows)]
-
-        def ema(tables, plain):
-            fn = ema_fused.ema_fused_apply_reference if plain else ema_fused.ema_fused_apply
-            return lambda: [fn(t, one_minus, step) for t in tables]
-
-        ema(e_got, False)()
-        ema(e_want, True)()
+        shadows = [(p + rand(p.shape, gen, 1e-3, torch.float32)).to(s_dtype) for p in ps]
+        e_got = ema_fused.build_ema_table(keys, clones(shadows), ps)
+        e_want = ema_fused.build_ema_table(keys, clones(shadows), ps)
         torch.cuda.synchronize()
-        pairs = [(a, b, s0) for t, u, sh in zip(e_got, e_want, shadows)
-                 for a, b, s0 in zip(t.shadows, u.shadows, sh)]
+        reset_launches()
+        ema_fused.ema_fused_apply(e_got, one_minus, step)
+        launches = read_launches()
+        ema_fused.ema_fused_apply_reference(e_want, one_minus, step)
+        torch.cuda.synchronize()
+        pairs = list(zip(e_got.shadows, e_want.shadows, shadows))
         equal = all(torch.equal(a, b) for a, b, _ in pairs)
         e_err = max(max_abs(a, b) for a, b, _ in pairs)
-        check(equal, f"ema_fused over the LoRA groups ({name} shadows of fp32 masters) "
+        check(equal, f"ema_fused over the LoRA factors ({name} shadows of fp32 masters) "
                      f"disagrees with its plain version: {e_err}")
         moved = sum(not torch.equal(a, s0) for a, _, s0 in pairs)
         check(moved == len(pairs), f"ema_fused moved {moved} of {len(pairs)} LoRA shadows")
-        e_n = sum(sh.numel() for t in e_got for sh in t.shadows)
-        e_bytes = sum(ema_bytes(t) for t in e_got)
-        s32 = [rand(p.shape, gen, 2e-2, torch.float32) for _, t in unet for p in t.params]
-        m32 = [p for _, t in unet for p in t.params]
+        e_n = sum(sh.numel() for sh in e_got.shadows)
+        e_bytes = ema_bytes(e_got)
+        s32 = [rand(p.shape, gen, 2e-2, torch.float32) for p in ps]
+
+        def run(t=e_got):
+            ema_fused.ema_fused_apply(t, one_minus, step)
+
         res["ema_fused"][name] = {
-            "shadow": str(s_dtype), "groups": len(e_got), "elements": e_n, "bit_equal": equal,
-            "max_abs_err": e_err,
-            "ms": len(e_got) * kernel_device_ms(ema(e_got, False), "ema_group", iters=3, warmup=1),
-            "call_ms": time_ms(ema(e_got, False), iters=10, warmup=1),
-            "plain_ms": time_ms(ema(e_want, True), iters=1, warmup=0),
+            "shadow": str(s_dtype), "groups": sum(comp == "unet" for comp, *_ in groups),
+            "leaves": len(keys), "elements": e_n, "launches": launches["ema_fused"],
+            "bit_equal": equal, "max_abs_err": e_err,
+            "ms": device_ms(run, iters=10, warmup=2),
+            "call_ms": time_ms(run, iters=10, warmup=2),
+            "plain_ms": time_ms(lambda: ema_fused.ema_fused_apply_reference(e_want, one_minus,
+                                                                            step),
+                                iters=1, warmup=0),
             "bytes": e_bytes, "bound": list(bound(e_bytes, EMA_OPS * e_n)),
             # the same function for an fp32 shadow of fp32 masters
-            "library_ms": device_ms(lambda: torch._foreach_lerp_(s32, m32, one_minus),
+            "library_ms": device_ms(lambda: torch._foreach_lerp_(s32, ps, one_minus),
                                     iters=10, warmup=2)}
+        check(launches["ema_fused"] == 1, f"the LoRA EMA launched {launches}")
     return res
 
 
@@ -3119,8 +3197,7 @@ def dreambooth_phase(seed: int, workdir: Path, model: Path, images: Path) -> dic
     512^2 (28 DDIM steps, cfg 11, one per batch), MD5-named PNGs; run again,
     it makes none. Then the train CLI trains DB_STEPS steps with prior
     preservation (batch 2 instance + 2 class images), the full UNet with
-    remat: splash fwd 20, dq 10, dkv 10 and adam_bf16_fused one per param
-    group per step."""
+    remat: splash fwd 20, dq 10, dkv 10 and adam_bf16_fused one per step."""
     base = load_with_defaults(CONFIGS_DIR / "dreambooth.yaml")
     c0 = base.data.concepts[0]
     class_dir = workdir / "class"
@@ -3164,8 +3241,6 @@ def dreambooth_phase(seed: int, workdir: Path, model: Path, images: Path) -> dic
           f"launches {launches2}")
     res["class_s_per_image"] = [c["s"] for c in calls1]
 
-    groups = len(resolve_optim_target(load_optim_target(config.optim_target),
-                                      unet_param_shapes(unet_config), [])["unet"].groups)
     calls = splash_calls((4, res_px, res_px, 3), unet_config)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3181,7 +3256,7 @@ def dreambooth_phase(seed: int, workdir: Path, model: Path, images: Path) -> dic
     check(sorted(losses) == list(range(1, DB_STEPS + 1))
           and all(math.isfinite(x) for x in losses.values()), f"dreambooth losses {losses}")
     want = {"splash_fwd": 2 * calls * DB_STEPS, "splash_dq": calls * DB_STEPS,
-            "splash_dkv": calls * DB_STEPS, "adam_bf16_fused": groups * DB_STEPS,
+            "splash_dkv": calls * DB_STEPS, "adam_bf16_fused": ADAM_PER_STEP * DB_STEPS,
             "adam8_fused": 0, "ema_fused": 0}
     check(launches == want, f"dreambooth launches {launches}, expected {want}")
     for p in (workdir / "db_runs").rglob("*.safetensors*"):
@@ -3351,7 +3426,6 @@ def sdxl_cache_phase(seed: int, workdir: Path, model: Path, images: Path) -> dic
         c.cond(i).shape == (77, width) and c.pooled(i).shape == (pooled,)
         and np.isfinite(c.pooled(i)).all() for i in entries),
         f"the SDXL cache: {len(entries)} entries, keys {sorted(c._keys)[:6]}")
-    groups = sum(sdxl_groups().values())
     os.environ["SSDT_STEP_TIMINGS"] = str(timings)
     try:
         torch.cuda.synchronize()
@@ -3371,7 +3445,7 @@ def sdxl_cache_phase(seed: int, workdir: Path, model: Path, images: Path) -> dic
           and all(math.isfinite(x) for x in losses.values()), f"cached SDXL losses {losses}")
     shapes = step_shapes(timings)
     expect_train_splash(shapes, launches, "cached SDXL steps", UNetConfig.sdxl(), vae_factor=1)
-    check(launches["adam_bf16_fused"] == groups * SDXL_CACHED_STEPS
+    check(launches["adam_bf16_fused"] == ADAM_PER_STEP * SDXL_CACHED_STEPS
           and launches["adam8_fused"] == launches["ema_fused"] == 0,
           f"cached SDXL launches {launches}")
     return {"entries": len(entries), "encode_s": encode_s,
@@ -3390,7 +3464,8 @@ def sdxl_lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict
     run 2 resumes from that checkpoint and must end on run 1's final
     checkpoint and sidecar bytes and losses. Splash launches per step match
     the gate at each step's bucket (forward twice under remat; the sampled
-    images' forwards on top), adam_bf16_fused one launch per LoRA module."""
+    images' forwards on top), adam_bf16_fused one launch per step over every
+    LoRA module's group."""
     runs, timings = workdir / "sdxl_runs", workdir / "sdxl_timings.jsonl"
     base = load_with_defaults(CONFIGS_DIR / "sdxl_lora.yaml")
     concepts = [{**c, "num_samples": SDXL_SAMPLES} for c in base.sampling.concepts]
@@ -3444,7 +3519,7 @@ def sdxl_lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict
         sampled = events * SDXL_SAMPLES * per_image
         calls = expect_train_splash(shapes1, launches, "SDXL lora run 1", UNetConfig.sdxl(),
                                     sampled=sampled)
-        check(launches["adam_bf16_fused"] == n_groups * SDXL_STEPS
+        check(launches["adam_bf16_fused"] == ADAM_PER_STEP * SDXL_STEPS
               and launches["ema_fused"] == launches["adam8_fused"] == 0,
               f"SDXL lora run 1 launches {launches}")
         dir1 = runs / "sdxl_lora" / "run1"
@@ -3470,7 +3545,7 @@ def sdxl_lora_phase(seed: int, workdir: Path, model: Path, images: Path) -> dict
         cli(["--resume", str(dir1 / f"{mid}.safetensors"), "--run-id", "run2"], run2)
         launches2 = read_launches()
         expect_train_splash(step_shapes(timings), launches2, "SDXL lora run 2", UNetConfig.sdxl())
-        check(launches2["adam_bf16_fused"] == n_groups * (SDXL_STEPS - SDXL_SAVE_EVERY),
+        check(launches2["adam_bf16_fused"] == ADAM_PER_STEP * (SDXL_STEPS - SDXL_SAVE_EVERY),
               f"SDXL lora run 2 launches {launches2}")
         got = file_digests(checkpoint_files(runs / "sdxl_lora" / "run2", last))
         check(got == want, f"the resumed SDXL LoRA run's checkpoint differs: {got} {want}")
@@ -3558,12 +3633,11 @@ def sdxl_sample_phase(seed: int, workdir: Path, model: Path) -> dict:
 def sdxl_kernel_case(gen: torch.Generator) -> dict:
     """adam_bf16_fused in the SDXL lora run's form: ``lora_adam_case`` over
     lora_sdxl's groups at SDXL-base's widths (one per LoRA module of the UNet
-    and both towers) with sdxl_lora.yaml's AdamW."""
-    groups = lora_groups("lora_sdxl", sdxl_bases())
-    res, got = lora_adam_case(gen, groups, load_with_defaults(CONFIGS_DIR / "sdxl_lora.yaml")
-                              .optimizer.params)
+    and both towers) with sdxl_lora.yaml's AdamW: one launch per step."""
+    res, masters = lora_adam_case(gen, lora_groups("lora_sdxl", sdxl_bases()),
+                                  load_with_defaults(CONFIGS_DIR / "sdxl_lora.yaml"))
     res["groups_by_component"] = sdxl_groups()
-    del got
+    del masters
     torch.cuda.empty_cache()
     return res
 
@@ -3676,7 +3750,7 @@ def sd3_cached_phase(seed: int, steps: int, gen: torch.Generator) -> dict:
     """The cached SD3 step at 1024^2, batch 2: latents (2, 16, 128, 128),
     conds (2, 154, 4096) and pooled (2, 2048) from the generator; 2 warm-up
     and ``steps`` timed steps, the launches counted over the timed ones
-    (each splash kernel 24 per step, adam_bf16_fused once per param group);
+    (each splash kernel 24 per step, adam_bf16_fused once);
     then one MMDiT forward against the plain attention path."""
     s = sd3_full_setup(seed, SD3_BATCH)
     mm, state = s["mmdit"], s["state"]
@@ -3725,7 +3799,7 @@ def sd3_triple_phase(seed: int, steps: int, gen: torch.Generator) -> dict:
     MMDiT trains under the default AdamW (fp32 masters and moments). 2
     warm-up and ``steps`` timed steps: splash 24 per step each (CLIP's
     causal and T5's biased attention take the math path), adam_bf16_fused
-    once per group."""
+    once."""
     s = sd3_full_setup(seed, SD3_TRIPLE_BATCH, t5=True)
     mm, state = s["mmdit"], s["state"]
     batch = {"latents": sd3_latents(gen, SD3_TRIPLE_BATCH), **sd3_ids(gen, SD3_TRIPLE_BATCH)}
@@ -3826,7 +3900,8 @@ def sd3_cli_phase(seed: int, workdir: Path) -> dict:
     check(sorted(losses) == list(range(1, SD3_CLI_STEPS + 1))
           and all(math.isfinite(x) for x in losses.values()), f"SD3 lora losses {losses}")
     want = {**{k: mm.num_layers * SD3_CLI_STEPS for k in SPLASH},
-            "adam_bf16_fused": groups * SD3_CLI_STEPS, "adam8_fused": 0, "ema_fused": 0}
+            "adam_bf16_fused": ADAM_PER_STEP * SD3_CLI_STEPS, "adam8_fused": 0,
+            "ema_fused": 0}
     check(launches == want, f"SD3 lora launches {launches}, expected {want}")
     (ckpt,) = (workdir / "sd3_runs" / "sd3_lora" / "r").glob("*.safetensors")
     factors = [k for k in load_state_dict(ckpt) if k.endswith((".lora_A", ".lora_B"))]
@@ -4045,8 +4120,6 @@ def single_file_sd15(seed: int, workdir: Path, model: Path) -> dict:
         "checkpoint": {"every_n_train_steps": None, "every_n_epochs": None}}))
     cfg_path = workdir / "sf_train.yaml"
     cfg_path.write_text(json.dumps(config))
-    groups = len(resolve_optim_target(load_optim_target("full_unet"),
-                                      unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
     torch.cuda.synchronize()
     reset_launches()
     with TrainerProbe() as run:
@@ -4059,7 +4132,8 @@ def single_file_sd15(seed: int, workdir: Path, model: Path) -> dict:
     check(sorted(losses) == list(range(1, SINGLE_FILE_STEPS + 1))
           and all(math.isfinite(x) for x in losses.values()), f"SD1.5 file losses {losses}")
     want = {**{k: CALLS_PER_STEP * SINGLE_FILE_STEPS for k in SPLASH},
-            "adam_bf16_fused": groups * SINGLE_FILE_STEPS, "adam8_fused": 0, "ema_fused": 0}
+            "adam_bf16_fused": ADAM_PER_STEP * SINGLE_FILE_STEPS, "adam8_fused": 0,
+            "ema_fused": 0}
     check(train_launches == want, f"SD1.5 file train launches {train_launches}, expected {want}")
     shutil.rmtree(workdir / "sf_runs")
 
@@ -4142,7 +4216,7 @@ def single_file_sd21(seed: int, steps: int, workdir: Path, vocab: Path) -> dict:
     PNGs, batch 2, the default AdamW (fp32 masters and moments:
     adam_bf16_fused's xla mode), v-prediction: SD21_WARMUP + ``steps`` steps
     ending on a checkpoint; per step 5 launches of each splash kernel at
-    each of SD21_FORMS and adam_bf16_fused once per param group; losses
+    each of SD21_FORMS and adam_bf16_fused once; losses
     finite, masters moved. The checkpoint with the loaded tower bundled in
     (trainable-only checkpoints leave frozen parts out) through ``ckpt_tool
     prune --arch sd2 --text-encoder --vae <file>``: at --unet-dtype fp32 the
@@ -4206,7 +4280,7 @@ def single_file_sd21(seed: int, steps: int, workdir: Path, vocab: Path) -> dict:
     want_forms = {str(list(s)): {k: 5 * total for k in SPLASH} for s in SD21_FORMS}
     check(forms.by_form() == want_forms,
           f"SD2.1 splash launches by form {forms.by_form()}, expected {want_forms}")
-    want = {**{k: 10 * total for k in SPLASH}, "adam_bf16_fused": groups * total,
+    want = {**{k: 10 * total for k in SPLASH}, "adam_bf16_fused": ADAM_PER_STEP * total,
             "adam8_fused": 0, "ema_fused": 0}
     check(launches == want, f"SD2.1 train launches {launches}, expected {want}")
     dts = [1.0 / mt["steps_per_sec"] for s, mt, _ in run.steps if s > SD21_WARMUP]
@@ -4835,13 +4909,14 @@ def optim_entry(name: str, source: str, replaces: str, pallas_kernel: str,
 def lora_record(record: dict, kernel: str, shadow: str | None = None,
                 kernels: str = "lora_kernels") -> dict:
     """The kernels-line numbers of ``kernel`` in a LoRA phase's form (one
-    launch per LoRA group over fp32 masters; the EMA's with ``shadow``):
-    the lora phase's, or with ``kernels="sdxl_kernels"`` the SDXL lora
-    phase's."""
+    launch per step over every LoRA group's fp32 masters; the EMA's with
+    ``shadow``): the lora phase's, or with ``kernels="sdxl_kernels"`` the
+    SDXL lora phase's."""
     lk = record[kernels]
     r = lk[kernel] if shadow is None else lk[kernel][shadow]
     return {"groups": lk["groups"] if shadow is None else r["groups"],
-            **{f: r[f] for f in ("ms", "call_ms", "plain_ms", "bound", "library_ms")}}
+            **{f: r[f] for f in ("launches", "ms", "call_ms", "host_ms", "plain_ms", "bound",
+                                 "library_ms") if f in r}}
 
 
 def ema_entry(source: str, replaces: str, pallas_kernel: str, record: dict) -> dict:
@@ -5120,10 +5195,8 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        groups = len(resolve_optim_target(load_optim_target("full_unet"),
-                                          unet_param_shapes(UNetConfig.sd15()), [])["unet"].groups)
         world = tuner_world_phase(args.seed, Path(tmp), Path(tmp) / "model",
-                                  {**splash_per_step, "adam_bf16_fused": groups,
+                                  {**splash_per_step, "adam_bf16_fused": ADAM_PER_STEP,
                                    "adam8_fused": 0, "ema_fused": 0})
         for t in world["trials"]:
             log(f"tuner world trial: batch {t['batch_size']} on {TUNER_WORLD_RANKS} ranks, "
@@ -5334,15 +5407,16 @@ def main(argv=None) -> int:
     record["lora_kernels"] = lora_kernel_case(gen)
     lk = record["lora_kernels"]
     a = lk["adam_bf16_fused"]
-    log(f"lora kernels: adam_bf16_fused over {lk['groups']} groups ({lk['leaves']} fp32 leaves, "
-        f"{lk['elements']} elements): kernels {a['ms']:.4f} ms per step, calls {a['call_ms']:.4f} "
-        f"ms (bound {a['bound'][0]:.4f} ms by "
-        f"{a['bound'][1]}), plain {a['plain_ms']:.2f} ms, torch._fused_adamw_ "
-        f"{a['library_ms']:.4f} ms, bit-equal {a['err']}")
+    log(f"lora kernels ({smi}): adam_bf16_fused over {lk['groups']} groups ({lk['leaves']} fp32 "
+        f"leaves, {lk['elements']} elements, {a['chunks']} CTAs): {a['launches']} launch per "
+        f"step, device {a['ms']:.4f} ms, call {a['call_ms']:.4f} ms, optimizer step host "
+        f"{a['host_ms']:.3f} ms (bound {a['bound'][0]:.4f} ms by {a['bound'][1]}), plain "
+        f"{a['plain_ms']:.2f} ms, torch._fused_adamw_ {a['library_ms']:.4f} ms, bit-equal "
+        f"{a['err']}")
     for name, r in lk["ema_fused"].items():
-        log(f"lora kernels: ema_fused, {name} shadows over {r['groups']} UNet groups of fp32 "
-            f"masters: kernels {r['ms']:.4f} ms per step, calls {r['call_ms']:.4f} ms (bound "
-            f"{r['bound'][0]:.4f} ms by "
+        log(f"lora kernels ({smi}): ema_fused, {name} shadows over the {r['leaves']} factors of "
+            f"{r['groups']} UNet groups (fp32 masters): {r['launches']} launch per step, device "
+            f"{r['ms']:.4f} ms, call {r['call_ms']:.4f} ms (bound {r['bound'][0]:.4f} ms by "
             f"{r['bound'][1]}), plain {r['plain_ms']:.2f} ms, torch._foreach_lerp_ "
             f"{r['library_ms']:.4f} ms, bit-equal {r['bit_equal']}")
     torch.cuda.empty_cache()
@@ -5361,11 +5435,12 @@ def main(argv=None) -> int:
     record["sdxl_kernels"] = sdxl_kernel_case(gen)
     sk = record["sdxl_kernels"]
     a = sk["adam_bf16_fused"]
-    log(f"sdxl kernels: adam_bf16_fused over {sk['groups']} groups {sk['groups_by_component']} "
-        f"({sk['leaves']} fp32 leaves, {sk['elements']} elements): kernels {a['ms']:.4f} ms per "
-        f"step, calls {a['call_ms']:.4f} ms (bound {a['bound'][0]:.4f} ms by {a['bound'][1]}), "
-        f"plain {a['plain_ms']:.2f} ms, torch._fused_adamw_ {a['library_ms']:.4f} ms, bit-equal "
-        f"{a['err']}")
+    log(f"sdxl kernels ({smi}): adam_bf16_fused over {sk['groups']} groups "
+        f"{sk['groups_by_component']} ({sk['leaves']} fp32 leaves, {sk['elements']} elements, "
+        f"{a['chunks']} CTAs): {a['launches']} launch per step, device {a['ms']:.4f} ms, call "
+        f"{a['call_ms']:.4f} ms, optimizer step host {a['host_ms']:.3f} ms (bound "
+        f"{a['bound'][0]:.4f} ms by {a['bound'][1]}), plain {a['plain_ms']:.2f} ms, "
+        f"torch._fused_adamw_ {a['library_ms']:.4f} ms, bit-equal {a['err']}")
     torch.cuda.empty_cache()
 
     # last: its torch.profiler traces of ~20,000 launches come after every

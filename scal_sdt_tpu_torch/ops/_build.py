@@ -36,8 +36,8 @@ _SIGNATURES = {
     "ssdt_adam8_fused": [_P] * 6 + [_I] * 4 + [_F] * 7 + [_P],
     "ssdt_adam_bf16_fused": ([_P] * 4 + [ctypes.c_longlong] + [_I] * 4 + [_F] * 7
                              + [_I, _I, _I, ctypes.c_uint, _P]),
-    "ssdt_adam_bf16_group": ([_P] * 3 + [_I, ctypes.c_longlong] + [_I] * 5 + [_F] * 7
-                             + [_I, _I, _I, ctypes.c_uint, _I, _F, _F, ctypes.c_uint, _P]),
+    "ssdt_adam_bf16_group": ([_P] * 4 + [_I, ctypes.c_longlong] + [_I] * 5 + [_F] * 5
+                             + [_I, _I, _I, _P]),
     "ssdt_adam8_group": ([_P] * 3 + [_I] * 5 + [_F] * 7
                          + [_I, _F, _F, ctypes.c_uint, _P]),
     "ssdt_ema_group": [_P, _P, _I, ctypes.c_longlong, _I, _I, _I, _F, ctypes.c_uint, _P],

@@ -23,11 +23,18 @@ Two entry points:
 
 * ``adam_bf16_fused_update``: one leaf, returns the bias-corrected step in
   ``out_dtype`` (what the TPU kernel computes);
-* ``adam_bf16_fused_apply``: every leaf of a param group in one launch, over
-  an ``AdamTable`` (``build_adam_table``): Adam, then the decoupled weight
-  decay and the schedule, then the master apply, the masters updated in
-  place (bf16 masters by SR salted ``crc32(key) ^ MASTER_SALT`` at the train
-  step). Nothing but the moments and masters reaches device memory.
+* ``adam_bf16_fused_apply``: every leaf of many param groups in one launch,
+  over an ``AdamTable`` (``build_adam_table`` over the groups' key lists):
+  Adam, then the decoupled weight decay and the schedule, then the master
+  apply, the masters updated in place (bf16 masters by SR salted
+  ``crc32(key) ^ MASTER_SALT`` at the train step). Nothing but the moments
+  and masters reaches device memory. What a group sets (its bias
+  corrections and count, its decay, its ``-lr * schedule``: a
+  ``GroupStep``) goes to the card as one record per group, staged each step
+  with the gradients' addresses in one copy; the betas, eps, dtypes and
+  rounding are the launch's. The optimizers launch it once per step for
+  every Adam group whose launch scalars and dtypes agree
+  (``training/optimizers.py`` ``MultiTransform``).
 
 Each launches the kernel for CUDA tensors and runs its plain PyTorch version
 (``*_reference``: the grouped one is the optimizer's chain leaf by leaf) for
@@ -39,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -220,21 +228,28 @@ def chunk_map(counts: Sequence[int]) -> np.ndarray:
 
 
 class GradPointers:
-    """The device array of a group's gradient addresses. Autograd returns new
-    gradient tensors every step, so the addresses are written to a pinned
-    host buffer and copied on the compute stream before each launch; an
-    event keeps the host from rewriting the buffer while its last copy may
-    still be in flight."""
+    """The device array of a launch's gradient addresses, followed by the
+    records a launch reads anew each step (``adam_bf16_fused``'s group
+    records). Autograd returns new gradient tensors every step, so both are
+    written to one pinned host buffer and copied on the compute stream before
+    each launch, in one copy; an event keeps the host from rewriting the
+    buffer while its last copy may still be in flight."""
 
-    def __init__(self, n: int, device: torch.device):
-        self.host = torch.empty(n, dtype=torch.int64, pin_memory=True)
-        self.dev = torch.empty(n, dtype=torch.int64, device=device)
+    def __init__(self, n: int, device: torch.device, extra_bytes: int = 0):
+        self.n = n
+        self.host = torch.empty(8 * n + extra_bytes, dtype=torch.uint8, pin_memory=True)
+        self.dev = torch.empty(8 * n + extra_bytes, dtype=torch.uint8, device=device)
         self.copied = torch.cuda.Event()
 
-    def upload(self, grads: Sequence[torch.Tensor]) -> int:
-        """Stage the addresses of ``grads``; returns the device array's."""
+    def upload(self, grads: Sequence[torch.Tensor], extra: Optional[np.ndarray] = None) -> int:
+        """Stage the addresses of ``grads`` and the bytes of ``extra``;
+        returns the device array's address (``extra`` from 8 bytes per
+        gradient on)."""
         self.copied.synchronize()
-        self.host.numpy()[:] = [g.data_ptr() for g in grads]
+        host = self.host.numpy()
+        host[:8 * self.n].view(np.int64)[:] = [g.data_ptr() for g in grads]
+        if extra is not None:
+            host[8 * self.n:] = extra.view(np.uint8)
         self.dev.copy_(self.host, non_blocking=True)
         self.copied.record()
         return self.dev.data_ptr()
@@ -262,139 +277,202 @@ def same_tensors(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> bool:
     return len(a) == len(b) and all(x is y for x, y in zip(a, b))
 
 
-# AdamLeaf of ops/csrc/adam_bf16_fused.cu
+# AdamLeaf and AdamGroup of ops/csrc/adam_bf16_fused.cu
 _LEAF = np.dtype([("p", "<u8"), ("mu", "<u8"), ("nu", "<u8"), ("n", "<i8"),
                   ("nu_salt", "<u4"), ("master_salt", "<u4")])
 assert _LEAF.itemsize == 40
+_GROUP = np.dtype([("c1", "<f4"), ("c2", "<f4"), ("nu_mix", "<u4"), ("has_wd", "<i4"),
+                   ("wd_p", "<f4"), ("step_u", "<f4"), ("step_mix", "<u4"), ("pad", "<u4")])
+assert _GROUP.itemsize == 32
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupStep:
+    """A param group's scalars at one step of the grouped launch: what may
+    differ between the groups that share it."""
+    bc: tuple             # the fp32 bias corrections at ``count``
+    count: int            # the group's count after this update (nu's SR seed)
+    weight_decay: float
+    step_size: float      # -lr * schedule at the count before this update
 
 
 @dataclasses.dataclass(eq=False)
 class AdamTable:
-    """The leaf table of a param group: its leaves' masters and moments (the
-    tensors the launch updates in place), their two salts, the packed
-    records and the chunk map; on a card also their device copies and the
-    gradient-address array. Built once, reused while ``holds`` the state."""
-    keys: tuple[str, ...]
-    params: list[torch.Tensor]
+    """The leaf table of one grouped launch over param groups: each group's
+    keys, its leaves' masters and moments (the tensors the launch updates in
+    place; one per leaf, group after group) and their dtypes, their two
+    salts, the packed records and the chunk map (each CTA's leaf, chunk and
+    group); on a card also their device copies and the staging buffer of the
+    gradient addresses and group records. Built once, reused while ``holds``
+    the state."""
+    keys: tuple[tuple[str, ...], ...]   # per group
+    params: list[torch.Tensor]          # per leaf
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
+    dtypes: frozenset                   # of the masters and moments
     nu_salts: list[int]
     master_salts: list[int]
+    numels: list[int]
     records: np.ndarray        # _LEAF per leaf
-    chunks: np.ndarray         # (n_chunks, 2) int32 (leaf, chunk)
+    chunks: np.ndarray         # (n_chunks, 4) int32 (leaf, chunk, group, 0)
     device: torch.device
     dev_records: Optional[torch.Tensor] = None
     dev_chunks: Optional[torch.Tensor] = None
-    grads: Optional[GradPointers] = None
+    staging: Optional[GradPointers] = None
 
-    def holds(self, keys: Sequence[str], params: Sequence[torch.Tensor],
-              mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor]) -> bool:
-        """Whether the table is of exactly these leaves and tensors."""
-        return (tuple(keys) == self.keys and same_tensors(params, self.params)
-                and same_tensors(mu, self.mu) and same_tensors(nu, self.nu))
+    def holds(self, params: Sequence[torch.Tensor], mu: Sequence[torch.Tensor],
+              nu: Sequence[torch.Tensor]) -> bool:
+        """Whether the table is of exactly these tensors, one per leaf in its
+        order."""
+        return (same_tensors(params, self.params) and same_tensors(mu, self.mu)
+                and same_tensors(nu, self.nu))
 
 
-def build_adam_table(keys: Sequence[str], params: Sequence[torch.Tensor],
+def build_adam_table(keys: Sequence[Sequence[str]], params: Sequence[torch.Tensor],
                      mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor]) -> AdamTable:
-    """The leaf table of leaves ``keys`` (masters ``params``, moments ``mu``
-    and ``nu`` in their storage dtypes, each of its master's size). On a
-    card every tensor must be contiguous, and each kind of one dtype."""
-    keys, params, mu, nu = tuple(keys), list(params), list(mu), list(nu)
+    """The leaf table of param groups: ``keys``, one list per group, and
+    the leaves' masters ``params`` and moments ``mu``, ``nu`` in their
+    storage dtypes, one per key in the order of ``keys``, each of its
+    master's size. On a card every tensor must be contiguous, and each kind
+    of one dtype over all the groups."""
+    group_keys = tuple(tuple(k) for k in keys)
+    sizes = [len(k) for k in group_keys]
+    flat_keys = list(itertools.chain.from_iterable(group_keys))
+    params, mu, nu = list(params), list(mu), list(nu)
+    if not len(flat_keys) == len(params) == len(mu) == len(nu):
+        raise ValueError(f"adam_bf16_fused: {len(flat_keys)} keys for {len(params)}, {len(mu)}, "
+                         f"{len(nu)} masters, mu, nu")
     device = params[0].device if params else torch.device("cpu")
     for what, ts in (("master", params), ("mu", mu), ("nu", nu)):
-        for k, t, p in zip(keys, ts, params):
+        for k, t, p in zip(flat_keys, ts, params):
             if t.numel() != p.numel() or t.device != device:
                 raise ValueError(f"adam_bf16_fused: {what} of {k} is {tuple(t.shape)} on "
                                  f"{t.device}, its master {tuple(p.shape)} on {device}")
             if device.type == "cuda" and (not t.is_contiguous() or t.dtype not in DTYPE_CODES
                                           or t.dtype != ts[0].dtype):
-                raise ValueError(f"adam_bf16_fused: the {what} tensors of a group must be "
+                raise ValueError(f"adam_bf16_fused: the {what} tensors of a launch must be "
                                  f"contiguous and of one dtype; {k} is {t.dtype}")
-    rec = np.zeros(len(keys), _LEAF)
+    rec = np.zeros(len(flat_keys), _LEAF)
     rec["p"] = [t.data_ptr() for t in params]
     rec["mu"] = [t.data_ptr() for t in mu]
     rec["nu"] = [t.data_ptr() for t in nu]
     rec["n"] = [t.numel() for t in params]
-    rec["nu_salt"] = [leaf_salt(k, NU_SALT) for k in keys]
-    rec["master_salt"] = [leaf_salt(k, MASTER_SALT) for k in keys]
-    table = AdamTable(keys, params, mu, nu, rec["nu_salt"].tolist(), rec["master_salt"].tolist(),
-                      rec, chunk_map([max(1, -(-int(n) // CHUNK)) for n in rec["n"]]), device)
-    if device.type == "cuda" and keys:
+    rec["nu_salt"] = [leaf_salt(k, NU_SALT) for k in flat_keys]
+    rec["master_salt"] = [leaf_salt(k, MASTER_SALT) for k in flat_keys]
+    chunks = chunk_map([max(1, -(-int(n) // CHUNK)) for n in rec["n"]])
+    group_of_leaf = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+    chunks = np.concatenate([chunks, group_of_leaf[chunks[:, 0]][:, None],
+                             np.zeros((len(chunks), 1), np.int32)], axis=1)
+    table = AdamTable(group_keys, params, mu, nu, frozenset(t.dtype for t in params + mu + nu),
+                      rec["nu_salt"].tolist(), rec["master_salt"].tolist(), rec["n"].tolist(),
+                      rec, chunks, device)
+    if device.type == "cuda" and flat_keys:
         table.dev_records = torch.from_numpy(rec.view(np.uint8)).to(device)
         table.dev_chunks = torch.from_numpy(table.chunks).to(device)
-        table.grads = GradPointers(len(keys), device)
+        table.staging = GradPointers(len(flat_keys), device, len(sizes) * _GROUP.itemsize)
     return table
 
 
-def adam_bf16_fused_apply_reference(table: AdamTable, grads: Sequence[torch.Tensor], bc, *,
-                                    b1: float, b2: float, eps: float, recip_bc: bool,
-                                    count: int, step: int, weight_decay: float,
-                                    step_size: float,
+def _check_groups(table: AdamTable, steps: Sequence[GroupStep]) -> None:
+    if len(steps) != len(table.keys):
+        raise ValueError(f"adam_bf16_fused: {len(steps)} group steps for a table of "
+                         f"{len(table.keys)} groups")
+
+
+def adam_bf16_fused_apply_reference(table: AdamTable, grads: Sequence[torch.Tensor],
+                                    steps: Sequence[GroupStep], *, b1: float, b2: float,
+                                    eps: float, recip_bc: bool, step: int,
                                     update_dtype: Optional[torch.dtype] = None,
                                     xla: bool = False) -> None:
-    """Plain version: the optimizer's chain leaf by leaf -- Adam (nu stored
-    by SR at ``count`` where it is narrower than fp32), the update in
-    ``update_dtype`` (None: the gradient's), decay and schedule, then the
-    master apply at ``step`` -- with the masters and moments updated in
-    place."""
-    for i, g in enumerate(grads):
+    """Plain version: the optimizer's chain leaf by leaf, each leaf with its
+    group's ``steps`` entry -- Adam (nu stored by SR at the group's count
+    where it is narrower than fp32), the update in ``update_dtype`` (None:
+    the gradient's), the group's decay and schedule, then the master apply
+    at ``step`` -- with the masters and moments updated in place."""
+    _check_groups(table, steps)
+    if len(grads) != len(table.params):
+        raise ValueError(f"adam_bf16_fused: {len(grads)} gradients for {len(table.params)} "
+                         f"leaves")
+    leaf_steps = (st for keys, st in zip(table.keys, steps) for _ in keys)
+    for i, (g, st) in enumerate(zip(grads, leaf_steps)):
         p, nu = table.params[i], table.nu[i]
-        sr = ({"sr_step": count, "sr_salt": table.nu_salts[i]} if nu.dtype.itemsize < 4
-              else {})
+        sr = {"sr_step": st.count, "sr_salt": table.nu_salts[i]} if nu.dtype.itemsize < 4 else {}
         out = adam_bf16_fused_update_reference(
-            g.contiguous(), table.mu[i], nu, bc, b1=b1, b2=b2, eps=eps,
+            g.contiguous(), table.mu[i], nu, st.bc, b1=b1, b2=b2, eps=eps,
             out_dtype=update_dtype or g.dtype, recip_bc=recip_bc, xla=xla, **sr)[0]
-        u = decay_and_schedule_reference(out, p, weight_decay, step_size, fma_decay=xla)
+        u = decay_and_schedule_reference(out, p, st.weight_decay, st.step_size, fma_decay=xla)
         p.copy_(apply_update_reference(p, u, step, table.master_salts[i]))
 
 
-def adam_bf16_fused_apply(table: AdamTable, grads: Sequence[torch.Tensor], bc, *, b1: float,
-                          b2: float, eps: float, recip_bc: bool, count: int, step: int,
-                          weight_decay: float, step_size: float,
-                          update_dtype: Optional[torch.dtype] = None, xla: bool = False) -> None:
-    """One Adam step and master apply over every leaf of ``table``, in one
-    launch on a card; masters and moments are updated in place.
+def _group_record(st: GroupStep, recip_bc: bool, p_dtype: torch.dtype, u_dtype: torch.dtype
+                  ) -> tuple:
+    """A group's AdamGroup fields but the step's seed, its scalars rounded as
+    the chain's ``new_full`` rounds them."""
+    c1, c2 = _factors(st.bc, recip_bc)
+    wd_p = torch.full((), st.weight_decay, dtype=p_dtype).item()
+    step_u = torch.full((), st.step_size, dtype=u_dtype).item()
+    return (c1, c2, dither_seed(st.count, 0), int(bool(st.weight_decay)), wd_p, step_u, 0, 0)
 
-    grads: one per leaf, in the table's order. bc: the fp32 bias corrections
-    at ``count`` (the optimizer's count after this update); ``step``: the
-    train step (the master SR's seed); step_size: ``-lr * schedule``;
-    update_dtype: the update's dtype before the apply (None: the
-    gradients'); xla: XLA's rounding of plain ``scale_by_adam`` and of the
-    decay (fp32 moments, masters and updates)."""
-    kw = dict(b1=b1, b2=b2, eps=eps, recip_bc=recip_bc, count=count, step=step,
-              weight_decay=weight_decay, step_size=step_size, update_dtype=update_dtype,
+
+def group_records(steps: Sequence[GroupStep], *, recip_bc: bool, p_dtype: torch.dtype,
+                  u_dtype: torch.dtype, step: int) -> np.ndarray:
+    """The AdamGroup records of a launch at train step ``step``: one per
+    group, its ``steps`` entry's scalars as the kernel takes them. Groups
+    that share a ``GroupStep`` object (a LoRA run's groups take one of a few
+    lrs) share its record's computation."""
+    slots: dict[int, int] = {}
+    which = [slots.setdefault(id(st), len(slots)) for st in steps]
+    unique = list({id(st): st for st in steps}.values())
+    records = np.array([_group_record(st, recip_bc, p_dtype, u_dtype) for st in unique],
+                       _GROUP)[which]
+    records["step_mix"] = dither_seed(step, 0)
+    return records
+
+
+def adam_bf16_fused_apply(table: AdamTable, grads: Sequence[torch.Tensor],
+                          steps: Sequence[GroupStep], *, b1: float, b2: float, eps: float,
+                          recip_bc: bool, step: int, update_dtype: Optional[torch.dtype] = None,
+                          xla: bool = False) -> None:
+    """One Adam step and master apply over every leaf of every group of
+    ``table``, in one launch on a card; masters and moments are updated in
+    place.
+
+    grads: one per leaf, in the table's order; steps: one ``GroupStep`` per
+    group (its bias corrections at its count after this update, its decay
+    and its ``-lr * schedule``). The rest is the launch's: ``step``, the
+    train step (the master SR's seed); update_dtype: the update's dtype
+    before the apply (None: the gradients'); xla: XLA's rounding of plain
+    ``scale_by_adam`` and of the decay (fp32 moments, masters and
+    updates)."""
+    kw = dict(b1=b1, b2=b2, eps=eps, recip_bc=recip_bc, step=step, update_dtype=update_dtype,
               xla=xla)
     if xla:
-        dtypes = {t.dtype for ts in (table.params, table.mu, table.nu) for t in ts}
-        if recip_bc or dtypes - {torch.float32} or update_dtype not in (None, torch.float32):
+        if recip_bc or table.dtypes - {torch.float32} or update_dtype not in (None, torch.float32):
             raise ValueError("adam_bf16_fused: xla rounding takes fp32 masters, moments and "
                              "updates, and recip_bc=False")
     if table.device.type != "cuda":
-        adam_bf16_fused_apply_reference(table, grads, bc, **kw)
+        adam_bf16_fused_apply_reference(table, grads, steps, **kw)
         return
-    if not table.keys:
+    _check_groups(table, steps)
+    if not table.params:
         return
-    gs, g_dtype = check_grads("adam_bf16_fused", grads, table.records["n"].tolist(),
-                              table.device)
+    gs, g_dtype = check_grads("adam_bf16_fused", grads, table.numels, table.device)
     u_dtype = update_dtype or g_dtype
     p_dtype, mu_dtype, nu_dtype = (ts[0].dtype for ts in (table.params, table.mu, table.nu))
     if u_dtype not in DTYPE_CODES:
         raise TypeError(f"adam_bf16_fused: update dtype {u_dtype} is not supported")
-    c1, c2 = _factors(bc, recip_bc)
-    # the scalars rounded as the chain's new_full rounds them
-    wd_p = torch.full((), weight_decay, dtype=p_dtype).item()
-    step_u = torch.full((), step_size, dtype=u_dtype).item()
+    records = group_records(steps, recip_bc=recip_bc, p_dtype=p_dtype, u_dtype=u_dtype,
+                            step=step)
     f32 = ctypes.c_float
     lib = _build.load_library()
     with torch.cuda.device(table.device):
+        staged = table.staging.upload(gs, records)
         err = lib.ssdt_adam_bf16_group(
-            table.dev_records.data_ptr(), table.grads.upload(gs), table.dev_chunks.data_ptr(),
-            len(table.chunks), CHUNK, DTYPE_CODES[g_dtype], DTYPE_CODES[mu_dtype],
-            DTYPE_CODES[nu_dtype], DTYPE_CODES[p_dtype], DTYPE_CODES[u_dtype], f32(b1), f32(b2),
-            *map(f32, _one_minus_args(b1, b2, g_dtype, xla)), f32(eps), f32(c1), f32(c2),
-            int(recip_bc), int(nu_dtype.itemsize < 4), int(xla), dither_seed(count, 0),
-            int(bool(weight_decay)),
-            f32(wd_p), f32(step_u), dither_seed(step, 0),
-            torch.cuda.current_stream().cuda_stream)
+            table.dev_records.data_ptr(), staged + 8 * len(gs), staged,
+            table.dev_chunks.data_ptr(), len(table.chunks), CHUNK, DTYPE_CODES[g_dtype],
+            DTYPE_CODES[mu_dtype], DTYPE_CODES[nu_dtype], DTYPE_CODES[p_dtype],
+            DTYPE_CODES[u_dtype], f32(b1), f32(b2),
+            *map(f32, _one_minus_args(b1, b2, g_dtype, xla)), f32(eps), int(recip_bc),
+            int(nu_dtype.itemsize < 4), int(xla), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "adam_bf16_fused", err)
     launches["adam_bf16_fused"] += 1

@@ -21,12 +21,24 @@
 // Two entry points share one body (adam_chunk):
 //   ssdt_adam_bf16_fused  -- one leaf, writes the bias-corrected step in the
 //                            output dtype (the port of the TPU kernel);
-//   ssdt_adam_bf16_group  -- every leaf of a param group in one launch, over
-//                            a leaf table in device memory; after Adam it
-//                            applies the decay and the schedule and writes the
-//                            new master in place (adam_common.cuh, epilogue),
-//                            so neither the update nor a dither reaches device
-//                            memory.
+//   ssdt_adam_bf16_group  -- every leaf of many param groups in one launch,
+//                            over a leaf table in device memory; after Adam
+//                            it applies the decay and the schedule and writes
+//                            the new master in place (adam_common.cuh,
+//                            epilogue), so neither the update nor a dither
+//                            reaches device memory.
+//
+// One launch over many groups. A step of a LoRA run updates hundreds of
+// param groups of two small factors each (264 in lora.yaml, 986 in
+// sdxl_lora.yaml); a launch per group did a few microseconds of work behind
+// its own launch and host upload. The per-element chain is the same function
+// in every group and differs only in scalars, so the grouped entry splits
+// them: what a launch fixes (betas, eps, the dtypes, recip, sr, xla) stays a
+// kernel argument, and what a group sets (the bias corrections, the nu
+// dither's count, the decay, the schedule's step size, the master dither's
+// step) is one AdamGroup record per group in device memory, which each
+// CTA's entry in the chunk map names. The host stages the group records each
+// step beside the gradients' addresses, in one copy.
 //
 // What bounds it on an H100: bytes. Per element the grouped form reads g,
 // both moments and the master and writes the moments and the master (14
@@ -46,6 +58,11 @@ namespace ssdt {
 
 constexpr int kThreads = 256;
 constexpr long long kChunk = 8192;  // elements per CTA of the single-leaf entry
+// CTAs per SM the grouped kernel's typed instances ask for: the bytes in
+// flight of four CTAs (1,024 threads) need its registers at 64 or fewer,
+// which the group's scalars, read at run time rather than from the
+// launch's constants, would otherwise push past.
+constexpr int kGroupMinCtas = 4;
 
 struct AdamHyper {
   float b1, b2, omb1, omb2, eps, c1, c2;
@@ -53,7 +70,7 @@ struct AdamHyper {
   int g_dtype, mu_dtype, nu_dtype;
 };
 
-// A leaf of a group, as ops/adam_bf16_fused.py packs it (40 bytes).
+// A leaf of a grouped launch, as ops/adam_bf16_fused.py packs it (40 bytes).
 struct AdamLeaf {
   char* p;
   char* mu;
@@ -62,6 +79,26 @@ struct AdamLeaf {
   uint32_t nu_salt, master_salt;
 };
 static_assert(sizeof(AdamLeaf) == 40, "AdamLeaf layout must match ops/adam_bf16_fused.py");
+
+// A CTA's work in the grouped launch: chunk `chunk` of leaf `leaf`, whose
+// param group is `group`. The group rides in the chunk map, not in the leaf
+// record, so that a CTA reads its leaf's and its group's records at once.
+struct __align__(16) AdamChunk {
+  int leaf, chunk, group, pad;
+};
+
+// The scalars a param group sets at a step, as ops/adam_bf16_fused.py packs
+// them (32 bytes).
+struct AdamGroup {
+  float c1, c2;       // the group's bias corrections, or their reciprocals (recip)
+  uint32_t nu_mix;    // count * 0x9E3779B9: nu's SR seed is nu_mix ^ the leaf's salt
+  int has_wd;
+  float wd_p;         // weight decay rounded to the master's dtype
+  float step_u;       // -lr * schedule(count), rounded to the update's dtype
+  uint32_t step_mix;  // step * 0x9E3779B9: the master SR's seed is step_mix ^ the salt
+  uint32_t pad;
+};
+static_assert(sizeof(AdamGroup) == 32, "AdamGroup layout must match ops/adam_bf16_fused.py");
 
 __device__ __forceinline__ void adam_core(float g, float m0, float v0, const AdamHyper& h,
                                           float& m, float& v, float& out) {
@@ -152,18 +189,29 @@ __global__ void __launch_bounds__(kThreads) adam_bf16_fused_kernel(
   adam_chunk(g, mu, nu, s, min(n, s + kChunk), nu_seed, fixed<G, M, V>(h), epi);
 }
 
+// h and a hold what the launch fixes; each CTA fills in its leaf's group's
+// scalars, the same for all its threads. The all-kAny instance (the rarer
+// dtypes: fp16 moments, say) asks for no occupancy: its dtype switches need
+// more registers.
 template <int G, int M, int V, int E, int U>
-__global__ void __launch_bounds__(kThreads) adam_bf16_group_kernel(
-    const AdamLeaf* __restrict__ leaves, const char* const* __restrict__ grads,
-    const Chunk* __restrict__ chunks, long long chunk, uint32_t nu_mix, const AdamHyper h,
-    ApplyArgs a) {
+__global__ void __launch_bounds__(kThreads, G == kAny ? 1 : kGroupMinCtas) adam_bf16_group_kernel(
+    const AdamLeaf* __restrict__ leaves, const AdamGroup* __restrict__ groups,
+    const char* const* __restrict__ grads, const AdamChunk* __restrict__ chunks, long long chunk,
+    AdamHyper h, ApplyArgs a) {
   if (E != kAny) a.p_dtype = E;
   if (U != kAny) a.u_dtype = U;
-  const Chunk c = chunks[blockIdx.x];
+  const AdamChunk c = chunks[blockIdx.x];
   const AdamLeaf L = leaves[c.leaf];
+  const AdamGroup grp = groups[c.group];
+  h.c1 = grp.c1;
+  h.c2 = grp.c2;
+  a.has_wd = grp.has_wd;
+  a.wd_p = grp.wd_p;
+  a.step_u = grp.step_u;
+  a.step_mix = grp.step_mix;
   const long long s = (long long)c.chunk * chunk;
-  const ApplyToMaster epi{L.p, a, a.step_mix ^ L.master_salt};
-  adam_chunk(grads[c.leaf], L.mu, L.nu, s, min(L.n, s + chunk), nu_mix ^ L.nu_salt,
+  const ApplyToMaster epi{L.p, a, grp.step_mix ^ L.master_salt};
+  adam_chunk(grads[c.leaf], L.mu, L.nu, s, min(L.n, s + chunk), grp.nu_mix ^ L.nu_salt,
              fixed<G, M, V>(h), epi);
 }
 
@@ -195,24 +243,25 @@ int ssdt_adam_bf16_fused(const void* g, void* mu, void* nu, void* out, long long
   return (int)cudaGetLastError();
 }
 
-// One launch over every leaf of a group. leaves: device array of AdamLeaf;
-// grads: device array of the gradients' addresses, one per leaf; chunks:
-// device array of nchunks (leaf, chunk) pairs, chunk = elements per chunk
-// (a multiple of 8). nu_mix = count * 0x9E3779B9 and step_mix = step *
-// 0x9E3779B9 (uint32), each xored with a leaf's salt. wd_p: weight decay
-// rounded to p_dtype; step_u: the schedule's step size rounded to u_dtype.
+// One launch over every leaf of many param groups. leaves: device array of
+// AdamLeaf; groups: device array of AdamGroup, one per group; grads: device
+// array of the gradients' addresses, one per leaf; chunks: device array of
+// nchunks AdamChunk (leaf, chunk, group), chunk = elements per chunk (a
+// multiple of 8). The dtypes, betas, eps, recip, sr
+// and xla are the launch's; every other scalar is a group's (AdamGroup).
 // xla = 1: XLA's rounding of plain scale_by_adam and of the decay (fp32
 // masters and updates). Moments and masters are updated in place.
-int ssdt_adam_bf16_group(const void* leaves, const void* grads, const void* chunks, int nchunks,
-                         long long chunk, int g_dtype, int mu_dtype, int nu_dtype, int p_dtype,
-                         int u_dtype, float b1, float b2, float omb1, float omb2, float eps,
-                         float c1, float c2, int recip, int sr, int xla, unsigned int nu_mix,
-                         int has_wd, float wd_p, float step_u, unsigned int step_mix,
+int ssdt_adam_bf16_group(const void* leaves, const void* groups, const void* grads,
+                         const void* chunks, int nchunks, long long chunk, int g_dtype,
+                         int mu_dtype, int nu_dtype, int p_dtype, int u_dtype, float b1, float b2,
+                         float omb1, float omb2, float eps, int recip, int sr, int xla,
                          void* stream) {
   using namespace ssdt;
   if (nchunks <= 0) return 0;
-  const AdamHyper h{b1, b2, omb1, omb2, eps, c1, c2, recip, sr, xla, g_dtype, mu_dtype, nu_dtype};
-  const ApplyArgs a{p_dtype, u_dtype, has_wd, xla, wd_p, step_u, step_mix};
+  // c1, c2 and the decay, schedule and seeds come from each leaf's group
+  const AdamHyper h{b1, b2, omb1, omb2, eps, 0.f, 0.f, recip, sr, xla, g_dtype, mu_dtype,
+                    nu_dtype};
+  const ApplyArgs a{p_dtype, u_dtype, 0, xla, 0.f, 0.f, 0u};
   auto kernel = adam_bf16_group_kernel<kAny, kAny, kAny, kAny, kAny>;
   if (g_dtype == kBF16 && mu_dtype == kBF16 && nu_dtype == kBF16 && p_dtype == kBF16 &&
       u_dtype == kF32)
@@ -230,9 +279,13 @@ int ssdt_adam_bf16_group(const void* leaves, const void* grads, const void* chun
   else if (g_dtype == kF32 && mu_dtype == kF32 && nu_dtype == kF32 && p_dtype == kBF16 &&
            u_dtype == kF32)
     kernel = adam_bf16_group_kernel<kF32, kF32, kF32, kBF16, kF32>;  // AdamW8bit
+  else if (g_dtype == kF32 && mu_dtype == kF32 && nu_dtype == kF32 && p_dtype == kF32 &&
+           u_dtype == kF32)
+    kernel = adam_bf16_group_kernel<kF32, kF32, kF32, kF32, kF32>;  // AdamW, the default
   kernel<<<(unsigned int)nchunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const AdamLeaf*>(leaves), static_cast<const char* const*>(grads),
-      static_cast<const Chunk*>(chunks), chunk, nu_mix, h, a);
+      static_cast<const AdamLeaf*>(leaves), static_cast<const AdamGroup*>(groups),
+      static_cast<const char* const*>(grads), static_cast<const AdamChunk*>(chunks), chunk, h,
+      a);
   return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,7 @@
 //   p = SR_bf16(p + u) for bf16 masters, round_P(p + round_P(u)) otherwise,
 // with U the update's dtype (fp32 for AdamW, the gradient's for AdamW8bit),
 // P the master's, wd_P = round_P(wd) and step_U = round_U(-lr * schedule)
-// computed on the host; under XLA rounding (fp32 masters and updates) the
+// computed on the host for each group; under XLA rounding (fp32 masters and updates) the
 // decay is one fma, u = fma(p, wd_P, u). The update-only entries store
 // round_out(out).
 
@@ -251,7 +251,9 @@ struct WriteUpdate {
   __device__ __forceinline__ void finish1(long long i, float o) const { store_rn(out, dtype, i, o); }
 };
 
-// The scalars of the master apply that every leaf of a launch shares.
+// The scalars of the master apply: the dtypes and fma_decay are a launch's,
+// the rest a param group's (adam_bf16_fused.cu's AdamGroup) or, in
+// adam8_fused.cu, a launch's.
 struct ApplyArgs {
   int p_dtype, u_dtype, has_wd;
   int fma_decay;      // the decay as one fma, u + p * wd (XLA's contraction)

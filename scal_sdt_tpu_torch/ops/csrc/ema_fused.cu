@@ -3,11 +3,14 @@
 //
 // Not the port of a TPU kernel: the JAX package computes the EMA in XLA
 // (training/ema.py ema_update, fused into its update program). Here it is one
-// launch per param group over a leaf table in device memory, the design of
-// the grouped optimizer launches (adam_common.cuh), where a plain chain over
-// SD1.5's 686 leaves would issue several thousand launches per step. It runs
-// after the optimizer's launch in stream order, so it reads the updated
-// masters.
+// launch per step over a leaf table in device memory that holds every shadow
+// of one (shadow dtype, master dtype) pair, the design of the grouped
+// optimizer launches (adam_common.cuh), where a plain chain over SD1.5's 686
+// leaves would issue several thousand launches per step and a launch per
+// param group hundreds in a LoRA run (192 in lora.yaml's). No scalar differs
+// between the leaves: the decay and the step are the step's, the salts the
+// leaves' own. It runs after the optimizer's launch in stream order, so it
+// reads the updated masters.
 //
 // Per element, each operation rounded on its own as the plain chain rounds
 // it (__fsub_rn / __fmul_rn: nvcc never contracts them into an fma):
@@ -31,7 +34,7 @@ namespace ssdt {
 
 constexpr int kEmaThreads = 256;
 
-// A leaf of an EMA group, as ops/ema_fused.py packs it (32 bytes).
+// A leaf of an EMA table, as ops/ema_fused.py packs it (32 bytes).
 struct EmaLeaf {
   char* shadow;
   const char* master;
@@ -117,7 +120,7 @@ __global__ void __launch_bounds__(kEmaThreads) ema_group_kernel(
 
 extern "C" {
 
-// One EMA launch over every leaf of a group. leaves: device array of
+// One EMA launch over every leaf of a table. leaves: device array of
 // EmaLeaf; chunks: device array of nchunks (leaf, chunk) pairs, chunk =
 // elements per chunk (a multiple of 8). dtypes: 0 fp32, 1 bf16 (shadow,
 // master; the port keeps masters and shadows in no other). one_minus: 1 -

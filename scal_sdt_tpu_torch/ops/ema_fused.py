@@ -1,6 +1,8 @@
-"""The EMA update of a param group's shadows, on Hopper: one launch of
-``ops/csrc/ema_fused.cu`` over a leaf table (``build_ema_table``), the
-design of the optimizers' grouped launches (``ops/adam_bf16_fused.py``).
+"""The EMA update of the shadows, on Hopper: one launch of
+``ops/csrc/ema_fused.cu`` over a leaf table (``build_ema_table``) that holds
+every shadow of one (shadow dtype, master dtype) pair, so one launch per
+step (``training/ema.py``), the design of the optimizers' grouped launches
+(``ops/adam_bf16_fused.py``).
 
 Not the port of a TPU kernel: the JAX package computes the EMA in XLA
 (``ema_update`` in its ``training/ema.py``). Per element, in fp32 with each
@@ -47,7 +49,7 @@ assert _LEAF.itemsize == 32
 
 @dataclasses.dataclass(eq=False)
 class EMATable:
-    """The leaf table of a param group's EMA: its shadows and masters (the
+    """The leaf table of an EMA launch: its shadows and masters (the
     shadows updated in place, the masters read), each leaf's dither salt,
     the packed records and the chunk map; on a card also their device
     copies. Built once, reused while ``holds`` the same tensors."""
@@ -82,7 +84,7 @@ def build_ema_table(keys: Sequence[str], shadows: Sequence[torch.Tensor],
                 raise TypeError(f"ema_fused: {what} of {k} is {t.dtype}; masters and shadows "
                                 f"are fp32 or bf16")
             if device.type == "cuda" and (not t.is_contiguous() or t.dtype != ts[0].dtype):
-                raise ValueError(f"ema_fused: the {what} tensors of a group must be contiguous "
+                raise ValueError(f"ema_fused: the {what} tensors of a table must be contiguous "
                                  f"and of one dtype; {k} is {t.dtype}")
     low = bool(masters) and masters[0].dtype == torch.bfloat16
     rec = np.zeros(len(keys), _LEAF)

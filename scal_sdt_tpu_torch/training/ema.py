@@ -9,8 +9,9 @@ micro-steps of gradient accumulation included, as
 n))`` at the new update count n. ``decay_t`` and ``1 - decay_t`` are fp32
 values reckoned on the host as XLA computes them; the update runs in fp32
 and a bf16 shadow is stored by stochastic rounding (``ops/sr.py``
-``ema_dither``). One launch per param group on a card
-(``ops/ema_fused.py``), its plain version on the CPU.
+``ema_dither``). One launch per step on a card over every shadow of a
+(shadow dtype, master dtype) pair (``ops/ema_fused.py``), its plain
+version on the CPU.
 
 Checkpoints store the shadow under ``unet_ema.shadow_params.*`` with
 ``ema_decay`` and ``ema_num_updates`` in the metadata, as the JAX package
@@ -20,7 +21,6 @@ does (``training/checkpoint.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
@@ -35,7 +35,7 @@ class EMAState:
     shadow: Params
     num_updates: int
     decay: float      # an fp32 value
-    # group label -> the group's EMA leaf table, built on first use
+    # (shadow dtype, master dtype) -> the EMA leaf table of its keys, built on first use
     tables: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
 
@@ -53,22 +53,22 @@ def one_minus_decay(decay: float, num_updates: int) -> float:
 
 
 @torch.no_grad()
-def ema_update(state: EMAState, params: Params, step: int,
-               groups: Optional[dict[str, list[str]]] = None) -> EMAState:
+def ema_update(state: EMAState, params: Params, step: int) -> EMAState:
     """One EMA step over the masters ``params`` at train step ``step`` (the
     step before its increment, the dither's seed); the shadows change in
-    place. ``groups``: label -> keys, one launch each (default: one group of
-    every shadow key)."""
+    place, in one launch over every shadow key of each (shadow dtype, master
+    dtype) pair: one launch, as the port keeps one shadow dtype and one
+    master dtype."""
     n = state.num_updates + 1
     one_minus = one_minus_decay(state.decay, n)
-    for label, keys in (groups or {"all": sorted(state.shadow)}).items():
-        keys = [k for k in keys if k in state.shadow]
-        if not keys:
-            continue
+    pairs: dict[tuple[torch.dtype, torch.dtype], list[str]] = {}
+    for k in sorted(state.shadow):
+        pairs.setdefault((state.shadow[k].dtype, params[k].dtype), []).append(k)
+    for pair, keys in pairs.items():
         shadows, masters = [state.shadow[k] for k in keys], [params[k] for k in keys]
-        table = state.tables.get(label)
+        table = state.tables.get(pair)
         if table is None or not table.holds(keys, shadows, masters):
-            table = state.tables[label] = build_ema_table(keys, shadows, masters)
+            table = state.tables[pair] = build_ema_table(keys, shadows, masters)
         ema_fused_apply(table, one_minus, step)
     return dataclasses.replace(state, num_updates=n)
 

@@ -24,18 +24,22 @@ each group running the JAX chain in the same order and precision.
   (``training/families.py``). Prodigy and D-Adapt carry the lr and the
   schedule inside; Adafactor sees the JAX trainer's slabs (``pack_spec``).
 
-Two ways to run a group:
+Two ways to run the groups:
 
 * ``update`` returns the updates (optax's ``tx.update``); for the Adam
   families one kernel launch per leaf on the card (``ops/adam_bf16_fused.py``,
   ``ops/adam8_fused.py``); ``training/step.py``'s ``apply_updates`` then
   applies them;
-* ``update_and_apply`` (the train step's) runs the chain and the master
-  apply; the masters are updated in place. The Adam families run Adam,
-  decay, schedule and the master apply of every leaf in one launch per
-  kernel over the group's leaf table, built on first use and cached on the
-  transform while the state holds the same tensors; the other families run
-  ``update`` and then the apply. Its numbers are those of ``update`` then
+* ``MultiTransform.update_and_apply`` (the train step's) runs the chains and
+  the master apply; the masters are updated in place. Adam, decay, schedule
+  and the master apply of every AdamW leaf, and of every fp32-moment leaf of
+  AdamW8bit, run in one ``adam_bf16_fused`` launch per step over all the
+  groups whose launch scalars (betas, eps, rounding) and dtypes agree, each
+  group with its own count, lr, decay and schedule (``MergedLaunch``); the
+  launch's leaf table is built on first use and cached on the transform
+  while the state holds the same tensors. AdamW8bit's int8 leaves launch
+  ``adam8_fused`` once per group; the other families run ``update`` and
+  then the apply. Its numbers are those of ``update`` then
   ``apply_updates``, bit for bit.
 
 On the CPU both run the kernels' plain versions. The state is host-side
@@ -50,6 +54,7 @@ micro-step the groups' update of their mean.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Union
 
@@ -57,8 +62,9 @@ import numpy as np
 import torch
 
 from ..conf import Config
-from ..ops.adam_bf16_fused import (adam_bf16_fused_apply, adam_bf16_fused_update,
-                                   build_adam_table, decay_and_schedule_reference)
+from ..ops.adam_bf16_fused import (AdamTable, GroupStep, adam_bf16_fused_apply,
+                                   adam_bf16_fused_update, build_adam_table,
+                                   decay_and_schedule_reference)
 from ..ops.sr import NU_SALT, leaf_salt
 from .families import SGD, Adafactor, DAdaptAdamW, GroupOwners, Lion, Prodigy, step_size_of
 from .packing import PackSpec
@@ -145,6 +151,16 @@ def _cache_field() -> dict:
     return dataclasses.field(default_factory=dict, compare=False, repr=False, hash=False)
 
 
+@functools.lru_cache(maxsize=4096)
+def _group_step(b1: float, b2: float, lr: float, schedule: Schedule, weight_decay: float,
+                count: int) -> GroupStep:
+    """An Adam group's scalars for the update after ``count`` updates; cached,
+    as the groups of a LoRA run share a few lrs (and ``build_optimizer`` one
+    schedule per lr)."""
+    return GroupStep(bias_corrections(b1, b2, count + 1), count + 1, weight_decay,
+                     step_size_of(lr, schedule, count))
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """One param group's AdamW chain; the update comes out in fp32."""
@@ -155,7 +171,6 @@ class AdamW:
     weight_decay: float
     schedule: Schedule
     moment_dtypes: Optional[tuple[torch.dtype, torch.dtype]] = None
-    _tables: dict = _cache_field()   # the group's leaf table, built on first use
 
     @property
     def xla(self) -> bool:
@@ -187,23 +202,29 @@ class AdamW:
                                                       step_size, fma_decay=self.xla)
         return updates, AdamState(count=count, mu=state.mu, nu=state.nu)
 
-    def update_and_apply(self, grads: Tensors, state: AdamState, params: Tensors,
-                         step: int) -> AdamState:
-        """``update`` then the master apply at train step ``step``, the
-        masters in ``params`` updated in place: one launch on the card."""
-        keys = sorted(params)
-        ps, mu, nu = ([d[k] for k in keys] for d in (params, state.mu, state.nu))
-        table = self._tables.get("adam")
-        if table is None or not table.holds(keys, ps, mu, nu):
-            table = self._tables["adam"] = build_adam_table(keys, ps, mu, nu)
-        count = state.count + 1
-        adam_bf16_fused_apply(
-            table, [grads[k] for k in keys], bias_corrections(self.b1, self.b2, count),
-            b1=self.b1, b2=self.b2, eps=self.eps, recip_bc=False, count=count, step=step,
-            weight_decay=self.weight_decay,
-            step_size=step_size_of(self.lr, self.schedule, state.count),
-            update_dtype=torch.float32, xla=self.xla)
-        return AdamState(count=count, mu=state.mu, nu=state.nu)
+    # -- the group's share of a merged launch (``MultiTransform.update_and_apply``)
+
+    @property
+    def launch(self) -> tuple:
+        """What the merged launch fixes: (b1, b2, eps, recip_bc, update_dtype, xla)."""
+        return (self.b1, self.b2, self.eps, False, torch.float32, self.xla)
+
+    def group_step(self, count: int) -> GroupStep:
+        """The group's scalars for the update after ``count`` updates."""
+        return _group_step(self.b1, self.b2, self.lr, self.schedule, self.weight_decay, count)
+
+    def merged_keys(self, state: AdamState, params: Tensors) -> list[str]:
+        """The leaves of ``params`` that the merged launch updates: all."""
+        return sorted(k for k in state.mu if k in params)
+
+    def moments(self, state: AdamState) -> tuple[Tensors, Tensors]:
+        return state.mu, state.nu
+
+    def advance(self, grads: Tensors, state: AdamState, params: Tensors, step: int,
+                group_step: GroupStep) -> AdamState:
+        """The rest of the group's step beside the merged launch (nothing)
+        and the state after it."""
+        return AdamState(count=state.count + 1, mu=state.mu, nu=state.nu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,7 +238,7 @@ class AdamW8bit:
     weight_decay: float
     schedule: Schedule
     pack_spec: Optional[PackSpec] = None   # the JAX run's packing: which leaves are int8
-    _tables: dict = _cache_field()   # the group's two leaf tables, built on first use
+    _tables: dict = _cache_field()   # the group's int8 leaf table, built on first use
 
     def _adam(self) -> Adam8bit:
         return Adam8bit(b1=self.b1, b2=self.b2, eps=self.eps)
@@ -234,14 +255,61 @@ class AdamW8bit:
                                                       step_size)
         return updates, state
 
-    def update_and_apply(self, grads: Tensors, state: Adam8bitState, params: Tensors,
-                         step: int) -> Adam8bitState:
-        """``update`` then the master apply at train step ``step``, the
-        masters in ``params`` updated in place: on the card one launch for
-        the int8 leaves and one for the fp32-moment leaves."""
-        return self._adam().update_and_apply(
-            grads, state, params, step=step, weight_decay=self.weight_decay,
-            step_size=step_size_of(self.lr, self.schedule, state.count), tables=self._tables)
+    # -- the group's share of a merged launch: its fp32-moment leaves
+    # (reciprocal bias corrections, the update in the gradient's dtype)
+
+    @property
+    def launch(self) -> tuple:
+        """What the merged launch fixes: (b1, b2, eps, recip_bc, update_dtype, xla)."""
+        return (self.b1, self.b2, self.eps, True, None, False)
+
+    def group_step(self, count: int) -> GroupStep:
+        """The group's scalars for the update after ``count`` updates."""
+        return _group_step(self.b1, self.b2, self.lr, self.schedule, self.weight_decay, count)
+
+    def merged_keys(self, state: Adam8bitState, params: Tensors) -> list[str]:
+        """The leaves of ``params`` that the merged launch updates: the
+        fp32-moment ones."""
+        return sorted(k for k in state.mu_q if k not in state.mu_s and k in params)
+
+    def moments(self, state: Adam8bitState) -> tuple[Tensors, Tensors]:
+        return state.mu_q, state.nu_q
+
+    def advance(self, grads: Tensors, state: Adam8bitState, params: Tensors, step: int,
+                group_step: GroupStep) -> Adam8bitState:
+        """The rest of the group's step beside the merged launch: its int8
+        leaves' update and master apply at train step ``step``, in one
+        launch over the group's int8 table; and the state after both."""
+        self._adam().update_and_apply_int8(grads, state, params, step=step,
+                                           weight_decay=self.weight_decay,
+                                           step_size=group_step.step_size, tables=self._tables)
+        return dataclasses.replace(state, count=state.count + 1)
+
+
+@dataclasses.dataclass(eq=False)
+class MergedLaunch:
+    """One ``adam_bf16_fused`` launch per step over the leaves of the Adam
+    groups ``labels`` that it merges (``keys``, one list per group): AdamW's
+    leaves, AdamW8bit's fp32-moment ones. The groups share ``launch`` (b1,
+    b2, eps, recip_bc, update_dtype, xla) and their masters' and moments'
+    dtypes; ``table`` is its leaf table, built on first use and kept while
+    it holds the state's tensors."""
+    labels: list[str]
+    keys: list[list[str]]
+    launch: tuple
+    table: Optional[AdamTable] = None
+
+    def tensors(self, transforms: dict, state: dict, params: Tensors
+                ) -> tuple[list[torch.Tensor], list[torch.Tensor], list[torch.Tensor]]:
+        """Its leaves' masters and moments in ``params`` and ``state``, one
+        per leaf in the order of ``keys``."""
+        ps, mu, nu = [], [], []
+        for label, keys in zip(self.labels, self.keys):
+            m, v = transforms[label].moments(state[label])
+            ps += [params[k] for k in keys]
+            mu += [m[k] for k in keys]
+            nu += [v[k] for k in keys]
+        return ps, mu, nu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,6 +317,7 @@ class MultiTransform:
     """optax.multi_transform over group labels: key -> label -> group chain."""
     transforms: dict[str, object]
     labels: dict[str, str]
+    _merged: dict = _cache_field()   # the merged launches of one set of keys
 
     def _split(self, tree: Tensors) -> dict[str, Tensors]:
         out: dict[str, Tensors] = {label: {} for label in self.transforms}
@@ -272,11 +341,56 @@ class MultiTransform:
 
     def update_and_apply(self, grads: Tensors, state: dict[str, object], params: Tensors,
                          step: int) -> dict[str, object]:
-        """Each group's ``update_and_apply``: the masters in ``params`` are
-        updated in place; returns the new state."""
-        g_parts, p_parts = self._split(grads), self._split(params)
-        return {label: tx.update_and_apply(g_parts[label], state[label], p_parts[label], step)
-                for label, tx in self.transforms.items()}
+        """Every group's update and master apply at train step ``step``, the
+        masters in ``params`` updated in place; returns the new state. The
+        Adam groups' leaves run in one ``adam_bf16_fused`` launch per
+        ``MergedLaunch``, each group with its own scalars (``GroupStep``);
+        the other families each run their own chain."""
+        new_state: dict[str, object] = {}
+        steps: dict[str, GroupStep] = {}
+        for label, tx in self.transforms.items():
+            if isinstance(tx, (AdamW, AdamW8bit)):
+                steps[label] = st = tx.group_step(state[label].count)
+                new_state[label] = tx.advance(grads, state[label], params, step, st)
+        for merged in self.merged_launches(state, params):
+            ps, mu, nu = merged.tensors(self.transforms, state, params)
+            if merged.table is None or not merged.table.holds(ps, mu, nu):
+                merged.table = build_adam_table(merged.keys, ps, mu, nu)
+            b1, b2, eps, recip_bc, update_dtype, xla = merged.launch
+            adam_bf16_fused_apply(merged.table, [grads[k] for ks in merged.keys for k in ks],
+                                  [steps[label] for label in merged.labels], b1=b1, b2=b2,
+                                  eps=eps, recip_bc=recip_bc, step=step,
+                                  update_dtype=update_dtype, xla=xla)
+        if len(new_state) < len(self.transforms):
+            g_parts, p_parts = self._split(grads), self._split(params)
+            for label, tx in self.transforms.items():
+                if label not in new_state:
+                    new_state[label] = tx.update_and_apply(g_parts[label], state[label],
+                                                           p_parts[label], step)
+        return {label: new_state[label] for label in self.transforms}
+
+    def merged_launches(self, state: dict[str, object], params: Tensors) -> list[MergedLaunch]:
+        """The merged launches over the Adam groups' leaves in ``params``:
+        one per signature, the groups' fixed scalars (``launch``) and their
+        masters' and moments' dtypes. Kept while ``params`` holds the same
+        keys."""
+        keys = tuple(params)
+        if self._merged.get("keys") != keys:
+            merged: dict[tuple, MergedLaunch] = {}
+            for label, tx in self.transforms.items():
+                if not isinstance(tx, (AdamW, AdamW8bit)):
+                    continue
+                leaves = tx.merged_keys(state[label], params)
+                if not leaves:
+                    continue
+                mu, nu = tx.moments(state[label])
+                k = leaves[0]
+                signature = tx.launch + (params[k].dtype, mu[k].dtype, nu[k].dtype)
+                launch = merged.setdefault(signature, MergedLaunch([], [], tx.launch))
+                launch.labels.append(label)
+                launch.keys.append(leaves)
+            self._merged.update(keys=keys, launches=list(merged.values()))
+        return self._merged["launches"]
 
 
 @dataclasses.dataclass
@@ -398,12 +512,15 @@ def build_optimizer(config: Config, labels: dict[str, str],
     extra = {k: v for k, v in base.items() if k not in ("lr", "betas", "eps", "weight_decay")}
 
     transforms: dict[str, object] = {}
+    schedules: dict[float, Schedule] = {}   # one per lr: groups that share an lr share it
     first_lr_fn: Optional[Callable[[int], float]] = None
     for label in sorted(set(labels.values()) | set(group_overrides)):
         over = dict(group_overrides.get(label, {}))
         lr = float(over.get("lr", base["lr"])) * coeff
         wd = float(over.get("weight_decay", base["weight_decay"])) / coeff
-        schedule = build_lr_schedule(config.optimizer, lr, steps_per_epoch)
+        if lr not in schedules:
+            schedules[lr] = build_lr_schedule(config.optimizer, lr, steps_per_epoch)
+        schedule = schedules[lr]
         transforms[label] = _group_transform(
             name, lr, base["betas"], float(base["eps"]), wd, schedule,
             config.optimizer.get("moment_dtype"), extra, reduced_masters, pack_spec, owners)

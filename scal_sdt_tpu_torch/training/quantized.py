@@ -22,16 +22,19 @@ stack's view, owning whole rows of its payloads and scales
 ``Adam8bit.update`` runs the int8 leaves through ``ops/adam8_fused.py`` and
 the fp32-moment leaves through ``ops/adam_bf16_fused.py`` (reciprocal bias
 corrections, output in the gradient's dtype, nu rounded to nearest), one
-launch per leaf on the card. ``Adam8bit.update_and_apply`` adds the decay,
-the schedule and the master apply, and runs each of the two kinds of leaf
-in one launch over its leaf table (cached in the caller's dict while the
-state holds the same tensors). The plain versions run on the CPU. The state
-is updated in place.
+launch per leaf on the card. The train step's path adds the decay, the
+schedule and the master apply: ``Adam8bit.update_and_apply_int8`` runs a
+group's int8 leaves in one launch over its leaf table (cached in the
+caller's dict while the state holds the same tensors), and its fp32-moment
+leaves join the other groups' in one ``adam_bf16_fused`` launch per step
+(``training/optimizers.py`` ``MultiTransform``). The plain versions run on
+the CPU. The state is updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Mapping
@@ -43,7 +46,7 @@ import torch.nn.functional as F
 from ..ops.adam8_fused import (BLOCK, adam8_fused_apply, adam8_fused_update, build_adam8_table,
                                dequantize_blocks as _dequantize_leaf,
                                quantize_blocks as _quantize_leaf)
-from ..ops.adam_bf16_fused import adam_bf16_fused_apply, adam_bf16_fused_update, build_adam_table
+from ..ops.adam_bf16_fused import adam_bf16_fused_update
 
 # n_blocks cap of a leaf view: bigger trailing products merge more leading dims
 _MAX_NB = 128
@@ -88,11 +91,12 @@ def _dequantize(payload: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tens
     return _from_blocks(_dequantize_leaf(payload, scale), shape)
 
 
+@functools.lru_cache(maxsize=1024)
 def bias_corrections(b1: float, b2: float, count: int) -> tuple[np.float32, np.float32]:
     """Adam's fp32 bias corrections (1 - b1^count, 1 - b2^count), the power
     of fp32 operands taken in fp64 and rounded to fp32: XLA's pow on the CPU
     rounds so (one miss in 6000 counts up to 3000), numpy's fp32 pow does
-    not."""
+    not. Cached: every Adam group of a step asks for the same few."""
     c = np.float64(np.float32(count))
 
     def pow32(b):
@@ -203,31 +207,25 @@ class Adam8bit:
             updates[k] = out.view(g.shape)
         return updates, dataclasses.replace(state, count=count)
 
-    def update_and_apply(self, grads: Tensors, state: Adam8bitState, params: Tensors, *,
-                         step: int, weight_decay: float, step_size: float,
-                         tables: dict) -> Adam8bitState:
-        """``update``, then the decay, the schedule (``step_size``, in the
-        update's dtype) and the master apply at train step ``step``, with the
-        masters in ``params`` updated in place: one launch for the int8
-        leaves and one for the fp32-moment leaves. ``tables`` caches the two
-        leaf tables from call to call."""
-        count = state.count + 1
-        bc = bias_corrections(self.b1, self.b2, count)
-        inv_bc1, inv_bc2 = (float(np.float32(1.0) / b) for b in bc)
-        hp = dict(b1=self.b1, b2=self.b2, eps=self.eps, step=step, weight_decay=weight_decay,
-                  step_size=step_size)
-        keys8 = sorted(k for k in params if k in state.mu_s)
-        keys32 = sorted(k for k in params if k not in state.mu_s)
+    def update_and_apply_int8(self, grads: Tensors, state: Adam8bitState, params: Tensors, *,
+                              step: int, weight_decay: float, step_size: float,
+                              tables: dict) -> None:
+        """``update`` of the int8 leaves, then the decay, the schedule
+        (``step_size``, in the update's dtype) and the master apply at train
+        step ``step``, the masters in ``params`` and the int8 state updated
+        in place: one launch over the group's int8 leaf table, cached in
+        ``tables`` from call to call. The count and the fp32-moment leaves
+        are the caller's."""
+        keys8 = sorted(k for k in state.mu_s if k in params)
+        if not keys8:
+            return
+        inv_bc1, inv_bc2 = (float(np.float32(1.0) / b)
+                            for b in bias_corrections(self.b1, self.b2, state.count + 1))
         ps8 = [params[k] for k in keys8]
         st8 = [(state.mu_q[k], state.mu_s[k], state.nu_q[k], state.nu_s[k]) for k in keys8]
         t8 = tables.get("int8")
         if t8 is None or not t8.holds(keys8, ps8, st8):
             t8 = tables["int8"] = build_adam8_table(keys8, ps8, st8)
-        ps32, mu32, nu32 = ([d[k] for k in keys32] for d in (params, state.mu_q, state.nu_q))
-        t32 = tables.get("fp32")
-        if t32 is None or not t32.holds(keys32, ps32, mu32, nu32):
-            t32 = tables["fp32"] = build_adam_table(keys32, ps32, mu32, nu32)
-        adam8_fused_apply(t8, [grads[k] for k in keys8], inv_bc1, inv_bc2, **hp)
-        adam_bf16_fused_apply(t32, [grads[k] for k in keys32], bc, recip_bc=True, count=count,
-                              **hp)
-        return dataclasses.replace(state, count=count)
+        adam8_fused_apply(t8, [grads[k] for k in keys8], inv_bc1, inv_bc2, b1=self.b1,
+                          b2=self.b2, eps=self.eps, step=step, weight_decay=weight_decay,
+                          step_size=step_size)

@@ -23,15 +23,15 @@ for SD3), optional min-SNR weighting (refused under flow) and prior
 preservation. ``make_train_step``
 takes gradients with respect to a compute-dtype copy of the trainable dict
 (bf16 gradients, as in the JAX step), then runs the optimizer and applies
-the update to the masters in one fused call per group
-(``tx.update_and_apply``): bf16 masters take the fp32 add and a
+the update to the masters in fused launches (``tx.update_and_apply``: one
+``adam_bf16_fused`` launch over every Adam group's leaves): bf16 masters take the fp32 add and a
 stochastically rounded store salted ``crc32(key) ^ 0xE3A0001``, bit for bit
 the JAX dither. The masters are updated in place, as the JAX step donates
 them. ``apply_updates`` is that apply as a plain chain over the updates of
 ``tx.update``.
 
 With ``ema_enabled`` the step then updates the EMA shadow of the ``unet.*``
-masters (``training/ema.py``), one launch per param group, on every call:
+masters (``training/ema.py``), one launch over every shadow, on every call:
 under gradient accumulation the micro-steps that emit no update count too,
 as in the JAX step.
 
@@ -474,15 +474,6 @@ def loss_and_grads(spec: StepSpec, trainable: Params, frozen: Params, batch: dic
                            for k, g in zip(keys, grads)}
 
 
-def _group_keys(tx) -> dict[str, list[str]]:
-    """label -> the keys of its param group, from the optimizer's labels."""
-    labels = tx.labels if hasattr(tx, "labels") else tx.inner.labels
-    groups: dict[str, list[str]] = {}
-    for k in sorted(labels):
-        groups.setdefault(labels[k], []).append(k)
-    return groups
-
-
 def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
                     ema_enabled: bool = False, parallel=None):
     """Build ``train_step(state, frozen, batch, draws=None) -> (state, metrics)``:
@@ -492,8 +483,6 @@ def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
     gradients are averaged over the data-parallel ranks (the loss too) before
     the update of the owned masters, whose compute copies are broadcast
     after every update (not after the micro-steps that only accumulate)."""
-    groups = _group_keys(tx) if ema_enabled else None
-
     def train_step(state: TrainState, frozen: Params, batch: dict,
                    draws: Optional[Draws] = None):
         loss, grads = loss_and_grads(spec, state.trainable, frozen, batch, state.generator,
@@ -510,7 +499,7 @@ def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
                 if ema is None:
                     raise ValueError("EMA is on but the train state holds none "
                                      "(init_train_state(ema_enabled=True))")
-                ema = ema_update(ema, state.trainable, state.step, groups)
+                ema = ema_update(ema, state.trainable, state.step)
             if state.compute is not None and _updated(opt_state):
                 parallel.refresh_compute(state.compute, state.trainable)
         metrics = {"train_loss": loss, "lr": lr_fn(state.step)}

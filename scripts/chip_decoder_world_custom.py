@@ -84,11 +84,8 @@ def main() -> None:
         del frozen
         gc.collect()
         torch.cuda.empty_cache()
-        groups = len(cs.resolve_optim_target(cs.load_optim_target("full_unet"),
-                                             cs.unet_param_shapes(cs.UNetConfig.sd15()),
-                                             [])["unet"].groups)
         world = cs.tuner_world_phase(args.seed, tmp, model, {
-            **per_step, "adam_bf16_fused": groups, "adam8_fused": 0, "ema_fused": 0})
+            **per_step, "adam_bf16_fused": cs.ADAM_PER_STEP, "adam8_fused": 0, "ema_fused": 0})
         out["tuner_world"] = world
         for t in world["trials"]:
             print(f"tuner world trial ({smi}): {json.dumps(t)}", flush=True)

@@ -60,18 +60,18 @@ def adamw_variants(gen, keys, shapes, chunks: list[int]) -> dict:
     mu = [cs.rand(s, gen, 1e-4) for s in shapes]
     nu = [cs.rand(s, gen, 1e-7, positive=True) for s in shapes]
     grads = [cs.rand(s, gen, 1e-3) for s in shapes]
-    bc = bias_corrections(cs.B1, cs.B2, 3)
-    kw = dict(b1=cs.B1, b2=cs.B2, eps=cs.EPS, recip_bc=False, count=3, step=2,
-              weight_decay=cs.GROUP_WD, step_size=cs.GROUP_STEP_SIZE,
+    steps = [AF.GroupStep(bias_corrections(cs.B1, cs.B2, 3), 3, cs.GROUP_WD,
+                          cs.GROUP_STEP_SIZE)]
+    kw = dict(b1=cs.B1, b2=cs.B2, eps=cs.EPS, recip_bc=False, step=2,
               update_dtype=torch.float32)
     out = {}
     for c in chunks:
         AF.CHUNK = c
-        table = AF.build_adam_table(keys, cs.clones(params), cs.clones(mu), cs.clones(nu))
+        table = AF.build_adam_table([keys], cs.clones(params), cs.clones(mu), cs.clones(nu))
 
         def run(table=table, c=c):
             AF.CHUNK = c
-            AF.adam_bf16_fused_apply(table, grads, bc, **kw)
+            AF.adam_bf16_fused_apply(table, grads, steps, **kw)
 
         out[c] = (run, table)
     return out

@@ -227,24 +227,22 @@ def test_resumed_run_equals_the_continuous_run(tiny_dir, tmp_path, optimizer, mo
 
 
 def test_restore_reuses_the_leaf_table(tiny_dir, tmp_path):
-    """A Trainer that has stepped once (its group's leaf table built) and then
-    resumes from another run's step-1 checkpoint keeps the same table object,
-    still holding its state's tensors, and its next step equals the other
-    run's step 2 bit for bit."""
+    """A Trainer that has stepped once (the leaf table of its groups' merged
+    launch built) and then resumes from another run's step-1 checkpoint
+    keeps the same table object, still holding its state's tensors, and its
+    next step equals the other run's step 2 bit for bit."""
     ref = _trainer(tiny_dir, tmp_path / "ref", "adamw", max_steps=2)
     ref.ckpt.every_n_train_steps = 1
     ref.fit()
     tr = _trainer(tiny_dir, tmp_path / "tr", "adamw")
     tr.fit(max_steps_override=1, final_save=False)
-    tables = {label: tx._tables["adam"] for label, tx in tr.tx.transforms.items()}
+    (merged,) = tr.tx.merged_launches(tr.state.opt_state, tr.state.trainable)
+    table = merged.table
     tr.resume(tmp_path / "ref" / "epoch=0-step=1.safetensors")
     tr.fit(max_steps_override=2, final_save=False)
-    for label, tx in tr.tx.transforms.items():
-        table = tx._tables["adam"]
-        assert table is tables[label]
-        group = tr.state.opt_state[label]
-        assert table.holds(table.keys, [tr.state.trainable[k] for k in table.keys],
-                           [group.mu[k] for k in table.keys], [group.nu[k] for k in table.keys])
+    assert tr.tx.merged_launches(tr.state.opt_state, tr.state.trainable) == [merged]
+    assert merged.table is table
+    assert table.holds(*merged.tensors(tr.tx.transforms, tr.state.opt_state, tr.state.trainable))
     want, got = _state_tensors(ref), _state_tensors(tr)
     for k, v in want.items():
         assert torch.equal(got[k], v), k

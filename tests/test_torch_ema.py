@@ -4,7 +4,8 @@ CPU.
 
 * The decay warm-up: ``1 - min(decay, (1 + n) / (10 + n))`` in fp32, bit for
   bit with JAX's for n = 1..200.
-* ``ema_update`` over 3 steps of moving masters, in two groups: a bf16 shadow
+* ``ema_update`` over 3 steps of moving masters, one table (one launch on a
+  card) over every key of the dtype pair: a bf16 shadow
   bit for bit under both dither rules (bf16 masters: the low half of the
   master SR store's hash, salt ``crc32(k) ^ 0xE3A0001``; fp32 masters: the
   high half of a hash salted ``^ 0xE3A0002``), at the train step before its
@@ -114,11 +115,12 @@ def test_ema_update_matches_jax(shadow, master):
         for k, v in jparams.items():
             tparams[k].copy_(to_torch(v))
         jstate_ = _jax_ema_step(jstate_, jparams, step, master == "bf16")
-        tstate_ = tema.ema_update(tstate_, tparams, step, GROUPS)
+        tstate_ = tema.ema_update(tstate_, tparams, step)
         assert tstate_.num_updates == int(jstate_.num_updates) == step + 1
         for k, v in jstate_.shadow.items():
             _assert_shadow(tstate_.shadow[k], v, f"step {step} {k}")
-    assert set(tstate_.tables) == set(GROUPS)
+    (pair, table), = tstate_.tables.items()
+    assert pair == (ts, tm) and table.keys == tuple(sorted(SHAPES))
     assert tstate_.decay == float(np.asarray(jstate_.decay))
 
 
@@ -155,7 +157,7 @@ def test_ema_runs_on_every_micro_step_under_accumulation(monkeypatch):
         jema_state = _jax_ema_step(jema_state, jparams, step, True)
         tst = ttx.update_and_apply({key: to_torch(v) for key, v in grads.items()}, tst, tparams,
                                    step)
-        tema_state = tema.ema_update(tema_state, tparams, step, tstep._group_keys(ttx))
+        tema_state = tema.ema_update(tema_state, tparams, step)
         emit = (step + 1) % k == 0
         for key in SHAPES:
             assert torch.equal(tparams[key], before[key]) != emit, (step, key)
@@ -186,13 +188,14 @@ def test_reference_table_is_cached_and_rebuilt():
     params = {k: to_torch(v) for k, v in _arrays(0, 0.05, jnp.float32).items()}
     state = tema.ema_init(params, 0.9)
     state = tema.ema_update(state, params, 0)
-    table = state.tables["all"]
+    pair = (torch.float32, torch.float32)
+    table = state.tables[pair]
     assert table.keys == tuple(sorted(SHAPES))
     state = tema.ema_update(state, params, 1)
-    assert state.tables["all"] is table
+    assert state.tables[pair] is table
     state.shadow["unet.a.weight"] = state.shadow["unet.a.weight"].clone()
     state = tema.ema_update(state, params, 2)
-    assert state.tables["all"] is not table
+    assert state.tables[pair] is not table
     assert EF.launches["ema_fused"] == 0     # the CPU runs the plain version
 
 

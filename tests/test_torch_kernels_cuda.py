@@ -4,7 +4,9 @@ head dim per compiled instance, with a second launch equal bit for bit), the fus
 update and the int8 Adam update, each in its single-leaf update-only form
 and its grouped form (the fused Adam also in its ``xla`` rounding mode) (Adam, decay, schedule and master apply over a leaf
 table in one launch; with bf16 gradients, and with the fp32 gradients of
-gradient accumulation); the grouped EMA update (ema_fused); the splash
+gradient accumulation; the fused Adam's table over groups with their own
+counts, decays and step sizes, and the optimizers' merged launch over 48
+LoRA-like groups at two lrs); the grouped EMA update (ema_fused); the splash
 forward in sampling's inference form; splash in SDXL's forms (head dim 64);
 and the
 attention gate: `FORCE_MATH` keeps a
@@ -24,6 +26,7 @@ from scal_sdt_tpu_torch.ops import adam8_fused as A8
 from scal_sdt_tpu_torch.ops import adam_bf16_fused as AF
 from scal_sdt_tpu_torch.ops import ema_fused as EF
 from scal_sdt_tpu_torch.ops import splash as S
+from scal_sdt_tpu_torch.training.quantized import bias_corrections
 
 
 def _heads(t: torch.Tensor, shape, layout: str) -> torch.Tensor:
@@ -408,6 +411,14 @@ def test_adam_bf16_xla_mode_matches_reference_on_cuda(g_dt, wd):
     _adam_bf16_group_case(torch.float32, torch.float32, "adamw", wd, g_dt, xla=True)
 
 
+# the ragged leaf set in three groups, each with its own count, decay and step size
+GROUP_CUTS = [0, 2, 4, len(GROUP_SIZES)]
+
+
+def _groups(xs):
+    return [xs[a:b] for a, b in zip(GROUP_CUTS, GROUP_CUTS[1:])]
+
+
 def _adam_bf16_group_case(m_dt, p_dt, form, wd, g_dt, xla=False):
     _need_card()
     r = np.random.RandomState(3)
@@ -416,19 +427,20 @@ def _adam_bf16_group_case(m_dt, p_dt, form, wd, g_dt, xla=False):
     mu = _views(GROUP_SIZES, m_dt, _offsets(1), r, scale=1e-4)
     nu = _views(GROUP_SIZES, m_dt, _offsets(3), r, scale=-1e-7)
     grads = _views(GROUP_SIZES, g_dt, _offsets(5), r, scale=1e-3)
-    bc = (np.float32(1) - np.float32(0.9) ** 4, np.float32(1) - np.float32(0.999) ** 4)
-    kw = dict(b1=0.9, b2=0.999, eps=1e-8, recip_bc=form != "adamw", count=4, step=9,
-              weight_decay=wd, step_size=-1e-3 * 0.7,
+    steps = [AF.GroupStep(bias_corrections(0.9, 0.999, count), count, decay, size)
+             for count, decay, size in ((4, wd, -1e-3 * 0.7), (9, 0.0, -5e-3),
+                                        (2, 3 * wd, -2e-4))]
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, recip_bc=form != "adamw", step=9,
               update_dtype=torch.float32 if form == "adamw" else None, xla=xla)
     results = []
     for _ in range(2):
-        t = AF.build_adam_table(keys, _copies(params), _copies(mu), _copies(nu))
+        t = AF.build_adam_table(_groups(keys), _copies(params), _copies(mu), _copies(nu))
         before = AF.launches["adam_bf16_fused"]
-        AF.adam_bf16_fused_apply(t, grads, bc, **kw)
+        AF.adam_bf16_fused_apply(t, grads, steps, **kw)
         assert AF.launches["adam_bf16_fused"] == before + 1
         results.append(t)
-    want = AF.build_adam_table(keys, _copies(params), _copies(mu), _copies(nu))
-    AF.adam_bf16_fused_apply_reference(want, grads, bc, **kw)
+    want = AF.build_adam_table(_groups(keys), _copies(params), _copies(mu), _copies(nu))
+    AF.adam_bf16_fused_apply_reference(want, grads, steps, **kw)
     torch.cuda.synchronize()
     got, again = results
     for i, k in enumerate(keys):
@@ -437,6 +449,74 @@ def _adam_bf16_group_case(m_dt, p_dt, form, wd, g_dt, xla=False):
             assert torch.equal(a, b), f"{what} {k}: two launches differ"
             assert torch.equal(a, c), f"{what} {k}"
         assert not torch.equal(got.params[i], params[i]) or GROUP_SIZES[i] < 8, k
+
+
+# (optimizer name, master dtype, moment dtype) of the merged launch's forms
+MERGED_FORMS = {"xla": ("adamw", "fp32", None), "bf16_moments": ("adamw", "bf16", "bf16"),
+                "adamw8bit": ("bitsandbytes.optim.AdamW8bit", "bf16", None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(MERGED_FORMS))
+def test_merged_launch_over_many_groups_matches_reference_on_cuda(form):
+    """``MultiTransform.update_and_apply`` over 48 LoRA-like groups (two
+    factors each, rank 16) at two lrs and decays under a warm-up into a
+    cosine schedule: one adam_bf16_fused launch per step, held against the
+    plain version of the same merged launch (``MergedLaunch``: its groups'
+    leaves and scalars) over 3 steps, masters and moments bit for bit."""
+    from scal_sdt_tpu_torch import conf
+    from scal_sdt_tpu_torch.training import optimizers as topt
+
+    _need_card()
+    name, master, moment = MERGED_FORMS[form]
+    opt = {"name": name, "master_dtype": master,
+           "params": {"lr": 1e-3, "weight_decay": 1e-2, "eps": 1e-8},
+           "lr_scale": {"enabled": False},
+           "lr_scheduler": {"name": "cosine", "params": {"T_max": 2, "eta_min": 1e-6},
+                            "warmup": {"enabled": True, "init_lr": 1e-6, "steps": 1}}}
+    if moment:
+        opt["moment_dtype"] = moment
+    cfg = conf.merge(conf.default(), conf.Config({"optimizer": opt}))
+    r = np.random.RandomState(8)
+    widths = [int(w) for w in r.choice([320, 640, 768, 1280, 2560], 48)]
+    shapes = {}
+    for i, w in enumerate(widths):
+        shapes[f"unet.m{i:02d}.lora_A"] = (16, w)
+        shapes[f"unet.m{i:02d}.lora_B"] = (widths[(i + 1) % 48], 16)
+    labels = {k: k.split(".")[1] for k in shapes}
+    overrides = {f"m{i:02d}": ({"lr": 5e-4, "weight_decay": 1e-2} if i % 3
+                               else {"lr": 5e-3, "weight_decay": 0.0}) for i in range(48)}
+    tx, _ = topt.build_optimizer(cfg, labels, overrides, 4, 1)
+    dtype = torch.bfloat16 if master == "bf16" else torch.float32
+    masters = {k: torch.from_numpy(r.randn(*s).astype(np.float32) * 0.1).cuda().to(dtype)
+               for k, s in shapes.items()}
+    plain = {k: v.clone() for k, v in masters.items()}
+    state, p_state = tx.init(masters), tx.init(plain)
+    for step in range(3):
+        grads = {k: torch.from_numpy(r.randn(*s).astype(np.float32) * 1e-3).cuda().bfloat16()
+                 for k, s in shapes.items()}
+        (merged,) = tx.merged_launches(p_state, plain)
+        assert len(merged.labels) == 48
+        steps = [tx.transforms[label].group_step(p_state[label].count)
+                 for label in merged.labels]
+        table = AF.build_adam_table(merged.keys, *merged.tensors(tx.transforms, p_state, plain))
+        b1, b2, eps, recip_bc, update_dtype, xla = merged.launch
+        AF.adam_bf16_fused_apply_reference(
+            table, [grads[k] for ks in merged.keys for k in ks], steps, b1=b1, b2=b2, eps=eps,
+            recip_bc=recip_bc, step=step, update_dtype=update_dtype, xla=xla)
+        for label in merged.labels:
+            p_state[label].count += 1
+        before = AF.launches["adam_bf16_fused"]
+        state = tx.update_and_apply(grads, state, masters, step)
+        assert AF.launches["adam_bf16_fused"] == before + 1
+        torch.cuda.synchronize()
+        for k in shapes:
+            assert torch.equal(masters[k], plain[k]), f"master step {step} {k}"
+        for label in tx.transforms:
+            for field in ("mu", "nu", "mu_q", "nu_q"):
+                for k, v in getattr(state[label], field, {}).items():
+                    assert torch.equal(v, getattr(p_state[label], field)[k]), (step, field, k)
+    assert len({st.step_size for st in steps}) == 2
 
 
 @pytest.mark.cuda

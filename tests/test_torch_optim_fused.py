@@ -8,7 +8,9 @@ tables of ops/adam_bf16_fused.py and ops/adam8_fused.py) on the CPU.
   AdamW8bit (int8 and fp32-moment leaves, ragged minors).
 * The leaf tables and chunk maps: every element of every leaf covered by
   exactly one chunk (320-element and misaligned leaves included), each
-  record pointing at its leaf's tensors, each leaf given its two salts.
+  record pointing at its leaf's tensors and (adam_bf16_fused, a table over
+  several groups) its group, each leaf given its two salts; the merged
+  table cached over both groups of a transform.
 * The gradient checks of the grouped entries.
 
 The kernels themselves run in tests/test_torch_kernels_cuda.py and
@@ -108,20 +110,25 @@ def test_adamw8bit_update_and_apply_matches_update_then_apply(master, wd, monkey
 
 
 def test_fused_table_is_cached_and_rebuilt_for_new_tensors():
-    labels = {k: "g0" for k in SHAPES}
-    tx, _ = topt.build_optimizer(_config("adamw", "bf16", "bf16", 1e-2), labels, {}, 100, 1)
+    """One table over both groups' leaves (one launch signature), kept while
+    the state holds the same tensors and rebuilt for a new one."""
+    labels = {k: "g0" if k < "unet.c" else "g1" for k in SHAPES}
+    tx, _ = topt.build_optimizer(_config("adamw", "bf16", "bf16", 1e-2), labels,
+                                 {"g1": {"lr": 3e-3}}, 100, 1)
     masters = {k: torch.zeros(s, dtype=torch.bfloat16) for k, s in SHAPES.items()}
     grads = {k: torch.ones(s, dtype=torch.bfloat16) for k, s in SHAPES.items()}
     state = tx.init(masters)
     state = tx.update_and_apply(grads, state, masters, 0)
-    group = tx.transforms["g0"]
-    table = group._tables["adam"]
+    (merged,) = tx.merged_launches(state, masters)
+    table = merged.table
+    assert merged.labels == ["g0", "g1"] and table.keys == (
+        ("unet.a.weight", "unet.b.weight"), ("unet.c.bias", "unet.d.weight", "unet.e.bias"))
     state = tx.update_and_apply(grads, state, masters, 1)
-    assert group._tables["adam"] is table
+    assert merged.table is table and tx.merged_launches(state, masters) == [merged]
     masters["unet.e.bias"] = masters["unet.e.bias"].clone()
     tx.update_and_apply(grads, state, masters, 2)
-    assert group._tables["adam"] is not table
-    assert group._tables["adam"].params[-1] is masters["unet.e.bias"]
+    assert merged.table is not table
+    assert merged.table.params[-1] is masters["unet.e.bias"]
 
 
 def _covered(n: int, spans) -> np.ndarray:
@@ -133,17 +140,24 @@ def _covered(n: int, spans) -> np.ndarray:
 
 
 def test_adam_table_covers_every_element_once():
+    """A table over three groups: every element of every leaf in exactly
+    one chunk, each chunk naming its leaf's group, each record pointing at
+    its leaf's tensors with its two salts."""
     sizes = [1, 7, 320, 2880 * 320, AF.CHUNK, AF.CHUNK + 1, 5]
     keys = [f"unet.leaf{i}.weight" for i in range(len(sizes))]
     base = torch.zeros(sizes[-1] + 3, dtype=torch.bfloat16)
     params = [torch.zeros(n, dtype=torch.bfloat16) for n in sizes[:-1]] + [base[3:]]  # 6 bytes off
     mu = [torch.zeros(n, dtype=torch.bfloat16) for n in sizes]
     nu = [torch.zeros(n, dtype=torch.float32) for n in sizes]
-    table = AF.build_adam_table(keys, params, mu, nu)
-    assert table.holds(keys, params, mu, nu) and not table.holds(keys, params[::-1], mu, nu)
-    assert not table.holds(keys[::-1], params, mu, nu)
+    cuts = [0, 2, 3, len(sizes)]      # groups of 2, 1 and 4 leaves
+
+    groups = [keys[a:b] for a, b in zip(cuts, cuts[1:])]
+    table = AF.build_adam_table(groups, params, mu, nu)
+    assert table.holds(params, mu, nu) and not table.holds(params[::-1], mu, nu)
+    assert not table.holds(params, nu, mu)
+    assert table.keys == tuple(tuple(g) for g in groups)
     rec, chunks = table.records, table.chunks
-    assert chunks.dtype == np.int32 and chunks.shape[1] == 2
+    assert chunks.dtype == np.int32 and chunks.shape[1] == 4 and not chunks[:, 3].any()
     for i, (k, n) in enumerate(zip(keys, sizes)):
         mine = chunks[chunks[:, 0] == i, 1]
         assert list(mine) == list(range(len(mine)))   # in order, one CTA each
@@ -152,10 +166,12 @@ def test_adam_table_covers_every_element_once():
         assert len(mine) == max(1, -(-n // AF.CHUNK))
         assert (rec["p"][i], rec["mu"][i], rec["nu"][i], rec["n"][i]) == (
             params[i].data_ptr(), mu[i].data_ptr(), nu[i].data_ptr(), n)
+        group = np.searchsorted(cuts, i, side="right") - 1
+        assert (chunks[chunks[:, 0] == i, 2] == group).all(), k
         assert rec["nu_salt"][i] == table.nu_salts[i] == zlib.crc32(k.encode()) ^ 0xE3A0003
         assert rec["master_salt"][i] == table.master_salts[i] == zlib.crc32(k.encode()) ^ 0xE3A0001
     assert rec["p"][-1] % 16 == (base.data_ptr() + 6) % 16
-    assert AF._LEAF.itemsize == 40
+    assert AF._LEAF.itemsize == 40 and AF._GROUP.itemsize == 32
 
 
 @pytest.mark.parametrize("shape", [(64, 300), (320, 2880), (3, 256), (33, 301)])
