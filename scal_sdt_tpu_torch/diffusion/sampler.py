@@ -24,6 +24,10 @@ in ``sample_images`` the order is img2img's latent noise, the initial noise,
 then Euler-a's per-step noise. ``SamplerDraws`` replaces them, which is how
 the tests feed both packages the same numbers.
 
+The spans (``utils/tracing.py``): ``sample.text`` around the prompt and
+negative-prompt encodes, ``sample.denoise`` around each UNet or MMDiT call
+on the CFG pair, ``sample.decode`` around the VAE decoder to uint8.
+
 SDXL (a text_time UNet, ``clip2_params``): the prompts are encoded as in
 training (both towers' raw penultimate states concatenated, tower 2's pooled
 projected embedding), and every UNet call of the CFG pair takes
@@ -56,6 +60,7 @@ from ..models.mmdit import MMDiTConfig, encode_sd3, mmdit_apply
 from ..models.t5 import T5Config
 from ..models.unet import UNetConfig, unet_apply
 from ..models.vae import VAEConfig, decoder_apply, encoder_apply, latent_noise, sample_latents
+from ..utils import tracing
 from .schedule import NoiseSchedule
 
 SAMPLER_METHODS = ("ddim", "euler", "euler_a", "dpmpp_2m", "flow_euler")
@@ -187,15 +192,16 @@ def _cfg_pred(unet_params: Params, x_in: torch.Tensor, t: int, context: torch.Te
     """One UNet call on the CFG pair (uncond first, cond second) at timestep
     ``t``, the two predictions (widened to ``dtype`` when given) combined.
     ``added_cond``: SDXL's text_time inputs of the pair."""
-    batch = x_in.shape[0]
-    pair = torch.cat([x_in, x_in], dim=0)
-    t_b = torch.full((2 * batch,), int(t), dtype=torch.int64, device=x_in.device)
-    pred = unet_apply(unet_params, pair, t_b, context, spec.unet_config,
-                      added_cond=added_cond)
-    if dtype is not None:
-        pred = pred.to(dtype)
-    pred_u, pred_c = pred.chunk(2, dim=0)
-    return _cfg_combine(pred_u, pred_c, cfg_scale, guidance_rescale)
+    with tracing.span("sample.denoise"):
+        batch = x_in.shape[0]
+        pair = torch.cat([x_in, x_in], dim=0)
+        t_b = torch.full((2 * batch,), int(t), dtype=torch.int64, device=x_in.device)
+        pred = unet_apply(unet_params, pair, t_b, context, spec.unet_config,
+                          added_cond=added_cond)
+        if dtype is not None:
+            pred = pred.to(dtype)
+        pred_u, pred_c = pred.chunk(2, dim=0)
+        return _cfg_combine(pred_u, pred_c, cfg_scale, guidance_rescale)
 
 
 def ddim_sample_latents(unet_params: Params, cond: torch.Tensor, uncond: torch.Tensor,
@@ -396,11 +402,12 @@ def flow_euler_sample_latents(mmdit_params: Params, cond: torch.Tensor, uncond: 
     n = spec.schedule.num_train_timesteps
     for i in range(t_start_index, num_steps):
         sig, sig_next = sigmas[i], sigmas[i + 1]
-        t = (sig * n).float().expand(2 * batch)
-        v = mmdit_apply(mmdit_params, torch.cat([x, x], dim=0), t, context, pooled_all,
-                        spec.mmdit_config)
-        v_u, v_c = v.chunk(2, dim=0)
-        v = _cfg_combine(v_u, v_c, cfg_scale, guidance_rescale)
+        with tracing.span("sample.denoise"):
+            t = (sig * n).float().expand(2 * batch)
+            v = mmdit_apply(mmdit_params, torch.cat([x, x], dim=0), t, context, pooled_all,
+                            spec.mmdit_config)
+            v_u, v_c = v.chunk(2, dim=0)
+            v = _cfg_combine(v_u, v_c, cfg_scale, guidance_rescale)
         x = x + (sig_next - sig) * v.to(x.dtype)
     return x
 
@@ -458,44 +465,46 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
         return cast_params(p, spec.dtype, dev)
 
     with torch.inference_mode():
-        ids = torch.from_numpy(np.asarray(tokenizer(prompts), np.int64)).to(dev)
-        neg_ids = torch.from_numpy(np.asarray(tokenizer([negative_prompt] * batch),
-                                              np.int64)).to(dev)
-        clip_c = cast(clip_params)
-        added_cond = None
-        if spec.sd3:
-            clip2_c = cast(clip2_params)
-            t5_c = cast(t5_params) if t5_params is not None else None
+        with tracing.span("sample.text"):
+            ids = torch.from_numpy(np.asarray(tokenizer(prompts), np.int64)).to(dev)
+            neg_ids = torch.from_numpy(np.asarray(tokenizer([negative_prompt] * batch),
+                                                  np.int64)).to(dev)
+            clip_c = cast(clip_params)
+            added_cond = None
+            if spec.sd3:
+                clip2_c = cast(clip2_params)
+                t5_c = cast(t5_params) if t5_params is not None else None
 
-            def encode(ids_, prompts_):
-                t5 = {}
-                if t5_c is not None:
-                    t5_ids = torch.from_numpy(np.asarray(tokenizer_3(prompts_), np.int64)).to(dev)
-                    t5 = {"t5_params": t5_c, "t5_ids": t5_ids, "t5_config": spec.t5_config}
-                emb, pooled = encode_sd3(clip_c, clip2_c, ids_, spec.clip_config,
-                                         spec.clip2_config, spec.mmdit_config.joint_attention_dim,
-                                         **t5)
-                return emb.to(spec.dtype), pooled.to(spec.dtype)
+                def encode(ids_, prompts_):
+                    t5 = {}
+                    if t5_c is not None:
+                        t5_ids = torch.from_numpy(np.asarray(tokenizer_3(prompts_),
+                                                             np.int64)).to(dev)
+                        t5 = {"t5_params": t5_c, "t5_ids": t5_ids, "t5_config": spec.t5_config}
+                    emb, pooled = encode_sd3(clip_c, clip2_c, ids_, spec.clip_config,
+                                             spec.clip2_config,
+                                             spec.mmdit_config.joint_attention_dim, **t5)
+                    return emb.to(spec.dtype), pooled.to(spec.dtype)
 
-            cond, pooled_c = encode(ids, list(prompts))
-            uncond, pooled_u = encode(neg_ids, [negative_prompt] * batch)
-            del clip2_c, t5_c
-        elif spec.sdxl:
-            clip2_c = cast(clip2_params)
-            cond, pooled_c = encode_sdxl(clip_c, clip2_c, ids, spec.clip_config,
-                                         spec.clip2_config)
-            uncond, pooled_u = encode_sdxl(clip_c, clip2_c, neg_ids, spec.clip_config,
-                                           spec.clip2_config)
-            del clip2_c
-            time_ids = torch.tensor([height, width, 0, 0, height, width], dtype=torch.float32,
-                                    device=dev).expand(2 * batch, 6)
-            added_cond = {"text_embeds": torch.cat([pooled_u, pooled_c]).to(spec.dtype),
-                          "time_ids": time_ids}
-        else:
-            cond = clip_text_apply(clip_c, ids, spec.clip_config, spec.clip_stop_at_layer)
-            uncond = clip_text_apply(clip_c, neg_ids, spec.clip_config,
-                                     spec.clip_stop_at_layer)
-        del clip_c
+                cond, pooled_c = encode(ids, list(prompts))
+                uncond, pooled_u = encode(neg_ids, [negative_prompt] * batch)
+                del clip2_c, t5_c
+            elif spec.sdxl:
+                clip2_c = cast(clip2_params)
+                cond, pooled_c = encode_sdxl(clip_c, clip2_c, ids, spec.clip_config,
+                                             spec.clip2_config)
+                uncond, pooled_u = encode_sdxl(clip_c, clip2_c, neg_ids, spec.clip_config,
+                                               spec.clip2_config)
+                del clip2_c
+                time_ids = torch.tensor([height, width, 0, 0, height, width], dtype=torch.float32,
+                                        device=dev).expand(2 * batch, 6)
+                added_cond = {"text_embeds": torch.cat([pooled_u, pooled_c]).to(spec.dtype),
+                              "time_ids": time_ids}
+            else:
+                cond = clip_text_apply(clip_c, ids, spec.clip_config, spec.clip_stop_at_layer)
+                uncond = clip_text_apply(clip_c, neg_ids, spec.clip_config,
+                                         spec.clip_stop_at_layer)
+            del clip_c
         vae_c = cast(vae_params)
 
         init_latents, t_start = None, 0
@@ -522,9 +531,10 @@ def sample_images(unet_params: Params, vae_params: Params, clip_params: Params,
             latents = _LOOPS[method](cast(unet_params), cond, uncond, generator, spec,
                                      int(steps), float(cfg_scale), int(height), int(width),
                                      batch, added_cond=added_cond, **loop_args)
-        z = latents / latents.new_full((), spec.vae_config.scaling_factor)
-        if spec.vae_config.shift_factor:
-            z = z + z.new_full((), spec.vae_config.shift_factor)
-        images = decoder_apply(vae_c, z, spec.vae_config)
-        images = (torch.clamp(images.float(), -1.0, 1.0) + 1.0) * 127.5
-        return images.permute(0, 2, 3, 1).cpu().numpy().astype(np.uint8)
+        with tracing.span("sample.decode"):
+            z = latents / latents.new_full((), spec.vae_config.scaling_factor)
+            if spec.vae_config.shift_factor:
+                z = z + z.new_full((), spec.vae_config.shift_factor)
+            images = decoder_apply(vae_c, z, spec.vae_config)
+            images = (torch.clamp(images.float(), -1.0, 1.0) + 1.0) * 127.5
+            return images.permute(0, 2, 3, 1).cpu().numpy().astype(np.uint8)

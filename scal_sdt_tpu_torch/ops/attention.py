@@ -16,6 +16,9 @@ Two paths, chosen by ``_dispatch`` with the JAX package's gate:
   too. CLIP's causal attention and the VAE's single-head D = 512 attention
   take the math path, as they take XLA's on the TPU.
 
+Each call is a span (``utils/tracing.py``) named by the path it takes:
+``attention.splash`` or ``attention.math``.
+
 ``FORCE_MATH`` closes the gate: every call takes ``_attention_math``. The
 trainer sets it from the config's ``xformers: false``, as the JAX trainer sets
 ``FORCE_XLA`` (``scal_sdt_tpu/ops/attention.py``) to keep calls off the
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from .splash import kernel_accepts, splash_attention
 
 # Both lengths at least this long take the kernels (the TPU gate's default).
@@ -77,9 +81,11 @@ def use_kernel(q_shape, k_shape, dtype: torch.dtype, causal: bool, is_cuda: bool
 def _dispatch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, scale: float,
               causal: bool) -> torch.Tensor:
     if use_kernel(qh.shape, kh.shape, qh.dtype, causal, qh.is_cuda):
-        return splash_attention(qh, kh, vh, scale)
-    mask = _causal_mask(qh.shape[2], kh.shape[2], qh.device) if causal else None
-    return _attention_math(qh, kh, vh, scale, mask)
+        with tracing.span("attention.splash"):
+            return splash_attention(qh, kh, vh, scale)
+    with tracing.span("attention.math"):
+        mask = _causal_mask(qh.shape[2], kh.shape[2], qh.device) if causal else None
+        return _attention_math(qh, kh, vh, scale, mask)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -76,6 +76,7 @@ from ..ops.sr import MASTER_SALT, apply_update_reference, leaf_salt
 from .ema import EMAState, ema_init, ema_update
 from .optimizers import AccumulationState
 from ..parallel.tensor import tp_view
+from ..utils import tracing
 from .optim_targets import COMPONENT_PREFIX
 
 UNET_PREFIX = COMPONENT_PREFIX["unet"]
@@ -461,15 +462,18 @@ def loss_and_grads(spec: StepSpec, trainable: Params, frozen: Params, batch: dic
     where ``trainable`` holds the owned masters only)."""
     dt = spec.compute_dtype
     use_compute = dt != torch.float32
-    if compute_copy is not None:
-        compute = {k: v.detach().requires_grad_(True) for k, v in compute_copy.items()}
-    else:
-        compute = {k: (v.detach().to(dt) if use_compute and v.is_floating_point()
-                       else v.detach()).requires_grad_(True)
-                   for k, v in trainable.items()}
-    loss, _ = compute_loss(compute, frozen, batch, generator, spec, draws, parallel)
+    with tracing.span("train.cast"):
+        if compute_copy is not None:
+            compute = {k: v.detach().requires_grad_(True) for k, v in compute_copy.items()}
+        else:
+            compute = {k: (v.detach().to(dt) if use_compute and v.is_floating_point()
+                           else v.detach()).requires_grad_(True)
+                       for k, v in trainable.items()}
+    with tracing.span("train.forward"):
+        loss, _ = compute_loss(compute, frozen, batch, generator, spec, draws, parallel)
     keys = list(compute)
-    grads = torch.autograd.grad(loss, [compute[k] for k in keys], allow_unused=True)
+    with tracing.span("train.backward"):
+        grads = torch.autograd.grad(loss, [compute[k] for k in keys], allow_unused=True)
     return loss.detach(), {k: g if g is not None else torch.zeros_like(compute[k])
                            for k, g in zip(keys, grads)}
 
@@ -482,28 +486,39 @@ def make_train_step(spec: StepSpec, tx, lr_fn: Callable[[int], float],
     of the new masters, its shadows updated in place. ``parallel``: the
     gradients are averaged over the data-parallel ranks (the loss too) before
     the update of the owned masters, whose compute copies are broadcast
-    after every update (not after the micro-steps that only accumulate)."""
-    def train_step(state: TrainState, frozen: Params, batch: dict,
-                   draws: Optional[Draws] = None):
+    after every update (not after the micro-steps that only accumulate).
+    The step is the span ``train.step``, its phases spans under it
+    (``utils/tracing.py``)."""
+    def step(state: TrainState, frozen: Params, batch: dict, draws: Optional[Draws]):
         loss, grads = loss_and_grads(spec, state.trainable, frozen, batch, state.generator,
                                      draws, state.compute, parallel)
         ema = state.ema
         with torch.no_grad():
             if parallel is not None:
-                parallel.reduce_grads(grads)
-                loss = parallel.mean_loss(loss)
+                with tracing.span("train.allreduce"):
+                    parallel.reduce_grads(grads)
+                    loss = parallel.mean_loss(loss)
                 grads = {k: grads[k] for k in state.trainable}
-            opt_state = tx.update_and_apply(grads, state.opt_state, state.trainable, state.step)
+            with tracing.span("train.optimizer"):
+                opt_state = tx.update_and_apply(grads, state.opt_state, state.trainable,
+                                                state.step)
             del grads
             if ema_enabled:
                 if ema is None:
                     raise ValueError("EMA is on but the train state holds none "
                                      "(init_train_state(ema_enabled=True))")
-                ema = ema_update(ema, state.trainable, state.step)
+                with tracing.span("train.ema"):
+                    ema = ema_update(ema, state.trainable, state.step)
             if state.compute is not None and _updated(opt_state):
-                parallel.refresh_compute(state.compute, state.trainable)
+                with tracing.span("train.refresh"):
+                    parallel.refresh_compute(state.compute, state.trainable)
         metrics = {"train_loss": loss, "lr": lr_fn(state.step)}
         return state._replace(step=state.step + 1, opt_state=opt_state, ema=ema), metrics
+
+    def train_step(state: TrainState, frozen: Params, batch: dict,
+                   draws: Optional[Draws] = None):
+        with tracing.span("train.step"):
+            return step(state, frozen, batch, draws)
 
     return train_step
 

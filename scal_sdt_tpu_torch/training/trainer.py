@@ -42,6 +42,7 @@ optimizer state is unpacked by it on ``--resume``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -68,6 +69,7 @@ from ..parallel.mesh import (LaunchEnv, check_mesh, init_process_group, mesh_fro
                              process_device, tp_param_names)
 from ..parallel.sharding import Parallel, Rows
 from ..parallel.tensor import TensorParallel, all_reduce_sum, split_layers, tensor_sum_keys
+from ..utils import tracing
 from ..utils.logging import is_main_process, main_process_logger
 from .checkpoint import CheckpointManager, load_loop_state, restore_train_state
 from .families import GroupOwners
@@ -473,42 +475,48 @@ class Trainer:
                 # mid-epoch resume: replay the epoch and skip the batches the
                 # checkpointed run consumed
                 self.pipeline.set_epoch(epoch, skip_batches=self.batch_in_epoch)
-                for batch in self.pipeline:
+                batches = iter(self.pipeline)
+                while True:
                     profiler.before_step(self.global_step)
-                    dev_batch = self._device_batch(batch)
+                    with tracing.span("trainer.batch"):
+                        batch = next(batches, None)
+                        dev_batch = None if batch is None else self._device_batch(batch)
+                    if batch is None:
+                        break
                     draws = draws_fn(self.global_step) if draws_fn is not None else None
                     self.state, metrics = self.train_step(self.state, self.frozen, dev_batch,
                                                           draws)
                     self.global_step += 1
                     self.batch_in_epoch += 1
-                    profiler.after_step(self.global_step)
 
                     if self.global_step % log_every == 0:
-                        # float() of the loss waits for the step: the timing barrier
-                        host = {k: float(v) for k, v in metrics.items()}
-                        dt = time.perf_counter() - t0
-                        t0 = time.perf_counter()
-                        host["steps_per_sec"] = 1.0 / max(dt, 1e-9)
-                        last_metrics = host
-                        if timings_path and is_main_process():
-                            s = next((tuple(v.shape) for k, v in dev_batch.items()
-                                      if k in ("images", "latents")), None)
-                            with open(timings_path, "a") as f:
-                                f.write(json.dumps({
-                                    "step": self.global_step,
-                                    "shape": s and (s[0], s[2], s[3], s[1]),
-                                    "dt": round(dt, 5)}) + "\n")
-                        self._log(host, self.global_step)
-                        if self.global_step % max(log_every * 10, 10) == 0:
-                            logger.info(f"step {self.global_step}: "
-                                        f"loss={host.get('train_loss', float('nan')):.4f} "
-                                        f"lr={host.get('lr', 0):.2e} "
-                                        f"{host.get('steps_per_sec', 0):.2f} steps/s")
-                        if not np.isfinite(host.get("train_loss", 0.0)):
-                            raise FloatingPointError(f"NaN loss at step {self.global_step}")
+                        with tracing.span("trainer.log"):
+                            # float() of the loss waits for the step: the timing barrier
+                            host = {k: float(v) for k, v in metrics.items()}
+                            dt = time.perf_counter() - t0
+                            t0 = time.perf_counter()
+                            host["steps_per_sec"] = 1.0 / max(dt, 1e-9)
+                            last_metrics = host
+                            if timings_path and is_main_process():
+                                s = next((tuple(v.shape) for k, v in dev_batch.items()
+                                          if k in ("images", "latents")), None)
+                                with open(timings_path, "a") as f:
+                                    f.write(json.dumps({
+                                        "step": self.global_step,
+                                        "shape": s and (s[0], s[2], s[3], s[1]),
+                                        "dt": round(dt, 5)}) + "\n")
+                            self._log(host, self.global_step)
+                            if self.global_step % max(log_every * 10, 10) == 0:
+                                logger.info(f"step {self.global_step}: "
+                                            f"loss={host.get('train_loss', float('nan')):.4f} "
+                                            f"lr={host.get('lr', 0):.2e} "
+                                            f"{host.get('steps_per_sec', 0):.2f} steps/s")
+                            if not np.isfinite(host.get("train_loss", 0.0)):
+                                raise FloatingPointError(f"NaN loss at step {self.global_step}")
 
                     if sample_callback is not None:
-                        sample_callback(self, self.global_step)
+                        with tracing.span("trainer.sample"):
+                            sample_callback(self, self.global_step)
 
                     if self._any_rank(preempted["flag"]):
                         logger.warning(f"SIGTERM received: autosaving at step "
@@ -519,6 +527,7 @@ class Trainer:
                     if (self.ckpt.every_n_train_steps
                             and self.global_step % int(self.ckpt.every_n_train_steps) == 0):
                         self._save(epoch, last_metrics)
+                    profiler.after_step(self.global_step)
 
                     if 0 < max_steps <= self.global_step:
                         if final_save:
@@ -545,10 +554,11 @@ class Trainer:
         return bool(t.item())
 
     def _save(self, epoch: int, metrics: dict) -> None:
-        self.ckpt.save(self.state, self.frozen, {"epoch": epoch, "step": self.global_step,
-                                                 **metrics},
-                       loop_state={"epoch": epoch, "batch_in_epoch": self.batch_in_epoch},
-                       extra_meta={"ti_tokens": self.ti_meta} if self.ti_meta else None)
+        with tracing.span("trainer.save"):
+            self.ckpt.save(self.state, self.frozen, {"epoch": epoch, "step": self.global_step,
+                                                     **metrics},
+                           loop_state={"epoch": epoch, "batch_in_epoch": self.batch_in_epoch},
+                           extra_meta={"ti_tokens": self.ti_meta} if self.ti_meta else None)
 
     def natural_trainable(self) -> dict:
         """The trainable masters under their natural names (the port packs
@@ -568,7 +578,9 @@ class Trainer:
 class _StepProfiler:
     """The config's ``profiler: {enabled, start_step, num_steps, dir}``: a
     ``torch.profiler`` trace of steps [start_step, start_step + num_steps),
-    written as a Chrome trace under ``dir`` (default ``<run_dir>/profile``)."""
+    written as a Chrome trace under ``dir`` (default ``<run_dir>/profile``).
+    The port's spans (``utils/tracing.py``) are on for those steps, so the
+    trace carries them."""
 
     def __init__(self, conf: dict, run_dir: Path, device: torch.device):
         self.enabled = bool(conf.get("enabled", False)) and is_main_process()
@@ -577,6 +589,7 @@ class _StepProfiler:
         self.dir = Path(conf.get("dir") or (run_dir / "profile"))
         self.device = device
         self._prof = None
+        self._spans = contextlib.ExitStack()
 
     def before_step(self, step: int) -> None:
         if self.enabled and self._prof is None and step == self.start:
@@ -587,6 +600,7 @@ class _StepProfiler:
                 activities.append(ProfilerActivity.CUDA)
             self._prof = profile(activities=activities)
             self._prof.start()
+            self._spans.enter_context(tracing.on())
 
     def after_step(self, step: int) -> None:
         if self._prof is not None and step >= self.start + self.steps:
@@ -597,6 +611,7 @@ class _StepProfiler:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._spans.close()
         self._prof.stop()
         self.dir.mkdir(parents=True, exist_ok=True)
         path = self.dir / f"trace_step{self.start}.json"

@@ -13,15 +13,13 @@ step, CFG dropout; bf16 moments) on one batch of its pipeline, held fixed so
 that image decoding stays out of the numbers. After 3 warm-up steps it
 measures:
 
-* the step's two phases -- ``loss_and_grads`` and the fused optimizer and
-  master apply (``tx.update_and_apply``), the functions ``make_train_step``
-  chains, called one after the other -- by CUDA events and by the host's
-  clock (each phase ends in a synchronize, so the two clocks agree up to
-  the launch of the first kernel), with the optimizer kernels' launches
-  per step;
-* a ``torch.profiler`` trace of ``--steps`` whole steps: device time by kernel
-  category and the top kernels, kernel launches per step, and the share of
-  the wall time the device was busy;
+* a ``torch.profiler`` trace of ``--steps`` whole steps with the port's spans
+  on (``scal_sdt_tpu_torch/utils/tracing.py``), read by the benchmark's
+  reader (``benchmark/harness/spans.py``): each span's count and device ms
+  per step (``train.cast``, ``train.forward``, ``train.backward``,
+  ``train.optimizer``, the attention calls by path, ...), device time by
+  kernel category and the top kernels, device operations per step, and the
+  share of the wall time the device was busy;
 * steps/s of the plain loop, and the card's clocks and power after it.
 
 Prints one summary line per item and writes
@@ -43,7 +41,6 @@ from pathlib import Path
 import torch
 
 import chip_smoke
-from scal_sdt_tpu_torch.training import step as step_mod
 
 CATEGORIES = (  # first match wins; lower-case substrings of kernel names
     ("splash", ("splash",)),
@@ -69,71 +66,29 @@ def category(name: str) -> str:
     return "other"
 
 
-def phase_times(setup: dict, steps: int) -> dict:
-    """ms per phase (device clock by CUDA events, host clock), the phases of
-    make_train_step run one after another, and the optimizer kernels'
-    launches per step."""
-    state, spec, tx, batch, frozen = (setup[k] for k in ("state", "spec", "tx", "batch",
-                                                          "frozen"))
-    out = collections.defaultdict(float)
-    chip_smoke.reset_launches()
-    for _ in range(steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev[0].record()
-        _, grads = step_mod.loss_and_grads(spec, state.trainable, frozen, batch,
-                                           state.generator)
-        ev[1].record()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        with torch.no_grad():
-            opt_state = tx.update_and_apply(grads, state.opt_state, state.trainable, state.step)
-            del grads
-        ev[2].record()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        state = step_mod.TrainState(state.step + 1, state.trainable, opt_state, state.generator)
-        for name, a, b, ta, tb in (("loss_and_grad", 0, 1, t0, t1),
-                                   ("optimizer_and_apply", 1, 2, t1, t2)):
-            out[name] += ev[a].elapsed_time(ev[b]) / steps
-            out[name + "_host"] += (tb - ta) * 1e3 / steps
-    setup["state"] = state
-    launches = chip_smoke.read_launches()
-    out["optimizer_launches_per_step"] = {k: launches[k] / steps
-                                          for k in ("adam8_fused", "adam_bf16_fused")}
-    return dict(out)
-
-
 def profile_steps(setup: dict, steps: int) -> dict:
-    from torch.profiler import ProfilerActivity, profile
+    from benchmark.harness import spans
 
     step_fn, batch, frozen = setup["step_fn"], setup["batch"], setup["frozen"]
-    state = setup["state"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, _ = step_fn(state, frozen, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    setup["state"] = state
+
+    def unit():
+        setup["state"], _ = step_fn(setup["state"], frozen, batch)
+
+    traced = spans.record(unit, steps)
+    wall_ms = (traced.window[1] - traced.window[0]) * 1e3
     by_cat = collections.defaultdict(float)
     by_name = collections.defaultdict(float)
-    launches = 0
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.time_range.elapsed_us()
-        by_cat[category(evt.name)] += us / 1e3 / steps
-        by_name[evt.name] += us / 1e3 / steps
-        launches += 1
+    for op, _ in traced.ops:
+        by_cat[category(op.name)] += op.dur * 1e3 / steps
+        by_name[op.name] += op.dur * 1e3 / steps
     busy = sum(by_cat.values()) * steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     return {"wall_ms_per_step_profiled": wall_ms / steps,
             "device_ms_per_step": busy / steps,
             "device_busy_share": busy / wall_ms if wall_ms else None,
-            "kernel_launches_per_step": launches / steps,
+            "device_ops_per_step": len(traced.ops) / steps,
+            "span_device_ms_per_step": {name: [n / steps, d * 1e3 / steps]
+                                        for name, (n, d) in traced.table().items()},
             "ms_per_step_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms_per_step": [[n[:120], ms] for n, ms in top]}
 
@@ -173,7 +128,6 @@ def main(argv=None) -> int:
     result["smi_after_loop"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,clocks.sm,power.draw,power.limit,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
-    result["phase_ms"] = phase_times(setup, args.steps)
     result["profile"] = profile_steps(setup, args.steps)
     for k, v in result.items():
         print(f"{k}: {json.dumps(v)}", flush=True)

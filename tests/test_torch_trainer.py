@@ -390,6 +390,9 @@ def test_step_timings_and_profiler_trace(tiny_run, tmp_path, monkeypatch):
     assert all(x["shape"] == [BATCH, RES // 2, RES // 2, 4] and x["dt"] > 0 for x in lines)
     trace = json.loads((prof / "trace_step1.json").read_text())
     assert trace["traceEvents"]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"trainer.batch", "train.step", "train.cast", "train.forward", "train.backward",
+            "train.optimizer", "trainer.log"} <= names
 
 
 @pytest.mark.parametrize("xformers", [True, False])
